@@ -1,0 +1,35 @@
+"""``--arch <id>`` resolution for the port's entry points.
+
+Only the architectures whose family the port runs are registered; the
+others arrive with ROADMAP item 10 (other families)."""
+from __future__ import annotations
+
+import importlib
+
+from ..models.common import ModelConfig
+
+_MODULES = {
+    "llama3.2-1b": "llama3_2_1b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def _mod(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(
+            f"arch {arch!r} is not ported yet (known: {list(_MODULES)}); "
+            "dense archs beyond llama3.2-1b and the other families arrive "
+            "with ROADMAP item 10")
+    return importlib.import_module(f".{_MODULES[arch]}", __package__)
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _mod(arch).CONFIG
+
+
+def get_smoke(arch: str) -> ModelConfig:
+    return _mod(arch).SMOKE
+
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke"]

@@ -1,0 +1,5 @@
+from .ops import decode_attention, paged_decode_attention
+from .ref import decode_attention_ref, paged_decode_attention_ref
+
+__all__ = ["decode_attention", "paged_decode_attention",
+           "decode_attention_ref", "paged_decode_attention_ref"]

@@ -1,0 +1,76 @@
+"""Serving driver of the port: batched generation (the counterpart of
+``repro.launch.serve --mode batch``).
+
+    python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch --full
+    python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
+        --block-size 16 --device cpu        # smoke config on the CPU
+
+Weights come from the port's seeded initialiser (``--seed``); nothing is
+downloaded.  The run is on the card unless ``--device`` says otherwise.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..configs import get_config, get_smoke
+from ..inference.engine import GenerationResult, InferenceEngine, \
+    resolve_device
+from ..models.transformer import init_params, make_plan
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Batched generation with the PyTorch/CUDA port.")
+    p.add_argument("--arch", default="llama3.2-1b")
+    p.add_argument("--mode", choices=("batch",), default="batch",
+                   help="batch: one batch of prompts prefilled and decoded "
+                        "to completion (trace serving arrives with ROADMAP "
+                        "item 6)")
+    p.add_argument("--full", action="store_true",
+                   help="full-size config (default: the smoke config)")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=16)
+    p.add_argument("--max-new", type=int, default=16)
+    p.add_argument("--block-size", type=int, default=0,
+                   help="> 0: paged KV cache with this many positions per "
+                        "block")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seeds the weights and the prompts")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda, an error without a "
+                        "card)")
+    return p
+
+
+def run_batch(args: argparse.Namespace) -> GenerationResult:
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
+    ap = make_plan(cfg, 1)
+    s_max = args.prompt_len + args.max_new + 8
+    if args.block_size:
+        s_max = -(-s_max // args.block_size) * args.block_size
+    model = init_params(ap, seed=args.seed, device=device)
+    eng = InferenceEngine(ap, model, s_max=s_max,
+                          block_size=args.block_size, device=device)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    res = eng.generate(prompts, args.max_new)
+    layout = f"paged(bs={args.block_size})" if args.block_size else "dense"
+    print(f"[serve] {cfg.name} on {device}: batch {args.batch} prompt "
+          f"{args.prompt_len} new {args.max_new} {layout} "
+          f"| prefill {res.prefill_s * 1e3:.1f}ms "
+          f"decode {res.decode_s * 1e3:.1f}ms "
+          f"({res.decode_tokens_per_s:.0f} tok/s, {res.steps} steps)")
+    return res
+
+
+def main(argv: Optional[Sequence[str]] = None) -> GenerationResult:
+    return run_batch(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,48 @@
+"""Parameter bridge from the JAX package to the port.
+
+The JAX ``init_params`` pytree, with its leaves turned into numpy arrays
+by the caller (``jax.tree.map(np.asarray, params)``), becomes a
+:class:`~repro_torch.models.transformer.DenseLM`.  Nothing here imports
+JAX: the tree is plain dicts of numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .common import ModelConfig
+from .transformer import DenseLM
+
+
+def _tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
+    # A JAX bf16 array arrives as an ml_dtypes bfloat16 numpy array, which
+    # torch.from_numpy rejects; the trip through float32 is exact.
+    return torch.tensor(np.asarray(a).astype(np.float32),
+                        device=device).to(dtype)
+
+
+def _group(tree: Mapping[str, Any], dtype, device, layer=None):
+    return {k: _tensor(a if layer is None else np.asarray(a)[layer], dtype,
+                       device) for k, a in tree.items()}
+
+
+def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                      device) -> DenseLM:
+    """tree: {"embed": {"tok", "head"}, "blocks": {"ln1", "attn", "ln2",
+    "mlp"} with every leaf stacked on a leading layer axis, "final_norm"}.
+    Leaves are cast to ``cfg.dtype`` on ``device``; layouts are kept."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} arrives with ROADMAP item 10")
+    dt = cfg.dtype
+    blocks = tree["blocks"]
+    per_layer = [{name: _group(blocks[name], dt, device, layer=i)
+                  for name in ("ln1", "attn", "ln2", "mlp")}
+                 for i in range(cfg.n_layers)]
+    return DenseLM(_group(tree["embed"], dt, device), per_layer,
+                   _group(tree["final_norm"], dt, device))
+
+
+__all__ = ["params_from_numpy"]
