@@ -5,23 +5,39 @@
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from src/repro_torch/kernels/csrc and hold each
-     against its plain PyTorch version on the same CUDA tensors, in bf16
-     and f32, at the main path's shapes; time kernel, plain version and
-     the library yardstick (scaled_dot_product_attention, timed here only);
-     then the same check over the CPU tests' shape sweep, with the paged
-     kernel's trash isolation and the decode kernel's blindness past pos;
-  3. llama3.2-1b at full width and depth, bf16, seeded weights: batched
+     attention kernel against its plain PyTorch version on the same CUDA
+     tensors, in bf16 and f32, at the main path's shapes; time kernel,
+     plain version and the library yardstick (scaled_dot_product_attention,
+     timed here only); then the same check over the CPU tests' shape
+     sweep, with the paged kernel's trash isolation and the decode
+     kernel's blindness past pos;
+  3. the recursive-doubling all-reduce kernel against its plain version,
+     bitwise, in bf16 and f32, over pods {2, 4, 8} x fast {1, 2}, per-rank
+     messages of 16 KB to 8 MB and 1 or 4 chunks, the scalar kernels on
+     unaligned rows, then 1000 back-to-back calls on fresh inputs, each
+     checked; kernel, plain version and the library yardstick (a sum over
+     the stacked ranks) timed per size;
+  4. llama3.2-1b at full width and depth, bf16, seeded weights: batched
      generation (batch 8, prompt 512, 64 new tokens, s_max 1024) dense and
      paged (block 16) through the kernels, with launch counts checked and
      paged tokens equal to dense tokens, and one profiled dense run;
-  4. the same seeded weights at full width, 2 layers, float32: the card
+  5. the same seeded weights at full width, 2 layers, float32: the card
      (kernels) against the CPU (plain versions): prefill logits allclose,
-     greedy tokens equal wherever the CPU's top-1/top-2 gap is clear.
+     greedy tokens equal wherever the CPU's top-1/top-2 gap is clear;
+  6. phase 4 tensor-parallel on a virtual mesh of 4 pods x 2 ranks (tp=8)
+     on the one card, under hier_rd and under flat: exact launch counts,
+     tokens equal to flat's and to phase 4's tp=1 tokens wherever the
+     reference's top-1/top-2 gap is clear, teacher-forced logits within
+     (TF_MAX, TF_MEAN) of both, which two planted faults in the
+     all-reduce must break, one profiled hier_rd run with the RD kernel's
+     share of device time;
+  7. phase 5 at tp=8 (hier_rd): card against CPU.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -29,6 +45,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -38,10 +55,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import hierarchical  # noqa: E402
+from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
 from repro_torch.kernels import (_build, decode_attention,  # noqa: E402
                                  flash_attention, kernel_wrappers,
-                                 paged_decode_attention)
+                                 paged_decode_attention, rd_all_reduce)
+from repro_torch.kernels.rd_allreduce import (  # noqa: E402
+    RDWorkspace, rd_all_reduce_ref)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.ref import \
@@ -58,6 +79,18 @@ SEED = 0
 # Main path: llama3.2-1b, batch 8, prompt 512, 64 new tokens, s_max 1024.
 B, HQ, HKV, HD = 8, 32, 8, 64
 PROMPT, NEW, S_MAX, BLOCK = 512, 64, 1024, 16
+# TP path: tp = 8 = 4 pods x 2 fast ranks.  The RD kernel's per-rank
+# message after the fast reduce-scatter: B * d_model / 2 bf16 = 16 KB in
+# decode, 8 MB in prefill; 128 KB - 2 MB is the paper's range.
+PODS, FAST = 4, 2
+RD_SIZES = (16 * 2**10, 128 * 2**10, 512 * 2**10, 2 * 2**20, 8 * 2**20)
+# bf16 greedy tokens of two reduction orders may differ where the top-1/
+# top-2 logit gap is within a few bf16 roundings of O(1) logits.
+BF16_GAP = 0.1
+# Teacher-forced bf16 logits of tp=8 hier_rd against flat and tp=1 over
+# the same sequence: bf16 roundings of O(1) logits in another reduction
+# order (max |diff|, mean |diff|).
+TF_MAX, TF_MEAN = 0.5, 0.02
 
 REPLACES = {
     "flash_attention":
@@ -66,12 +99,18 @@ REPLACES = {
         "src/repro/kernels/decode_attention/kernel.py:27",
     "paged_decode_attention":
         "src/repro/kernels/decode_attention/kernel.py:73",
+    "rd_all_reduce": "src/repro/kernels/rd_allreduce/kernel.py:34",
 }
+MAIN_PATH = {"flash_attention": "tp8_hier_rd",
+             "decode_attention": "tp8_hier_rd",
+             "paged_decode_attention": "tp1_paged",
+             "rd_all_reduce": "tp8_hier_rd"}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "paged_decode_attention":
         "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "rd_all_reduce": "src/repro_torch/kernels/csrc/rd_allreduce.cu",
 }
 
 
@@ -120,7 +159,7 @@ def check_close(name, out, ref, dtype) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: kernels against their plain versions
+# Phase 2: attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -279,7 +318,7 @@ def phase_sweep() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the whole path at full width and depth
+# Phase 4: the whole path at full width and depth
 # ---------------------------------------------------------------------------
 
 
@@ -292,9 +331,11 @@ def counts() -> dict:
     return {w.__name__: w.launches for w in kernel_wrappers()}
 
 
-def profile_generate(eng: InferenceEngine, prompts: np.ndarray) -> None:
-    """Where one generate's time goes: device busy share of the wall time
-    and the kernels that take the most device time (torch.profiler)."""
+def profile_generate(eng: InferenceEngine, prompts: np.ndarray,
+                     share_of: str = "") -> None:
+    """Where one generate's time goes: device busy share of the wall time,
+    the kernels that take the most device time (torch.profiler) and, with
+    ``share_of``, the share of device time of kernels of that name."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -312,68 +353,46 @@ def profile_generate(eng: InferenceEngine, prompts: np.ndarray) -> None:
     log(f"    profile: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
         f"({100 * busy / wall_ms:.1f}%; idle {100 - 100 * busy / wall_ms:.1f}"
         f"%) under the profiler")
+    if share_of:
+        mine = [r for r in rows if share_of in r[2]]
+        ms = sum(r[0] for r in mine)
+        log(f"    profile: {share_of} kernels {ms:.3f} ms over "
+            f"{sum(r[1] for r in mine)} launches, {100 * ms / busy:.2f}% of "
+            "device time")
     for ms, n, key in rows[:8]:
         log(f"      {ms:9.3f} ms {n:6d}x  {key[:90]}")
 
 
-def phase_path() -> dict:
-    cfg = get_config("llama3.2-1b")
-    ap = make_plan(cfg, 1)
-    model = init_params(ap, seed=SEED, device="cuda")
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}")
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (B, PROMPT))
-    L = cfg.n_layers
-    expect = {"dense": {"flash_attention": L,
-                        "decode_attention": L * (NEW - 1),
-                        "paged_decode_attention": 0},
-              "paged": {"flash_attention": L, "decode_attention": 0,
-                        "paged_decode_attention": L * (NEW - 1)}}
-    launches = {w.__name__: 0 for w in kernel_wrappers()}
-    tokens = {}
-    for layout, bsz in (("dense", 0), ("paged", BLOCK)):
-        eng = InferenceEngine(ap, model, s_max=S_MAX, block_size=bsz,
-                              device="cuda")
-        eng.generate(prompts, 2)          # warm-up (cuBLAS, allocator)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        res = eng.generate(prompts, NEW)
-        got = counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"  {layout}: prefill {res.prefill_s * 1e3:.2f} ms, decode "
-            f"{res.decode_s * 1e3:.2f} ms for {NEW - 1} steps "
-            f"({res.decode_tokens_per_s:.1f} tok/s), peak memory "
-            f"{peak:.3f} GiB, launches {got}")
-        if got != expect[layout]:
-            raise AssertionError(f"{layout}: launches {got}, expected "
-                                 f"{expect[layout]}")
-        for n, c in got.items():
-            launches[n] += c
-        tokens[layout] = res.new_tokens
-        if layout == "dense":
-            profile_generate(eng, prompts)
-    if not np.array_equal(tokens["dense"], tokens["paged"]):
-        raise AssertionError("paged tokens differ from dense tokens")
-    log("  paged tokens == dense tokens")
-    return launches
+def top2_gap(logits: torch.Tensor) -> np.ndarray:
+    """Top-1 minus top-2 logit, (B, S) from (B, S, V), on the CPU."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu().numpy()
 
 
-# ---------------------------------------------------------------------------
-# Phase 4: card against CPU at full width, 2 layers, float32
-# ---------------------------------------------------------------------------
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Vocab-sharded logits (R, B, S, V_local) -> (B, S, R * V_local)."""
+    R = logits.shape[0]
+    return logits.movedim(0, -2).reshape(*logits.shape[1:-1],
+                                         R * logits.shape[-1])
 
 
-def margin_gate(tokens_a, tokens_b, logits, prompt_len, tol) -> int:
+def teacher_forced(model, tokens: np.ndarray, ap, *ctx_mesh
+                   ) -> torch.Tensor:
+    """Logits (B, S-1, V) of ``model`` over a generated sequence, the
+    vocab shards gathered when ``ctx_mesh`` = (ctx, mesh) is given."""
+    with torch.inference_mode():
+        lg, _ = forward_lm(model, torch.as_tensor(
+            tokens[:, :-1], device="cuda").long(), ap, *ctx_mesh)
+    return gather_vocab(lg) if ctx_mesh else lg
+
+
+def margin_gate(tokens_a, tokens_b, gap, prompt_len, tol) -> int:
     """Tokens must agree at every step until the first one whose reference
     top-1/top-2 logit gap is within ``tol`` (there the two may legitimately
-    pick different tokens).  ``logits`` (B, S+new-1, V) are the reference's
-    teacher-forced logits over its own sequence.  Returns steps checked."""
+    pick different tokens).  ``gap`` (B, S+new-1) comes from the
+    reference's teacher-forced logits over its own sequence.  Returns the
+    steps checked."""
     checked = 0
-    top2 = torch.topk(logits.float(), 2, dim=-1).values
-    gap = (top2[..., 0] - top2[..., 1]).numpy()
     for b in range(tokens_a.shape[0]):
         for t in range(tokens_a.shape[1] - prompt_len):
             if gap[b, prompt_len - 1 + t] <= tol:
@@ -385,38 +404,319 @@ def margin_gate(tokens_a, tokens_b, logits, prompt_len, tol) -> int:
     return checked
 
 
-def phase_cpu() -> None:
+def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
+             expect: dict):
+    """Warm up, then one counted generate; raise unless the launches are
+    exactly ``expect``.  Returns (result, launches)."""
+    eng.generate(prompts, 2)          # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = eng.generate(prompts, NEW)
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {label}: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+        f"{res.decode_s * 1e3:.2f} ms for {NEW - 1} steps "
+        f"({res.decode_tokens_per_s:.1f} tok/s), peak memory "
+        f"{peak:.3f} GiB, launches {got}")
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    return res, got
+
+
+def phase_path() -> tuple:
+    """Returns (launches by path, tp=1 dense tokens, their teacher-forced
+    logits)."""
+    cfg = get_config("llama3.2-1b")
+    ap = make_plan(cfg, 1)
+    model = init_params(ap, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    L = cfg.n_layers
+    expect = {"dense": {"flash_attention": L,
+                        "decode_attention": L * (NEW - 1),
+                        "paged_decode_attention": 0, "rd_all_reduce": 0},
+              "paged": {"flash_attention": L, "decode_attention": 0,
+                        "paged_decode_attention": L * (NEW - 1),
+                        "rd_all_reduce": 0}}
+    launches = {}
+    tokens = {}
+    for layout, bsz in (("dense", 0), ("paged", BLOCK)):
+        eng = InferenceEngine(ap, model, s_max=S_MAX, block_size=bsz,
+                              device="cuda")
+        res, launches[f"tp1_{layout}"] = run_path(eng, prompts, layout,
+                                                  expect[layout])
+        tokens[layout] = res.tokens
+        if layout == "dense":
+            profile_generate(eng, prompts)
+    if not np.array_equal(tokens["dense"], tokens["paged"]):
+        raise AssertionError("paged tokens differ from dense tokens")
+    log("  paged tokens == dense tokens")
+    # kept on the host until phase 6 compares, out of phase 6's peak memory
+    return launches, tokens["dense"], teacher_forced(model, tokens["dense"],
+                                                     ap).cpu()
+
+
+# ---------------------------------------------------------------------------
+# Phases 5 and 7: card against CPU at full width, 2 layers, float32
+# ---------------------------------------------------------------------------
+
+
+def card_vs_cpu(tp: int, pods: int, strategy: str) -> None:
+    """The same seeded weights (2 layers, full width, f32) on the card
+    (kernels) and on the CPU (plain versions), at ``tp`` over a virtual
+    mesh of ``pods`` x tp/pods ranks when tp > 1."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
                               dtype=torch.float32)
-    ap = make_plan(cfg, 1)
-    gpu = init_params(ap, seed=SEED, device="cuda")
+    ap = make_plan(cfg, tp)
+    mesh_g, ctx = mesh_and_ctx(tp, pods, ar_strategy=strategy,
+                               device="cuda")
+    mesh_c, _ = mesh_and_ctx(tp, pods, ar_strategy=strategy, device="cpu")
+    gpu = init_params(ap, seed=SEED, device="cuda", mesh=mesh_g)
     cpu = copy.deepcopy(gpu).to("cpu")
     b, s, new = 2, 64, 8
     prompts = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
                                                        (b, s))
+
+    def full(logits):
+        return logits if mesh_g is None else gather_vocab(logits)
+
     # f32 sums over 2048- and 8192-long reductions are taken in another
     # order on the card than on the CPU: ~1e-5 on O(1) logits.
     tol = 1e-3
     with torch.inference_mode():
-        lg, _ = forward_lm(gpu, torch.as_tensor(prompts, device="cuda"), ap)
-        lc, _ = forward_lm(cpu, torch.as_tensor(prompts), ap)
-    err = max_err(lg.cpu(), lc)
+        lg, _ = forward_lm(gpu, torch.as_tensor(prompts, device="cuda"), ap,
+                           ctx, mesh_g)
+        lc, _ = forward_lm(cpu, torch.as_tensor(prompts), ap, ctx, mesh_c)
+    lg, lc = full(lg).cpu(), full(lc)
+    err = max_err(lg, lc)
     log(f"  prefill logits card vs CPU: max abs err {err:.3e} "
         f"(atol=rtol={tol:g})")
-    if not torch.allclose(lg.cpu(), lc, atol=tol, rtol=tol):
+    if not torch.allclose(lg, lc, atol=tol, rtol=tol):
         raise AssertionError("prefill logits differ between card and CPU")
-    res_g = InferenceEngine(ap, gpu, s_max=s + new, device="cuda"
-                            ).generate(prompts, new)
-    res_c = InferenceEngine(ap, cpu, s_max=s + new, device="cpu"
-                            ).generate(prompts, new)
+    res_g = InferenceEngine(ap, gpu, ctx=ctx, mesh=mesh_g, s_max=s + new,
+                            device="cuda").generate(prompts, new)
+    res_c = InferenceEngine(ap, cpu, ctx=ctx, mesh=mesh_c, s_max=s + new,
+                            device="cpu").generate(prompts, new)
     with torch.inference_mode():
         tf, _ = forward_lm(cpu, torch.as_tensor(res_c.tokens[:, :-1],
-                                                dtype=torch.long), ap)
-    n = margin_gate(res_g.tokens, res_c.tokens, tf, s, 2 * tol)
+                                                dtype=torch.long), ap, ctx,
+                           mesh_c)
+    n = margin_gate(res_g.tokens, res_c.tokens, top2_gap(full(tf)), s,
+                    2 * tol)
     log(f"  greedy tokens card == CPU on {n}/{b * new} margin-gated steps "
         f"(fully equal: {np.array_equal(res_g.tokens, res_c.tokens)})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the recursive-doubling all-reduce kernel
+# ---------------------------------------------------------------------------
+
+
+def rd_bound(R: int, pods: int, m: int, esz: int) -> tuple:
+    """x read once and out written once (2 R m elements), and each step's
+    R m adds in f32 (CUDA cores)."""
+    steps = pods.bit_length() - 1
+    return bound_ms(2.0 * R * m * esz, 1.0 * steps * R * m, torch.float32)
+
+
+def rd_exchange_ms(R: int, pods: int, m: int, esz: int) -> float:
+    """Time at the HBM rate of the exchange's own traffic, which the bound
+    leaves out: each step every rank puts its partial to its peer, reads
+    its own and the peer's copy and writes the new partial (4 m elements)."""
+    steps = pods.bit_length() - 1
+    return 4.0 * steps * R * m * esz / HBM_BYTES_PER_S * 1e3
+
+
+def phase_rd() -> dict:
+    ws = RDWorkspace()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    n_checked = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        esz = torch.empty((), dtype=dtype).element_size()
+        for pods in (2, 4, 8):
+            for fast in (1, 2):
+                for nbytes in RD_SIZES:
+                    x = torch.randn((pods * fast, nbytes // esz),
+                                    generator=gen, device="cuda").to(dtype)
+                    ref = rd_all_reduce_ref(x, pods)
+                    for chunks in (1, 4):
+                        out = rd_all_reduce(x, pods, n_chunks=chunks,
+                                            workspace=ws)
+                        if not torch.equal(out, ref):
+                            torch.cuda.synchronize()
+                            raise AssertionError(
+                                f"rd_all_reduce {dtype} pods={pods} "
+                                f"fast={fast} {nbytes} B chunks={chunks}: "
+                                f"max|kernel-plain| = {max_err(out, ref)}")
+                        n_checked += 1
+    torch.cuda.synchronize()
+    log(f"  rd_all_reduce == plain version bitwise on {n_checked} cases "
+        "(bf16, f32 x pods 2/4/8 x fast 1/2 x 16 KB-8 MB x chunks 1/4)")
+    # the scalar kernels (no 16-byte vectors): rows of an odd length, and
+    # rows that start one element past a 16-byte boundary
+    n_checked = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        esz = torch.empty((), dtype=dtype).element_size()
+        for pods in (2, 4, 8):
+            for fast in (1, 2):
+                R = pods * fast
+                odd = torch.randn((R, 4097), generator=gen,
+                                  device="cuda").to(dtype)
+                shifted = torch.empty(R * 8192 + 1, dtype=dtype,
+                                      device="cuda")[1:].view(R, 8192)
+                shifted.copy_(torch.randn((R, 8192), generator=gen,
+                                          device="cuda"))
+                for x in (odd, shifted):
+                    if (x.shape[1] * esz) % 16 == 0 and x.data_ptr() % 16 == 0:
+                        raise AssertionError("operand is 16-byte aligned")
+                    ref = rd_all_reduce_ref(x, pods)
+                    for chunks in (1, 4):
+                        out = rd_all_reduce(x, pods, n_chunks=chunks,
+                                            workspace=ws)
+                        if not torch.equal(out, ref):
+                            raise AssertionError(
+                                f"rd_all_reduce (scalar) {dtype} pods={pods} "
+                                f"fast={fast} m={x.shape[1]} off="
+                                f"{x.data_ptr() % 16} chunks={chunks}: "
+                                f"max|kernel-plain| = {max_err(out, ref)}")
+                        n_checked += 1
+    torch.cuda.synchronize()
+    log(f"  rd_all_reduce (scalar, unaligned rows) == plain version bitwise "
+        f"on {n_checked} cases (bf16, f32 x pods 2/4/8 x fast 1/2 x odd "
+        "length / shifted start x chunks 1/4)")
+    # back-to-back calls on fresh inputs at the decode message, alternating
+    # chunk counts, every result checked on the device (one sync at the end)
+    R, m = PODS * FAST, RD_SIZES[0] // 2
+    x = torch.empty((R, m), dtype=torch.bfloat16, device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(1000):
+        x.copy_(torch.randn((R, m), generator=gen, device="cuda"))
+        out = rd_all_reduce(x, PODS, n_chunks=1 + 3 * (i % 2), workspace=ws)
+        bad += (out != rd_all_reduce_ref(x, PODS)).any()
+    torch.cuda.synchronize()
+    log(f"  1000 back-to-back calls: {int(bad)} wrong "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if int(bad):
+        raise AssertionError("rd_all_reduce: back-to-back calls disagree")
+    rec = {}
+    for nbytes in RD_SIZES:
+        xs = torch.randn((R, nbytes // 2), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        out = rd_all_reduce(xs, PODS, workspace=ws)
+        err = max_err(out, rd_all_reduce_ref(xs, PODS))
+        t = (time_ms(lambda: rd_all_reduce(xs, PODS, workspace=ws)),
+             time_ms(lambda: rd_all_reduce_ref(xs, PODS)),
+             time_ms(lambda: xs.view(PODS, FAST, -1).sum(0)))
+        bnd = rd_bound(R, PODS, nbytes // 2, 2)
+        log(f"  rd_all_reduce [bfloat16] {PODS}x{FAST} ranks, "
+            f"{nbytes // 1024} KB a rank: kernel_ms={t[0]:.4f} "
+            f"plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+            f"bound_ms={bnd[0]:.6f} ({bnd[1]}); exchange traffic at the "
+            f"HBM rate {rd_exchange_ms(R, PODS, nbytes // 2, 2):.6f} ms")
+        if nbytes == RD_SIZES[0]:       # the path's decode message
+            rec = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                   "library_ms": t[2], "bound_ms": bnd[0],
+                   "bound_by": bnd[1]}
+    log(f"  workspace {ws.nbytes / 2**20:.1f} MiB")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the tensor-parallel path at full width and depth
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """A deliberate fault in the TP all-reduce, for the negative control of
+    the logits gate: ``skip_slow`` leaves out the slow phase (each rank
+    keeps its pod's partial), ``swap_fast`` gathers the fast pieces in the
+    wrong order."""
+    if kind == "skip_slow":
+        patch = mock.patch.object(hierarchical, "_slow_phase",
+                                  lambda x, ctx, mesh: x)
+    else:
+        gather = hierarchical._fast_all_gather
+
+        def swapped(y, pods, fast, dim):
+            y = y.reshape(pods, fast, *y.shape[1:]).flip(1).reshape(y.shape)
+            return gather(y, pods, fast, dim)
+        patch = mock.patch.object(hierarchical, "_fast_all_gather", swapped)
+    with patch:
+        yield
+
+
+def logits_gap(model, tokens, ap, ctx, mesh, ref_logits) -> tuple:
+    """(max, mean) |diff| of ``model``'s teacher-forced logits over
+    ``tokens`` against ``ref_logits``."""
+    diff = (teacher_forced(model, tokens, ap, ctx, mesh).float()
+            - ref_logits.float()).abs()
+    return float(diff.max()), float(diff.mean())
+
+
+def phase_tp(tp1_tokens: np.ndarray, tp1_logits: torch.Tensor) -> dict:
+    cfg = get_config("llama3.2-1b")
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    log(f"  {cfg.name} tp={ap.tp} on {mesh}: GQA g={ap.gqa.g} u={ap.gqa.u}"
+        f", dead q slots: {ap.q_mask_tbl is not None}")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    L = cfg.n_layers
+    launches = {}
+    tokens = {}
+    for strategy in ("hier_rd", "flat"):
+        sctx = ctx.replace(ar_strategy=strategy)
+        expect = {"flash_attention": L, "decode_attention": L * (NEW - 1),
+                  "paged_decode_attention": 0,
+                  "rd_all_reduce": (2 * L + 1) * NEW
+                  if strategy == "hier_rd" else 0}
+        eng = InferenceEngine(ap, model, ctx=sctx, mesh=mesh, s_max=S_MAX,
+                              device="cuda")
+        res, launches[f"tp8_{strategy}"] = run_path(
+            eng, prompts, f"tp=8 {strategy}", expect)
+        tokens[strategy] = res.tokens
+        if strategy == "hier_rd":
+            profile_generate(eng, prompts, share_of="rd_allreduce")
+        else:
+            flat_logits = teacher_forced(model, res.tokens, ap, sctx, mesh)
+    # hier_rd against each reference: tokens margin-gated on the
+    # reference's gap, and the logits of both over the reference's sequence
+    # within (TF_MAX, TF_MEAN), which each planted fault must break
+    for ref_name, ref, ref_logits in (("flat", tokens["flat"], flat_logits),
+                                      ("tp=1", tp1_tokens, tp1_logits)):
+        ref_logits = ref_logits.to("cuda")
+        n = margin_gate(tokens["hier_rd"], ref, top2_gap(ref_logits),
+                        PROMPT, BF16_GAP)
+        mx, mean = logits_gap(model, ref, ap, ctx, mesh, ref_logits)
+        log(f"  tp=8 hier_rd tokens == {ref_name} tokens on {n}/"
+            f"{B * NEW} steps gated at gap {BF16_GAP:g} (fully equal: "
+            f"{np.array_equal(tokens['hier_rd'], ref)}); teacher-forced "
+            f"logits max|diff| {mx:.4f}, mean {mean:.3e} (limits "
+            f"{TF_MAX:g}, {TF_MEAN:g})")
+        if mx > TF_MAX or mean > TF_MEAN:
+            raise AssertionError(f"tp=8 hier_rd logits differ from "
+                                 f"{ref_name}'s")
+        for kind in ("skip_slow", "swap_fast"):
+            with planted_fault(kind):
+                fmx, fmean = logits_gap(model, ref, ap, ctx, mesh,
+                                        ref_logits)
+            log(f"    planted fault {kind}: max|diff| {fmx:.4f}, mean "
+                f"{fmean:.3e}")
+            if fmx <= TF_MAX and fmean <= TF_MEAN:
+                raise AssertionError(f"the logits gate passed the planted "
+                                     f"fault {kind}")
+    return launches
 
 
 def main() -> int:
@@ -441,14 +741,26 @@ def main() -> int:
                 log(f"    {f.stem}: {line.strip()}")
     rec = phase_kernels()
     phase_sweep()
-    log("[3] llama3.2-1b full width and depth, bf16")
-    launches = phase_path()
-    log("[4] card vs CPU, full width, 2 layers, float32")
-    phase_cpu()
+    log("[3] recursive-doubling all-reduce kernel")
+    rec["rd_all_reduce"] = phase_rd()
+    log("[4] llama3.2-1b full width and depth, bf16")
+    launches, tp1_tokens, tp1_logits = phase_path()
+    log("[5] card vs CPU, full width, 2 layers, float32")
+    card_vs_cpu(1, 1, "flat")
+    log(f"[6] llama3.2-1b tp=8 ({PODS} pods x {FAST}) full width and "
+        "depth, bf16")
+    launches.update(phase_tp(tp1_tokens, tp1_logits))
+    log(f"[7] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd), full width, "
+        "2 layers, float32")
+    card_vs_cpu(PODS * FAST, PODS, "hier_rd")
+    # launches: the count of the run of the path each kernel serves
+    # (this slice's tp=8 hier_rd path, the paged kernel's tp=1 paged path),
+    # and every counted run's beside it
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
-                "replaces": REPLACES[n], "launches": launches[n], **rec[n]}
-               for n in ("flash_attention", "decode_attention",
-                         "paged_decode_attention")]
+                "replaces": REPLACES[n],
+                "launches": launches[MAIN_PATH[n]][n], "path": MAIN_PATH[n],
+                "launches_by_path": {p: c[n] for p, c in launches.items()},
+                **rec[n]} for n in MAIN_PATH]
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@ PyTorch: the port of the local, non-speculative path of
 prompts runs to completion (prefill + N decode steps) before the next
 batch starts.  The paged cache (``block_size > 0``) uses the identity
 block table, as the JAX engine's local path does.
+
+Two modes, as in the reference: local (tp=1, no mesh) and mesh (tensor
+parallel over a :class:`~repro_torch.core.mesh.VirtualMesh` on one card,
+through the step builders of :mod:`repro_torch.parallel.steps`).
 """
 from __future__ import annotations
 
@@ -16,9 +20,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.pcontext import LOCAL, ParallelCtx
 from ..models import layers as L
-from ..models.transformer import (ArchPlan, DenseLM, decode_step, forward_lm,
-                                  init_cache, seed_cache)
+from ..models.transformer import (ArchPlan, DenseLM, check_layout,
+                                  decode_step, forward_lm, init_cache,
+                                  seed_cache)
+from ..parallel.steps import build_decode_step, build_prefill
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -48,17 +55,39 @@ class GenerationResult:
 class InferenceEngine:
     """Batched generation over a fixed model on one device."""
 
-    def __init__(self, ap: ArchPlan, model: DenseLM, *, s_max: int = 4096,
+    def __init__(self, ap: ArchPlan, model: DenseLM, *,
+                 ctx: ParallelCtx = LOCAL, mesh=None, s_max: int = 4096,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  block_size: int = 0,
                  device: Optional[str | torch.device] = None):
         """``block_size > 0`` selects the paged KV layout (identity block
         table).  ``temperature > 0`` samples (optionally top-k) from a
         ``torch.Generator`` seeded with ``seed``.  ``device=None`` runs on
-        the card and raises if there is none; the model is moved there."""
+        the card and raises if there is none; the model is moved there.
+
+        With a ``mesh`` (and the ctx that wires it) the engine runs the
+        tensor-parallel path: dense cache only, as the reference's engine
+        (a paged cache raises), and greedy sampling over the vocab shards,
+        as the reference's mesh steps; ``temperature > 0`` raises rather
+        than quietly going greedy."""
         self.ap = ap
         self.cfg = ap.cfg
+        self.ctx = ctx
+        self.mesh = mesh
+        check_layout(ap, ctx, mesh)
+        if mesh is not None:
+            if block_size:
+                raise NotImplementedError(
+                    "the paged engine cache is local-path only; mesh-path "
+                    "paged serving arrives with ROADMAP item 6")
+            if temperature > 0:
+                raise ValueError(
+                    "the mesh path samples greedily over the vocab shards "
+                    "(greedy_sample); temperature > 0 needs tp=1")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device}, engine on "
+                             f"{self.device}")
         self.model = model.to(self.device)
         self.s_max = s_max
         self.temperature = temperature
@@ -66,6 +95,9 @@ class InferenceEngine:
         self.block_size = block_size
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        if mesh is not None:
+            self._mesh_prefill = build_prefill(ap, ctx, mesh, s_max=s_max)
+            self._mesh_decode = build_decode_step(ap, ctx, mesh)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -73,6 +105,8 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _prefill(self, tokens: torch.Tensor):
+        if self.mesh is not None:
+            return self._mesh_prefill(self.model, tokens)
         B = tokens.shape[0]
         logits, states = forward_lm(self.model, tokens, self.ap,
                                     collect_state=True)
@@ -85,6 +119,8 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _decode(self, cache, tokens: torch.Tensor, positions: torch.Tensor):
+        if self.mesh is not None:
+            return self._mesh_decode(self.model, cache, tokens, positions)[0]
         logits, cache = decode_step(self.model, cache, tokens, positions,
                                     self.ap)
         return L.sample_token(logits, self._gen,
@@ -94,7 +130,7 @@ class InferenceEngine:
     def generate(self, prompts: np.ndarray,
                  max_new_tokens: int) -> GenerationResult:
         """prompts: (B, S) int (uniform length).  Greedy unless the engine
-        was built with ``temperature > 0``."""
+        was built with ``temperature > 0`` (tp=1)."""
         prompts = np.asarray(prompts, np.int64)
         B, S = prompts.shape
         if S + max_new_tokens > self.s_max:

@@ -4,9 +4,13 @@
     python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch --full
     python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
         --block-size 16 --device cpu        # smoke config on the CPU
+    python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
+        --full --tp 8 --pods 4 --ar-strategy hier_rd   # TP on one card
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
+``--tp > 1`` runs the tensor-parallel path over a virtual mesh of
+``--pods`` x ``tp/pods`` ranks on that one device.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..configs import get_config, get_smoke
+from ..core.mesh import mesh_and_ctx
+from ..core.pcontext import AR_STRATEGIES
 from ..inference.engine import GenerationResult, InferenceEngine, \
     resolve_device
 from ..models.transformer import init_params, make_plan
@@ -38,6 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-size", type=int, default=0,
                    help="> 0: paged KV cache with this many positions per "
                         "block")
+    p.add_argument("--ar-strategy", choices=list(AR_STRATEGIES),
+                   default="flat",
+                   help="TP all-reduce strategy (hier_rd: the recursive-"
+                        "doubling kernel on the slow axis)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ways (virtual mesh when > 1)")
+    p.add_argument("--pods", type=int, default=1,
+                   help="split --tp across this many pods (slow axis)")
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the weights and the prompts")
     p.add_argument("--device", default=None,
@@ -49,17 +63,22 @@ def build_parser() -> argparse.ArgumentParser:
 def run_batch(args: argparse.Namespace) -> GenerationResult:
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
-    ap = make_plan(cfg, 1)
+    mesh, ctx = mesh_and_ctx(args.tp, args.pods,
+                             ar_strategy=args.ar_strategy, device=device)
+    ap = make_plan(cfg, max(args.tp, 1))
     s_max = args.prompt_len + args.max_new + 8
     if args.block_size:
         s_max = -(-s_max // args.block_size) * args.block_size
-    model = init_params(ap, seed=args.seed, device=device)
-    eng = InferenceEngine(ap, model, s_max=s_max,
+    model = init_params(ap, seed=args.seed, device=device, mesh=mesh)
+    eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
                           block_size=args.block_size, device=device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     res = eng.generate(prompts, args.max_new)
     layout = f"paged(bs={args.block_size})" if args.block_size else "dense"
+    if mesh is not None:
+        layout += (f" tp={args.tp} ({mesh.pods}x{mesh.fast}) "
+                   f"ar={args.ar_strategy}")
     print(f"[serve] {cfg.name} on {device}: batch {args.batch} prompt "
           f"{args.prompt_len} new {args.max_new} {layout} "
           f"| prefill {res.prefill_s * 1e3:.1f}ms "

@@ -2,8 +2,11 @@
 
 The JAX ``init_params`` pytree, with its leaves turned into numpy arrays
 by the caller (``jax.tree.map(np.asarray, params)``), becomes a
-:class:`~repro_torch.models.transformer.DenseLM`.  Nothing here imports
-JAX: the tree is plain dicts of numpy arrays.
+:class:`~repro_torch.models.transformer.DenseLM`: at tp=1 from
+``init_params(key, make_plan(cfg, 1))``, and over a virtual mesh from the
+tp=N tree ``init_params(key, make_plan(cfg, N))``, cut into the mesh's N
+rank shards as the reference's ``param_specs`` cut it.  Nothing here
+imports JAX: the tree is plain dicts of numpy arrays.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 
 from .common import ModelConfig
-from .transformer import DenseLM
+from .transformer import DenseLM, from_global
 
 
 def _tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
@@ -29,10 +32,12 @@ def _group(tree: Mapping[str, Any], dtype, device, layer=None):
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
-                      device) -> DenseLM:
+                      device, mesh=None) -> DenseLM:
     """tree: {"embed": {"tok", "head"}, "blocks": {"ln1", "attn", "ln2",
-    "mlp"} with every leaf stacked on a leading layer axis, "final_norm"}.
-    Leaves are cast to ``cfg.dtype`` on ``device``; layouts are kept."""
+    "mlp"} with every leaf stacked on a leading layer axis, "final_norm"},
+    in the global layout of the plan at tp = the mesh's size (1 without a
+    mesh).  Leaves are cast to ``cfg.dtype`` on ``device``, layouts kept,
+    and cut over the mesh's ranks: every leaf becomes (R, *local)."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with ROADMAP item 10")
@@ -41,8 +46,10 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     per_layer = [{name: _group(blocks[name], dt, device, layer=i)
                   for name in ("ln1", "attn", "ln2", "mlp")}
                  for i in range(cfg.n_layers)]
-    return DenseLM(_group(tree["embed"], dt, device), per_layer,
-                   _group(tree["final_norm"], dt, device))
+    return from_global({"embed": _group(tree["embed"], dt, device),
+                        "blocks": per_layer,
+                        "final_norm": _group(tree["final_norm"], dt, device)},
+                       mesh)
 
 
 __all__ = ["params_from_numpy"]

@@ -8,6 +8,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -58,7 +59,8 @@ class GQAPlan:
     Each of ``tp`` devices gets ``u`` kv slots and ``u*g`` q slots; q slot
     ``s*g + j`` (j < g) attends to kv slot ``s``, which is the ``h // g``
     mapping the attention kernels use.  Dead slots (map -1) carry zero
-    weights; at tp=1 there are none (g = n_q / n_kv).
+    weights; at tp=1 there are none (g = n_q / n_kv), at tp > 1 there can
+    be (``plan_gqa(6, 2, 4)`` has 2 dead q slots).
     """
 
     tp: int
@@ -68,6 +70,14 @@ class GQAPlan:
     u: int                 # kv slots per device
     q_map: Tuple[int, ...]   # len tp*u*g, original q-head idx or -1
     kv_map: Tuple[int, ...]  # len tp*u, original kv-head idx or -1
+
+    @property
+    def q_slots_local(self) -> int:
+        return self.u * self.g
+
+    def q_mask(self) -> np.ndarray:
+        """1.0 for live q slots, 0.0 for dead ones (len q_slots)."""
+        return (np.asarray(self.q_map) >= 0).astype(np.float32)
 
 
 def plan_gqa(n_q: int, n_kv: int, tp: int) -> GQAPlan:

@@ -1,13 +1,18 @@
-"""Transformer layers of the dense family at tp=1: the port of the
-single-device path of ``repro/models/layers.py``.
+"""Transformer layers of the dense family over the virtual mesh: the port
+of ``repro/models/layers.py`` (the rank-batched picture of its
+``shard_map`` code).
 
 Layers are plain functions on tensors.  A parameter group ``p`` is any
-mapping of names to tensors (the model's ``nn.ParameterDict``s).  Shapes
-keep the JAX layouts: activations (B, S, D), q/k/v (B, S, slots, hd),
-weights ``wq`` (D, Q, hd), ``wk``/``wv`` (D, U, hd), ``wo`` (Q, hd, D).
-Attention runs through the kernel wrappers in :mod:`repro_torch.kernels`,
-not through a port of ``attn_core``; the projections stay matmuls, as the
-JAX package left them to XLA.
+mapping of names to tensors (the model's ``nn.ParameterDict``s), each
+stacked per rank: (R, *local), R = 1 at tp=1.  Activations carry the same
+leading rank axis, (R, B, S, D), and otherwise keep the JAX layouts: q/k/v
+(R, B, S, slots, hd), weights ``wq`` (R, D, Q, hd), ``wk``/``wv``
+(R, D, U, hd), ``wo`` (R, Q, hd, D).  Projections are matmuls batched over
+the ranks (the JAX package left them to XLA); attention runs through the
+kernel wrappers in :mod:`repro_torch.kernels` with the ranks folded into
+the batch (R*B sequences, each rank's own heads), not through a port of
+``attn_core``.  TP partial sums are returned by the layers and reduced by
+the caller with :func:`repro_torch.core.hierarchical.tp_all_reduce`.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import hierarchical as hier
+from ..core.pcontext import ParallelCtx
 from ..kernels import decode_attention, flash_attention, paged_decode_attention
 from .common import ModelConfig
 
@@ -24,11 +31,18 @@ Params = Mapping[str, torch.Tensor]
 NEG_INF = -1.0e30
 
 
+def per_rank(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-rank vector w (R, D) shaped to broadcast against x (R, ..., D)."""
+    return w.reshape(w.shape[0], *([1] * (x.dim() - 2)), w.shape[-1])
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
+    """x (R, ..., D); w (R, D), the norm weight on every rank."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) \
+        * per_rank(w, x).to(x.dtype)
 
 
 def apply_norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -52,23 +66,30 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
-    """x: (B, S, N, hd); cos/sin: (B, S, hd/2) or (S, hd/2)."""
+    """x: (R, B, S, N, hd); cos/sin: (B, S, hd/2) or (S, hd/2), the same
+    on every rank."""
     half = x.shape[-1] // 2
-    if cos.dim() == 2:
-        cos_, sin_ = cos[None, :, None, :], sin[None, :, None, :]
-    else:
-        cos_, sin_ = cos[:, :, None, :], sin[:, :, None, :]
+    cos_, sin_ = cos.unsqueeze(-2), sin.unsqueeze(-2)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos_ - x2 * sin_, x2 * cos_ + x1 * sin_], dim=-1)
     return out.to(x.dtype)
 
 
+def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (R, ..., K) @ w (R, K, N) -> (R, ..., N): each rank's activations
+    times its own weight shard, one batched product."""
+    R, K = x.shape[0], x.shape[-1]
+    out = torch.bmm(x.reshape(R, -1, K), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _qkv(p: Params, h: torch.Tensor):
-    """h (B, S, D) -> q (B, S, Q, hd), k/v (B, S, U, hd)."""
-    q = torch.einsum("bsd,dqh->bsqh", h, p["wq"])
-    k = torch.einsum("bsd,duh->bsuh", h, p["wk"])
-    v = torch.einsum("bsd,duh->bsuh", h, p["wv"])
-    return q, k, v
+    """h (R, B, S, D) -> q (R, B, S, Q, hd), k/v (R, B, S, U, hd)."""
+    def proj(w):
+        R, D, n, hd = w.shape
+        return rank_matmul(h, w.reshape(R, D, n * hd)) \
+            .reshape(*h.shape[:-1], n, hd)
+    return proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
@@ -87,10 +108,16 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return m
 
 
-def _project_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bsqh,qhd->bsd") as one matmul over the flattened heads."""
-    B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+def _project_out(o: torch.Tensor, wo: torch.Tensor,
+                 q_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """o (R, B, S, Q, hd) -> the TP-partial projection (R, B, S, D).
+    ``q_mask`` (R, Q) zeroes dead q slots, as the JAX layers' q-mask
+    multiply (``take_local(q_mask_tbl)``) does; None when there are none."""
+    if q_mask is not None:
+        o = o * q_mask[:, None, None, :, None].to(o.dtype)
+    R, Q, hd, D = wo.shape
+    return rank_matmul(o.reshape(*o.shape[:3], Q * hd),
+                       wo.reshape(R, Q * hd, D))
 
 
 def _rotated_qkv(p: Params, h: torch.Tensor, cfg: ModelConfig,
@@ -103,86 +130,133 @@ def _rotated_qkv(p: Params, h: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """(R, B, ...) -> (R*B, ...): the ranks as more sequences."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
 def attention_prefill(p: Params, h: torch.Tensor, cfg: ModelConfig, *,
-                      positions: torch.Tensor):
+                      positions: torch.Tensor,
+                      q_mask: Optional[torch.Tensor] = None):
     """Causal full-sequence attention through the flash kernel (the port of
-    ``transformer._attention_with_kv``).  ``positions`` (S,) are the token
-    positions ``0..S-1`` (the kernel masks by index).  Returns the
-    projected output (B, S, D) and the rotated (k, v), (B, S, U, hd).
-    Query slot ``s*g + j`` reads kv slot ``s`` (``GQAPlan``), which is the
-    kernels' ``h // g``."""
+    ``transformer._attention_with_kv``).  h (R, B, S, D); ``positions``
+    (S,) are the token positions ``0..S-1`` (the kernel masks by index).
+    Returns the TP-partial projected output (R, B, S, D) and the rotated
+    (k, v), (R, B, S, U, hd).  Query slot ``s*g + j`` reads kv slot ``s``
+    (``GQAPlan``), which is the kernels' ``h // g``; one launch serves
+    every rank."""
     q, k, v = _rotated_qkv(p, h, cfg, positions)
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True,
+    o = flash_attention(_fold(q).transpose(1, 2), _fold(k).transpose(1, 2),
+                        _fold(v).transpose(1, 2), causal=True,
                         window=cfg.sliding_window).transpose(1, 2)
-    return _project_out(o, p["wo"]), (k, v)
+    return _project_out(o.reshape(q.shape), p["wo"], q_mask), (k, v)
 
 
 def attention_decode(p: Params, h: torch.Tensor,
                      cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-                     positions: torch.Tensor,
+                     positions: torch.Tensor, kv_positions: torch.Tensor,
+                     q_mask: Optional[torch.Tensor] = None,
                      block_tbl: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """One-token decode step against this layer's KV cache: the port of
     ``attention_decode`` and ``_attention_decode_paged``.
 
-    h: (B, 1, D); positions: (B,) int32 index where the new token is
-    written.  Dense: cache['k']/cache['v'] (B, S_max, U, hd).  Paged
-    (``block_tbl`` (B, max_blocks) int32): the physical pool
+    h: (R, B, 1, D); positions: (B,) int32 index where the new token is
+    written; ``kv_positions`` (R*B,) int32 the same tiled over the ranks.
+    Dense: cache['k']/cache['v'] (R*B, S_max, U, hd), rank-major rows.
+    Paged (``block_tbl`` (B, max_blocks) int32, R = 1): the physical pool
     (n_blocks, bs, U, hd); the new K/V go to block ``block_tbl[b, pos //
     bs]`` at offset ``pos % bs``, and rows of inactive slots point at the
     trash block 0.
 
     Unlike the JAX layer, which returns a rebuilt cache, the new K/V are
-    written into ``cache`` in place and only the projected output (B, 1, D)
-    is returned.
+    written into ``cache`` in place and only the TP-partial projected
+    output (R, B, 1, D) is returned.
     """
     q, k_new, v_new = _rotated_qkv(p, h, cfg, positions[:, None])
     k, v = cache["k"], cache["v"]
-    bidx = torch.arange(h.shape[0], device=h.device)
-    pos = positions.long()
+    rb = kv_positions.shape[0]
+    bidx = torch.arange(rb, device=h.device)
+    pos = kv_positions.long()
     if block_tbl is None:
         rows = (bidx, pos)
     else:
         bs = k.shape[1]
         rows = (block_tbl[bidx, pos // bs].long(), pos % bs)
-    k[rows] = k_new[:, 0].to(k.dtype)
-    v[rows] = v_new[:, 0].to(v.dtype)
+    k[rows] = _fold(k_new)[:, 0].to(k.dtype)
+    v[rows] = _fold(v_new)[:, 0].to(v.dtype)
+    qf = _fold(q)[:, 0]
     if block_tbl is None:
-        o = decode_attention(q[:, 0], k, v, positions,
+        o = decode_attention(qf, k, v, kv_positions,
                              window=cfg.sliding_window)
     else:
-        o = paged_decode_attention(q[:, 0], k, v, block_tbl, positions,
+        o = paged_decode_attention(qf, k, v, block_tbl, kv_positions,
                                    window=cfg.sliding_window)
-    return _project_out(o[:, None], p["wo"])
+    return _project_out(o.reshape(q.shape), p["wo"], q_mask)
 
 
 def mlp_hidden(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Up-projection + activation: the (B, S, F) input of the
-    down-projection."""
+    """Up-projection + activation: the (R, B, S, F_local) input of the
+    row-parallel down-projection."""
     if cfg.act != "swiglu":
         raise NotImplementedError(
             f"act {cfg.act!r} arrives with ROADMAP item 10 (other families)")
-    return F.silu(h @ p["wg"]) * (h @ p["wu"])
+    return F.silu(rank_matmul(h, p["wg"])) * rank_matmul(h, p["wu"])
 
 
 def mlp_down_w(p: Params, cfg: ModelConfig) -> torch.Tensor:
-    """The down-projection weight ((F, D), output last)."""
+    """The row-sharded down-projection weight ((R, F_local, D))."""
     return p["wd"]
 
 
 def mlp(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return mlp_hidden(p, h, cfg) @ mlp_down_w(p, cfg)
+    """Returns the TP-partial output (R, B, S, D)."""
+    return rank_matmul(mlp_hidden(p, h, cfg), mlp_down_w(p, cfg))
 
 
-def embed_lookup(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding at tp=1 (the table holds the whole padded vocab)."""
-    return p["tok"][ids]
+def embed_lookup(p: Params, ids: torch.Tensor, ctx: ParallelCtx, mesh,
+                 vocab_pad: int) -> torch.Tensor:
+    """Vocab-parallel lookup: local gather (zero rows for ids outside the
+    rank's vocab range) + TP reduce (the paper's AR site #0).
+    ids (B, S) -> (R, B, S, D)."""
+    table = p["tok"]
+    R, v_loc = table.shape[0], table.shape[1]
+    if v_loc == vocab_pad and not ctx.has_tp:
+        return table[:, ids]
+    ranks = hier.tp_rank(ctx, mesh, ids.device)
+    local = ids[None] - (ranks * v_loc).view(R, *([1] * ids.dim()))
+    ok = (local >= 0) & (local < v_loc)
+    x = table[ranks.view(R, *([1] * ids.dim())), local.clamp(0, v_loc - 1)]
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return hier.tp_all_reduce(x, ctx, mesh, scatter_dim=-1)
 
 
 def lm_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
-    head = p["head"] if "head" in p else p["tok"].T
-    return x @ head
+    """Local (vocab-sharded) logits (R, ..., V_local)."""
+    head = p["head"] if "head" in p else p["tok"].transpose(-1, -2)
+    return rank_matmul(x, head)
+
+
+def greedy_sample(logits_loc: torch.Tensor, ctx: ParallelCtx, mesh,
+                  vocab_real: int) -> torch.Tensor:
+    """Greedy next token over vocab-sharded logits (R, B, V_local) ->
+    (B,) int32 global ids: the max over the ranks (pmax), then the lowest
+    global id among the ranks that hold it (pmin); vocab padding masked."""
+    R, _, v_loc = logits_loc.shape
+    start = hier.tp_rank(ctx, mesh, logits_loc.device)[:, None] * v_loc
+    lf = logits_loc.float()
+    gidx = start[..., None] + torch.arange(v_loc, device=lf.device)
+    lf = torch.where(gidx < vocab_real, lf,
+                     torch.full((), NEG_INF, device=lf.device))
+    loc_best = torch.argmax(lf, dim=-1)
+    if not ctx.has_tp:
+        return loc_best[0].to(torch.int32)
+    loc_max = torch.gather(lf, -1, loc_best[..., None])[..., 0]
+    gmax = loc_max.max(dim=0).values
+    cand = torch.where(loc_max >= gmax, start + loc_best,
+                       torch.full((), 2**30, device=lf.device))
+    return cand.min(dim=0).values.to(torch.int32)
 
 
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -210,6 +284,6 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 
 __all__ = ["rms_norm", "apply_norm", "rope_tables", "apply_rope",
-           "attention_prefill", "attention_decode", "mlp", "mlp_hidden",
-           "mlp_down_w", "embed_lookup", "lm_logits", "sample_token",
-           "NEG_INF"]
+           "rank_matmul", "attention_prefill", "attention_decode", "mlp",
+           "mlp_hidden", "mlp_down_w", "embed_lookup", "lm_logits",
+           "greedy_sample", "sample_token", "NEG_INF"]

@@ -1,22 +1,30 @@
-"""Model assembly for the dense family at tp=1: parameters, LM forward,
-KV caches and the decode step (the port of the single-device path of
+"""Model assembly for the dense family: parameters, LM forward, KV caches
+and the decode step, at tp=1 and over the virtual mesh (the port of
 ``repro/models/transformer.py``).
 
 The model is an ``nn.Module`` (:class:`DenseLM`) holding frozen
-parameters in the JAX package's layouts, one :class:`Block` per layer in
-an ``nn.ModuleList``; the forward functions are plain functions over it,
-with a Python loop over the layers where JAX scanned a stacked pytree.
-KV caches are dicts of tensors with a leading layer axis, updated in
-place (JAX rebuilt them with ``.at[].set``).
+parameters in the JAX package's layouts, each stacked per rank
+(R, *local), R = 1 at tp=1; one :class:`Block` per layer in an
+``nn.ModuleList``.  The forward functions are plain functions over it,
+with a Python loop over the layers where JAX scanned a stacked pytree, and
+one code path for every tp: activations carry the rank axis, each layer's
+two row-parallel partial sums and the vocab-parallel embedding go through
+``tp_all_reduce``.  KV caches are dicts of tensors with a leading layer
+axis and the ranks folded into the batch, updated in place (JAX rebuilt
+them with ``.at[].set``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..core import hierarchical as hier
+from ..core.pcontext import LOCAL, ParallelCtx
+from ..parallel.sharding import shard_params
 from . import layers as L
 from .common import GQAPlan, ModelConfig, dense_init, pad_to, place_heads, \
     plan_gqa
@@ -31,22 +39,53 @@ class ArchPlan:
     gqa: GQAPlan
     vocab_pad: int
 
+    @property
+    def q_mask_tbl(self) -> Optional[np.ndarray]:
+        """(tp, q slots per rank) live-slot mask, or None when no slot is
+        dead (then the layers skip the multiply)."""
+        m = self.gqa.q_mask().reshape(self.tp, self.gqa.q_slots_local)
+        return None if m.min() >= 1.0 else m
+
 
 def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
     """The static plan of one (config, tp).  At tp=1 ``plan_gqa`` picks
-    g = n_q / n_kv, so the slot layout has no dead q slots and the JAX
-    layers' q-mask multiply has nothing to do: the port has none."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor parallelism arrives with ROADMAP item 4 (TP "
-            "collectives and sharded decode); this slice is tp=1")
+    g = n_q / n_kv and no slot is dead; at tp > 1 a plan can have dead
+    slots, which carry zero weights and are masked after attention."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with ROADMAP item 10 (other "
-            "families); this slice is dense only")
+            "families); the port runs the dense family only")
+    for dim, name in ((cfg.d_model, "d_model"), (cfg.d_ff, "d_ff")):
+        if dim % tp:
+            raise ValueError(f"{cfg.name}: {name}={dim} not divisible by "
+                             f"tp={tp}")
     return ArchPlan(cfg=cfg, tp=tp, gqa=plan_gqa(cfg.n_heads, cfg.n_kv_heads,
                                                  tp),
                     vocab_pad=pad_to(cfg.vocab_size, tp))
+
+
+def check_layout(ap: ArchPlan, ctx: ParallelCtx, mesh) -> int:
+    """Raise unless (ap, ctx, mesh) describe one layout; returns R."""
+    if ctx.dp or ctx.fsdp or ctx.sp:
+        raise NotImplementedError(
+            f"ctx dp={ctx.dp} fsdp={ctx.fsdp} sp={ctx.sp}: the virtual mesh "
+            "holds the TP axes only; batch- and weight-sharded serving "
+            "arrive with ROADMAP item 11, sequence-parallel residuals with "
+            "item 9")
+    if mesh is None:
+        if ctx.has_tp or ap.tp != 1:
+            raise ValueError(f"tp={ap.tp} with TP axes {ctx.tp_axes} needs "
+                             "a VirtualMesh")
+        return 1
+    mesh.check_ctx(ctx)
+    if mesh.size != ap.tp:
+        raise ValueError(f"plan tp={ap.tp} on a mesh of {mesh.size} ranks")
+    return mesh.size
+
+
+def _q_mask(ap: ArchPlan, device) -> Optional[torch.Tensor]:
+    tbl = ap.q_mask_tbl
+    return None if tbl is None else torch.as_tensor(tbl, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -61,7 +100,7 @@ def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One decoder layer's parameters: ``ln1``, ``attn`` (wq, wk, wv, wo),
-    ``ln2``, ``mlp`` (wg, wu, wd)."""
+    ``ln2``, ``mlp`` (wg, wu, wd), each (R, *local)."""
 
     def __init__(self, tensors: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__()
@@ -73,8 +112,9 @@ class Block(nn.Module):
 
 class DenseLM(nn.Module):
     """Dense decoder parameters: ``embed`` (tok, head), ``blocks``,
-    ``final_norm``.  Built by :func:`init_params` or, from the JAX
-    package's parameters, by :func:`repro_torch.models.bridge.params_from_numpy`.
+    ``final_norm``, every leaf stacked per rank.  Built by
+    :func:`init_params` or, from the JAX package's parameters, by
+    :func:`repro_torch.models.bridge.params_from_numpy`.
     """
 
     def __init__(self, embed: Mapping[str, torch.Tensor],
@@ -85,13 +125,30 @@ class DenseLM(nn.Module):
         self.blocks = nn.ModuleList(Block(b) for b in blocks)
         self.final_norm = _frozen(final_norm)
 
+    @property
+    def n_ranks(self) -> int:
+        return self.embed["tok"].shape[0]
 
-def init_params(ap: ArchPlan, *, seed: int,
-                device: torch.device | str) -> DenseLM:
+
+def from_global(tree: Mapping, mesh=None) -> DenseLM:
+    """A DenseLM from a global-layout tree {"embed", "blocks" (a list of
+    per-layer groups), "final_norm"}, cut over the mesh's ranks."""
+    t = shard_params(tree, mesh)
+    return DenseLM(t["embed"], t["blocks"], t["final_norm"])
+
+
+def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
+                mesh=None) -> DenseLM:
     """The port's own seeded init: the shapes and scales of the JAX
-    ``init_params`` (weights Normal(0, 1/fan_in), norms 1), drawn from a
-    ``torch.Generator`` on ``device`` (not the JAX package's numbers)."""
+    ``init_params`` at ``ap.tp`` (weights Normal(0, 1/fan_in) in the
+    plan's slot layout, norms 1), drawn from a ``torch.Generator`` on
+    ``device`` (not the JAX package's numbers), then cut over ``mesh``
+    (R = ap.tp ranks).  A plan without dead slots (llama3.2-1b at tp=8)
+    draws the same numbers at every tp, so its model computes the same
+    function at every tp."""
     cfg, plan = ap.cfg, ap.gqa
+    if (mesh.size if mesh is not None else 1) != ap.tp:
+        raise ValueError(f"plan tp={ap.tp} on {mesh}")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, f, hd, dt = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.dtype
@@ -116,7 +173,9 @@ def init_params(ap: ArchPlan, *, seed: int,
     embed = {"tok": dense_init(gen, (ap.vocab_pad, d), d, dt)}
     if not cfg.tie_embeddings:
         embed["head"] = dense_init(gen, (d, ap.vocab_pad), d, dt)
-    return DenseLM(embed, [block() for _ in range(cfg.n_layers)], ones(d))
+    return from_global({"embed": embed,
+                        "blocks": [block() for _ in range(cfg.n_layers)],
+                        "final_norm": ones(d)}, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -124,40 +183,58 @@ def init_params(ap: ArchPlan, *, seed: int,
 # ---------------------------------------------------------------------------
 
 
-def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan, *,
-                  positions: torch.Tensor
+def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
+                  ctx: ParallelCtx = LOCAL, mesh=None, *,
+                  positions: torch.Tensor,
+                  q_mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One causal block over the full sequence.  Returns (x, (k, v)) with
-    the layer's rotated K/V (B, S, U, hd), the prefill cache seed."""
+    """One causal block over the full sequence, x (R, B, S, D) replicated.
+    Returns (x, (k, v)) with this layer's rotated K/V (R, B, S, U, hd),
+    the prefill cache seed.  Both sublayer outputs are TP partials reduced
+    by ``tp_all_reduce`` (``_residual`` of the reference, no SP, no
+    overlap)."""
     cfg = ap.cfg
     h = L.apply_norm(x, bp.ln1, cfg)
-    attn_out, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions)
-    x = x + attn_out
-    x = x + L.mlp(bp.mlp, L.apply_norm(x, bp.ln2, cfg), cfg)
-    return x, kv
+    attn_out, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions,
+                                       q_mask=q_mask)
+    x = x + hier.tp_all_reduce(attn_out, ctx, mesh, scatter_dim=-1)
+    out = L.mlp(bp.mlp, L.apply_norm(x, bp.ln2, cfg), cfg)
+    return x + hier.tp_all_reduce(out, ctx, mesh, scatter_dim=-1), kv
 
 
-def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan, *,
+def _unranked(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Public outputs keep the reference's layouts: without a mesh (tp=1)
+    the rank axis of size 1 is dropped."""
+    return t if mesh is not None else t[0]
+
+
+def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
+               ctx: ParallelCtx = LOCAL, mesh=None, *,
                collect_state: bool = False
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """tokens (B, S) -> (logits (B, S, V_pad), states).
+    """tokens (B, S) -> (logits, states).
 
-    ``states`` (when ``collect_state``) holds the per-layer K/V stacked on
-    a leading layer axis, {"k", "v"}: (L, B, S, U, hd), else None.  (The JAX
-    function also returns an aux loss and encoder output, which the dense
-    family does not have.)
+    ``logits`` are vocab-sharded, (R, B, S, V_local), on a mesh and
+    (B, S, V_pad) without one.  ``states`` (when ``collect_state``) hold
+    the per-layer K/V stacked on a leading layer axis, {"k", "v"}:
+    (L, R*B, S, U, hd), the ranks folded into the batch as in the cache;
+    else None.  (The JAX function also returns an aux loss and encoder
+    output, which the dense family does not have.)
     """
+    check_layout(ap, ctx, mesh)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = L.embed_lookup(model.embed, tokens)
+    q_mask = _q_mask(ap, tokens.device)
+    x = L.embed_lookup(model.embed, tokens, ctx, mesh, ap.vocab_pad)
     ks, vs = [], []
     for bp in model.blocks:
-        x, (k, v) = block_forward(bp, x, ap, positions=positions)
+        x, (k, v) = block_forward(bp, x, ap, ctx, mesh, positions=positions,
+                                  q_mask=q_mask)
         if collect_state:
-            ks.append(k)
-            vs.append(v)
+            ks.append(L._fold(k))
+            vs.append(L._fold(v))
     x = L.apply_norm(x, model.final_norm, ap.cfg)
-    logits = L.lm_logits(model.embed, x)
+    logits = _unranked(L.lm_logits(model.embed, x), mesh)
     states = {"k": torch.stack(ks), "v": torch.stack(vs)} \
         if collect_state else None
     return logits, states
@@ -169,19 +246,27 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan, *,
 
 
 def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
-               device: torch.device | str) -> Cache:
-    """Decode cache, leading layer axis.
+               device: torch.device | str, mesh=None) -> Cache:
+    """Decode cache, leading layer axis, per-rank (local) head counts as
+    ``sharding.cache_spec`` cuts them (each rank holds ``ap.gqa.u`` kv
+    slots), the R ranks folded into the batch, rank-major.
 
-    ``block_size=0``: dense K/V (L, batch, s_max, U, hd).  ``block_size>0``:
-    paged K/V, a pool of physical blocks (L, n_blocks, block_size, U, hd)
-    with n_blocks = batch * s_max/block_size + 1, plus ``block_tbl``
-    (batch, s_max/block_size) int32.  Block 0 is the trash block; the table
-    starts as the identity mapping from 1, which makes the paged cache hold
-    the dense cache's contents block by block.
+    ``block_size=0``: dense K/V (L, R*batch, s_max, U, hd).
+    ``block_size>0`` (tp=1 only): paged K/V, a pool of physical blocks
+    (L, n_blocks, block_size, U, hd) with n_blocks = batch *
+    s_max/block_size + 1, plus ``block_tbl`` (batch, s_max/block_size)
+    int32.  Block 0 is the trash block; the table starts as the identity
+    mapping from 1, which makes the paged cache hold the dense cache's
+    contents block by block.
     """
     cfg = ap.cfg
+    R = mesh.size if mesh is not None else 1
     u, hd, Ld = ap.gqa.u, cfg.head_dim, cfg.n_layers
     if block_size > 0:
+        if R > 1:
+            raise NotImplementedError(
+                "a paged cache on the virtual mesh arrives with ROADMAP "
+                "item 6 (serving stack); the mesh path takes the dense cache")
         if s_max % block_size:
             raise ValueError(f"s_max={s_max} is not a multiple of "
                              f"block_size={block_size}")
@@ -193,7 +278,7 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "block_tbl": tbl}
-    shape = (Ld, batch, s_max, u, hd)
+    shape = (Ld, R * batch, s_max, u, hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -233,34 +318,48 @@ def seed_cache(cache: Cache, states: Cache) -> Cache:
 
 
 def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
-                 *, positions: torch.Tensor,
+                 ctx: ParallelCtx = LOCAL, mesh=None, *,
+                 positions: torch.Tensor, kv_positions: torch.Tensor,
+                 q_mask: Optional[torch.Tensor] = None,
                  block_tbl: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block, one token.  x: (B, 1, D); cache_l: this layer's {"k",
-    "v"} (written in place).  Returns x."""
+    """One block, one token.  x: (R, B, 1, D) replicated; cache_l: this
+    layer's {"k", "v"} (written in place).  Every sublayer output is a TP
+    partial reduced by ``tp_all_reduce``, the collective the paper
+    targets.  Returns x."""
     cfg = ap.cfg
     h = L.apply_norm(x, bp.ln1, cfg)
-    x = x + L.attention_decode(bp.attn, h, cache_l, cfg, positions=positions,
-                               block_tbl=block_tbl)
-    return x + L.mlp(bp.mlp, L.apply_norm(x, bp.ln2, cfg), cfg)
+    attn = L.attention_decode(bp.attn, h, cache_l, cfg, positions=positions,
+                              kv_positions=kv_positions, q_mask=q_mask,
+                              block_tbl=block_tbl)
+    x = x + hier.tp_all_reduce(attn, ctx, mesh, scatter_dim=-1)
+    out = L.mlp(bp.mlp, L.apply_norm(x, bp.ln2, cfg), cfg)
+    return x + hier.tp_all_reduce(out, ctx, mesh, scatter_dim=-1)
 
 
 def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
-                positions: torch.Tensor, ap: ArchPlan
+                positions: torch.Tensor, ap: ArchPlan,
+                ctx: ParallelCtx = LOCAL, mesh=None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step for the whole batch.
 
     tokens: (B,) int; positions: (B,) int32 write index.  Returns
-    (logits (B, V_pad), cache), the cache updated in place.
+    (logits, cache), the cache updated in place; logits vocab-sharded
+    (R, B, V_local) on a mesh, (B, V_pad) without one.
     """
+    R = check_layout(ap, ctx, mesh)
     block_tbl = cache.get("block_tbl")
-    x = L.embed_lookup(model.embed, tokens[:, None])
+    kv_positions = positions.repeat(R) if R > 1 else positions
+    q_mask = _q_mask(ap, tokens.device)
+    x = L.embed_lookup(model.embed, tokens[:, None], ctx, mesh, ap.vocab_pad)
     for i, bp in enumerate(model.blocks):
         x = block_decode(bp, x, {"k": cache["k"][i], "v": cache["v"][i]}, ap,
-                         positions=positions, block_tbl=block_tbl)
+                         ctx, mesh, positions=positions,
+                         kv_positions=kv_positions, q_mask=q_mask,
+                         block_tbl=block_tbl)
     x = L.apply_norm(x, model.final_norm, ap.cfg)
-    return L.lm_logits(model.embed, x)[:, 0], cache
+    return _unranked(L.lm_logits(model.embed, x)[:, :, 0], mesh), cache
 
 
-__all__ = ["ArchPlan", "make_plan", "Block", "DenseLM", "init_params",
-           "block_forward", "forward_lm", "init_cache", "seed_cache",
-           "block_decode", "decode_step"]
+__all__ = ["ArchPlan", "make_plan", "check_layout", "Block", "DenseLM",
+           "from_global", "init_params", "block_forward", "forward_lm",
+           "init_cache", "seed_cache", "block_decode", "decode_step"]

@@ -1,0 +1,64 @@
+"""Tensor-parallel parameter sharding over the virtual mesh: the port of
+the TP rules of ``repro/parallel/sharding.py`` for the dense family.
+
+A leaf's TP dimension is cut into R contiguous pieces, rank r taking piece
+r (slow-major, as ``PartitionSpec((slow, fast))`` cuts it), and the pieces
+are stacked on a new leading rank axis: (R, *local_shape).  A leaf whose
+TP dimension does not divide by R, and a leaf with no TP dimension (the
+norms), is replicated on every rank, as ``_leaf_plan`` leaves it.  FSDP is
+not part of serving here (``fsdp_serve`` is not ported).
+
+The decode cache follows ``cache_spec``: its head (slot) dimension is
+sharded, so each rank holds ``ap.gqa.u`` kv slots
+(``transformer.init_cache``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+# leaf name -> TP dimension counted from the end (so a leading stacked-layer
+# axis rides along); None = replicated.  Attention slot layouts: wq/wk/wv
+# (D, slots, hd) -> -2, wo (slots, hd, D) -> -3.
+TP_RULES: Dict[str, Optional[int]] = {
+    "tok": -2, "head": -1,
+    "wq": -2, "wk": -2, "wv": -2, "wo": -3,
+    "bq": -2, "bk": -2, "bv": -2,
+    "wg": -1, "wu": -1, "w1": -1, "b1": -1, "wd": -2, "w2": -2,
+    "w": None, "b": None,
+}
+
+
+def tp_dim(path_names: Sequence[str], ndim: int) -> Optional[int]:
+    """The TP dimension of the leaf at ``path_names``, or None."""
+    name = path_names[-1]
+    if name not in TP_RULES:
+        raise KeyError(f"no TP rule for param {'/'.join(path_names)}")
+    d = TP_RULES[name]
+    return None if d is None else ndim + d
+
+
+def shard_leaf(t: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
+    """(R, ...) pieces of ``t`` along ``dim`` (or R copies)."""
+    if dim is None or t.shape[dim] % n:
+        return t.unsqueeze(0).expand(n, *t.shape).contiguous()
+    return torch.stack(torch.chunk(t, n, dim=dim))
+
+
+def _shard(tree: Any, n: int, path: Tuple[str, ...]) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _shard(v, n, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shard(v, n, path) for v in tree]
+    return shard_leaf(tree, tp_dim(path, tree.dim()), n)
+
+
+def shard_params(tree: Any, mesh=None) -> Any:
+    """Every leaf of a nested dict (or list of per-layer dicts) of
+    global-layout tensors cut over the mesh's R ranks and stacked:
+    (R, *local).  Without a mesh R = 1 (tp=1)."""
+    return _shard(tree, mesh.size if mesh is not None else 1, ())
+
+
+__all__ = ["TP_RULES", "tp_dim", "shard_leaf", "shard_params"]

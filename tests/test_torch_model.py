@@ -147,14 +147,16 @@ def test_bridge_carries_every_leaf_exactly():
     for path, leaf in leaves:
         keys = [p.key for p in path]
         arr = np.asarray(leaf).astype(np.float32)
+        # every leaf gains a leading rank axis, of size 1 at tp=1
         if keys[0] == "blocks":
             for i in range(pair.tcfg.n_layers):
                 t = state[f"blocks.{i}.{keys[1]}.{keys[2]}"]
-                np.testing.assert_array_equal(t.float().numpy(), arr[i])
+                assert t.shape[0] == 1
+                np.testing.assert_array_equal(t[0].float().numpy(), arr[i])
         else:
             t = state[".".join(keys)]
-            assert t.dtype == torch.bfloat16
-            np.testing.assert_array_equal(t.float().numpy(), arr)
+            assert t.dtype == torch.bfloat16 and t.shape[0] == 1
+            np.testing.assert_array_equal(t[0].float().numpy(), arr)
 
 
 def test_own_init_matches_jax_shapes_and_scales():
@@ -166,10 +168,10 @@ def test_own_init_matches_jax_shapes_and_scales():
         keys = [p.key for p in path]
         arr = leaf.astype(np.float32)
         if keys[0] == "blocks":
-            t = torch.stack([state[f"blocks.{i}.{keys[1]}.{keys[2]}"]
+            t = torch.stack([state[f"blocks.{i}.{keys[1]}.{keys[2]}"][0]
                              for i in range(tcfg.n_layers)])
         else:
-            t = state[".".join(keys)]
+            t = state[".".join(keys)][0]
         assert tuple(t.shape) == arr.shape and t.dtype == torch.bfloat16
         # same scale: std within 15% (norms are exactly ones on both sides)
         np.testing.assert_allclose(t.float().std().item(), arr.std(),
@@ -194,8 +196,13 @@ def test_plan_and_registry_refuse_what_the_slice_does_not_port():
     assert abs(cfg.param_count() - 1.498e9) < 1e6
     ap = TT.make_plan(cfg, 1)
     assert (ap.gqa.g, ap.gqa.u) == (4, 8) and -1 not in ap.gqa.q_map
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        TT.make_plan(cfg, 2)
+    # tp > 1 is planned now (same slots, spread over 8 ranks, none dead);
+    # a tp that does not divide the widths is refused, as in the reference
+    ap8 = TT.make_plan(cfg, 8)
+    assert (ap8.gqa.g, ap8.gqa.u) == (4, 1) and ap8.q_mask_tbl is None
+    assert ap8.gqa.q_map == ap.gqa.q_map and ap8.vocab_pad == ap.vocab_pad
+    with pytest.raises(ValueError, match="not divisible by tp=3"):
+        TT.make_plan(cfg, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         TT.make_plan(dataclasses.replace(cfg, family="moe"), 1)
     with pytest.raises(KeyError, match="ROADMAP item 10"):
