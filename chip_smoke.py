@@ -31,7 +31,26 @@ Phases (any failure exits non-zero and prints no result line):
      (TF_MAX, TF_MEAN) of both, which two planted faults in the
      all-reduce must break, one profiled hier_rd run with the RD kernel's
      share of device time;
-  7. phase 5 at tp=8 (hier_rd): card against CPU.
+  7. phase 5 at tp=8 (hier_rd): card against CPU;
+  8. the fused GEMM + recursive-doubling kernel against its plain version
+     in bf16 and f32 on 4 x 2 and 2 x 1 meshes at the path's decode
+     shapes (attention wo, MLP down) and its prefill shape: within TOL,
+     bitwise equal across n_chunks 1/2/4/8, every rank of a fast column
+     bitwise equal, every output element written (the allocator's free
+     block poisoned first); 1000 back-to-back calls on fresh inputs with
+     alternating chunk counts, each checked; kernel, plain version and the
+     library yardstick (one bmm over the fast columns with the pods folded
+     into K) timed;
+  9. phase 6 under the paper's deployment, ``auto`` + overlapped
+     projections: exact launch counts derived from the autotuner's picks,
+     tokens margin-gated against phase 6's flat and phase 4's tp=1, the
+     decode path's teacher-forced logits within (TF_MAX, TF_MEAN) of flat's
+     and tp=1's, which two planted faults in the fused path (the slow
+     exchange dropped; the fast sum dropped) must break, one profiled run
+     with the fused kernel's share of device time, the host cost of the
+     per-call ``auto`` resolution; then ``hier_rd`` + overlap once, so the
+     fused kernel runs at the prefill size too, gated the same way;
+ 10. phase 5 at tp=8 under ``auto`` + overlap: card against CPU.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -55,20 +74,23 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import hierarchical  # noqa: E402
+from repro_torch.core import autotune, hierarchical, overlap  # noqa: E402
 from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
-from repro_torch.kernels import (_build, decode_attention,  # noqa: E402
-                                 flash_attention, kernel_wrappers,
-                                 paged_decode_attention, rd_all_reduce)
+from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
+                                 decode_attention, flash_attention,
+                                 kernel_wrappers, paged_decode_attention,
+                                 rd_all_reduce)
+from repro_torch.kernels.fused_matmul_rd import \
+    collective_matmul_rd_ref  # noqa: E402
 from repro_torch.kernels.rd_allreduce import (  # noqa: E402
     RDWorkspace, rd_all_reduce_ref)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
-from repro_torch.models.transformer import (forward_lm,  # noqa: E402
-                                            init_params, make_plan)
+from repro_torch.models.transformer import (  # noqa: E402
+    decode_step, forward_lm, init_cache, init_params, make_plan, seed_cache)
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -83,6 +105,12 @@ PROMPT, NEW, S_MAX, BLOCK = 512, 64, 1024, 16
 # message after the fast reduce-scatter: B * d_model / 2 bf16 = 16 KB in
 # decode, 8 MB in prefill; 128 KB - 2 MB is the paper's range.
 PODS, FAST = 4, 2
+D_MODEL, D_FF = 2048, 8192
+# The fused kernel's (M, K) per rank on the path, N = d_model: attention
+# wo and MLP down in decode (M = B), and MLP down in prefill (M = B * S).
+FUSED_SHAPES = {"decode_wo": (B, HQ * HD // (PODS * FAST)),
+                "decode_mlp": (B, D_FF // (PODS * FAST)),
+                "prefill_mlp": (B * PROMPT, D_FF // (PODS * FAST))}
 RD_SIZES = (16 * 2**10, 128 * 2**10, 512 * 2**10, 2 * 2**20, 8 * 2**20)
 # bf16 greedy tokens of two reduction orders may differ where the top-1/
 # top-2 logit gap is within a few bf16 roundings of O(1) logits.
@@ -100,17 +128,21 @@ REPLACES = {
     "paged_decode_attention":
         "src/repro/kernels/decode_attention/kernel.py:73",
     "rd_all_reduce": "src/repro/kernels/rd_allreduce/kernel.py:34",
+    "collective_matmul_rd":
+        "src/repro/kernels/rd_allreduce/fused_matmul.py:43",
 }
 MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "decode_attention": "tp8_hier_rd",
              "paged_decode_attention": "tp1_paged",
-             "rd_all_reduce": "tp8_hier_rd"}
+             "rd_all_reduce": "tp8_hier_rd",
+             "collective_matmul_rd": "tp8_auto_overlap"}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "paged_decode_attention":
         "src/repro_torch/kernels/csrc/decode_attention.cu",
     "rd_all_reduce": "src/repro_torch/kernels/csrc/rd_allreduce.cu",
+    "collective_matmul_rd": "src/repro_torch/kernels/csrc/fused_matmul_rd.cu",
 }
 
 
@@ -119,14 +151,19 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of one call, CUDA events around each call, the
-    50 MB L2 flushed between calls (the model's layers find it cold)."""
+    """Median device time of one call, CUDA events around each call, the
+    50 MB L2 flushed between calls (the model's layers find it cold).  A
+    spin of about 0.1 ms after the flush keeps the device busy while the
+    host enqueues the start event and the call, so the host's enqueue time
+    does not show up as idle time between the events; the median drops
+    the occasional 0.1-0.3 ms stall of one call (often the first)."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(200_000)      # clock cycles, ~0.1 ms
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -134,7 +171,7 @@ def time_ms(fn, reps: int = 20) -> float:
         e.record()
         pairs.append((s, e))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
 def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
@@ -438,10 +475,11 @@ def phase_path() -> tuple:
     L = cfg.n_layers
     expect = {"dense": {"flash_attention": L,
                         "decode_attention": L * (NEW - 1),
-                        "paged_decode_attention": 0, "rd_all_reduce": 0},
+                        "paged_decode_attention": 0, "rd_all_reduce": 0,
+                        "collective_matmul_rd": 0},
               "paged": {"flash_attention": L, "decode_attention": 0,
                         "paged_decode_attention": L * (NEW - 1),
-                        "rd_all_reduce": 0}}
+                        "rd_all_reduce": 0, "collective_matmul_rd": 0}}
     launches = {}
     tokens = {}
     for layout, bsz in (("dense", 0), ("paged", BLOCK)):
@@ -465,7 +503,8 @@ def phase_path() -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def card_vs_cpu(tp: int, pods: int, strategy: str) -> None:
+def card_vs_cpu(tp: int, pods: int, strategy: str,
+                overlap_matmul: bool = False) -> None:
     """The same seeded weights (2 layers, full width, f32) on the card
     (kernels) and on the CPU (plain versions), at ``tp`` over a virtual
     mesh of ``pods`` x tp/pods ranks when tp > 1."""
@@ -477,6 +516,7 @@ def card_vs_cpu(tp: int, pods: int, strategy: str) -> None:
     mesh_g, ctx = mesh_and_ctx(tp, pods, ar_strategy=strategy,
                                device="cuda")
     mesh_c, _ = mesh_and_ctx(tp, pods, ar_strategy=strategy, device="cpu")
+    ctx = ctx.replace(overlap_matmul=overlap_matmul)
     gpu = init_params(ap, seed=SEED, device="cuda", mesh=mesh_g)
     cpu = copy.deepcopy(gpu).to("cpu")
     b, s, new = 2, 64, 8
@@ -662,7 +702,9 @@ def logits_gap(model, tokens, ap, ctx, mesh, ref_logits) -> tuple:
     return float(diff.max()), float(diff.mean())
 
 
-def phase_tp(tp1_tokens: np.ndarray, tp1_logits: torch.Tensor) -> dict:
+def phase_tp(tp1_tokens: np.ndarray, tp1_logits: torch.Tensor) -> tuple:
+    """Returns (launches by path, flat's tokens, their teacher-forced
+    logits on the host)."""
     cfg = get_config("llama3.2-1b")
     ap = make_plan(cfg, PODS * FAST)
     mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
@@ -680,7 +722,8 @@ def phase_tp(tp1_tokens: np.ndarray, tp1_logits: torch.Tensor) -> dict:
         expect = {"flash_attention": L, "decode_attention": L * (NEW - 1),
                   "paged_decode_attention": 0,
                   "rd_all_reduce": (2 * L + 1) * NEW
-                  if strategy == "hier_rd" else 0}
+                  if strategy == "hier_rd" else 0,
+                  "collective_matmul_rd": 0}
         eng = InferenceEngine(ap, model, ctx=sctx, mesh=mesh, s_max=S_MAX,
                               device="cuda")
         res, launches[f"tp8_{strategy}"] = run_path(
@@ -716,7 +759,298 @@ def phase_tp(tp1_tokens: np.ndarray, tp1_logits: torch.Tensor) -> dict:
             if fmx <= TF_MAX and fmean <= TF_MEAN:
                 raise AssertionError(f"the logits gate passed the planted "
                                      f"fault {kind}")
+    return launches, tokens["flat"], flat_logits.cpu()
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the fused GEMM + recursive-doubling kernel
+# ---------------------------------------------------------------------------
+
+
+def fused_bound(R: int, M: int, K: int, N: int, dtype) -> tuple:
+    """x and w read once, out written once; 2 R M K N operations."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    return bound_ms((R * M * K + R * K * N + R * M * N) * esz,
+                    2.0 * R * M * K * N, dtype)
+
+
+def fold_pods(x: torch.Tensor, w: torch.Tensor, pods: int, fast: int):
+    """The library yardstick's operands: (fast, M, pods K) and
+    (fast, pods K, N), one bmm computing every fast column's sum over the
+    pods (the same function, without the per-rank copies)."""
+    R, M, K = x.shape
+    xl = x.view(pods, fast, M, K).permute(1, 2, 0, 3).reshape(fast, M,
+                                                              pods * K)
+    wl = w.view(pods, fast, K, -1).transpose(0, 1).reshape(fast, pods * K, -1)
+    return xl.contiguous(), wl.contiguous()
+
+
+def phase_fused() -> dict:
+    ws = RDWorkspace()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def operands(R, M, K, dtype):
+        x = torch.randn((R, M, K), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((R, K, D_MODEL), generator=gen, device="cuda")
+             / K ** 0.5).to(dtype)
+        return x, w
+
+    n_checked = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for pods, fast in ((PODS, FAST), (2, 1)):
+            R = pods * fast
+            for label, (M, K) in FUSED_SHAPES.items():
+                x, w = operands(R, M, K, dtype)
+                ref = collective_matmul_rd_ref(x, w, pods)
+                outs = []
+                for chunks in (1, 2, 4, 8):
+                    # a NaN block of the output's size freed just before:
+                    # the allocator hands it to the kernel's output, so an
+                    # element the kernel does not write shows as NaN
+                    del_me = torch.full((R, M, D_MODEL), float("nan"),
+                                        dtype=dtype, device="cuda")
+                    del del_me
+                    outs.append(collective_matmul_rd(x, w, pods,
+                                                     n_chunks=chunks,
+                                                     workspace=ws))
+                torch.cuda.synchronize()
+                check_close(f"collective_matmul_rd {pods}x{fast} {label} "
+                            f"M={M} K={K}", outs[0], ref, dtype)
+                if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                    raise AssertionError("collective_matmul_rd: the output "
+                                         "depends on n_chunks")
+                o = outs[0].view(pods, fast, M, D_MODEL)
+                if not all(torch.equal(o[0], o[p]) for p in range(1, pods)):
+                    raise AssertionError("collective_matmul_rd: the ranks of "
+                                         "a fast column differ")
+                n_checked += 4
+    log(f"  collective_matmul_rd: {n_checked} calls within TOL of the plain "
+        "version, bitwise equal across n_chunks 1/2/4/8 and across the "
+        "pods of each fast column, every element written")
+    # back-to-back calls on fresh inputs at the decode MLP shape, chunk
+    # counts cycling, every result checked on the device (one sync)
+    M, K = FUSED_SHAPES["decode_mlp"]
+    R = PODS * FAST
+    x, w = operands(R, M, K, torch.bfloat16)
+    tol = TOL[torch.bfloat16]
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(1000):
+        x.copy_(torch.randn((R, M, K), generator=gen, device="cuda"))
+        out = collective_matmul_rd(x, w, PODS, n_chunks=(1, 2, 4, 8)[i % 4],
+                                   workspace=ws)
+        ref = collective_matmul_rd_ref(x, w, PODS)
+        bad += ((out.float() - ref.float()).abs()
+                > tol + tol * ref.float().abs()).any()
+    torch.cuda.synchronize()
+    log(f"  1000 back-to-back calls: {int(bad)} wrong "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if int(bad):
+        raise AssertionError("collective_matmul_rd: back-to-back calls "
+                             "disagree")
+    rec = {}
+    for label, (M, K) in FUSED_SHAPES.items():
+        x, w = operands(R, M, K, torch.bfloat16)
+        out = collective_matmul_rd(x, w, PODS, n_chunks=4, workspace=ws)
+        err = max_err(out, collective_matmul_rd_ref(x, w, PODS))
+        xl, wl = fold_pods(x, w, PODS, FAST)
+        t = (time_ms(lambda: collective_matmul_rd(x, w, PODS, n_chunks=4,
+                                                  workspace=ws)),
+             time_ms(lambda: collective_matmul_rd_ref(x, w, PODS)),
+             time_ms(lambda: torch.bmm(xl, wl)))
+        bnd = fused_bound(R, M, K, D_MODEL, torch.bfloat16)
+        log(f"  collective_matmul_rd [bfloat16] {PODS}x{FAST} ranks, "
+            f"{label} M={M} K={K} N={D_MODEL}: kernel_ms={t[0]:.4f} "
+            f"plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+            f"bound_ms={bnd[0]:.6f} ({bnd[1]})")
+        if label == "decode_mlp":      # the larger of the path's two shapes
+            rec = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                   "library_ms": t[2], "bound_ms": bnd[0],
+                   "bound_by": bnd[1]}
+    log(f"  workspace {ws.nbytes / 2**20:.1f} MiB")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the paper's deployment, auto + overlapped projections
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def planted_fused_fault(kind: str):
+    """A deliberate fault in the fused path, for the negative control of
+    the logits gate: ``skip_slow`` runs the kernel with no exchange (each
+    rank keeps its own GEMM), ``skip_fast`` drops the fast sum after it."""
+    if kind == "skip_slow":
+        patch = mock.patch.object(
+            overlap, "_fused_rd", lambda xm, wm, pods, k, mesh:
+            collective_matmul_rd(xm, wm, 1, n_chunks=k,
+                                 workspace=mesh.workspace))
+    else:
+        patch = mock.patch.object(overlap, "_fast_sum",
+                                  lambda y, pods, fast: y)
+    with patch:
+        yield
+
+
+def teacher_forced_decode(model, tokens: np.ndarray, ap, ctx=None,
+                          mesh=None) -> torch.Tensor:
+    """Logits (B, NEW, V) of the decode path over a generated sequence: the
+    prompt prefilled, then the sequence's own tokens fed one decode step
+    at a time (vocab shards gathered on a mesh)."""
+    kw = {} if ctx is None else {"ctx": ctx, "mesh": mesh}
+
+    def full(lg):
+        return lg if mesh is None else gather_vocab(lg)
+
+    with torch.inference_mode():
+        toks = torch.as_tensor(tokens, device="cuda").long()
+        lg, states = forward_lm(model, toks[:, :PROMPT], ap,
+                                collect_state=True, **kw)
+        cache = seed_cache(init_cache(ap, B, S_MAX, device="cuda",
+                                      mesh=mesh), states)
+        out = [full(lg)[:, -1]]
+        for t in range(NEW - 1):
+            pos = torch.full((B,), PROMPT + t, dtype=torch.int32,
+                             device="cuda")
+            lg, cache = decode_step(model, cache, toks[:, PROMPT + t], pos,
+                                    ap, **kw)
+            out.append(full(lg))
+    return torch.stack(out, dim=1)
+
+
+def gate(label: str, got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    diff = (got.float() - ref.float()).abs()
+    mx, mean = float(diff.max()), float(diff.mean())
+    log(f"    {label}: teacher-forced logits max|diff| {mx:.4f}, mean "
+        f"{mean:.3e} (limits {TF_MAX:g}, {TF_MEAN:g})")
+    return mx, mean
+
+
+def resolve_cost_us(ctx, mesh) -> float:
+    """Host time (µs) of the ``auto`` resolutions of one decode step: the
+    embedding's all-reduce and the 2 L overlapped projections each resolve
+    once per call against the active tuner."""
+    L = get_config("llama3.2-1b").n_layers
+    x = torch.empty((PODS * FAST, B, 1, D_MODEL), dtype=torch.bfloat16,
+                    device="cuda")
+    h = torch.empty((PODS * FAST, B, 1, D_FF // (PODS * FAST)),
+                    dtype=torch.bfloat16, device="cuda")
+    wd = torch.empty((PODS * FAST, D_FF // (PODS * FAST), D_MODEL),
+                     dtype=torch.bfloat16, device="cuda")
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        hierarchical._resolve_auto(x, ctx, mesh)
+    t_ar = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        overlap._resolve_auto_for_matmul(h, wd, ctx, mesh)
+    t_mm = (time.perf_counter() - t0) / n * 1e6
+    per_step = t_ar + 2 * L * t_mm
+    log(f"  auto resolution (host clock): {t_ar:.2f} us a tp_all_reduce, "
+        f"{t_mm:.2f} us a projection; {per_step:.1f} us a decode step "
+        f"(1 + {2 * L} calls)")
+    return per_step
+
+
+def expected_launches(ctx_strategy: str, tuner, L: int) -> dict:
+    """Launches of one generate under ``ctx_strategy`` with overlapped
+    projections: each call site's strategy is the tuner's pick for its
+    message (decode: B x d_model, prefill: B x S x d_model, bf16); under
+    hier_rd the projections run the fused kernel and the embedding's
+    all-reduce the RD kernel, one of each site per layer and step."""
+    def strat(msg):
+        if ctx_strategy != "auto":
+            return ctx_strategy
+        return tuner.choose(msg, FAST, PODS, "bfloat16").strategy
+    dec = strat(B * D_MODEL * 2) == "hier_rd"
+    pre = strat(B * PROMPT * D_MODEL * 2) == "hier_rd"
+    return {"flash_attention": L, "decode_attention": L * (NEW - 1),
+            "paged_decode_attention": 0,
+            "rd_all_reduce": (NEW - 1) * dec + pre,
+            "collective_matmul_rd": 2 * L * ((NEW - 1) * dec + pre)}
+
+
+def phase_overlap(tp1_tokens, tp1_logits, flat_tokens, flat_logits) -> dict:
+    cfg = get_config("llama3.2-1b")
+    L = cfg.n_layers
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="auto",
+                             device="cuda")
+    ctx = ctx.replace(overlap_matmul=True, overlap_chunks=4)
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    tuner = autotune.AutoTuner()        # the analytic table (PERLMUTTER)
+    for what, msg in (("decode", B * D_MODEL * 2),
+                      ("prefill", B * PROMPT * D_MODEL * 2)):
+        log(f"  auto picks for the {what} message ({msg} B a rank): "
+            f"{tuner.choose(msg, FAST, PODS, 'bfloat16')}")
+    launches = {}
+    expect = expected_launches("auto", tuner, L)
+    eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=S_MAX,
+                          ar_table=tuner, device="cuda")
+    res, launches["tp8_auto_overlap"] = run_path(
+        eng, prompts, "tp=8 auto+overlap", expect)
+    profile_generate(eng, prompts, share_of="fused_matmul_rd")
+    with autotune.using(tuner):
+        resolve_cost_us(ctx, mesh)
+    refs = {"flat": (flat_tokens, flat_logits), "tp=1": (tp1_tokens,
+                                                        tp1_logits)}
+    for name, (ref, ref_logits) in refs.items():
+        n = margin_gate(res.tokens, ref, top2_gap(ref_logits.to("cuda")),
+                        PROMPT, BF16_GAP)
+        log(f"  tp=8 auto+overlap tokens == {name} tokens on {n}/{B * NEW} "
+            f"steps gated at gap {BF16_GAP:g} (fully equal: "
+            f"{np.array_equal(res.tokens, ref)})")
+    # the decode path's logits over each reference's sequence, against the
+    # same decode path of the reference (flat at tp=8; tp=1)
+    model1 = init_params(make_plan(cfg, 1), seed=SEED, device="cuda")
+    ref_runs = {"flat": lambda t: teacher_forced_decode(
+                    model, t, ap, ctx.replace(ar_strategy="flat",
+                                              overlap_matmul=False), mesh),
+                "tp=1": lambda t: teacher_forced_decode(
+                    model1, t, make_plan(cfg, 1))}
+    for name, (ref, _) in refs.items():
+        with autotune.using(tuner):
+            mine = teacher_forced_decode(model, ref, ap, ctx, mesh)
+        want = ref_runs[name](ref)
+        mx, mean = gate(f"auto+overlap vs {name}, decode path", mine, want)
+        if mx > TF_MAX or mean > TF_MEAN:
+            raise AssertionError(f"tp=8 auto+overlap logits differ from "
+                                 f"{name}'s")
+        for kind in ("skip_slow", "skip_fast"):
+            with planted_fused_fault(kind), autotune.using(tuner):
+                bad = teacher_forced_decode(model, ref, ap, ctx, mesh)
+            fmx, fmean = gate(f"  planted fault {kind}", bad, want)
+            if fmx <= TF_MAX and fmean <= TF_MEAN:
+                raise AssertionError(f"the logits gate passed the planted "
+                                     f"fault {kind}")
+    del model1
+    # hier_rd + overlap: the fused kernel at the prefill size as well
+    hctx = ctx.replace(ar_strategy="hier_rd")
+    eng = InferenceEngine(ap, model, ctx=hctx, mesh=mesh, s_max=S_MAX,
+                          device="cuda")
+    res, launches["tp8_hier_rd_overlap"] = run_path(
+        eng, prompts, "tp=8 hier_rd+overlap", expected_launches(
+            "hier_rd", tuner, L))
+    for name, (ref, ref_logits) in refs.items():
+        ref_logits = ref_logits.to("cuda")
+        n = margin_gate(res.tokens, ref, top2_gap(ref_logits), PROMPT,
+                        BF16_GAP)
+        mx, mean = logits_gap(model, ref, ap, hctx, mesh, ref_logits)
+        log(f"  tp=8 hier_rd+overlap tokens == {name} tokens on {n}/"
+            f"{B * NEW} gated steps; teacher-forced logits (prefill path, "
+            f"fused kernel at M={B * (PROMPT + NEW - 1)}) max|diff| "
+            f"{mx:.4f}, mean {mean:.3e}")
+        if mx > TF_MAX or mean > TF_MEAN:
+            raise AssertionError(f"tp=8 hier_rd+overlap logits differ from "
+                                 f"{name}'s")
     return launches
+
 
 
 def main() -> int:
@@ -749,13 +1083,23 @@ def main() -> int:
     card_vs_cpu(1, 1, "flat")
     log(f"[6] llama3.2-1b tp=8 ({PODS} pods x {FAST}) full width and "
         "depth, bf16")
-    launches.update(phase_tp(tp1_tokens, tp1_logits))
+    tp_launches, flat_tokens, flat_logits = phase_tp(tp1_tokens, tp1_logits)
+    launches.update(tp_launches)
     log(f"[7] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd), full width, "
         "2 layers, float32")
     card_vs_cpu(PODS * FAST, PODS, "hier_rd")
-    # launches: the count of the run of the path each kernel serves
-    # (this slice's tp=8 hier_rd path, the paged kernel's tp=1 paged path),
-    # and every counted run's beside it
+    log("[8] fused GEMM + recursive-doubling kernel")
+    rec["collective_matmul_rd"] = phase_fused()
+    log(f"[9] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + overlapped "
+        "projections, full width and depth, bf16")
+    launches.update(phase_overlap(tp1_tokens, tp1_logits, flat_tokens,
+                                  flat_logits))
+    log(f"[10] card vs CPU at tp=8 ({PODS}x{FAST}, auto + overlap), full "
+        "width, 2 layers, float32")
+    card_vs_cpu(PODS * FAST, PODS, "auto", overlap_matmul=True)
+    # launches: the count of the run of the path each kernel serves (the
+    # tp=8 hier_rd path, the paged kernel's tp=1 paged path, the fused
+    # kernel's tp=8 auto + overlap path), and every counted run's beside it
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n],
                 "launches": launches[MAIN_PATH[n]][n], "path": MAIN_PATH[n],

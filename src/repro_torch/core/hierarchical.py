@@ -16,12 +16,15 @@ hier_rd_halving       RS(fast) + recursive halving/doubling(slow) + AG(fast),
                       plain torch (the reference has no kernel for it)
 ====================  =======================================================
 
-The quantized wire (``ar_quant``, ``compress_slow``, ``quant_ag``), the
-autotuned ``auto`` strategy, the overlapped projections and the
+``auto`` resolves per call to one of these from one rank's message bytes,
+the fast and slow sizes and the dtype name, through
+:func:`repro_torch.core.autotune.resolve` (``_resolve_auto``).  The
+quantized wire (``ar_quant``, ``compress_slow``, ``quant_ag``) and the
 sequence-parallel layout are not ported yet: a ctx asking for one raises.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -29,6 +32,7 @@ import torch
 from ..kernels import rd_allreduce as rdk
 from ..kernels.rd_allreduce.ref import is_pow2 as _is_pow2
 from ..kernels.rd_allreduce.ref import slow_sum
+from . import autotune
 from .mesh import VirtualMesh
 from .pcontext import ParallelCtx
 
@@ -37,12 +41,6 @@ Mesh = Optional[VirtualMesh]
 
 def _unported(ctx: ParallelCtx) -> None:
     """Raise on the knobs whose collectives arrive in a later slice."""
-    if ctx.ar_strategy == "auto":
-        raise NotImplementedError("ar_strategy='auto' (autotuned dispatch) "
-                                  "arrives with ROADMAP item 5")
-    if ctx.overlap_matmul:
-        raise NotImplementedError("overlap_matmul (collective matmul) "
-                                  "arrives with ROADMAP item 5")
     if ctx.ar_quant != "none" or ctx.compress_slow or ctx.quant_ag:
         raise NotImplementedError("the quantized wire (ar_quant, "
                                   "compress_slow, quant_ag) arrives with "
@@ -60,6 +58,13 @@ def axes_size(axes: Sequence[str], mesh: Mesh) -> int:
     return n
 
 
+@functools.lru_cache(maxsize=None)
+def dtype_name(dtype: torch.dtype) -> str:
+    """The reference's name of a dtype (``"bfloat16"``, ``"float32"``),
+    as the autotuner's table keys spell it."""
+    return str(dtype).removeprefix("torch.")
+
+
 def _sizes(ctx: ParallelCtx, mesh: Mesh):
     """(pods, fast) as the ctx sees the mesh: an axis the ctx leaves out
     counts 1 (``VirtualMesh.check_ctx`` makes sure it has size 1)."""
@@ -72,6 +77,18 @@ def tp_rank(ctx: ParallelCtx, mesh: Mesh, device=None) -> torch.Tensor:
     (R,) int64: ``layers.tp_rank`` for all ranks at once."""
     pods, fast = _sizes(ctx, mesh) if ctx.has_tp else (1, 1)
     return torch.arange(pods * fast, device=device)
+
+
+def _resolve_auto(x: torch.Tensor, ctx: ParallelCtx,
+                  mesh: Mesh) -> ParallelCtx:
+    """Concretize ``ar_strategy="auto"`` for this call from one rank's
+    message (x is (R, ...)), as the reference resolves each call site at
+    trace time; here it runs on the host at every call."""
+    if ctx.ar_strategy != "auto":
+        return ctx
+    pods, fast = _sizes(ctx, mesh)
+    return autotune.resolve(ctx, x.numel() // x.shape[0] * x.element_size(),
+                            fast, pods, dtype_name(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +223,7 @@ def tp_all_reduce(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
     fast axis; it must be divisible by the fast size."""
     if not ctx.has_tp:
         return x
+    ctx = _resolve_auto(x, ctx, mesh)
     _unported(ctx)
     return _tp_all_reduce_fp(x, ctx, mesh, scatter_dim)
 
@@ -217,6 +235,7 @@ def tp_reduce_scatter(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
     the pods, every hierarchical strategy through its own slow phase)."""
     if not ctx.has_tp:
         return x
+    ctx = _resolve_auto(x, ctx, mesh)
     _unported(ctx)
     pods, fast = _sizes(ctx, mesh)
     dim = dim % (x.dim() - 1)
@@ -239,4 +258,5 @@ def tp_all_gather(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
 
 
 __all__ = ["tp_all_reduce", "tp_reduce_scatter", "tp_all_gather",
-           "rd_all_reduce", "rd_halving_all_reduce", "axes_size", "tp_rank"]
+           "rd_all_reduce", "rd_halving_all_reduce", "axes_size", "tp_rank",
+           "dtype_name"]

@@ -11,8 +11,10 @@ which ``layers.tp_rank`` linearises the axes.  It is the picture that
 the collectives of :mod:`repro_torch.core.hierarchical` act across that
 axis.
 
-The mesh also owns the recursive-doubling kernel's persistent workspace
-(receive buffers and flags, the analogue of NVSHMEM's symmetric heap).
+The mesh also owns the persistent workspace of its exchange kernels (the
+recursive-doubling all-reduce and the fused GEMM + recursive doubling:
+receive buffers and flags, the analogue of NVSHMEM's symmetric heap, and
+the sequence counter both draw from).
 """
 from __future__ import annotations
 

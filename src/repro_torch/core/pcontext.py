@@ -7,14 +7,17 @@ and calls the collectives in :mod:`repro_torch.core.hierarchical`; with an
 empty ctx (no axes) every collective is the identity, so the same model
 code runs at tp=1 and over the virtual mesh.  The dataclass accepts every
 knob of the reference; the port's collectives raise
-``NotImplementedError`` on the ones not ported yet (``auto``,
-``ar_quant``, ``compress_slow``, ``quant_ag``, ``overlap_matmul``,
-``seq_parallel``), naming the ROADMAP item that brings them, and
-``transformer.check_layout`` raises on a non-empty ``dp``, ``fsdp`` or
-``sp`` (the virtual mesh holds the TP axes only).  The reference's
-constructors ``single_pod_ctx``/``multi_pod_ctx`` and its training knobs
-(``grad_reduce_strategy``, ``overlap_chunks``) are not copied: nothing in
-the port reads them yet.
+``NotImplementedError`` on the ones not ported yet (``ar_quant``,
+``compress_slow``, ``quant_ag``, ``seq_parallel``), naming the ROADMAP
+item that brings them, and ``transformer.check_layout`` raises on a
+non-empty ``dp``, ``fsdp`` or ``sp`` (the virtual mesh holds the TP axes
+only).  ``ar_strategy="auto"`` resolves per call against
+:mod:`repro_torch.core.autotune`, and ``overlap_matmul`` routes the
+row-parallel projections through :mod:`repro_torch.core.overlap` in
+``overlap_chunks`` column blocks.  The reference's constructors
+``single_pod_ctx``/``multi_pod_ctx`` and its training knob
+``grad_reduce_strategy`` are not copied: nothing in the port reads them
+yet.
 
 Axis roles
 ----------
@@ -62,9 +65,9 @@ class ParallelCtx:
     #   hier_ring        - RS(fast) + psum(slow, XLA ring) + AG(fast)
     #   hier_rd          - RS(fast) + recursive doubling(slow) + AG(fast)  [NVRAR]
     #   hier_rd_halving  - RS(fast) + recursive halving/doubling(slow) + AG(fast)
-    #   auto             - per-call-site dispatch on (message bytes, topology,
-    #                      dtype) via repro.core.autotune (resolved at trace
-    #                      time; see DESIGN.md §Overlap-and-autotune)
+    #   auto             - per-call dispatch on (message bytes, topology,
+    #                      dtype) via repro_torch.core.autotune, resolved
+    #                      on the host at every call
     ar_strategy: str = "flat"
     # Chunk count for pipelined slow-axis exchanges (paper Sec. 4.2.1 analogue).
     rd_chunks: int = 1
@@ -84,10 +87,13 @@ class ParallelCtx:
     # the decode cache (see DESIGN.md §12).
     ar_quant: str = "none"
     # Overlapped collective-matmul: route row-parallel output projections
-    # (attention wo / MLP down-proj) through repro.core.overlap so chunk q's
-    # all-reduce pipelines against chunk q+1's GEMM (Flash-Communication
-    # style comm/compute fusion; see DESIGN.md §Overlap-and-autotune).
+    # (attention wo / MLP down-proj) through repro_torch.core.overlap so
+    # chunk q's all-reduce pipelines against chunk q+1's GEMM (under
+    # hier_rd: inside the fused GEMM + recursive-doubling kernel).
     overlap_matmul: bool = False
+    # Column blocks of the overlapped projections (rounded down to a count
+    # that divides the output features; see overlap._resolve_chunks).
+    overlap_chunks: int = 4
     # Sequence-parallel prefill (Megatron-SP residual layout): the residual
     # stream stays sequence-sharded over tp_fast between sublayers — the
     # row-parallel projections (attention wo / MLP down) end in

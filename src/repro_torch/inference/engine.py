@@ -25,7 +25,7 @@ from ..models import layers as L
 from ..models.transformer import (ArchPlan, DenseLM, check_layout,
                                   decode_step, forward_lm, init_cache,
                                   seed_cache)
-from ..parallel.steps import build_decode_step, build_prefill
+from ..parallel.steps import ARTable, build_decode_step, build_prefill
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -58,7 +58,7 @@ class InferenceEngine:
     def __init__(self, ap: ArchPlan, model: DenseLM, *,
                  ctx: ParallelCtx = LOCAL, mesh=None, s_max: int = 4096,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-                 block_size: int = 0,
+                 block_size: int = 0, ar_table: ARTable = None,
                  device: Optional[str | torch.device] = None):
         """``block_size > 0`` selects the paged KV layout (identity block
         table).  ``temperature > 0`` samples (optionally top-k) from a
@@ -69,7 +69,11 @@ class InferenceEngine:
         tensor-parallel path: dense cache only, as the reference's engine
         (a paged cache raises), and greedy sampling over the vocab shards,
         as the reference's mesh steps; ``temperature > 0`` raises rather
-        than quietly going greedy."""
+        than quietly going greedy.  ``ar_table`` (a persisted autotune
+        table's path, or an ``AutoTuner``) is what the mesh steps resolve
+        ``ar_strategy="auto"`` against (default: ``REPRO_AR_TABLE``, else
+        the analytic tuner); ``ctx.overlap_matmul`` overlaps the
+        row-parallel projections with their all-reduces."""
         self.ap = ap
         self.cfg = ap.cfg
         self.ctx = ctx
@@ -96,8 +100,10 @@ class InferenceEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         if mesh is not None:
-            self._mesh_prefill = build_prefill(ap, ctx, mesh, s_max=s_max)
-            self._mesh_decode = build_decode_step(ap, ctx, mesh)
+            self._mesh_prefill = build_prefill(ap, ctx, mesh, s_max=s_max,
+                                               ar_table=ar_table)
+            self._mesh_decode = build_decode_step(ap, ctx, mesh,
+                                                  ar_table=ar_table)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -12,6 +12,9 @@ The kernel's receive buffers and flags persist across calls in an
 :class:`RDWorkspace`, which the mesh owns (the port's analogue of
 NVSHMEM's symmetric heap): it grows to the largest message and is reused
 by every later call on the same stream, and the kernel allocates nothing.
+The fused GEMM + recursive-doubling kernel
+(:mod:`repro_torch.kernels.fused_matmul_rd`) keeps its own buffers and
+flags in the same workspace and draws from the same sequence counter.
 """
 from __future__ import annotations
 
@@ -47,26 +50,35 @@ def rd_pieces(m_units: int, n_ranks: int, n_chunks: int,
 
 
 class RDWorkspace:
-    """Receive buffers (steps, R, m) and flags (steps, R, stride) of the RD
-    kernel, per device, plus the sequence number of the next call.  Flags
-    start at zero and only ever hold a call's sequence number, so they are
-    never reset; a buffer grows (zeroed anew) when a call needs more."""
+    """Receive buffers and flags of the exchange kernels, per device and
+    per kernel (``kernel`` names it: "rd" for this kernel's (steps, R, m)
+    buffers and (steps, R, stride) flags, "fused_matmul_rd" for the fused
+    kernel's), plus the sequence number of the next call.
+
+    The two kernels' flags are separate arrays, and both kernels take
+    their numbers from the one counter (:meth:`next_seq`): every launch,
+    of either kernel, waits for a number no earlier launch has written, so
+    a flag left by any earlier call can never satisfy it.  Flags start at
+    zero and only ever hold a call's sequence number, so they are never
+    reset; a buffer grows (flags zeroed anew) when a call needs more, and
+    is never shrunk or reallocated per call."""
 
     def __init__(self):
-        self._recv: Dict[torch.device, torch.Tensor] = {}
-        self._flags: Dict[torch.device, torch.Tensor] = {}
+        self._recv: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+        self._flags: Dict[Tuple[str, torch.device], torch.Tensor] = {}
         self._seq = 0
 
-    def buffers(self, device: torch.device, recv_bytes: int,
-                n_flags: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        recv = self._recv.get(device)
+    def buffers(self, device: torch.device, recv_bytes: int, n_flags: int,
+                kernel: str = "rd") -> Tuple[torch.Tensor, torch.Tensor]:
+        key = (kernel, device)
+        recv = self._recv.get(key)
         if recv is None or recv.numel() < recv_bytes:
             recv = torch.empty(recv_bytes, dtype=torch.uint8, device=device)
-            self._recv[device] = recv
-        flags = self._flags.get(device)
+            self._recv[key] = recv
+        flags = self._flags.get(key)
         if flags is None or flags.numel() < n_flags:
             flags = torch.zeros(n_flags, dtype=torch.int32, device=device)
-            self._flags[device] = flags
+            self._flags[key] = flags
         return recv, flags
 
     def next_seq(self) -> int:

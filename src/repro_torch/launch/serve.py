@@ -6,11 +6,17 @@
         --block-size 16 --device cpu        # smoke config on the CPU
     python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
         --full --tp 8 --pods 4 --ar-strategy hier_rd   # TP on one card
+    python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
+        --full --tp 8 --pods 4 --ar-strategy auto --overlap   # the paper's
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
 ``--tp > 1`` runs the tensor-parallel path over a virtual mesh of
-``--pods`` x ``tp/pods`` ranks on that one device.
+``--pods`` x ``tp/pods`` ranks on that one device; ``--ar-strategy auto``
+picks the all-reduce per call from the autotune table (``--ar-table``,
+else the analytic model), and ``--overlap`` overlaps the row-parallel
+projections with their all-reduces (under ``hier_rd`` in the fused GEMM +
+recursive-doubling kernel).
 """
 from __future__ import annotations
 
@@ -47,7 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ar-strategy", choices=list(AR_STRATEGIES),
                    default="flat",
                    help="TP all-reduce strategy (hier_rd: the recursive-"
-                        "doubling kernel on the slow axis)")
+                        "doubling kernel on the slow axis; auto: per call "
+                        "from the autotune table)")
+    p.add_argument("--ar-table", default=None,
+                   help="persisted autotune table (JSON) for --ar-strategy "
+                        "auto")
+    p.add_argument("--overlap", action="store_true",
+                   help="overlapped collective-matmul projections")
+    p.add_argument("--overlap-chunks", type=int, default=4,
+                   help="column blocks of the overlapped projections")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ways (virtual mesh when > 1)")
     p.add_argument("--pods", type=int, default=1,
@@ -65,13 +79,16 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
     mesh, ctx = mesh_and_ctx(args.tp, args.pods,
                              ar_strategy=args.ar_strategy, device=device)
+    ctx = ctx.replace(overlap_matmul=args.overlap,
+                      overlap_chunks=args.overlap_chunks)
     ap = make_plan(cfg, max(args.tp, 1))
     s_max = args.prompt_len + args.max_new + 8
     if args.block_size:
         s_max = -(-s_max // args.block_size) * args.block_size
     model = init_params(ap, seed=args.seed, device=device, mesh=mesh)
     eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
-                          block_size=args.block_size, device=device)
+                          block_size=args.block_size, ar_table=args.ar_table,
+                          device=device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     res = eng.generate(prompts, args.max_new)
@@ -79,6 +96,8 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
     if mesh is not None:
         layout += (f" tp={args.tp} ({mesh.pods}x{mesh.fast}) "
                    f"ar={args.ar_strategy}")
+        if args.overlap:
+            layout += f" overlap({args.overlap_chunks})"
     print(f"[serve] {cfg.name} on {device}: batch {args.batch} prompt "
           f"{args.prompt_len} new {args.max_new} {layout} "
           f"| prefill {res.prefill_s * 1e3:.1f}ms "

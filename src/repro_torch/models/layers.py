@@ -11,8 +11,10 @@ leading rank axis, (R, B, S, D), and otherwise keep the JAX layouts: q/k/v
 the ranks (the JAX package left them to XLA); attention runs through the
 kernel wrappers in :mod:`repro_torch.kernels` with the ranks folded into
 the batch (R*B sequences, each rank's own heads), not through a port of
-``attn_core``.  TP partial sums are returned by the layers and reduced by
-the caller with :func:`repro_torch.core.hierarchical.tp_all_reduce`.
+``attn_core``.  The row-parallel projections (attention ``wo``, MLP
+down) are left to the caller: the layers return their inputs (the masked
+heads, ``mlp_hidden``) and ``transformer._residual_proj`` projects and
+reduces them, overlapped or not.
 """
 from __future__ import annotations
 
@@ -108,16 +110,14 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return m
 
 
-def _project_out(o: torch.Tensor, wo: torch.Tensor,
-                 q_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """o (R, B, S, Q, hd) -> the TP-partial projection (R, B, S, D).
-    ``q_mask`` (R, Q) zeroes dead q slots, as the JAX layers' q-mask
-    multiply (``take_local(q_mask_tbl)``) does; None when there are none."""
-    if q_mask is not None:
-        o = o * q_mask[:, None, None, :, None].to(o.dtype)
-    R, Q, hd, D = wo.shape
-    return rank_matmul(o.reshape(*o.shape[:3], Q * hd),
-                       wo.reshape(R, Q * hd, D))
+def _masked_heads(o: torch.Tensor,
+                  q_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """o (R, B, S, Q, hd) with dead q slots zeroed: ``q_mask`` (R, Q), as
+    the JAX layers' q-mask multiply (``take_local(q_mask_tbl)``); None
+    when there are none."""
+    if q_mask is None:
+        return o
+    return o * q_mask[:, None, None, :, None].to(o.dtype)
 
 
 def _rotated_qkv(p: Params, h: torch.Tensor, cfg: ModelConfig,
@@ -141,15 +141,16 @@ def attention_prefill(p: Params, h: torch.Tensor, cfg: ModelConfig, *,
     """Causal full-sequence attention through the flash kernel (the port of
     ``transformer._attention_with_kv``).  h (R, B, S, D); ``positions``
     (S,) are the token positions ``0..S-1`` (the kernel masks by index).
-    Returns the TP-partial projected output (R, B, S, D) and the rotated
-    (k, v), (R, B, S, U, hd).  Query slot ``s*g + j`` reads kv slot ``s``
-    (``GQAPlan``), which is the kernels' ``h // g``; one launch serves
-    every rank."""
+    Returns the masked heads (R, B, S, Q, hd), which the caller projects
+    by ``wo`` and reduces (``transformer._residual_proj``; the reference's
+    ``project=False``), and the rotated (k, v), (R, B, S, U, hd).  Query
+    slot ``s*g + j`` reads kv slot ``s`` (``GQAPlan``), which is the
+    kernels' ``h // g``; one launch serves every rank."""
     q, k, v = _rotated_qkv(p, h, cfg, positions)
     o = flash_attention(_fold(q).transpose(1, 2), _fold(k).transpose(1, 2),
                         _fold(v).transpose(1, 2), causal=True,
                         window=cfg.sliding_window).transpose(1, 2)
-    return _project_out(o.reshape(q.shape), p["wo"], q_mask), (k, v)
+    return _masked_heads(o.reshape(q.shape), q_mask), (k, v)
 
 
 def attention_decode(p: Params, h: torch.Tensor,
@@ -170,8 +171,9 @@ def attention_decode(p: Params, h: torch.Tensor,
     trash block 0.
 
     Unlike the JAX layer, which returns a rebuilt cache, the new K/V are
-    written into ``cache`` in place and only the TP-partial projected
-    output (R, B, 1, D) is returned.
+    written into ``cache`` in place and only the masked heads
+    (R, B, 1, Q, hd) are returned, for the caller to project (the
+    reference's ``project=False``).
     """
     q, k_new, v_new = _rotated_qkv(p, h, cfg, positions[:, None])
     k, v = cache["k"], cache["v"]
@@ -192,7 +194,7 @@ def attention_decode(p: Params, h: torch.Tensor,
     else:
         o = paged_decode_attention(qf, k, v, block_tbl, kv_positions,
                                    window=cfg.sliding_window)
-    return _project_out(o.reshape(q.shape), p["wo"], q_mask)
+    return _masked_heads(o.reshape(q.shape), q_mask)
 
 
 def mlp_hidden(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -207,11 +209,6 @@ def mlp_hidden(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def mlp_down_w(p: Params, cfg: ModelConfig) -> torch.Tensor:
     """The row-sharded down-projection weight ((R, F_local, D))."""
     return p["wd"]
-
-
-def mlp(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Returns the TP-partial output (R, B, S, D)."""
-    return rank_matmul(mlp_hidden(p, h, cfg), mlp_down_w(p, cfg))
 
 
 def embed_lookup(p: Params, ids: torch.Tensor, ctx: ParallelCtx, mesh,
@@ -284,6 +281,6 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 
 __all__ = ["rms_norm", "apply_norm", "rope_tables", "apply_rope",
-           "rank_matmul", "attention_prefill", "attention_decode", "mlp",
+           "rank_matmul", "attention_prefill", "attention_decode",
            "mlp_hidden", "mlp_down_w", "embed_lookup", "lm_logits",
            "greedy_sample", "sample_token", "NEG_INF"]

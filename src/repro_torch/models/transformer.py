@@ -8,10 +8,12 @@ parameters in the JAX package's layouts, each stacked per rank
 ``nn.ModuleList``.  The forward functions are plain functions over it,
 with a Python loop over the layers where JAX scanned a stacked pytree, and
 one code path for every tp: activations carry the rank axis, each layer's
-two row-parallel partial sums and the vocab-parallel embedding go through
-``tp_all_reduce``.  KV caches are dicts of tensors with a leading layer
-axis and the ranks folded into the batch, updated in place (JAX rebuilt
-them with ``.at[].set``).
+two row-parallel projections go through ``_residual_proj`` (their partial
+sums reduced by ``tp_all_reduce``, or with ``ctx.overlap_matmul`` the
+projection and its reduction overlapped in ``core/overlap.py``), and the
+vocab-parallel embedding through ``tp_all_reduce``.  KV caches are dicts
+of tensors with a leading layer axis and the ranks folded into the batch,
+updated in place (JAX rebuilt them with ``.at[].set``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from ..core import hierarchical as hier
+from ..core import overlap as ov
 from ..core.pcontext import LOCAL, ParallelCtx
 from ..parallel.sharding import shard_params
 from . import layers as L
@@ -183,6 +186,24 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
 # ---------------------------------------------------------------------------
 
 
+def _use_overlap(ctx: ParallelCtx) -> bool:
+    """Route the row-parallel output projections through the overlapped
+    collective matmul."""
+    return ctx.overlap_matmul and ctx.has_tp
+
+
+def _residual_proj(x: torch.Tensor, lhs: torch.Tensor, w: torch.Tensor,
+                   ctx: ParallelCtx, mesh) -> torch.Tensor:
+    """x plus the TP-reduced projection of ``lhs`` (the pre-projection
+    activation, (R, B, S, *c)) by the row-sharded ``w`` ((R, *c, D)):
+    overlapped when the ctx asks for it, else the projection then
+    ``tp_all_reduce``."""
+    if _use_overlap(ctx):
+        return x + ov.collective_matmul(lhs, w, ctx, mesh)
+    return x + hier.tp_all_reduce(ov.project(lhs, w), ctx, mesh,
+                                  scatter_dim=-1)
+
+
 def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ctx: ParallelCtx = LOCAL, mesh=None, *,
                   positions: torch.Tensor,
@@ -190,16 +211,16 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One causal block over the full sequence, x (R, B, S, D) replicated.
     Returns (x, (k, v)) with this layer's rotated K/V (R, B, S, U, hd),
-    the prefill cache seed.  Both sublayer outputs are TP partials reduced
-    by ``tp_all_reduce`` (``_residual`` of the reference, no SP, no
-    overlap)."""
+    the prefill cache seed.  Both row-parallel projections go through
+    ``_residual_proj`` (no SP)."""
     cfg = ap.cfg
     h = L.apply_norm(x, bp.ln1, cfg)
-    attn_out, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions,
-                                       q_mask=q_mask)
-    x = x + hier.tp_all_reduce(attn_out, ctx, mesh, scatter_dim=-1)
-    out = L.mlp(bp.mlp, L.apply_norm(x, bp.ln2, cfg), cfg)
-    return x + hier.tp_all_reduce(out, ctx, mesh, scatter_dim=-1), kv
+    heads, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions,
+                                    q_mask=q_mask)
+    x = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
+    h2 = L.apply_norm(x, bp.ln2, cfg)
+    return _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
+                          L.mlp_down_w(bp.mlp, cfg), ctx, mesh), kv
 
 
 def _unranked(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -323,17 +344,18 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
                  q_mask: Optional[torch.Tensor] = None,
                  block_tbl: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block, one token.  x: (R, B, 1, D) replicated; cache_l: this
-    layer's {"k", "v"} (written in place).  Every sublayer output is a TP
-    partial reduced by ``tp_all_reduce``, the collective the paper
-    targets.  Returns x."""
+    layer's {"k", "v"} (written in place).  Both row-parallel projections
+    go through ``_residual_proj``: their reduction is the collective the
+    paper targets.  Returns x."""
     cfg = ap.cfg
     h = L.apply_norm(x, bp.ln1, cfg)
-    attn = L.attention_decode(bp.attn, h, cache_l, cfg, positions=positions,
-                              kv_positions=kv_positions, q_mask=q_mask,
-                              block_tbl=block_tbl)
-    x = x + hier.tp_all_reduce(attn, ctx, mesh, scatter_dim=-1)
-    out = L.mlp(bp.mlp, L.apply_norm(x, bp.ln2, cfg), cfg)
-    return x + hier.tp_all_reduce(out, ctx, mesh, scatter_dim=-1)
+    heads = L.attention_decode(bp.attn, h, cache_l, cfg, positions=positions,
+                               kv_positions=kv_positions, q_mask=q_mask,
+                               block_tbl=block_tbl)
+    x = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
+    h2 = L.apply_norm(x, bp.ln2, cfg)
+    return _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
+                          L.mlp_down_w(bp.mlp, cfg), ctx, mesh)
 
 
 def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,

@@ -6,14 +6,20 @@
 JAX wrapped these in ``shard_map``; here they are thin closures over
 (ap, ctx, mesh), kept so a reader finds the counterparts.  Both sample
 greedily over the vocab shards (``layers.greedy_sample``), as the
-reference's mesh steps do.
+reference's mesh steps do.  ``ar_table`` (a path, an
+:class:`~repro_torch.core.autotune.AutoTuner` or None) is resolved at
+build time and every call of the step runs under that tuner, so each
+``ar_strategy="auto"`` call site of THIS step resolves against THIS table
+(the reference activates it around tracing; the port resolves at every
+call).
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
+from ..core import autotune
 from ..core.mesh import VirtualMesh
 from ..core.pcontext import ParallelCtx
 from ..models import layers as L
@@ -22,17 +28,22 @@ from ..models.transformer import (ArchPlan, Cache, DenseLM, check_layout,
                                   seed_cache)
 
 
+ARTable = Optional[Union[str, autotune.AutoTuner]]
+
+
 def build_prefill(ap: ArchPlan, ctx: ParallelCtx, mesh: VirtualMesh, *,
-                  s_max: int
+                  s_max: int, ar_table: ARTable = None
                   ) -> Callable[[DenseLM, torch.Tensor],
                                 Tuple[torch.Tensor, Cache]]:
     """Prefill: (model, tokens (B, S)) -> (first tokens (B,) int32, the
     dense decode cache seeded with the prompt's K/V)."""
     check_layout(ap, ctx, mesh)
+    tuner = autotune.tuner_for(ar_table)
 
     def prefill(model: DenseLM, tokens: torch.Tensor):
-        logits, states = forward_lm(model, tokens, ap, ctx, mesh,
-                                    collect_state=True)
+        with autotune.using(tuner):
+            logits, states = forward_lm(model, tokens, ap, ctx, mesh,
+                                        collect_state=True)
         cache = init_cache(ap, tokens.shape[0], s_max, device=tokens.device,
                            mesh=mesh)
         seed_cache(cache, states)
@@ -42,16 +53,19 @@ def build_prefill(ap: ArchPlan, ctx: ParallelCtx, mesh: VirtualMesh, *,
     return prefill
 
 
-def build_decode_step(ap: ArchPlan, ctx: ParallelCtx, mesh: VirtualMesh
+def build_decode_step(ap: ArchPlan, ctx: ParallelCtx, mesh: VirtualMesh, *,
+                      ar_table: ARTable = None
                       ) -> Callable[..., Tuple[torch.Tensor, Cache]]:
     """One-token decode across the batch: (model, cache, tokens, positions)
     -> (next tokens (B,) int32, cache updated in place)."""
     check_layout(ap, ctx, mesh)
+    tuner = autotune.tuner_for(ar_table)
 
     def step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
              positions: torch.Tensor):
-        logits, cache = decode_step(model, cache, tokens, positions, ap, ctx,
-                                    mesh)
+        with autotune.using(tuner):
+            logits, cache = decode_step(model, cache, tokens, positions, ap,
+                                        ctx, mesh)
         return L.greedy_sample(logits, ctx, mesh, ap.cfg.vocab_size), cache
 
     return step

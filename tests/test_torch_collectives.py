@@ -2,7 +2,9 @@
 package's ``core/hierarchical.py``, run under nested ``jax.vmap`` with the
 mesh's axis names (the same rank-batched picture as the port's leading
 rank axis, rank = pod * fast + f), plus the recursive-doubling schedule's
-properties and the knobs left for later slices."""
+properties and the knobs left for later slices (``auto`` and
+``overlap_matmul`` run since they were ported: tests/test_torch_overlap.py
+and tests/test_torch_autotune.py)."""
 import numpy as np
 import pytest
 
@@ -134,13 +136,10 @@ def test_cpu_wrapper_runs_the_plain_version_without_launching():
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(ar_strategy="auto"), "item 5"),
     (dict(ar_quant="int8"), "item 9"),
     (dict(compress_slow=True), "item 9"),
-    (dict(overlap_matmul=True), "item 5"),
     (dict(seq_parallel="on"), "item 9"),
-], ids=["auto", "ar_quant", "compress_slow", "overlap_matmul",
-        "seq_parallel"])
+], ids=["ar_quant", "compress_slow", "seq_parallel"])
 def test_knobs_left_for_later_raise(knob, item):
     kw = dict(ar_strategy="hier_rd")
     kw.update(knob)
