@@ -50,7 +50,27 @@ Phases (any failure exits non-zero and prints no result line):
      with the fused kernel's share of device time, the host cost of the
      per-call ``auto`` resolution; then ``hier_rd`` + overlap once, so the
      fused kernel runs at the prefill size too, gated the same way;
- 10. phase 5 at tp=8 under ``auto`` + overlap: card against CPU.
+ 10. phase 5 at tp=8 under ``auto`` + overlap: card against CPU;
+ 11. the group-quantized pack and unpack kernels (kernel 6) against their
+     plain versions, bitwise (payload, scales, dequant), for bits 8/4 x
+     group 1/2/64/128 x f32/bf16 inputs at the quantized path's shapes
+     (decode RS 128 x 1024, RD 8 x 8192, AG 64 x 1024, prefill RS
+     65536 x 1024); NaN/+-Inf poisoning group by group, unaligned row
+     counts and starts, 1000 back-to-back calls on fresh inputs, each
+     checked; kernel and plain version timed per shape (no single
+     PyTorch call computes the function: no library yardstick);
+ 12. phase 6 on the quantized wire, hier_rd + int8 and hier_rd + int4,
+     error feedback on: exact launch counts derived from the dispatch,
+     one profiled int8 run with kernel 6's share of device time, the
+     decode path's teacher-forced logits within (QUANT_TF[bits]) of
+     flat's and tp=1's decode paths, which two planted faults (unpack
+     ignoring the scale; the quantized slow exchange skipped) must
+     break, and the same gate without error feedback, printed only;
+ 13. the paper's deployment on the quantized wire, ``auto`` + ``auto``
+     quantization + overlap: launch counts derived from the tuner's
+     picks (kernel 6 in prefill at int4, kernel 5 in decode), tokens
+     margin-gated against flat's and tp=1's;
+ 14. phase 5 at tp=8 under hier_rd + int8: card against CPU.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -80,7 +100,8 @@ from repro_torch.inference.engine import InferenceEngine  # noqa: E402
 from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
                                  decode_attention, flash_attention,
                                  kernel_wrappers, paged_decode_attention,
-                                 rd_all_reduce)
+                                 quant_pack, quantize_pack, rd_all_reduce,
+                                 unpack_dequant)
 from repro_torch.kernels.fused_matmul_rd import \
     collective_matmul_rd_ref  # noqa: E402
 from repro_torch.kernels.rd_allreduce import (  # noqa: E402
@@ -90,7 +111,8 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    decode_step, forward_lm, init_cache, init_params, make_plan, seed_cache)
+    decode_step, ef_sites_for, forward_lm, init_cache, init_params,
+    make_plan, seed_cache)
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -130,12 +152,16 @@ REPLACES = {
     "rd_all_reduce": "src/repro/kernels/rd_allreduce/kernel.py:34",
     "collective_matmul_rd":
         "src/repro/kernels/rd_allreduce/fused_matmul.py:43",
+    "quantize_pack": "src/repro/kernels/rd_allreduce/quant_kernel.py:29",
+    "unpack_dequant": "src/repro/kernels/rd_allreduce/quant_kernel.py:45",
 }
 MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "decode_attention": "tp8_hier_rd",
              "paged_decode_attention": "tp1_paged",
              "rd_all_reduce": "tp8_hier_rd",
-             "collective_matmul_rd": "tp8_auto_overlap"}
+             "collective_matmul_rd": "tp8_auto_overlap",
+             "quantize_pack": "tp8_hier_rd_int8",
+             "unpack_dequant": "tp8_hier_rd_int8"}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -143,7 +169,18 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/decode_attention.cu",
     "rd_all_reduce": "src/repro_torch/kernels/csrc/rd_allreduce.cu",
     "collective_matmul_rd": "src/repro_torch/kernels/csrc/fused_matmul_rd.cu",
+    "quantize_pack": "src/repro_torch/kernels/csrc/quant_pack.cu",
+    "unpack_dequant": "src/repro_torch/kernels/csrc/quant_pack.cu",
 }
+# Kernel 6 at the quantized path's shapes (rows, D) at tp=8 = 4 x 2,
+# batch 8, prompt 512: the decode reduce-scatter packs B x d_model / 2
+# pieces of every rank (R B 2 rows), the recursive doubling each rank's
+# whole shard (R rows of B d_model / 2), the all-gather each rank's shard
+# rows (R B rows); prefill packs R B S 2 rows.
+QP_SHAPES = {"decode_rs": (PODS * FAST * B * 2, D_MODEL // 2),
+             "decode_rd": (PODS * FAST, B * D_MODEL // 2),
+             "decode_ag": (PODS * FAST * B, D_MODEL // 2),
+             "prefill_rs": (PODS * FAST * B * PROMPT * 2, D_MODEL // 2)}
 
 
 def log(msg: str) -> None:
@@ -448,6 +485,7 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
     eng.generate(prompts, 2)          # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    expect = {**dict.fromkeys(counts(), 0), **expect}
     reset_counts()
     res = eng.generate(prompts, NEW)
     got = counts()
@@ -504,10 +542,15 @@ def phase_path() -> tuple:
 
 
 def card_vs_cpu(tp: int, pods: int, strategy: str,
-                overlap_matmul: bool = False) -> None:
+                overlap_matmul: bool = False, ar_quant: str = "none",
+                tol: float = 1e-3) -> None:
     """The same seeded weights (2 layers, full width, f32) on the card
     (kernels) and on the CPU (plain versions), at ``tp`` over a virtual
-    mesh of ``pods`` x tp/pods ranks when tp > 1."""
+    mesh of ``pods`` x tp/pods ranks when tp > 1; logits within ``tol``,
+    greedy tokens equal wherever the CPU's top-1/top-2 gap is above
+    2 ``tol``.  f32 sums over 2048- and 8192-long reductions are taken in
+    another order on the card than on the CPU: ~1e-5 on O(1) logits,
+    hence the default ``tol``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
@@ -516,7 +559,7 @@ def card_vs_cpu(tp: int, pods: int, strategy: str,
     mesh_g, ctx = mesh_and_ctx(tp, pods, ar_strategy=strategy,
                                device="cuda")
     mesh_c, _ = mesh_and_ctx(tp, pods, ar_strategy=strategy, device="cpu")
-    ctx = ctx.replace(overlap_matmul=overlap_matmul)
+    ctx = ctx.replace(overlap_matmul=overlap_matmul, ar_quant=ar_quant)
     gpu = init_params(ap, seed=SEED, device="cuda", mesh=mesh_g)
     cpu = copy.deepcopy(gpu).to("cpu")
     b, s, new = 2, 64, 8
@@ -526,9 +569,6 @@ def card_vs_cpu(tp: int, pods: int, strategy: str,
     def full(logits):
         return logits if mesh_g is None else gather_vocab(logits)
 
-    # f32 sums over 2048- and 8192-long reductions are taken in another
-    # order on the card than on the CPU: ~1e-5 on O(1) logits.
-    tol = 1e-3
     with torch.inference_mode():
         lg, _ = forward_lm(gpu, torch.as_tensor(prompts, device="cuda"), ap,
                            ctx, mesh_g)
@@ -543,13 +583,13 @@ def card_vs_cpu(tp: int, pods: int, strategy: str,
                             device="cuda").generate(prompts, new)
     res_c = InferenceEngine(ap, cpu, ctx=ctx, mesh=mesh_c, s_max=s + new,
                             device="cpu").generate(prompts, new)
-    with torch.inference_mode():
-        tf, _ = forward_lm(cpu, torch.as_tensor(res_c.tokens[:, :-1],
-                                                dtype=torch.long), ap, ctx,
-                           mesh_c)
-    n = margin_gate(res_g.tokens, res_c.tokens, top2_gap(full(tf)), s,
-                    2 * tol)
-    log(f"  greedy tokens card == CPU on {n}/{b * new} margin-gated steps "
+    # both devices' decode paths teacher-forced on the CPU's sequence
+    tf = {dev: teacher_forced_decode(m, res_c.tokens, ap, ctx, mesh,
+                                     prompt=s, s_max=s + new, device=dev)
+          for dev, m, mesh in (("cuda", gpu, mesh_g), ("cpu", cpu, mesh_c))}
+    n = provable_gate(res_g.tokens, res_c.tokens, tf["cuda"], tf["cpu"], s)
+    log(f"  greedy tokens card == CPU on {n}/{b * new} steps whose CPU "
+        f"top-1/top-2 gap is above twice the card-CPU logit difference "
         f"(fully equal: {np.array_equal(res_g.tokens, res_c.tokens)})")
 
 
@@ -896,36 +936,70 @@ def planted_fused_fault(kind: str):
 
 
 def teacher_forced_decode(model, tokens: np.ndarray, ap, ctx=None,
-                          mesh=None) -> torch.Tensor:
-    """Logits (B, NEW, V) of the decode path over a generated sequence: the
-    prompt prefilled, then the sequence's own tokens fed one decode step
-    at a time (vocab shards gathered on a mesh)."""
+                          mesh=None, ef: bool = True, *, prompt: int = PROMPT,
+                          s_max: int = S_MAX,
+                          device: str = "cuda") -> torch.Tensor:
+    """Logits (b, new, V) of the decode path over a generated sequence
+    (b, prompt + new): the prompt prefilled, then the sequence's own tokens
+    fed one decode step at a time (vocab shards gathered on a mesh), the
+    computation ``generate`` makes on that prefix; under a quantized wire
+    the cache carries the error-feedback leaf unless ``ef`` is False."""
     kw = {} if ctx is None else {"ctx": ctx, "mesh": mesh}
+    ef_sites = ef_sites_for(ctx, ap.cfg) if ctx is not None and ef else 0
+    b, new = tokens.shape[0], tokens.shape[1] - prompt
 
     def full(lg):
         return lg if mesh is None else gather_vocab(lg)
 
     with torch.inference_mode():
-        toks = torch.as_tensor(tokens, device="cuda").long()
-        lg, states = forward_lm(model, toks[:, :PROMPT], ap,
+        toks = torch.as_tensor(tokens, device=device).long()
+        lg, states = forward_lm(model, toks[:, :prompt], ap,
                                 collect_state=True, **kw)
-        cache = seed_cache(init_cache(ap, B, S_MAX, device="cuda",
-                                      mesh=mesh), states)
+        cache = seed_cache(init_cache(ap, b, s_max, device=device, mesh=mesh,
+                                      ef_sites=ef_sites), states)
         out = [full(lg)[:, -1]]
-        for t in range(NEW - 1):
-            pos = torch.full((B,), PROMPT + t, dtype=torch.int32,
-                             device="cuda")
-            lg, cache = decode_step(model, cache, toks[:, PROMPT + t], pos,
+        for t in range(new - 1):
+            pos = torch.full((b,), prompt + t, dtype=torch.int32,
+                             device=device)
+            lg, cache = decode_step(model, cache, toks[:, prompt + t], pos,
                                     ap, **kw)
             out.append(full(lg))
     return torch.stack(out, dim=1)
 
 
-def gate(label: str, got: torch.Tensor, ref: torch.Tensor) -> tuple:
+def provable_gate(tokens: np.ndarray, ref_tokens: np.ndarray,
+                  logits: torch.Tensor, ref_logits: torch.Tensor,
+                  prompt_len: int) -> int:
+    """Greedy tokens against a reference's: equal at every step until the
+    first at which the reference's top-1/top-2 gap is not above twice the
+    largest difference of the two paths' logits there (only then can the
+    two argmaxes differ).  ``logits`` and ``ref_logits`` (b, new, V) are
+    the two paths' decode-path logits teacher-forced on the reference's
+    sequence.  Returns the steps checked."""
+    gap = top2_gap(ref_logits)
+    diff = (logits.float().cpu() - ref_logits.float().cpu()).abs() \
+        .amax(-1).numpy()
+    checked = 0
+    for b in range(tokens.shape[0]):
+        for t in range(gap.shape[1]):
+            if gap[b, t] <= 2 * diff[b, t]:
+                break
+            if tokens[b, prompt_len + t] != ref_tokens[b, prompt_len + t]:
+                raise AssertionError(f"row {b} step {t}: tokens differ with "
+                                     f"gap {gap[b, t]:.4g} above twice the "
+                                     f"logit difference {diff[b, t]:.4g}")
+            checked += 1
+    return checked
+
+
+def gate(label: str, got: torch.Tensor, ref: torch.Tensor,
+         limits: tuple = (TF_MAX, TF_MEAN)) -> tuple:
+    """(max, mean) |diff| of two teacher-forced logits, logged beside the
+    limits they are held to."""
     diff = (got.float() - ref.float()).abs()
     mx, mean = float(diff.max()), float(diff.mean())
     log(f"    {label}: teacher-forced logits max|diff| {mx:.4f}, mean "
-        f"{mean:.3e} (limits {TF_MAX:g}, {TF_MEAN:g})")
+        f"{mean:.3e} (limits {limits[0]:g}, {limits[1]:g})")
     return mx, mean
 
 
@@ -974,7 +1048,11 @@ def expected_launches(ctx_strategy: str, tuner, L: int) -> dict:
             "collective_matmul_rd": 2 * L * ((NEW - 1) * dec + pre)}
 
 
-def phase_overlap(tp1_tokens, tp1_logits, flat_tokens, flat_logits) -> dict:
+def phase_overlap(tp1_tokens, tp1_logits, flat_tokens, flat_logits
+                  ) -> tuple:
+    """Returns (launches by path, the decode-path references: name ->
+    (that reference's tokens, its decode path's teacher-forced logits on
+    the host), for flat at tp=8 and for tp=1)."""
     cfg = get_config("llama3.2-1b")
     L = cfg.n_layers
     ap = make_plan(cfg, PODS * FAST)
@@ -1014,10 +1092,12 @@ def phase_overlap(tp1_tokens, tp1_logits, flat_tokens, flat_logits) -> dict:
                                               overlap_matmul=False), mesh),
                 "tp=1": lambda t: teacher_forced_decode(
                     model1, t, make_plan(cfg, 1))}
+    decode_refs = {}
     for name, (ref, _) in refs.items():
         with autotune.using(tuner):
             mine = teacher_forced_decode(model, ref, ap, ctx, mesh)
         want = ref_runs[name](ref)
+        decode_refs[name] = (ref, want.cpu())
         mx, mean = gate(f"auto+overlap vs {name}, decode path", mine, want)
         if mx > TF_MAX or mean > TF_MEAN:
             raise AssertionError(f"tp=8 auto+overlap logits differ from "
@@ -1049,8 +1129,335 @@ def phase_overlap(tp1_tokens, tp1_logits, flat_tokens, flat_logits) -> dict:
         if mx > TF_MAX or mean > TF_MEAN:
             raise AssertionError(f"tp=8 hier_rd+overlap logits differ from "
                                  f"{name}'s")
+    return launches, decode_refs
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the group-quantized pack and unpack kernels (kernel 6)
+# ---------------------------------------------------------------------------
+
+QP_GROUPS = (1, 2, 64, 128)
+# per element: pack |x|, the group max, the division, the rounding and the
+# clip; unpack one multiply (f32, CUDA cores)
+QP_OPS = {"quantize_pack": 5.0, "unpack_dequant": 1.0}
+
+
+def qp_check(x: torch.Tensor, bits: int, group: int, label: str) -> None:
+    """Kernel 6 against its plain version on x: payload, scales and
+    dequant bitwise.  Where the plain scale is non-finite (a poisoned
+    group) the kernel's scale and every dequantized element of the group
+    must be non-finite too, and payload bytes of the group, which the
+    contract leaves unspecified, are not compared."""
+    q, s = quantize_pack(x, bits, group)
+    qr, sr = quant_pack.quantize_pack_ref(x, bits, group)
+    d = unpack_dequant(q, s, bits, group)
+    dr = quant_pack.unpack_dequant_ref(qr, sr, bits, group)
+    fin_s = torch.isfinite(sr)
+    fin = fin_s.repeat_interleave(group, -1)
+    byte_ok = fin if bits == 8 else fin.reshape(*fin.shape[:-1], -1,
+                                                2).all(-1)
+    ok = (torch.equal(torch.isfinite(s), fin_s)
+          and torch.equal(s[fin_s], sr[fin_s])
+          and torch.equal(d[fin], dr[fin])
+          and not bool(torch.isfinite(d[~fin]).any())
+          and torch.equal(q[byte_ok], qr[byte_ok]))
+    if not ok:
+        raise AssertionError(f"kernel 6 {label} bits={bits} group={group}: "
+                             "kernel differs from its plain version")
+
+
+def qp_bound(name: str, n: int, bits: int, group: int) -> tuple:
+    """Each input read once and each output written once: f32 in, the
+    payload and the bf16 scales out (pack), or the reverse (unpack)."""
+    moved = 4.0 * n + n * bits / 8 + 2.0 * n / group
+    return bound_ms(moved, QP_OPS[name] * n, torch.float32)
+
+
+def phase_quant_kernels() -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    n_checked = 0
+    for label, (rows, D) in QP_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((rows, D), generator=gen, device="cuda")
+                 * 3).to(dtype)
+            for bits in (8, 4):
+                for group in QP_GROUPS:
+                    qp_check(x, bits, group, f"{label} {rows}x{D} {dtype}")
+                    n_checked += 1
+    torch.cuda.synchronize()
+    shapes = ", ".join(f"{k} {r}x{d}" for k, (r, d) in QP_SHAPES.items())
+    log(f"  kernel 6 == plain version bitwise (payload, scales, dequant) on "
+        f"{n_checked} cases: {shapes} x f32/bf16 x bits 8/4 x group "
+        f"{'/'.join(map(str, QP_GROUPS))}")
+    # exact ties: a group whose absmax is qmax has scale 1, so every
+    # half-integer in it rounds half to even
+    n_checked = 0
+    for bits, qmax in ((8, 127), (4, 7)):
+        for group in (2, 64, 128):
+            half = (torch.randint(-2 * qmax, 2 * qmax + 1, (16, 1024),
+                                  generator=gen, device="cuda") / 2.0)
+            half.view(16, -1, group)[..., 0] = qmax
+            qp_check(half, bits, group, "ties")
+            n_checked += 1
+    # non-finite values poison exactly their own group
+    for bits in (8, 4):
+        for group in QP_GROUPS:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((8, 1024), generator=gen,
+                                device="cuda").to(dtype)
+                for r, bad in enumerate((float("nan"), float("inf"),
+                                         -float("inf"))):
+                    x[r, 5 + 300 * r] = bad
+                    x[r + 4, 1023 - 7 * r] = bad
+                qp_check(x, bits, group, f"poisoned {dtype}")
+                n_checked += 1
+    # rows that end mid-tile, an odd row length (int8, group 1) and a
+    # start one element past a 16-byte boundary
+    for rows, D, bits, group in ((1, 1024, 8, 128), (7, 1024, 4, 64),
+                                 (129, 256, 8, 2), (3, 4097, 8, 1),
+                                 (5, 4098, 4, 2), (9, 64, 4, 64)):
+        x = torch.empty(rows * D + 1, device="cuda")[1:].view(rows, D)
+        x.copy_(torch.randn((rows, D), generator=gen, device="cuda"))
+        qp_check(x, bits, group, f"unaligned {rows}x{D}")
+        n_checked += 1
+    torch.cuda.synchronize()
+    log(f"  kernel 6 == plain version on {n_checked} more cases: exact ties "
+        "(round half to even), NaN/+Inf/-Inf poisoning only their group, "
+        "rows ending mid-tile, an odd row, an unaligned start")
+    # back-to-back calls on fresh inputs at the decode RS shape, cycling
+    # bits and groups, every result checked on the device (one sync)
+    rows, D = QP_SHAPES["decode_rs"]
+    x = torch.empty((rows, D), device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    cycle = ((8, 128), (4, 64), (8, 1), (4, 2))
+    t0 = time.perf_counter()
+    for i in range(1000):
+        bits, group = cycle[i % 4]
+        x.copy_(torch.randn((rows, D), generator=gen, device="cuda"))
+        q, s = quantize_pack(x, bits, group)
+        qr, sr = quant_pack.quantize_pack_ref(x, bits, group)
+        d = unpack_dequant(q, s, bits, group)
+        bad += ((q != qr).any() | (s != sr).any()
+                | (d != quant_pack.unpack_dequant_ref(qr, sr, bits,
+                                                      group)).any())
+    torch.cuda.synchronize()
+    log(f"  1000 back-to-back pack + unpack calls: {int(bad)} wrong "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if int(bad):
+        raise AssertionError("kernel 6: back-to-back calls disagree")
+    rec = {}
+    for label, (rows, D) in QP_SHAPES.items():
+        x = torch.randn((rows, D), generator=gen, device="cuda")
+        n = rows * D
+        for bits, group in ((8, 128), (4, 64)):
+            q, s = quantize_pack(x, bits, group)
+            d = unpack_dequant(q, s, bits, group)
+            # each wrapper's result against its plain version's (the
+            # dequantized values of the two packs; the two unpacks)
+            plain_q = quant_pack.quantize_pack_ref(x, bits, group)
+            errs = {"quantize_pack": max_err(
+                        d, quant_pack.unpack_dequant_ref(*plain_q, bits,
+                                                         group)),
+                    "unpack_dequant": max_err(
+                        d, quant_pack.unpack_dequant_ref(q, s, bits, group))}
+            t = {"quantize_pack": (
+                time_ms(lambda: quantize_pack(x, bits, group)),
+                time_ms(lambda: quant_pack.quantize_pack_ref(x, bits,
+                                                              group))),
+                 "unpack_dequant": (
+                time_ms(lambda: unpack_dequant(q, s, bits, group)),
+                time_ms(lambda: quant_pack.unpack_dequant_ref(q, s, bits,
+                                                              group)))}
+            for name, (ms, plain_ms) in t.items():
+                bnd = qp_bound(name, n, bits, group)
+                log(f"  {name} [f32 in/out] {label} {rows}x{D} bits={bits} "
+                    f"group={group}: kernel_ms={ms:.4f} plain_ms="
+                    f"{plain_ms:.4f} library_ms=null bound_ms={bnd[0]:.6f} "
+                    f"({bnd[1]})")
+                if label == "decode_rs" and bits == 8:   # the int8 path's
+                    rec[name] = {"max_abs_err": errs[name], "ms": ms,
+                                 "plain_ms": plain_ms, "library_ms": None,
+                                 "bound_ms": bnd[0], "bound_by": bnd[1]}
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phases 12-13: the quantized wire at full size
+# ---------------------------------------------------------------------------
+
+# Teacher-forced bf16 logits of the decode path on the quantized wire
+# (error feedback on) against flat's and tp=1's decode paths: (max |diff|,
+# mean |diff|) per wire width, about 1.5x the first measurement on the
+# H100 (int8 0.283 / 0.0377, int4 3.48 / 0.479; PERF.md), below the
+# planted faults (max 7.7-9.4, mean 1.10-1.12).
+QUANT_TF = {8: (0.6, 0.06), 4: (5.0, 0.7)}
+# Card against CPU at tp=8 under int8 (f32, 2 layers): a sum taken in
+# another order flips roundings of the int8 wire at near-ties; on the CPU
+# alone a 1e-7 relative perturbation of the weights moves these logits by
+# 0.096 (0.113 card against CPU in the first run).
+QUANT_CPU_TOL = 0.25
+
+
+@contextlib.contextmanager
+def planted_quant_fault(kind: str):
+    """A deliberate fault in the quantized wire, for the negative control
+    of the logits gate: ``no_scale`` unpacks the payload with every scale
+    taken as 1, ``skip_slow`` leaves out the quantized slow exchange
+    (each rank keeps its pod's partial)."""
+    if kind == "no_scale":
+        real = quant_pack.unpack_dequant
+        patch = mock.patch.object(
+            hierarchical.qp, "unpack_dequant",
+            lambda q, s, bits, group: real(q, torch.ones_like(s), bits,
+                                           group))
+    else:
+        patch = mock.patch.object(hierarchical, "quant_rd_all_reduce",
+                                  lambda t, axis, bits: t)
+    with patch:
+        yield
+
+
+def quant_ar_launches(strategy: str, ef: bool) -> tuple:
+    """(packs, unpacks) of one quantized tp_all_reduce on the PODS x FAST
+    mesh, as core/hierarchical.py dispatches it: per reduce-scatter stage
+    (both axes under flat, the fast axis otherwise) one pack and one
+    unpack of the received pieces, plus one unpack of the rank's own
+    payload for error feedback at the first; per recursive-doubling step
+    (hier_rd, hier_rd_halving) one pack and two unpacks; per all-gather
+    stage one pack and one unpack."""
+    stages = sum(n > 1 for n in ((PODS, FAST) if strategy == "flat"
+                                 else (FAST,)))
+    steps = PODS.bit_length() - 1 \
+        if strategy in ("hier_rd", "hier_rd_halving") else 0
+    return 2 * stages + steps, 2 * stages + int(ef) + 2 * steps
+
+
+def quant_path_launches(choices: dict, L: int, overlap_chunks: int = 0
+                        ) -> dict:
+    """Launches of one generate whose prefill and decode call sites
+    resolve to ``choices`` ("prefill"/"decode" -> (strategy, quant)):
+    2 L projections (in overlap column blocks where the quantized wire
+    keeps them, see overlap._quant_chunk_ok) and the embedding's
+    all-reduce per step, error feedback on the decode projections."""
+    n = {"flash_attention": L, "decode_attention": L * (NEW - 1)}
+    for stage, steps in (("prefill", 1), ("decode", NEW - 1)):
+        strategy, quant = choices[stage]
+        ef = stage == "decode"
+        if quant == "none":
+            if strategy == "hier_rd":
+                fused = overlap_chunks > 0
+                n["collective_matmul_rd"] = n.get("collective_matmul_rd",
+                                                  0) + fused * 2 * L * steps
+                n["rd_all_reduce"] = n.get("rd_all_reduce", 0) + steps * (
+                    1 + (not fused) * 2 * L)
+            continue
+        bits = hierarchical.QUANT_BITS[quant]
+        k = 1
+        if overlap_chunks:
+            k = overlap._resolve_chunks(D_MODEL, FAST, overlap_chunks)
+            if not overlap._quant_chunk_ok(D_MODEL, k, PODS * FAST, bits):
+                k = 1
+        proj = quant_ar_launches(strategy, ef)
+        embed = quant_ar_launches(strategy, False)
+        for i, name in enumerate(("quantize_pack", "unpack_dequant")):
+            n[name] = n.get(name, 0) + steps * (2 * L * k * proj[i]
+                                                + embed[i])
+    return n
+
+
+def phase_quant(decode_refs: dict) -> dict:
+    """hier_rd on the int8 and int4 wire, error feedback on."""
+    cfg = get_config("llama3.2-1b")
+    L = cfg.n_layers
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    launches = {}
+    for quant in ("int8", "int4"):
+        limits = QUANT_TF[hierarchical.QUANT_BITS[quant]]
+        qctx = ctx.replace(ar_quant=quant)
+        expect = quant_path_launches({"prefill": ("hier_rd", quant),
+                                      "decode": ("hier_rd", quant)}, L)
+        eng = InferenceEngine(ap, model, ctx=qctx, mesh=mesh, s_max=S_MAX,
+                              device="cuda")
+        key = f"tp8_hier_rd_{quant}"
+        res, launches[key] = run_path(eng, prompts, f"tp=8 hier_rd {quant}",
+                                      expect)
+        if quant == "int8":
+            profile_generate(eng, prompts, share_of="quant")
+        for name, (ref, want) in decode_refs.items():
+            want = want.to("cuda")
+            mine = teacher_forced_decode(model, ref, ap, qctx, mesh)
+            mx, mean = gate(f"{quant} vs {name}, decode path, EF on", mine,
+                            want, limits)
+            if mx > limits[0] or mean > limits[1]:
+                raise AssertionError(f"tp=8 hier_rd {quant} logits differ "
+                                     f"from {name}'s")
+            n = provable_gate(res.tokens, ref, mine, want, PROMPT)
+            log(f"    tp=8 hier_rd {quant} tokens == {name} tokens on {n}/"
+                f"{B * NEW} steps whose gap allows no flip (fully equal on "
+                f"{int((res.tokens == ref).all(1).sum())}/{B} rows)")
+            for kind in ("no_scale", "skip_slow"):
+                with planted_quant_fault(kind):
+                    bad = teacher_forced_decode(model, ref, ap, qctx, mesh)
+                fmx, fmean = gate(f"  planted fault {kind}", bad, want,
+                                  limits)
+                if fmx <= limits[0] and fmean <= limits[1]:
+                    raise AssertionError(f"the {quant} logits gate passed "
+                                         f"the planted fault {kind}")
+            no_ef = teacher_forced_decode(model, ref, ap, qctx, mesh,
+                                          ef=False)
+            gate(f"  {quant} vs {name}, EF off (printed only)", no_ef,
+                 want, limits)
     return launches
 
+
+def phase_auto_quant(decode_refs: dict) -> dict:
+    """The paper's deployment on the quantized wire: auto strategy, auto
+    quantization, overlapped projections."""
+    cfg = get_config("llama3.2-1b")
+    L = cfg.n_layers
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="auto",
+                             device="cuda")
+    ctx = ctx.replace(ar_quant="auto", overlap_matmul=True, overlap_chunks=4)
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    tuner = autotune.AutoTuner()
+    choices = {}
+    for stage, msg in (("decode", B * D_MODEL * 2),
+                       ("prefill", B * PROMPT * D_MODEL * 2)):
+        c = tuner.choose(msg, FAST, PODS, "bfloat16", quant="auto")
+        choices[stage] = (c.strategy, c.quant)
+        log(f"  auto/auto picks for the {stage} message ({msg} B a rank): "
+            f"{c}")
+    expect = quant_path_launches(choices, L, overlap_chunks=4)
+    eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=S_MAX,
+                          ar_table=tuner, device="cuda")
+    res, got = run_path(eng, prompts, "tp=8 auto/auto+overlap", expect)
+    bits = min(hierarchical.QUANT_BITS.get(q, 16) for _, q in
+               choices.values())
+    limits = QUANT_TF.get(bits, (TF_MAX, TF_MEAN))
+    for name, (ref, want) in decode_refs.items():
+        want = want.to("cuda")
+        with autotune.using(tuner):
+            mine = teacher_forced_decode(model, ref, ap, ctx, mesh)
+        mx, mean = gate(f"auto/auto+overlap vs {name}, decode path", mine,
+                        want, limits)
+        if mx > limits[0] or mean > limits[1]:
+            raise AssertionError(f"tp=8 auto/auto+overlap logits differ from "
+                                 f"{name}'s")
+        n = provable_gate(res.tokens, ref, mine, want, PROMPT)
+        log(f"  tp=8 auto/auto+overlap tokens == {name} tokens on {n}/"
+            f"{B * NEW} steps whose gap allows no flip (fully equal: "
+            f"{np.array_equal(res.tokens, ref)})")
+    return {"tp8_auto_quant_overlap": got}
 
 
 def main() -> int:
@@ -1092,14 +1499,28 @@ def main() -> int:
     rec["collective_matmul_rd"] = phase_fused()
     log(f"[9] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + overlapped "
         "projections, full width and depth, bf16")
-    launches.update(phase_overlap(tp1_tokens, tp1_logits, flat_tokens,
-                                  flat_logits))
+    ov_launches, decode_refs = phase_overlap(tp1_tokens, tp1_logits,
+                                             flat_tokens, flat_logits)
+    launches.update(ov_launches)
     log(f"[10] card vs CPU at tp=8 ({PODS}x{FAST}, auto + overlap), full "
         "width, 2 layers, float32")
     card_vs_cpu(PODS * FAST, PODS, "auto", overlap_matmul=True)
+    log("[11] group-quantized pack and unpack kernels (kernel 6)")
+    rec.update(phase_quant_kernels())
+    log(f"[12] llama3.2-1b tp=8 ({PODS}x{FAST}) hier_rd on the int8 and "
+        "int4 wire, error feedback on, full width and depth, bf16")
+    launches.update(phase_quant(decode_refs))
+    log(f"[13] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + auto quantization + "
+        "overlapped projections, full width and depth, bf16")
+    launches.update(phase_auto_quant(decode_refs))
+    log(f"[14] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd + int8), full "
+        "width, 2 layers, float32")
+    card_vs_cpu(PODS * FAST, PODS, "hier_rd", ar_quant="int8",
+                tol=QUANT_CPU_TOL)
     # launches: the count of the run of the path each kernel serves (the
     # tp=8 hier_rd path, the paged kernel's tp=1 paged path, the fused
-    # kernel's tp=8 auto + overlap path), and every counted run's beside it
+    # kernel's tp=8 auto + overlap path, kernel 6's tp=8 hier_rd int8
+    # path), and every counted run's beside it
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n],
                 "launches": launches[MAIN_PATH[n]][n], "path": MAIN_PATH[n],

@@ -23,8 +23,12 @@ shape of the port's ``pods x fast`` mesh) where the reference defaults to
 ``TPU_V5E``.  And the reference resolves ``auto`` once per call site at
 trace time, while eager PyTorch has no trace: the port resolves at every
 call, on the host (a lock, a key and a dict lookup).  The sequence-
-parallel table is persisted but not consulted, and quantized dispatch
-(``quant != "none"``) raises: both arrive with ROADMAP item 9.
+parallel table is persisted but not consulted (ROADMAP item 9).
+
+Quantized dispatch (the ctx's ``ar_quant`` policy other than ``"none"``)
+keys its own namespace (dtype suffix ``:q<policy>``) and seeds from
+:func:`analytic_quant_choice`: a forced level always quantizes, ``auto``
+climbs the none -> int8 -> int4 ladder on the predicted times.
 """
 from __future__ import annotations
 
@@ -138,6 +142,45 @@ def analytic_choice(msg_bytes: float, fast_size: int, slow_size: int,
                     compress_slow=compress)
 
 
+def predict_quant_times(msg_bytes: float, fast_size: int, slow_size: int,
+                        net: cm.NetworkSpec) -> Dict[str, float]:
+    """Predicted seconds per wire-quantization level: ``none`` is the
+    best full-precision strategy at this size, int8/int4 the quantized
+    hierarchical path, whose bandwidth terms shrink by the wire factor
+    while its latency terms and per-phase pack overhead do not."""
+    t_none = min(predict_times(msg_bytes, fast_size, slow_size, net)
+                 .values())
+    return {
+        "none": t_none,
+        "int8": cm.t_quant_hier_allreduce(msg_bytes, slow_size, fast_size,
+                                          net, 8),
+        "int4": cm.t_quant_hier_allreduce(msg_bytes, slow_size, fast_size,
+                                          net, 4),
+    }
+
+
+def analytic_quant_choice(msg_bytes: float, fast_size: int, slow_size: int,
+                          net: cm.NetworkSpec, mode: str) -> ARChoice:
+    """Dispatch entry for a quant-aware call site (``mode`` != "none").
+    Forced modes always quantize, through hier_rd when a slow axis
+    exists; ``"auto"`` takes a lossier level only where it beats the
+    previous one by more than 10% predicted time."""
+    base = analytic_choice(msg_bytes, fast_size, slow_size, net)
+    if mode in ("int8", "int4"):
+        strat = "hier_rd" if slow_size > 1 else base.strategy
+        return ARChoice(strategy=strat, rd_chunks=1, quant=mode)
+    t = predict_quant_times(msg_bytes, fast_size, slow_size, net)
+    quant = "none"
+    if t["int8"] < 0.9 * t["none"]:
+        quant = "int8"
+        if t["int4"] < 0.9 * t["int8"]:
+            quant = "int4"
+    if quant == "none":
+        return base
+    strat = "hier_rd" if slow_size > 1 else base.strategy
+    return ARChoice(strategy=strat, rd_chunks=1, quant=quant)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch table
 # ---------------------------------------------------------------------------
@@ -189,17 +232,22 @@ class AutoTuner:
     def choose(self, msg_bytes: int, fast_size: int, slow_size: int,
                dtype: str = "bfloat16", quant: str = "none") -> ARChoice:
         """Dispatch one call site; ``dtype`` is the reference's dtype name
-        (``"bfloat16"``, ``"float32"``)."""
-        if quant != "none":
-            raise NotImplementedError("quantized dispatch (ar_quant) "
-                                      "arrives with ROADMAP item 9")
-        key = _key(msg_bytes, fast_size, slow_size, dtype)
+        (``"bfloat16"``, ``"float32"``) and ``quant`` the ctx's ar_quant
+        policy: "none" keys plain dispatch, any other policy its own
+        namespace (``bfloat16:qauto``), so the two never alias a bucket."""
+        kdtype = dtype if quant == "none" else f"{dtype}:q{quant}"
+        key = _key(msg_bytes, fast_size, slow_size, kdtype)
         with self._lock:
             self.lookups[key] = self.lookups.get(key, 0) + 1
             hit = self.table.get(key)
             if hit is None:
-                hit = analytic_choice(msg_bytes, fast_size, slow_size,
-                                      self.net, allow_lossy=self.allow_lossy)
+                if quant == "none":
+                    hit = analytic_choice(msg_bytes, fast_size, slow_size,
+                                          self.net,
+                                          allow_lossy=self.allow_lossy)
+                else:
+                    hit = analytic_quant_choice(msg_bytes, fast_size,
+                                                slow_size, self.net, quant)
                 self.table[key] = hit
             return hit
 
@@ -220,7 +268,9 @@ class AutoTuner:
 
     def refine(self) -> int:
         """Overwrite table entries with measured winners; returns the number
-        of entries changed.  A hier_rd winner chunks on the bucket bound."""
+        of entries changed.  An unquantized hier_rd winner chunks on the
+        bucket bound; quantized winners keep rd_chunks=1 (the quantized
+        slow exchange requantizes every step and is not chunked)."""
         changed = 0
         with self._lock:
             for key, ms in self.measurements.items():
@@ -365,8 +415,10 @@ def using(tuner: AutoTuner):
 
 @functools.lru_cache(maxsize=1024)
 def _applied(choice: ARChoice, ctx):
-    """``choice.apply(ctx)``, memoised: both are frozen, and rebuilding the
-    ctx (``dataclasses.replace``) was most of a resolution's host time."""
+    """``choice.apply(ctx)``, memoised: both are frozen and hashed whole
+    (the choice's ``quant``, which ``apply`` writes back under
+    ``ar_quant="auto"``, included), and rebuilding the ctx
+    (``dataclasses.replace``) was most of a resolution's host time."""
     return choice.apply(ctx)
 
 
@@ -382,6 +434,7 @@ def resolve(ctx, msg_bytes: int, fast_size: int, slow_size: int,
 
 __all__ = [
     "ARChoice", "AutoTuner", "predict_times", "analytic_choice",
-    "QUANT_LEVELS", "DEFAULT_NET", "active", "install", "tuner_for",
-    "using", "resolve", "bucket_of", "DISPATCHABLE", "TABLE_VERSION",
+    "predict_quant_times", "analytic_quant_choice", "QUANT_LEVELS",
+    "DEFAULT_NET", "active", "install", "tuner_for", "using", "resolve",
+    "bucket_of", "DISPATCHABLE", "TABLE_VERSION",
 ]

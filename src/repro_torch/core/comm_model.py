@@ -10,9 +10,11 @@ InfiniBand) and the reference's TPU v5e target, kept so that a table saved
 by either package names a network the other knows.
 
 All times are in seconds; message sizes in bytes; bandwidths in
-bytes/second.  Not copied (nothing in the port calls them yet): the tree
-model, Eq. 4's halving-free form, the NVRAR totals and speedup tables,
-and the sequence-parallel and quantized-wire terms (ROADMAP item 9).
+bytes/second.  The quantized-wire terms (``quant_wire_factor``,
+``t_quant_hier_allreduce``) score the ``ar_quant`` levels.  Not copied
+(nothing in the port calls them yet): the tree model, Eq. 4's
+halving-free form, the NVRAR totals and speedup tables, and the
+sequence-parallel terms.
 """
 from __future__ import annotations
 
@@ -124,8 +126,52 @@ def t_rd_halving_inter(msg_bytes: float, n_nodes: int, gpus_per_node: int,
         * (eta * msg_bytes / (gpus_per_node * net.beta_inter))
 
 
+# ---------------------------------------------------------------------------
+# Quantized (low-bit wire) collective terms
+# ---------------------------------------------------------------------------
+
+# Per-group scale granularity of the quantized collectives (the group caps
+# of kernels/quant_pack, kept literal so the model stays dependency-free).
+QUANT_GROUPS = {8: 128, 4: 64}
+
+# Per-phase pack/unpack cost, charged once per quantized phase so that
+# latency-bound small messages are not scored as free wins.
+QUANT_PACK_OVERHEAD = 2.0e-6
+
+
+def quant_wire_factor(bits: int, group: int = 0,
+                      dtype_bytes: float = 2.0) -> float:
+    """Wire bytes per full-precision byte for a quantized payload:
+    ``bits``-wide values plus one bf16 scale per ``group`` elements
+    (int8/g128 -> 0.508 of bf16, int4/g64 -> 0.266); ``group=0`` takes
+    the level's default."""
+    if group <= 0:
+        group = QUANT_GROUPS[bits]
+    return (bits / 8.0 + 2.0 / group) / dtype_bytes
+
+
+def t_quant_hier_allreduce(msg_bytes: float, n_nodes: int,
+                           gpus_per_node: int, net: NetworkSpec,
+                           bits: int) -> float:
+    """Quantized hierarchical all-reduce: RS (packed all-to-all) +
+    quantized RD inter + AG (packed), every phase's bandwidth term scaled
+    by the wire factor, plus the pack overhead per phase; the latency
+    terms are unchanged (quantization buys bandwidth, not latency)."""
+    g, n = max(1, gpus_per_node), max(1, n_nodes)
+    wm = msg_bytes * quant_wire_factor(bits)
+    phases = 2
+    t = (t_reduce_scatter_intra(wm, g, net)
+         + t_allgather_intra(wm, g, net))
+    if n > 1:
+        t += t_rd_inter_full_exchange(wm, n, g, net)
+        # the symmetric RD requantizes the running sum every step
+        phases += int(math.log2(n))
+    return t + phases * QUANT_PACK_OVERHEAD
+
+
 __all__ = [
     "NetworkSpec", "PERLMUTTER", "VISTA", "TPU_V5E", "NETWORKS",
     "t_ring_allreduce", "t_reduce_scatter_intra", "t_allgather_intra",
-    "t_rd_inter_full_exchange", "t_rd_halving_inter",
+    "t_rd_inter_full_exchange", "t_rd_halving_inter", "QUANT_GROUPS",
+    "QUANT_PACK_OVERHEAD", "quant_wire_factor", "t_quant_hier_allreduce",
 ]

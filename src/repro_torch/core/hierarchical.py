@@ -1,5 +1,6 @@
 """Hierarchical all-reduce strategies over the virtual mesh: the port of
-the full-precision wire of ``repro/core/hierarchical.py``.
+``repro/core/hierarchical.py``, the full-precision wire and the quantized
+one.
 
 Every tensor here carries the ranks of a :class:`~repro_torch.core.mesh.
 VirtualMesh` on its leading axis (rank = pod * fast + f), so a collective
@@ -18,9 +19,26 @@ hier_rd_halving       RS(fast) + recursive halving/doubling(slow) + AG(fast),
 
 ``auto`` resolves per call to one of these from one rank's message bytes,
 the fast and slow sizes and the dtype name, through
-:func:`repro_torch.core.autotune.resolve` (``_resolve_auto``).  The
-quantized wire (``ar_quant``, ``compress_slow``, ``quant_ag``) and the
-sequence-parallel layout are not ported yet: a ctx asking for one raises.
+:func:`repro_torch.core.autotune.resolve` (``_resolve_auto``), and under
+``ar_quant="auto"`` picks the wire level as well.
+
+The quantized wire (``ar_quant`` int8 | int4) carries packed payloads and
+per-group bf16 scales on every phase: a packed all-to-all reduce-scatter
+with a local dequantize-sum, a symmetric quantized recursive doubling over
+the pods (``hier_rd``, ``hier_rd_halving``; ``hier_ring`` sums the pods in
+bf16) and a packed all-gather; under ``flat`` both axes are
+reduce-scattered, pod first, and gathered model first.  Every pack and
+unpack goes through :mod:`repro_torch.kernels.quant_pack` (kernel 6 on
+CUDA tensors).  On the virtual mesh an exchange is an index across the
+rank axis, viewed as (pods, fast): the reference's ``lax.all_to_all``
+over an axis is a transpose of that axis with the piece axis,
+``lax.all_gather`` a broadcast of the axis into a new one, and the XOR
+``lax.ppermute`` an index of the pods.  Error feedback (``ef``): the
+first reduce-scatter stage is where a rank's own contribution is
+rounded, so the call returns ``err = v - deq(Q(v))`` for the caller to
+add to its next message.  The legacy int8 knobs (``compress_slow``,
+``quant_ag``) use the same kernels at bits 8, group 128.  Only the
+sequence-parallel layout is not ported: a ctx asking for it raises.
 """
 from __future__ import annotations
 
@@ -28,7 +46,9 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
+from ..kernels import quant_pack as qp
 from ..kernels import rd_allreduce as rdk
 from ..kernels.rd_allreduce.ref import is_pow2 as _is_pow2
 from ..kernels.rd_allreduce.ref import slow_sum
@@ -38,13 +58,15 @@ from .pcontext import ParallelCtx
 
 Mesh = Optional[VirtualMesh]
 
+# ctx.ar_quant level -> wire bits (levels beyond "none"/"auto").
+QUANT_BITS = {"int8": 8, "int4": 4}
+
+# The axes of the (pods, fast, *s) view of a rank-stacked tensor.
+SLOW, FAST = 0, 1
+
 
 def _unported(ctx: ParallelCtx) -> None:
-    """Raise on the knobs whose collectives arrive in a later slice."""
-    if ctx.ar_quant != "none" or ctx.compress_slow or ctx.quant_ag:
-        raise NotImplementedError("the quantized wire (ar_quant, "
-                                  "compress_slow, quant_ag) arrives with "
-                                  "ROADMAP item 9")
+    """Raise on the knob whose collectives arrive in a later slice."""
     if ctx.seq_parallel != "off":
         raise NotImplementedError("seq_parallel (sequence-parallel "
                                   "residuals) arrives with ROADMAP item 9")
@@ -146,12 +168,46 @@ def rd_halving_all_reduce(x: torch.Tensor, pods: int) -> torch.Tensor:
     return out.reshape(shape)
 
 
+def _xor_exchange(t: torch.Tensor, axis: int, stride: int) -> torch.Tensor:
+    """What every rank receives from its XOR peer along ``axis`` of the
+    (pods, fast, ...) view (``lax.ppermute`` by ``_xor_perm``)."""
+    idx = torch.arange(t.shape[axis], device=t.device) ^ stride
+    return t.index_select(axis, idx)
+
+
+def compressed_rd_all_reduce(x: torch.Tensor, pods: int,
+                             group: int = 128) -> torch.Tensor:
+    """Recursive doubling over the slow axis with int8 exchanges
+    (``compress_slow``), x (R, ...): each step packs the outgoing partial
+    (bits 8, ``group``), and each rank adds the dequantized payload of its
+    XOR peer to its own unquantized accumulator (so peers may drift
+    apart by a rounding, as in the reference)."""
+    if pods == 1:
+        return x
+    if not _is_pow2(pods):
+        return slow_sum(x, pods)
+    acc = x.reshape(pods, x.shape[0] // pods, -1).float()
+    m = acc.shape[-1]
+    pad = (-m) % group
+    if pad:
+        acc = F.pad(acc, (0, pad))
+    step = 1
+    while step < pods:
+        q, s = qp.quantize_pack(acc, 8, group)
+        acc = acc + qp.unpack_dequant(_xor_exchange(q, SLOW, step),
+                                      _xor_exchange(s, SLOW, step), 8, group)
+        step <<= 1
+    return acc[..., :m].reshape(x.shape).to(x.dtype)
+
+
 def _slow_phase(x: torch.Tensor, ctx: ParallelCtx,
                 mesh: VirtualMesh) -> torch.Tensor:
     pods = _sizes(ctx, mesh)[0]
     if ctx.ar_strategy == "hier_ring":
         return slow_sum(x, pods)
     if ctx.ar_strategy == "hier_rd":
+        if ctx.compress_slow:
+            return compressed_rd_all_reduce(x, pods)
         return rd_all_reduce(x, mesh, chunks=ctx.rd_chunks)
     if ctx.ar_strategy == "hier_rd_halving":
         return rd_halving_all_reduce(x, pods)
@@ -190,16 +246,265 @@ def _fast_all_gather(y: torch.Tensor, pods: int, fast: int,
 
 
 # ---------------------------------------------------------------------------
+# Quantized collective phases (ar_quant = int8 | int4)
+# ---------------------------------------------------------------------------
+#
+# These work on the (pods, fast, *s) view t of a rank-stacked tensor, an
+# axis being SLOW or FAST and ``dim`` a dim of one rank's tensor *s.  The
+# reference's exchanges of packed payloads become index operations on it.
+
+
+def _axes(ctx: ParallelCtx):
+    """(slow, fast) axis tuples of the ctx on the (pods, fast) view."""
+    return (SLOW,) if ctx.tp_slow else (), (FAST,) if ctx.tp_fast else ()
+
+
+def _all_to_all(t: torch.Tensor, axis: int, piece: int) -> torch.Tensor:
+    """``lax.all_to_all`` over ``axis`` with the piece dim ``piece`` (of
+    size n, split and concatenated in place): rank j's piece i is rank
+    i's piece j, a transpose of the two."""
+    return t.transpose(axis, piece)
+
+
+def _all_gather(t: torch.Tensor, axis: int) -> torch.Tensor:
+    """``lax.all_gather(axis=0, tiled=False)`` over ``axis``: (P, F, *s) ->
+    (P, F, n, *s), every rank holding the n tensors of its ``axis`` group
+    stacked in axis order."""
+    P, Fn = t.shape[:2]
+    if axis == FAST:
+        return t.unsqueeze(1).expand(P, Fn, *t.shape[1:])
+    return t.transpose(0, 1).unsqueeze(0).expand(P, Fn, P, *t.shape[2:])
+
+
+def _psum(t: torch.Tensor, axes) -> torch.Tensor:
+    return t.sum(axes, keepdim=True).expand_as(t)
+
+
+def quant_rd_all_reduce(t: torch.Tensor, axis: int,
+                        bits: int) -> torch.Tensor:
+    """Recursive doubling over ``axis`` of t (P, F, *s) with a symmetric
+    low-bit exchange: BOTH peers of a step requantize, ``acc <- deq(Q(acc))
+    + deq(Q(acc_peer))``, so the two compute one sum and the result is
+    exactly replicated across the axis.  Each rank's message is padded to
+    a multiple of 256 (group-cap aligned) and grouped at the cap."""
+    n = t.shape[axis]
+    if n == 1:
+        return t
+    if not _is_pow2(n):
+        return _psum(t, axis)
+    P, Fn = t.shape[:2]
+    acc = t.reshape(P, Fn, -1).float()
+    m = acc.shape[-1]
+    pad = (-m) % 256
+    if pad:
+        acc = F.pad(acc, (0, pad))
+    group = qp.GROUP_CAP[bits]
+    step = 1
+    while step < n:
+        q, s = qp.quantize_pack(acc, bits, group)
+        acc = (qp.unpack_dequant(q, s, bits, group)
+               + qp.unpack_dequant(_xor_exchange(q, axis, step),
+                                   _xor_exchange(s, axis, step), bits,
+                                   group))
+        step <<= 1
+    return acc[..., :m].reshape(t.shape).to(t.dtype)
+
+
+def _pad_last(t: torch.Tensor, mult: int):
+    pad = (-t.shape[-1]) % mult
+    return (F.pad(t, (0, pad)) if pad else t), pad
+
+
+def _quant_rs_one(v: torch.Tensor, axis: int, dim: int, bits: int,
+                  want_err: bool):
+    """One-axis reduce-scatter on a packed low-bit wire, v (P, F, *s) f32:
+    splits ``dim`` into per-rank pieces, exchanges the packed pieces and
+    sums their dequantized values locally -> (scattered f32, err f32 or
+    None), ``err = v - deq(Q(v))`` over the full pre-scatter shape."""
+    n = v.shape[axis]
+    if n == 1:
+        return v, (torch.zeros_like(v) if want_err else None)
+    nd = v.dim() - 2
+    dim = dim % nd
+    if dim == nd - 1:
+        shard = v.shape[-1] // n
+        group = qp.group_for(shard, bits)
+        q, s = qp.quantize_pack(v.reshape(*v.shape[:-1], n, shard), bits,
+                                group)
+        piece = q.dim() - 2
+        red = qp.unpack_dequant(_all_to_all(q, axis, piece),
+                                _all_to_all(s, axis, piece), bits,
+                                group).sum(-2)
+        err = None
+        if want_err:
+            err = v - qp.unpack_dequant(q, s, bits, group).reshape(v.shape)
+        return red, err
+    # Scatter along a non-trailing dim: groups stay on the feature (last)
+    # dim, untouched by the split.
+    size = v.shape[2 + dim]
+    vm = v.movedim(2 + dim, 2)
+    rest = vm.shape[3:]
+    vm = vm.reshape(*vm.shape[:2], n, size // n, *rest)
+    vmp, pad = (vm, 0)
+    if bits == 4 and vm.shape[-1] % 2:
+        vmp, pad = _pad_last(vm, 2)
+    group = qp.group_for(vmp.shape[-1], bits)
+    q, s = qp.quantize_pack(vmp, bits, group)
+    deq = qp.unpack_dequant(_all_to_all(q, axis, 2), _all_to_all(s, axis, 2),
+                            bits, group)
+    deq_own = qp.unpack_dequant(q, s, bits, group) if want_err else None
+    if pad:
+        deq = deq[..., :-pad]
+        deq_own = deq_own[..., :-pad] if want_err else None
+    red = deq.sum(2).movedim(2, 2 + dim)
+    err = None
+    if want_err:
+        own = deq_own.reshape(*v.shape[:2], size, *rest).movedim(2, 2 + dim)
+        err = v - own
+    return red, err
+
+
+def _quant_reduce_scatter(v: torch.Tensor, axes, dim: int, bits: int,
+                          want_err: bool):
+    """Reduce-scatter over ``axes`` (in order) on the packed wire; ``err``
+    is the FIRST stage's rounding of ``v`` (where this rank's own
+    contribution is quantized; later stages requantize partial sums,
+    which error feedback by design does not chase)."""
+    err = None
+    for i, ax in enumerate(axes):
+        v, e = _quant_rs_one(v, ax, dim, bits, want_err and i == 0)
+        if i == 0:
+            err = e
+    return v, err
+
+
+def _quant_ag_one(y: torch.Tensor, axis: int, dim: int,
+                  bits: int) -> torch.Tensor:
+    n = y.shape[axis]
+    if n == 1:
+        return y
+    nd = y.dim() - 2
+    dim = dim % nd
+    yp, pad = (y, 0)
+    if bits == 4 and y.shape[-1] % 2:
+        yp, pad = _pad_last(y, 2)
+    group = qp.group_for(yp.shape[-1], bits)
+    q, s = qp.quantize_pack(yp, bits, group)
+    deq = qp.unpack_dequant(_all_gather(q, axis), _all_gather(s, axis), bits,
+                            group)                    # (P, F, n, *s)
+    if pad:
+        deq = deq[..., :-pad]
+    out = deq.movedim(2, 2 + dim)                    # n right before dim
+    return out.reshape(*y.shape[:2 + dim], n * y.shape[2 + dim],
+                       *y.shape[3 + dim:])
+
+
+def _quant_all_gather(y: torch.Tensor, axes, dim: int,
+                      bits: int) -> torch.Tensor:
+    """All-gather over ``axes`` on the packed wire, in the inverse order of
+    :func:`_quant_reduce_scatter` (the last axis gathered first)."""
+    for ax in reversed(axes):
+        y = _quant_ag_one(y, ax, dim, bits)
+    return y
+
+
+def _quant_slow_phase(t: torch.Tensor, slow, ctx: ParallelCtx,
+                      bits: int) -> torch.Tensor:
+    """The slow phase under ar_quant: the recursive-doubling strategies
+    carry the quantized exchange; ring and flat sum the pods in bf16."""
+    for ax in slow:
+        if ctx.ar_strategy in ("hier_rd", "hier_rd_halving"):
+            t = quant_rd_all_reduce(t, ax, bits)
+        else:
+            t = _psum(t.to(torch.bfloat16), ax).to(t.dtype)
+    return t
+
+
+def _quant_scatter_ok(t: torch.Tensor, fast, dim: int, bits: int) -> bool:
+    """Shape guard of the packed reduce-scatter: every axis split must
+    divide the scatter dim, and an int4 trailing-dim shard must be even;
+    otherwise the call keeps the full-precision wire."""
+    nd = t.dim() - 2
+    dim = dim % nd
+    size = t.shape[2 + dim]
+    for ax in fast:
+        n = t.shape[ax]
+        if size % n:
+            return False
+        size //= n
+    return not (bits == 4 and dim == nd - 1 and size % 2)
+
+
+def _quant_tp_all_reduce(x: torch.Tensor, ctx: ParallelCtx,
+                         mesh: VirtualMesh, scatter_dim: int,
+                         ef: Optional[torch.Tensor]):
+    """Quantized-wire all-reduce, x (R, *s): RS(packed) + slow(packed RD)
+    + AG(packed).  Returns (y, new_ef); ``new_ef`` is None iff ``ef`` is
+    None, else the residue this rank must re-inject next step."""
+    bits = QUANT_BITS[ctx.ar_quant]
+    pods, fast_n = _sizes(ctx, mesh)
+    slow, fast = _axes(ctx)
+    if ctx.ar_strategy == "flat":
+        # one level: RS + AG over every TP axis, pod first, is the
+        # all-reduce's decomposition with packed payloads
+        fast, slow = slow + fast, ()
+    t = x.reshape(pods, fast_n, *x.shape[1:])
+    dim = scatter_dim % (x.dim() - 1)
+    v = t.float()
+    if ef is not None:
+        v = v + ef.reshape(t.shape).float()
+    if not fast:
+        # slow-only group: the quantized RD rounds the whole exchange and
+        # there is no per-rank RS rounding to feed back
+        y = _quant_slow_phase(v, slow, ctx, bits)
+        return y.reshape(x.shape).to(x.dtype), \
+            (torch.zeros_like(v).reshape(x.shape) if ef is not None else None)
+    if not _quant_scatter_ok(t, fast, dim, bits):
+        return _psum(t, (SLOW, FAST)).reshape(x.shape), ef
+    red, err = _quant_reduce_scatter(v, fast, dim, bits,
+                                     want_err=ef is not None)
+    if slow:
+        red = _quant_slow_phase(red, slow, ctx, bits)
+    y = _quant_all_gather(red, fast, dim, bits)
+    return y.reshape(x.shape).to(x.dtype), \
+        (None if err is None else err.reshape(x.shape))
+
+
+def quantized_all_gather(x: torch.Tensor, pods: int, fast: int, dim: int,
+                         group: int = 128) -> torch.Tensor:
+    """All-gather over the fast axis with an int8 payload and per-group
+    bf16 scales (``quant_ag``), x (R, *s): each rank's slice, moved to the
+    last dim and flattened, is packed at bits 8, gathered and stitched
+    back along ``dim``."""
+    t = x.reshape(pods, fast, *x.shape[1:])
+    moved = t.movedim(2 + dim, -1)
+    flat = moved.reshape(pods, fast, -1)
+    m = flat.shape[-1]
+    pad = (-m) % group
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    q, s = qp.quantize_pack(flat, 8, group)
+    deq = qp.unpack_dequant(_all_gather(q, FAST), _all_gather(s, FAST), 8,
+                            group)[..., :m]           # (P, F, n, m)
+    out = deq.reshape(pods, fast, fast, *moved.shape[2:]).movedim(2, -2)
+    out = out.reshape(*out.shape[:-2], fast * moved.shape[-1])
+    out = out.movedim(-1, 2 + dim)
+    return out.reshape(x.shape[0], *out.shape[2:]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # The entry points (used by every TP layer)
 # ---------------------------------------------------------------------------
 
 
 def _tp_all_reduce_fp(x: torch.Tensor, ctx: ParallelCtx, mesh: VirtualMesh,
                       scatter_dim: int) -> torch.Tensor:
-    """Full-precision-wire all-reduce body."""
+    """Full-precision-wire all-reduce body (``quant_ag`` packs only the
+    all-gather)."""
     fast_axes, slow_axes = ctx.tp_fast, ctx.tp_slow
     pods, fast = _sizes(ctx, mesh)
-    if ctx.ar_strategy == "flat" or (not slow_axes and len(fast_axes) <= 1):
+    if (ctx.ar_strategy == "flat" or (not slow_axes and len(fast_axes) <= 1)) \
+            and not ctx.quant_ag:
         # single-level group: one plain sum (the library all-reduce)
         return x.sum(0, keepdim=True).expand_as(x)
     dim = scatter_dim % (x.dim() - 1)
@@ -208,37 +513,63 @@ def _tp_all_reduce_fp(x: torch.Tensor, ctx: ParallelCtx, mesh: VirtualMesh,
     # Phase 1: reduce-scatter over the fast level (paper Eq. 3).
     y = _fast_reduce_scatter(x, pods, fast, dim)
     # Phase 2: recursive doubling (or ring, or halving) over the slow
-    # level (Eq. 4).
-    y = _slow_phase(y, ctx, mesh)
+    # level (Eq. 4); ``flat`` (here only with quant_ag) sums the pods.
+    if slow_axes:
+        y = _slow_phase(y, ctx if ctx.ar_strategy != "flat"
+                        else ctx.replace(ar_strategy="hier_ring"), mesh)
     # Phase 3: all-gather over the fast level (Eq. 5).
+    if ctx.quant_ag:
+        return quantized_all_gather(y, pods, fast, dim)
     return _fast_all_gather(y, pods, fast, dim)
 
 
 def tp_all_reduce(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
-                  scatter_dim: int = -1) -> torch.Tensor:
+                  scatter_dim: int = -1, ef: Optional[torch.Tensor] = None):
     """All-reduce a TP partial sum (R, ...) according to the configured
     strategy: the operation the paper optimizes, twice per layer on a
     (B, 1, d_model) tensor in decode.  ``scatter_dim`` (of one rank's
     tensor) is where the hierarchical strategies reduce-scatter over the
-    fast axis; it must be divisible by the fast size."""
+    fast axis; it must be divisible by the fast size.
+
+    ``ctx.ar_quant`` in {int8, int4} (forced, or resolved per call under
+    ``ar_quant="auto"``) takes the packed low-bit wire.  ``ef`` is this
+    call site's error-feedback accumulator, shaped like x: when given the
+    call returns ``(y, new_ef)``; the quantized paths add it to the
+    message and return the fresh rounding residue (f32), unquantized
+    paths hand it back untouched, so call sites thread EF unconditionally.
+    Without ``ef`` the return is the plain tensor."""
     if not ctx.has_tp:
-        return x
+        return (x, ef) if ef is not None else x
     ctx = _resolve_auto(x, ctx, mesh)
     _unported(ctx)
-    return _tp_all_reduce_fp(x, ctx, mesh, scatter_dim)
+    if ctx.ar_quant in QUANT_BITS:
+        y, ef2 = _quant_tp_all_reduce(x, ctx, mesh, scatter_dim, ef)
+        return (y, ef2) if ef is not None else y
+    y = _tp_all_reduce_fp(x, ctx, mesh, scatter_dim)
+    return (y, ef) if ef is not None else y
 
 
 def tp_reduce_scatter(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
                       dim: int) -> torch.Tensor:
     """Reduce TP partials and leave the result sharded on ``dim`` over
     the fast axis; the slow phase runs in full (``flat`` as one sum over
-    the pods, every hierarchical strategy through its own slow phase)."""
+    the pods, every hierarchical strategy through its own slow phase;
+    under ar_quant the packed RS and the quantized slow phase)."""
     if not ctx.has_tp:
         return x
     ctx = _resolve_auto(x, ctx, mesh)
     _unported(ctx)
     pods, fast = _sizes(ctx, mesh)
     dim = dim % (x.dim() - 1)
+    slow_ax, fast_ax = _axes(ctx)
+    if ctx.ar_quant in QUANT_BITS and fast_ax:
+        bits = QUANT_BITS[ctx.ar_quant]
+        t = x.reshape(pods, fast, *x.shape[1:])
+        if _quant_scatter_ok(t, fast_ax, dim, bits):
+            y, _ = _quant_reduce_scatter(t.float(), fast_ax, dim, bits,
+                                         want_err=False)
+            y = _quant_slow_phase(y, slow_ax, ctx, bits)
+            return y.reshape(x.shape[0], *y.shape[2:]).to(x.dtype)
     if ctx.tp_fast:
         x = _fast_reduce_scatter(x, pods, fast, dim)
     if ctx.tp_slow:
@@ -249,14 +580,24 @@ def tp_reduce_scatter(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
 
 def tp_all_gather(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
                   dim: int) -> torch.Tensor:
-    """Gather a fast-sharded activation back to full along ``dim``."""
+    """Gather a fast-sharded activation back to full along ``dim`` (on the
+    packed wire under a forced ar_quant level, at int8 under quant_ag)."""
     if not ctx.tp_fast:
         return x
     _unported(ctx)
     pods, fast = _sizes(ctx, mesh)
-    return _fast_all_gather(x, pods, fast, dim % (x.dim() - 1))
+    dim = dim % (x.dim() - 1)
+    if ctx.ar_quant in QUANT_BITS:
+        t = x.reshape(pods, fast, *x.shape[1:]).float()
+        y = _quant_all_gather(t, (FAST,), dim, QUANT_BITS[ctx.ar_quant])
+        return y.reshape(x.shape[0], *y.shape[2:]).to(x.dtype)
+    if ctx.quant_ag:
+        return quantized_all_gather(x, pods, fast, dim)
+    return _fast_all_gather(x, pods, fast, dim)
 
 
 __all__ = ["tp_all_reduce", "tp_reduce_scatter", "tp_all_gather",
-           "rd_all_reduce", "rd_halving_all_reduce", "axes_size", "tp_rank",
-           "dtype_name"]
+           "rd_all_reduce", "rd_halving_all_reduce",
+           "compressed_rd_all_reduce", "quant_rd_all_reduce",
+           "quantized_all_gather", "axes_size", "tp_rank", "dtype_name",
+           "QUANT_BITS"]

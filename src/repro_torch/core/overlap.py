@@ -37,8 +37,20 @@ differ by roundings, in f32 by reassociation.
 With ``ar_strategy="auto"`` the strategy is resolved once, from the
 unchunked output, and shared by every block: a lookup per block on the
 smaller message could pick another strategy (another sum order) than the
-unfused path.  The quantized wire and error feedback are not ported
-(ROADMAP item 9; the ctx raises).
+unfused path.
+
+The quantized wire (``ar_quant`` int8 | int4) composes with the loop: its
+groups are cap-aligned windows of the trailing feature dim, so when the
+full output and every chunk's per-rank shard are multiples of the group
+cap times the TP size, chunked and unchunked calls quantize the same
+feature windows, bit for bit (:func:`_quant_chunk_ok`); otherwise the
+call keeps one message.  Error feedback (``ef``, shaped like the output)
+is sliced per block on the same boundaries and the residues
+concatenated.  The legacy lossy knobs (``compress_slow``, ``quant_ag``)
+always take one message.  The fused kernel runs only on an unquantized
+wire: the resolved ctx has no ``ar_quant`` level and neither legacy knob,
+and no EF enters the reduction (an unquantized call hands EF back
+untouched, so it is reduced without it and EF is returned as it came).
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ from typing import Optional
 import torch
 
 from ..kernels import fused_matmul_rd as fmrd
+from ..kernels.quant_pack import GROUP_CAP
 from ..kernels.rd_allreduce.ref import is_pow2
 from . import autotune
 from . import hierarchical as hier
@@ -91,6 +104,14 @@ def _resolve_chunks(d_out: int, fast_size: int, requested: int) -> int:
     return k
 
 
+def _quant_chunk_ok(d_out: int, k: int, n_scatter: int, bits: int) -> bool:
+    """True when ``k`` column blocks quantize the same feature windows as
+    one message: the full output and every block, split over
+    ``n_scatter`` ranks, are multiples of the group cap."""
+    cap = GROUP_CAP[bits] * max(1, n_scatter)
+    return d_out % cap == 0 and (d_out // k) % cap == 0
+
+
 def _fused_rd(xm: torch.Tensor, wm: torch.Tensor, pods: int, k: int,
               mesh: VirtualMesh) -> torch.Tensor:
     """The kernel: GEMM + recursive doubling over the pods, (R, M, N)."""
@@ -110,24 +131,39 @@ def _fast_sum(y: torch.Tensor, pods: int, fast: int) -> torch.Tensor:
 def collective_matmul(x: torch.Tensor, w: torch.Tensor, ctx: ParallelCtx,
                       mesh: Optional[VirtualMesh], *,
                       chunks: Optional[int] = None,
-                      backend: str = "fused") -> torch.Tensor:
+                      backend: str = "fused",
+                      ef: Optional[torch.Tensor] = None):
     """Row-parallel projection fused with its TP all-reduce: what
-    ``tp_all_reduce(project(x, w))`` gives, in ``chunks`` column blocks
-    (default: ``ctx.overlap_chunks`` when ``ctx.overlap_matmul``, else 1).
-    x (R, *lead, *c), w (R, *c, d) -> (R, *lead, d)."""
+    ``tp_all_reduce(project(x, w), ef=ef)`` gives, in ``chunks`` column
+    blocks (default: ``ctx.overlap_chunks`` when ``ctx.overlap_matmul``,
+    else 1).  x (R, *lead, *c), w (R, *c, d) -> (R, *lead, d), or
+    ``(y, new_ef)`` when ``ef`` (R, *lead, d) is given."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if chunks is None:
         chunks = ctx.overlap_chunks if ctx.overlap_matmul else 1
     if not ctx.has_tp:
-        return project(x, w)
+        y = project(x, w)
+        return (y, ef) if ef is not None else y
     d_out = w.shape[-1]
     pods, fast = hier._sizes(ctx, mesh)
     ctx = _resolve_auto_for_matmul(x, w, ctx, mesh)
     hier._unported(ctx)
+    bits = hier.QUANT_BITS.get(ctx.ar_quant)
+    if bits is None and ef is not None:
+        # an unquantized wire leaves EF untouched: reduce without it
+        return collective_matmul(x, w, ctx, mesh, chunks=chunks,
+                                 backend=backend), ef
     k = _resolve_chunks(d_out, fast, chunks)
-    if backend == "fused" and ctx.ar_strategy == "hier_rd" \
-            and len(ctx.tp_slow) == 1 and pods > 1 and is_pow2(pods):
+    if ctx.quant_ag or ctx.compress_slow:
+        k = 1   # per-message quantization: blocks would move its groups
+    if bits is not None and k > 1 \
+            and not _quant_chunk_ok(d_out, k, fast * pods, bits):
+        k = 1
+    if backend == "fused" and bits is None and ef is None \
+            and not (ctx.quant_ag or ctx.compress_slow) \
+            and ctx.ar_strategy == "hier_rd" and len(ctx.tp_slow) == 1 \
+            and pods > 1 and is_pow2(pods):
         R = x.shape[0]
         kd = math.prod(w.shape[1:-1])
         lead = x.shape[1:x.dim() - (w.dim() - 2)]
@@ -135,11 +171,23 @@ def collective_matmul(x: torch.Tensor, w: torch.Tensor, ctx: ParallelCtx,
                       mesh)
         return _fast_sum(y, pods, fast).reshape(R, *lead, d_out)
     if k <= 1:
-        return hier.tp_all_reduce(project(x, w), ctx, mesh, scatter_dim=-1)
+        return hier.tp_all_reduce(project(x, w), ctx, mesh, scatter_dim=-1,
+                                  ef=ef)
     step = d_out // k
-    return torch.cat([hier.tp_all_reduce(
-        project(x, w[..., q * step:(q + 1) * step]), ctx, mesh,
-        scatter_dim=-1) for q in range(k)], dim=-1)
+    outs, errs = [], []
+    for q in range(k):
+        cols = slice(q * step, (q + 1) * step)
+        partial = project(x, w[..., cols])
+        if ef is None:
+            outs.append(hier.tp_all_reduce(partial, ctx, mesh,
+                                           scatter_dim=-1))
+        else:
+            yq, eq = hier.tp_all_reduce(partial, ctx, mesh, scatter_dim=-1,
+                                        ef=ef[..., cols])
+            outs.append(yq)
+            errs.append(eq)
+    y = torch.cat(outs, dim=-1)
+    return (y, torch.cat(errs, dim=-1)) if ef is not None else y
 
 
 def collective_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor,
@@ -150,8 +198,10 @@ def collective_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor,
                                      ) -> torch.Tensor:
     """Sequence-parallel variant: the chunked GEMM pipelined against
     ``tp_reduce_scatter`` along ``dim`` (of one rank's output), the chunks
-    along the feature dim, so the two never interact.  Nothing calls it
-    until sequence-parallel residuals arrive (ROADMAP item 9)."""
+    along the feature dim, so the two never interact (the quantized
+    wire's groups live on the feature dim: only their cap alignment
+    matters).  Nothing calls it until sequence-parallel residuals arrive
+    (ROADMAP item 9)."""
     if chunks is None:
         chunks = ctx.overlap_chunks if ctx.overlap_matmul else 1
     if not ctx.has_tp:
@@ -159,6 +209,11 @@ def collective_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor,
     d_out = w.shape[-1]
     ctx = _resolve_auto_for_matmul(x, w, ctx, mesh)
     k = _resolve_chunks(d_out, 1, chunks)
+    if ctx.compress_slow:
+        k = 1
+    bits = hier.QUANT_BITS.get(ctx.ar_quant)
+    if bits is not None and k > 1 and not _quant_chunk_ok(d_out, k, 1, bits):
+        k = 1
     if k <= 1:
         return hier.tp_reduce_scatter(project(x, w), ctx, mesh, dim=dim)
     step = d_out // k

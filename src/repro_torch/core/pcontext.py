@@ -7,14 +7,16 @@ and calls the collectives in :mod:`repro_torch.core.hierarchical`; with an
 empty ctx (no axes) every collective is the identity, so the same model
 code runs at tp=1 and over the virtual mesh.  The dataclass accepts every
 knob of the reference; the port's collectives raise
-``NotImplementedError`` on the ones not ported yet (``ar_quant``,
-``compress_slow``, ``quant_ag``, ``seq_parallel``), naming the ROADMAP
-item that brings them, and ``transformer.check_layout`` raises on a
+``NotImplementedError`` on the one not ported yet (``seq_parallel``),
+naming the ROADMAP item that brings it, and ``transformer.check_layout``
+raises on a
 non-empty ``dp``, ``fsdp`` or ``sp`` (the virtual mesh holds the TP axes
 only).  ``ar_strategy="auto"`` resolves per call against
 :mod:`repro_torch.core.autotune`, and ``overlap_matmul`` routes the
 row-parallel projections through :mod:`repro_torch.core.overlap` in
-``overlap_chunks`` column blocks.  The reference's constructors
+``overlap_chunks`` column blocks; ``ar_quant`` (and the legacy
+``compress_slow`` / ``quant_ag``) puts the collectives on the quantized
+wire.  The reference's constructors
 ``single_pod_ctx``/``multi_pod_ctx`` and its training knob
 ``grad_reduce_strategy`` are not copied: nothing in the port reads them
 yet.

@@ -8,6 +8,8 @@
         --full --tp 8 --pods 4 --ar-strategy hier_rd   # TP on one card
     python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
         --full --tp 8 --pods 4 --ar-strategy auto --overlap   # the paper's
+    python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
+        --full --tp 8 --pods 4 --ar-strategy hier_rd --ar-quant int8
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -16,7 +18,10 @@ downloaded.  The run is on the card unless ``--device`` says otherwise.
 picks the all-reduce per call from the autotune table (``--ar-table``,
 else the analytic model), and ``--overlap`` overlaps the row-parallel
 projections with their all-reduces (under ``hier_rd`` in the fused GEMM +
-recursive-doubling kernel).
+recursive-doubling kernel).  ``--ar-quant int8|int4`` puts the all-reduces
+on the quantized wire (packed payloads with per-group scales on every
+phase, error feedback on the decode residuals); ``auto`` picks the level
+per call and needs ``--ar-strategy auto``.
 """
 from __future__ import annotations
 
@@ -58,6 +63,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ar-table", default=None,
                    help="persisted autotune table (JSON) for --ar-strategy "
                         "auto")
+    p.add_argument("--ar-quant", choices=["off", "int8", "int4", "auto"],
+                   default="off",
+                   help="quantized all-reduce wire: int8/int4 payloads with "
+                        "per-group scales and error feedback on the decode "
+                        "residuals (auto: per call among off/int8/int4, "
+                        "needs --ar-strategy auto)")
     p.add_argument("--overlap", action="store_true",
                    help="overlapped collective-matmul projections")
     p.add_argument("--overlap-chunks", type=int, default=4,
@@ -80,7 +91,9 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
     mesh, ctx = mesh_and_ctx(args.tp, args.pods,
                              ar_strategy=args.ar_strategy, device=device)
     ctx = ctx.replace(overlap_matmul=args.overlap,
-                      overlap_chunks=args.overlap_chunks)
+                      overlap_chunks=args.overlap_chunks,
+                      ar_quant="none" if args.ar_quant == "off"
+                      else args.ar_quant)
     ap = make_plan(cfg, max(args.tp, 1))
     s_max = args.prompt_len + args.max_new + 8
     if args.block_size:
@@ -96,6 +109,8 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
     if mesh is not None:
         layout += (f" tp={args.tp} ({mesh.pods}x{mesh.fast}) "
                    f"ar={args.ar_strategy}")
+        if ctx.ar_quant != "none":
+            layout += f"/q={ctx.ar_quant}"
         if args.overlap:
             layout += f" overlap({args.overlap_chunks})"
     print(f"[serve] {cfg.name} on {device}: batch {args.batch} prompt "

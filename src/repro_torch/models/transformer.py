@@ -13,7 +13,11 @@ sums reduced by ``tp_all_reduce``, or with ``ctx.overlap_matmul`` the
 projection and its reduction overlapped in ``core/overlap.py``), and the
 vocab-parallel embedding through ``tp_all_reduce``.  KV caches are dicts
 of tensors with a leading layer axis and the ranks folded into the batch,
-updated in place (JAX rebuilt them with ``.at[].set``).
+updated in place (JAX rebuilt them with ``.at[].set``).  Under a
+quantized wire (``ctx.ar_quant`` other than "none") the decode cache also
+carries the error-feedback leaf ``ef`` (:func:`ef_sites_for`), which the
+two row-parallel reductions of every decode block consume and refresh;
+prefill takes the one-shot rounding.
 """
 from __future__ import annotations
 
@@ -193,15 +197,20 @@ def _use_overlap(ctx: ParallelCtx) -> bool:
 
 
 def _residual_proj(x: torch.Tensor, lhs: torch.Tensor, w: torch.Tensor,
-                   ctx: ParallelCtx, mesh) -> torch.Tensor:
-    """x plus the TP-reduced projection of ``lhs`` (the pre-projection
-    activation, (R, B, S, *c)) by the row-sharded ``w`` ((R, *c, D)):
-    overlapped when the ctx asks for it, else the projection then
-    ``tp_all_reduce``."""
+                   ctx: ParallelCtx, mesh, ef: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x plus the TP-reduced projection of ``lhs`` (the pre-projection
+    activation, (R, B, S, *c)) by the row-sharded ``w`` ((R, *c, D)), the
+    new error-feedback residue): overlapped when the ctx asks for it, else
+    the projection then ``tp_all_reduce``.  ``ef`` (R, B, S, D) is this
+    site's residue (None: no EF, and None comes back)."""
     if _use_overlap(ctx):
-        return x + ov.collective_matmul(lhs, w, ctx, mesh)
-    return x + hier.tp_all_reduce(ov.project(lhs, w), ctx, mesh,
-                                  scatter_dim=-1)
+        y = ov.collective_matmul(lhs, w, ctx, mesh, ef=ef)
+    else:
+        y = hier.tp_all_reduce(ov.project(lhs, w), ctx, mesh, scatter_dim=-1,
+                               ef=ef)
+    y, ef = y if ef is not None else (y, None)
+    return x + y, ef
 
 
 def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
@@ -217,10 +226,11 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
     h = L.apply_norm(x, bp.ln1, cfg)
     heads, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions,
                                     q_mask=q_mask)
-    x = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
+    x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
     h2 = L.apply_norm(x, bp.ln2, cfg)
-    return _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
-                          L.mlp_down_w(bp.mlp, cfg), ctx, mesh), kv
+    x, _ = _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
+                          L.mlp_down_w(bp.mlp, cfg), ctx, mesh)
+    return x, kv
 
 
 def _unranked(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -266,8 +276,19 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
 # ---------------------------------------------------------------------------
 
 
+def ef_sites_for(ctx: ParallelCtx, cfg: ModelConfig) -> int:
+    """Error-feedback site count for ``init_cache(..., ef_sites=...)``: the
+    dense decode threads EF through its two row-parallel reductions (attn
+    wo, MLP down) whenever the ctx may quantize the wire (``ar_quant``
+    forced or "auto"); other families carry no EF leaf."""
+    if ctx.ar_quant == "none" or cfg.family != "dense":
+        return 0
+    return 2
+
+
 def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
-               device: torch.device | str, mesh=None) -> Cache:
+               device: torch.device | str, mesh=None,
+               ef_sites: int = 0) -> Cache:
     """Decode cache, leading layer axis, per-rank (local) head counts as
     ``sharding.cache_spec`` cuts them (each rank holds ``ap.gqa.u`` kv
     slots), the R ranks folded into the batch, rank-major.
@@ -279,6 +300,10 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
     int32.  Block 0 is the trash block; the table starts as the identity
     mapping from 1, which makes the paged cache hold the dense cache's
     contents block by block.
+
+    ``ef_sites > 0`` adds the error-feedback leaf ``ef`` (L, ef_sites, R,
+    batch, d_model) f32, the reference's global layout with the ranks on
+    its tp axis.
     """
     cfg = ap.cfg
     R = mesh.size if mesh is not None else 1
@@ -300,8 +325,12 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "block_tbl": tbl}
     shape = (Ld, R * batch, s_max, u, hd)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if ef_sites > 0:
+        cache["ef"] = torch.zeros((Ld, ef_sites, R, batch, cfg.d_model),
+                                  dtype=torch.float32, device=device)
+    return cache
 
 
 def _paged_splice(phys: torch.Tensor, states: torch.Tensor,
@@ -322,7 +351,10 @@ def _paged_splice(phys: torch.Tensor, states: torch.Tensor,
 def seed_cache(cache: Cache, states: Cache) -> Cache:
     """Splice prefill-collected layer states into a decode cache at
     position 0, batch-wide, in place; returns ``cache``.  A paged cache
-    (``block_tbl`` present) routes K/V through the block table."""
+    (``block_tbl`` present) routes K/V through the block table.  An
+    ``ef`` leaf is zeroed: a fresh batch starts with no rounding residue."""
+    if "ef" in cache:
+        cache["ef"].zero_()
     if "block_tbl" in cache:
         _paged_splice(cache["k"], states["k"], cache["block_tbl"])
         _paged_splice(cache["v"], states["v"], cache["block_tbl"])
@@ -344,18 +376,29 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
                  q_mask: Optional[torch.Tensor] = None,
                  block_tbl: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block, one token.  x: (R, B, 1, D) replicated; cache_l: this
-    layer's {"k", "v"} (written in place).  Both row-parallel projections
-    go through ``_residual_proj``: their reduction is the collective the
-    paper targets.  Returns x."""
+    layer's {"k", "v"[, "ef"]} (written in place).  Both row-parallel
+    projections go through ``_residual_proj``: their reduction is the
+    collective the paper targets.  With an ``ef`` leaf ((2, R, B, D), one
+    site each) they consume and refresh their error-feedback residue, in
+    the message layout (R, B, 1, D).  Returns x."""
     cfg = ap.cfg
+    ef = cache_l.get("ef")
+    ef_in = (None, None) if ef is None \
+        else (ef[0, :, :, None], ef[1, :, :, None])
     h = L.apply_norm(x, bp.ln1, cfg)
     heads = L.attention_decode(bp.attn, h, cache_l, cfg, positions=positions,
                                kv_positions=kv_positions, q_mask=q_mask,
                                block_tbl=block_tbl)
-    x = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
+    x, ef_attn = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh,
+                                ef=ef_in[0])
     h2 = L.apply_norm(x, bp.ln2, cfg)
-    return _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
-                          L.mlp_down_w(bp.mlp, cfg), ctx, mesh)
+    x, ef_mlp = _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
+                               L.mlp_down_w(bp.mlp, cfg), ctx, mesh,
+                               ef=ef_in[1])
+    for site, new in enumerate((ef_attn, ef_mlp)):
+        if new is not ef_in[site]:      # an unquantized call hands it back
+            ef[site].copy_(new[:, :, 0])
+    return x
 
 
 def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
@@ -374,8 +417,8 @@ def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
     q_mask = _q_mask(ap, tokens.device)
     x = L.embed_lookup(model.embed, tokens[:, None], ctx, mesh, ap.vocab_pad)
     for i, bp in enumerate(model.blocks):
-        x = block_decode(bp, x, {"k": cache["k"][i], "v": cache["v"][i]}, ap,
-                         ctx, mesh, positions=positions,
+        cache_l = {n: cache[n][i] for n in ("k", "v", "ef") if n in cache}
+        x = block_decode(bp, x, cache_l, ap, ctx, mesh, positions=positions,
                          kv_positions=kv_positions, q_mask=q_mask,
                          block_tbl=block_tbl)
     x = L.apply_norm(x, model.final_norm, ap.cfg)
@@ -384,4 +427,5 @@ def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
 
 __all__ = ["ArchPlan", "make_plan", "check_layout", "Block", "DenseLM",
            "from_global", "init_params", "block_forward", "forward_lm",
-           "init_cache", "seed_cache", "block_decode", "decode_step"]
+           "ef_sites_for", "init_cache", "seed_cache", "block_decode",
+           "decode_step"]

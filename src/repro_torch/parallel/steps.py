@@ -11,7 +11,9 @@ reference's mesh steps do.  ``ar_table`` (a path, an
 build time and every call of the step runs under that tuner, so each
 ``ar_strategy="auto"`` call site of THIS step resolves against THIS table
 (the reference activates it around tracing; the port resolves at every
-call).
+call).  Under a quantized wire the prefill's cache carries the
+error-feedback leaf (``ef_sites_for``), zeroed, which every decode step
+consumes and refreshes.
 """
 from __future__ import annotations
 
@@ -24,8 +26,8 @@ from ..core.mesh import VirtualMesh
 from ..core.pcontext import ParallelCtx
 from ..models import layers as L
 from ..models.transformer import (ArchPlan, Cache, DenseLM, check_layout,
-                                  decode_step, forward_lm, init_cache,
-                                  seed_cache)
+                                  decode_step, ef_sites_for, forward_lm,
+                                  init_cache, seed_cache)
 
 
 ARTable = Optional[Union[str, autotune.AutoTuner]]
@@ -36,16 +38,18 @@ def build_prefill(ap: ArchPlan, ctx: ParallelCtx, mesh: VirtualMesh, *,
                   ) -> Callable[[DenseLM, torch.Tensor],
                                 Tuple[torch.Tensor, Cache]]:
     """Prefill: (model, tokens (B, S)) -> (first tokens (B,) int32, the
-    dense decode cache seeded with the prompt's K/V)."""
+    dense decode cache seeded with the prompt's K/V and, under a quantized
+    wire, a zero error-feedback leaf)."""
     check_layout(ap, ctx, mesh)
     tuner = autotune.tuner_for(ar_table)
+    ef_sites = ef_sites_for(ctx, ap.cfg)
 
     def prefill(model: DenseLM, tokens: torch.Tensor):
         with autotune.using(tuner):
             logits, states = forward_lm(model, tokens, ap, ctx, mesh,
                                         collect_state=True)
         cache = init_cache(ap, tokens.shape[0], s_max, device=tokens.device,
-                           mesh=mesh)
+                           mesh=mesh, ef_sites=ef_sites)
         seed_cache(cache, states)
         nxt = L.greedy_sample(logits[:, :, -1], ctx, mesh, ap.cfg.vocab_size)
         return nxt, cache

@@ -145,19 +145,30 @@ def test_resolved_ctx_runs_the_picked_strategy(monkeypatch):
 
 
 def test_quantized_dispatch_and_lossy_picks_raise():
-    """The quantized wire is ROADMAP item 9: an ``ar_quant`` policy, or a
-    table that picks ``compress_slow``, raises instead of running a
-    full-precision all-reduce in its place."""
+    """Neither raises any more: an ``ar_quant`` policy keys its own
+    namespace with the reference's pick, and a table entry that picks
+    ``compress_slow`` runs the int8 slow exchange, the result a
+    hier_rd + compress_slow ctx gives (not the full-precision sum)."""
     mesh = VirtualMesh(4, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TA.AutoTuner().choose(32768, 2, 4, "bfloat16", quant="auto")
+    tuner = TA.AutoTuner()
+    got = tuner.choose(32768, 2, 4, "bfloat16", quant="auto")
+    want = JA.AutoTuner(JCM.PERLMUTTER).choose(32768, 2, 4, "bfloat16",
+                                               quant="auto")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert list(tuner.lookups) == [
+        f"b{TA.bucket_of(32768)}/f2/s4/bfloat16:qauto"]
     ctx = TCtx(tp_fast=("model",), tp_slow=("pod",), ar_strategy="auto")
     lossy = TA.AutoTuner()
-    x = torch.zeros(8, 2, 16)
+    x = torch.tensor(np.random.default_rng(1).standard_normal((8, 2, 16)),
+                     dtype=torch.float32)
     lossy.table[f"b{TA.bucket_of(2 * 16 * 4)}/f2/s4/float32"] = \
         TA.ARChoice("hier_rd", compress_slow=True)
-    with TA.using(lossy), pytest.raises(NotImplementedError, match="item 9"):
-        TH.tp_all_reduce(x, ctx, mesh)
+    with TA.using(lossy):
+        y = TH.tp_all_reduce(x, ctx, mesh)
+    forced = ctx.replace(ar_strategy="hier_rd", compress_slow=True)
+    assert torch.equal(y, TH.tp_all_reduce(x, forced, mesh))
+    assert not torch.equal(y, TH.tp_all_reduce(
+        x, forced.replace(compress_slow=False), mesh))
 
 
 def test_tuner_for_and_using(tmp_path, monkeypatch):

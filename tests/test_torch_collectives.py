@@ -4,7 +4,8 @@ mesh's axis names (the same rank-batched picture as the port's leading
 rank axis, rank = pod * fast + f), plus the recursive-doubling schedule's
 properties and the knobs left for later slices (``auto`` and
 ``overlap_matmul`` run since they were ported: tests/test_torch_overlap.py
-and tests/test_torch_autotune.py)."""
+and tests/test_torch_autotune.py; the quantized wire:
+tests/test_torch_quant.py)."""
 import numpy as np
 import pytest
 
@@ -136,17 +137,30 @@ def test_cpu_wrapper_runs_the_plain_version_without_launching():
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(ar_quant="int8"), "item 9"),
-    (dict(compress_slow=True), "item 9"),
+    (dict(ar_quant="int8"), None),
+    (dict(compress_slow=True), None),
     (dict(seq_parallel="on"), "item 9"),
 ], ids=["ar_quant", "compress_slow", "seq_parallel"])
 def test_knobs_left_for_later_raise(knob, item):
+    """Only ``seq_parallel`` is left for a later slice and raises; the
+    quantized wire's knobs run: within their int8 rounding of the exact
+    sum, every rank holding the same sum under ``ar_quant`` (the legacy
+    ``compress_slow`` lets XOR peers differ by a rounding, as in the
+    reference)."""
     kw = dict(ar_strategy="hier_rd")
     kw.update(knob)
     ctx = TCtx(tp_fast=("model",), tp_slow=("pod",), **kw)
-    x = torch.zeros(4, 2, 8)
-    with pytest.raises(NotImplementedError, match=item):
-        TH.tp_all_reduce(x, ctx, VirtualMesh(2, 2, device="cpu"))
+    mesh = VirtualMesh(2, 2, device="cpu")
+    x = torch.tensor(_data((4, 2, 8), seed=4))
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            TH.tp_all_reduce(x, ctx, mesh)
+        return
+    got = TH.tp_all_reduce(x, ctx, mesh)
+    exact = x.sum(0, keepdim=True).expand_as(x)
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), atol=0.05)
+    assert not torch.equal(got, exact)              # it did quantize
+    assert _rows_identical(got) == ("ar_quant" in knob)
 
 
 def test_mesh_checks_its_ctx():
