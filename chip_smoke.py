@@ -70,7 +70,28 @@ Phases (any failure exits non-zero and prints no result line):
      quantization + overlap: launch counts derived from the tuner's
      picks (kernel 6 in prefill at int4, kernel 5 in decode), tokens
      margin-gated against flat's and tp=1's;
- 14. phase 5 at tp=8 under hier_rd + int8: card against CPU.
+ 14. phase 5 at tp=8 under hier_rd + int8: card against CPU;
+ 15. the grouped expert FFN kernel (kernel 7) against its plain version
+     within TOL, and bitwise equal to itself on a second call, in bf16
+     and f32, on the CPU tests' cases, a shape off its 16-byte path and
+     the MoE path's three shapes (prefill dispatch, tp=1 and tp=8 dense
+     decode); 1000 back-to-back calls on fresh inputs, each checked;
+     kernel, plain version and a three-bmm chain (informative: no single
+     PyTorch call computes the function) timed against the bound;
+ 16. qwen3-moe-30b-a3b at full width and depth (48 layers, seeded bf16
+     weights): batch 8, prompt 128, 16 new tokens, dense and paged
+     (block 16), exact launch counts (kernel 7 once a layer in prefill
+     and once a layer a step), paged tokens == dense tokens, one profiled
+     run with kernel 7's share of device time;
+ 17. the same model at 4 layers in float32 with capacity_factor E/K (no
+     overflow at any tp): tp=8 (4 pods x 2, experts parallel over all 8
+     ranks) under hier_rd and flat against tp=1: exact launch counts,
+     tokens by provable_gate, the decode path's teacher-forced logits
+     within (TF_MAX, TF_MEAN), which two planted faults in the MoE layer
+     (every rank on rank 0's experts; the dispatch's all-to-all dropped)
+     must break;
+ 18. phase 5 for qwen3-moe-30b-a3b (2 layers, f32) at tp=1 and at tp=8
+     under hier_rd: card against CPU.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -78,7 +99,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -99,8 +122,9 @@ from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
 from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
                                  decode_attention, flash_attention,
-                                 kernel_wrappers, paged_decode_attention,
-                                 quant_pack, quantize_pack, rd_all_reduce,
+                                 kernel_wrappers, moe_expert_ffn,
+                                 paged_decode_attention, quant_pack,
+                                 quantize_pack, rd_all_reduce,
                                  unpack_dequant)
 from repro_torch.kernels.fused_matmul_rd import \
     collective_matmul_rd_ref  # noqa: E402
@@ -110,6 +134,7 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     decode_step, ef_sites_for, forward_lm, init_cache, init_params,
     make_plan, seed_cache)
@@ -154,6 +179,7 @@ REPLACES = {
         "src/repro/kernels/rd_allreduce/fused_matmul.py:43",
     "quantize_pack": "src/repro/kernels/rd_allreduce/quant_kernel.py:29",
     "unpack_dequant": "src/repro/kernels/rd_allreduce/quant_kernel.py:45",
+    "moe_expert_ffn": "src/repro/kernels/moe_gemm/kernel.py:25",
 }
 MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "decode_attention": "tp8_hier_rd",
@@ -161,7 +187,8 @@ MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "rd_all_reduce": "tp8_hier_rd",
              "collective_matmul_rd": "tp8_auto_overlap",
              "quantize_pack": "tp8_hier_rd_int8",
-             "unpack_dequant": "tp8_hier_rd_int8"}
+             "unpack_dequant": "tp8_hier_rd_int8",
+             "moe_expert_ffn": "moe_tp1_dense"}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -171,6 +198,7 @@ SOURCES = {
     "collective_matmul_rd": "src/repro_torch/kernels/csrc/fused_matmul_rd.cu",
     "quantize_pack": "src/repro_torch/kernels/csrc/quant_pack.cu",
     "unpack_dequant": "src/repro_torch/kernels/csrc/quant_pack.cu",
+    "moe_expert_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu",
 }
 # Kernel 6 at the quantized path's shapes (rows, D) at tp=8 = 4 x 2,
 # batch 8, prompt 512: the decode reduce-scatter packs B x d_model / 2
@@ -406,14 +434,14 @@ def counts() -> dict:
 
 
 def profile_generate(eng: InferenceEngine, prompts: np.ndarray,
-                     share_of: str = "") -> None:
+                     share_of: str = "", new: int = NEW) -> None:
     """Where one generate's time goes: device busy share of the wall time,
     the kernels that take the most device time (torch.profiler) and, with
     ``share_of``, the share of device time of kernels of that name."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        res = eng.generate(prompts, NEW)
+        res = eng.generate(prompts, new)
     wall_ms = (res.prefill_s + res.decode_s) * 1e3
     # kernel (and memcpy/memset) events only: device time is counted once
     rows = [(e.device_time_total / 1e3, e.count, e.key)
@@ -479,19 +507,19 @@ def margin_gate(tokens_a, tokens_b, gap, prompt_len, tol) -> int:
 
 
 def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
-             expect: dict):
-    """Warm up, then one counted generate; raise unless the launches are
-    exactly ``expect``.  Returns (result, launches)."""
+             expect: dict, new: int = NEW):
+    """Warm up, then one counted generate of ``new`` tokens; raise unless
+    the launches are exactly ``expect``.  Returns (result, launches)."""
     eng.generate(prompts, 2)          # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     expect = {**dict.fromkeys(counts(), 0), **expect}
     reset_counts()
-    res = eng.generate(prompts, NEW)
+    res = eng.generate(prompts, new)
     got = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  {label}: prefill {res.prefill_s * 1e3:.2f} ms, decode "
-        f"{res.decode_s * 1e3:.2f} ms for {NEW - 1} steps "
+        f"{res.decode_s * 1e3:.2f} ms for {new - 1} steps "
         f"({res.decode_tokens_per_s:.1f} tok/s), peak memory "
         f"{peak:.3f} GiB, launches {got}")
     if got != expect:
@@ -543,17 +571,16 @@ def phase_path() -> tuple:
 
 def card_vs_cpu(tp: int, pods: int, strategy: str,
                 overlap_matmul: bool = False, ar_quant: str = "none",
-                tol: float = 1e-3) -> None:
-    """The same seeded weights (2 layers, full width, f32) on the card
-    (kernels) and on the CPU (plain versions), at ``tp`` over a virtual
-    mesh of ``pods`` x tp/pods ranks when tp > 1; logits within ``tol``,
-    greedy tokens equal wherever the CPU's top-1/top-2 gap is above
-    2 ``tol``.  f32 sums over 2048- and 8192-long reductions are taken in
-    another order on the card than on the CPU: ~1e-5 on O(1) logits,
-    hence the default ``tol``."""
+                tol: float = 1e-3, arch: str = "llama3.2-1b") -> None:
+    """The same seeded weights of ``arch`` (2 layers, full width, f32) on
+    the card (kernels) and on the CPU (plain versions), at ``tp`` over a
+    virtual mesh of ``pods`` x tp/pods ranks when tp > 1; logits within
+    ``tol``, greedy tokens checked by ``provable_gate``.  f32 sums over
+    2048- and 8192-long reductions are taken in another order on the card
+    than on the CPU: ~1e-5 on O(1) logits, hence the default ``tol``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               dtype=torch.float32)
     ap = make_plan(cfg, tp)
     mesh_g, ctx = mesh_and_ctx(tp, pods, ar_strategy=strategy,
@@ -1460,6 +1487,259 @@ def phase_auto_quant(decode_refs: dict) -> dict:
     return {"tp8_auto_quant_overlap": got}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the grouped expert FFN kernel (kernel 7)
+# ---------------------------------------------------------------------------
+
+# The MoE path: qwen3-moe-30b-a3b (128 experts, top 8, d_ff 768 an
+# expert), batch 8, prompt 128, 16 new tokens.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PROMPT, MOE_NEW = 128, 16
+MOE_E, MOE_K, MOE_F = 128, 8, 768
+# Kernel 7's operands on the path, (E, C, D, F, G) with x (G, C, D): the
+# prefill dispatch at tp=1 (capacity ceil(1024 * 8 / 128 * 1.25) = 80 rows
+# an expert) and at tp=8 (16 experts a rank, 8 ranks x capacity 10 rows
+# each: the same operand); the dense decode path at tp=1 (every expert on
+# the batch's 8 tokens, one shared token block) and at tp=8 (each rank's
+# 16 experts on its copy of the tokens: 8 blocks).
+MOE_SHAPES = {"prefill": (MOE_E, 80, D_MODEL, MOE_F, MOE_E),
+              "decode": (MOE_E, B, D_MODEL, MOE_F, 1),
+              "decode_tp8": (MOE_E, B, D_MODEL, MOE_F, PODS * FAST)}
+# tests/test_kernels.py's MOE_CASES, and one shape off the 16-byte path
+MOE_SMALL = ((4, 128, 64, 128, 4), (2, 100, 128, 200, 2),
+             (8, 256, 64, 96, 8), (3, 13, 72, 50, 3), (8, 5, 40, 24, 2))
+
+
+def moe_operands(gen, E, C, D, Fh, G, dtype):
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+    return (rnd(G, C, D), rnd(E, D, Fh, scale=D ** -0.5),
+            rnd(E, D, Fh, scale=D ** -0.5), rnd(E, Fh, D, scale=Fh ** -0.5))
+
+
+def bmm_chain(x, wg, wu, wd):
+    """The informative yardstick: three cuBLAS bmm's and the gating in
+    the operands' type (no single PyTorch call computes this function)."""
+    E, G = wg.shape[0], x.shape[0]
+    xe = x if G == E else x.expand(E, *x.shape[1:]) if G == 1 \
+        else x.repeat_interleave(E // G, dim=0)
+    return torch.bmm(F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu), wd)
+
+
+def moe_bound(E, C, D, Fh, G, dtype) -> tuple:
+    """Each weight read once, x (G blocks) read once, out written once;
+    6 E C D F operations at the peak of the operands' type."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    return bound_ms((3 * E * D * Fh + G * C * D + E * C * D) * esz,
+                    6.0 * E * C * D * Fh, dtype)
+
+
+def phase_moe_kernel() -> dict:
+    """Kernel 7 within TOL of its plain version, and bitwise equal to
+    itself on a second call, on the CPU tests' cases, a shape off the
+    16-byte path and the three path shapes, in bf16 and f32; 1000
+    back-to-back calls on fresh inputs, each checked; kernel, plain
+    version and bmm chain timed at the path shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    smem = _build.c_function("moe_gemm", "moe_ffn_smem_bytes",
+                             (ctypes.c_int, ctypes.c_int))
+    log(f"  shared memory a CTA at d_model {D_MODEL}: bf16 "
+        f"{smem(D_MODEL, 1)} B, f32 {smem(D_MODEL, 0)} B")
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in MOE_SMALL + tuple(MOE_SHAPES.values()):
+            ops = moe_operands(gen, *shape, dtype)
+            out = moe_expert_ffn(*ops)
+            again = moe_expert_ffn(*ops)
+            ref = moe_expert_ffn_ref(*ops)
+            torch.cuda.synchronize()
+            err = check_close(f"moe_expert_ffn {shape}", out, ref, dtype)
+            if not torch.equal(out, again):
+                raise AssertionError(f"moe_expert_ffn {shape}: two calls "
+                                     "differ")
+            name = next((k for k, v in MOE_SHAPES.items() if v == shape),
+                        None)
+            if name is None:
+                continue
+            t = (time_ms(lambda: moe_expert_ffn(*ops)),
+                 time_ms(lambda: moe_expert_ffn_ref(*ops)),
+                 time_ms(lambda: bmm_chain(*ops)))
+            bnd = moe_bound(*shape, dtype)
+            log(f"  moe_expert_ffn {name} {shape} [{str(dtype)[6:]}]: "
+                f"kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} "
+                f"bmm_chain_ms={t[2]:.4f} (library_ms=null) "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            if dtype == torch.bfloat16 and name == "decode":
+                rec = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                       "library_ms": None, "bmm_chain_ms": t[2],
+                       "bound_ms": bnd[0], "bound_by": bnd[1]}
+            del ops, out, again, ref
+    E, C, D, Fh, G = 16, 24, D_MODEL, MOE_F, 16
+    x, wg, wu, wd = moe_operands(gen, E, C, D, Fh, G, torch.bfloat16)
+    bad = 0
+    for i in range(1000):
+        x.normal_(generator=gen)
+        out = moe_expert_ffn(x, wg, wu, wd)
+        ref = moe_expert_ffn_ref(x, wg, wu, wd)
+        tol = TOL[torch.bfloat16]
+        bad += int(not torch.allclose(out.float(), ref.float(), atol=tol,
+                                      rtol=tol))
+    torch.cuda.synchronize()
+    log(f"  1000 back-to-back calls ({E}, {C}, {D}, {Fh}) bf16: {bad} wrong")
+    if bad:
+        raise AssertionError("moe_expert_ffn: back-to-back calls disagree")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phases 16-18: qwen3-moe-30b-a3b
+# ---------------------------------------------------------------------------
+
+
+def free_device() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_launches(L: int, new: int, strategy: str = "") -> dict:
+    """Launches of one MoE generate: flash once a layer; the decode kernel
+    once a layer a step; kernel 7 once a layer in prefill (the dispatch)
+    and once a layer a step (the dense path); under hier_rd the RD kernel
+    on the embedding's and each attention wo's all-reduce in prefill (the
+    dispatch has none) and on the embedding's, wo's and the MoE combine's
+    in decode."""
+    n = {"flash_attention": L, "decode_attention": L * (new - 1),
+         "moe_expert_ffn": L * new}
+    if strategy == "hier_rd":
+        n["rd_all_reduce"] = (L + 1) + (2 * L + 1) * (new - 1)
+    return n
+
+
+def phase_moe_path() -> dict:
+    """qwen3-moe-30b-a3b at tp=1, full width and depth, bf16: dense and
+    paged, exact launches, paged tokens == dense tokens, one profile."""
+    free_device()
+    cfg = get_config(MOE_ARCH)
+    ap = make_plan(cfg, 1)
+    t0 = time.perf_counter()
+    model = init_params(ap, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers (full depth), d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, "
+        f"{n_params / 1e9:.3f} B parameters in {cfg.dtype} (router f32), "
+        f"drawn in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, MOE_PROMPT))
+    L, s_max = cfg.n_layers, MOE_PROMPT + MOE_NEW
+    launches, tokens = {}, {}
+    for layout, bsz in (("dense", 0), ("paged", BLOCK)):
+        expect = moe_launches(L, MOE_NEW)
+        if bsz:
+            expect["paged_decode_attention"] = expect.pop("decode_attention")
+        eng = InferenceEngine(ap, model, s_max=s_max, block_size=bsz,
+                              device="cuda")
+        res, launches[f"moe_tp1_{layout}"] = run_path(
+            eng, prompts, f"qwen3-moe tp=1 {layout}", expect, new=MOE_NEW)
+        tokens[layout] = res.tokens
+        if layout == "dense":
+            profile_generate(eng, prompts, share_of="moe_ffn", new=MOE_NEW)
+    if not np.array_equal(tokens["dense"], tokens["paged"]):
+        raise AssertionError("qwen3-moe: paged tokens differ from dense")
+    log("  paged tokens == dense tokens")
+    del model, eng
+    free_device()
+    return launches
+
+
+@contextlib.contextmanager
+def planted_moe_fault(kind: str):
+    """A deliberate fault in the MoE layer, for the negative control of
+    the logits gate: ``rank0_experts`` gives every rank the expert offset
+    of rank 0 in the dense decode path, ``no_all_to_all`` leaves out the
+    dispatch's EP exchange (each rank runs its own tokens through the
+    experts of the ranks they were meant for)."""
+    if kind == "rank0_experts":
+        patch = mock.patch.object(
+            hierarchical, "ep_rank", lambda ctx, mesh, device=None:
+            torch.zeros(mesh.size, dtype=torch.long, device=device))
+    else:
+        patch = mock.patch.object(hierarchical, "ep_all_to_all",
+                                  lambda t, ctx, mesh: t)
+    with patch:
+        yield
+
+
+def phase_moe_tp() -> dict:
+    """qwen3-moe-30b-a3b at full width, 4 layers, capacity_factor E/K (no
+    pair overflows at any tp), float32: tp=8 (4 x 2) under hier_rd and
+    flat against tp=1, exact launches, tokens by provable_gate, decode-path
+    teacher-forced logits within (TF_MAX, TF_MEAN), which two planted
+    faults in the MoE layer must break.  float32, not bf16: in bf16 the
+    router's top-k flips where two experts' scores are within the
+    roundings that another reduction order moves the residual by, and a
+    flipped expert moves that token's logits by O(1) (on the CPU, smoke
+    widths, 3 layers: tp=8 against tp=1 max 1.14, mean 0.030 in bf16,
+    4.5e-7 mean in f32), so bf16 would test the router's margins, not the
+    wiring."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=4,
+                              capacity_factor=MOE_E / MOE_K,
+                              dtype=torch.float32)
+    L, s_max = cfg.n_layers, MOE_PROMPT + MOE_NEW
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, MOE_PROMPT))
+    tf = dict(prompt=MOE_PROMPT, s_max=s_max)
+    ap1 = make_plan(cfg, 1)
+    model1 = init_params(ap1, seed=SEED, device="cuda")
+    launches = {}
+    res1, launches["moe_tp1_4l"] = run_path(
+        InferenceEngine(ap1, model1, s_max=s_max, device="cuda"), prompts,
+        "qwen3-moe 4 layers tp=1", moe_launches(L, MOE_NEW), new=MOE_NEW)
+    ref = res1.tokens
+    want = teacher_forced_decode(model1, ref, ap1, **tf)
+    del model1
+    free_device()
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    log(f"  tp={ap.tp} on {mesh}: ep={ctx.ep}, "
+        f"{cfg.n_experts // ap.tp} experts a rank, GQA g={ap.gqa.g} "
+        f"u={ap.gqa.u}, capacity_factor {cfg.capacity_factor:g}")
+    for strategy in ("hier_rd", "flat"):
+        sctx = ctx.replace(ar_strategy=strategy)
+        eng = InferenceEngine(ap, model, ctx=sctx, mesh=mesh, s_max=s_max,
+                              device="cuda")
+        res, launches[f"moe_tp8_{strategy}"] = run_path(
+            eng, prompts, f"qwen3-moe 4 layers tp=8 {strategy}",
+            moe_launches(L, MOE_NEW, strategy), new=MOE_NEW)
+        mine = teacher_forced_decode(model, ref, ap, sctx, mesh, **tf)
+        mx, mean = gate(f"tp=8 {strategy} vs tp=1, decode path", mine, want)
+        if mx > TF_MAX or mean > TF_MEAN:
+            raise AssertionError(f"qwen3-moe tp=8 {strategy} logits differ "
+                                 "from tp=1's")
+        n = provable_gate(res.tokens, ref, mine, want, MOE_PROMPT)
+        log(f"    tp=8 {strategy} tokens == tp=1 tokens on {n}/"
+            f"{B * MOE_NEW} steps whose gap allows no flip (fully equal: "
+            f"{np.array_equal(res.tokens, ref)})")
+        if strategy != "hier_rd":
+            continue
+        for kind in ("rank0_experts", "no_all_to_all"):
+            with planted_moe_fault(kind):
+                bad = teacher_forced_decode(model, ref, ap, sctx, mesh, **tf)
+            fmx, fmean = gate(f"  planted fault {kind}", bad, want)
+            if fmx <= TF_MAX and fmean <= TF_MEAN:
+                raise AssertionError(f"the MoE logits gate passed the "
+                                     f"planted fault {kind}")
+    del model, mesh
+    free_device()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1517,10 +1797,23 @@ def main() -> int:
         "width, 2 layers, float32")
     card_vs_cpu(PODS * FAST, PODS, "hier_rd", ar_quant="int8",
                 tol=QUANT_CPU_TOL)
+    log("[15] grouped expert FFN kernel (kernel 7)")
+    rec["moe_expert_ffn"] = phase_moe_kernel()
+    log(f"[16] {MOE_ARCH} tp=1, full width and depth, bf16")
+    launches.update(phase_moe_path())
+    log(f"[17] {MOE_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
+        "4 layers, float32")
+    launches.update(phase_moe_tp())
+    log(f"[18] card vs CPU, {MOE_ARCH}, full width, 2 layers, float32: "
+        f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
+    free_device()
+    card_vs_cpu(1, 1, "flat", arch=MOE_ARCH)
+    card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=MOE_ARCH)
     # launches: the count of the run of the path each kernel serves (the
     # tp=8 hier_rd path, the paged kernel's tp=1 paged path, the fused
     # kernel's tp=8 auto + overlap path, kernel 6's tp=8 hier_rd int8
-    # path), and every counted run's beside it
+    # path, kernel 7's qwen3-moe tp=1 dense path), and every counted run's
+    # beside it
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n],
                 "launches": launches[MAIN_PATH[n]][n], "path": MAIN_PATH[n],

@@ -1,7 +1,9 @@
 """``--arch <id>`` resolution for the port's entry points.
 
-Only the architectures whose family the port runs are registered; the
-others arrive with ROADMAP item 10 (other families)."""
+Only the architectures whose family the port runs (dense, moe) are
+registered; the others arrive with ROADMAP item 10 (other families).
+``dbrx-132b`` is there for its CPU smoke config: the full model does not
+fit one card."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +12,8 @@ from ..models.common import ModelConfig
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -19,7 +23,7 @@ def _mod(arch: str):
     if arch not in _MODULES:
         raise KeyError(
             f"arch {arch!r} is not ported yet (known: {list(_MODULES)}); "
-            "dense archs beyond llama3.2-1b and the other families arrive "
+            "the other dense and MoE archs and the other families arrive "
             "with ROADMAP item 10")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 

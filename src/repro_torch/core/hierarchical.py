@@ -39,6 +39,12 @@ rounded, so the call returns ``err = v - deq(Q(v))`` for the caller to
 add to its next message.  The legacy int8 knobs (``compress_slow``,
 ``quant_ag``) use the same kernels at bits 8, group 128.  Only the
 sequence-parallel layout is not ported: a ctx asking for it raises.
+
+The MoE layer's exchanges live here too: ``ep_all_to_all`` (the dispatch's
+``lax.all_to_all`` over the EP axes, which are the TP axes: a transpose of
+the rank and piece axes), ``ep_rank``/``ep_size`` (each rank's expert
+offset) and ``all_gather_tiled`` (the prefill's gather of the ranks'
+sequence chunks).
 """
 from __future__ import annotations
 
@@ -99,6 +105,53 @@ def tp_rank(ctx: ParallelCtx, mesh: Mesh, device=None) -> torch.Tensor:
     (R,) int64: ``layers.tp_rank`` for all ranks at once."""
     pods, fast = _sizes(ctx, mesh) if ctx.has_tp else (1, 1)
     return torch.arange(pods * fast, device=device)
+
+
+def ep_size(ctx: ParallelCtx, mesh: Mesh) -> int:
+    """Ranks of the expert-parallel group (1 without ``ep``).  On a mesh
+    the experts are sharded over every TP axis, so a MoE layer needs
+    ``ep`` to be those axes (``VirtualMesh.check_ctx`` refuses any other
+    non-empty set; an empty one is refused here)."""
+    if not ctx.ep:
+        if ctx.has_tp and axes_size(ctx.tp_axes, mesh) > 1:
+            raise ValueError(f"a MoE layer over TP axes {ctx.tp_axes} needs "
+                             "ep = the TP axes, got none")
+        return 1
+    return axes_size(ctx.ep, mesh)
+
+
+def ep_rank(ctx: ParallelCtx, mesh: Mesh, device=None) -> torch.Tensor:
+    """Every rank's index in the expert-parallel group (R,) int64, the
+    reference's ``tp_rank`` over ``ctx.ep`` (slow axes outermost): rank r
+    holds experts ``ep_rank[r] * E_loc`` onwards."""
+    return torch.arange(ep_size(ctx, mesh), device=device)
+
+
+def ep_all_to_all(t: torch.Tensor, ctx: ParallelCtx,
+                  mesh: Mesh) -> torch.Tensor:
+    """``lax.all_to_all(t, ctx.ep, split_axis=0, concat_axis=0,
+    tiled=True)`` of every rank's (ep, *s) pieces, t (R, ep, *s): rank j's
+    piece i goes to rank i as its piece j.  The EP group is the whole
+    mesh, so the exchange is the transpose of the rank and piece axes."""
+    if t.shape[1] != ep_size(ctx, mesh) or t.shape[0] != t.shape[1]:
+        raise ValueError(f"ep_all_to_all: pieces {tuple(t.shape[:2])} are "
+                         "not (R, ep) with ep = R")
+    return _all_to_all(t, 0, 1)
+
+
+def all_gather_tiled(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
+                     dim: int) -> torch.Tensor:
+    """``lax.all_gather(x, ctx.tp_axes, axis=dim, tiled=True)``: every
+    rank's piece along ``dim`` (of one rank's tensor) concatenated in rank
+    order (slow-major), the same on every rank.  x (R, *s) -> (R, *s')
+    with s'[dim] = R s[dim], an expanded view."""
+    if not ctx.has_tp:
+        return x
+    R = x.shape[0]
+    d = dim % (x.dim() - 1)
+    y = x.movedim(0, d)
+    y = y.reshape(*y.shape[:d], R * y.shape[d + 1], *y.shape[d + 2:])
+    return y.unsqueeze(0).expand(R, *y.shape)
 
 
 def _resolve_auto(x: torch.Tensor, ctx: ParallelCtx,
@@ -600,4 +653,5 @@ __all__ = ["tp_all_reduce", "tp_reduce_scatter", "tp_all_gather",
            "rd_all_reduce", "rd_halving_all_reduce",
            "compressed_rd_all_reduce", "quant_rd_all_reduce",
            "quantized_all_gather", "axes_size", "tp_rank", "dtype_name",
+           "ep_size", "ep_rank", "ep_all_to_all", "all_gather_tiled",
            "QUANT_BITS"]

@@ -67,8 +67,9 @@ class VirtualMesh:
 
     def check_ctx(self, ctx: ParallelCtx) -> None:
         """Raise unless ``ctx`` wires this mesh: at most one slow and one
-        fast TP axis, named as the mesh's, and every axis of size > 1
-        among them (else the collectives would skip ranks)."""
+        fast TP axis, named as the mesh's, every axis of size > 1 among
+        them (else the collectives would skip ranks), and an expert axis
+        set ``ep`` that is empty or the TP axes themselves."""
         if len(ctx.tp_slow) > 1 or len(ctx.tp_fast) > 1:
             raise NotImplementedError(
                 f"ctx {ctx.tp_slow}/{ctx.tp_fast}: the virtual mesh has one "
@@ -81,6 +82,16 @@ class VirtualMesh:
             if n > 1 and name not in ctx.tp_axes:
                 raise ValueError(f"mesh axis {name!r} (size {n}) is not a "
                                  f"TP axis of ctx {ctx.tp_axes}")
+        if ctx.ep and ctx.ep != ctx.tp_axes:
+            # The reference cuts the expert leaves over every TP axis
+            # (parallel/sharding.py::_tp_dim) but takes E_loc and the
+            # expert offset from ``ep`` alone (models/moe.py), so an ``ep``
+            # narrower than the TP axes (its multi_pod_ctx(cross_pod_tp=
+            # True) wiring, ep=("model",) with pods) gives tp=N tokens that
+            # differ from tp=1's (ROADMAP §3).
+            raise ValueError(f"ctx ep={ctx.ep} is not the TP axes "
+                             f"{ctx.tp_axes}: expert parallelism must span "
+                             "the axes the experts are sharded over")
 
     def __repr__(self) -> str:
         return (f"VirtualMesh(pods={self.pods}, fast={self.fast}, "
@@ -92,7 +103,10 @@ def mesh_and_ctx(tp: int, pods: int = 1, *, ar_strategy: str = "flat",
                  ) -> Tuple[Optional[VirtualMesh], ParallelCtx]:
     """(mesh, ctx) for a requested layout, as the reference's
     ``topology.mesh_and_ctx``: no mesh and the local ctx at tp == 1; a
-    (pods, tp/pods) mesh with ``tp_slow=("pod",)`` when pods > 1."""
+    (pods, tp/pods) mesh with ``tp_slow=("pod",)`` when pods > 1.  The
+    experts are parallel over the TP axes, slow-major (``ep`` =
+    ``("pod", "model")`` with pods, ``("model",)`` without), not over the
+    fast axis alone as the reference's cross-pod wiring has it."""
     ctx = LOCAL.replace(ar_strategy=ar_strategy)
     if tp <= 1:
         return None, ctx
@@ -101,7 +115,7 @@ def mesh_and_ctx(tp: int, pods: int = 1, *, ar_strategy: str = "flat",
     mesh = VirtualMesh(pods, tp // pods, device=device)
     if pods > 1:
         ctx = ctx.replace(tp_fast=("model",), tp_slow=("pod",),
-                          ep=("model",))
+                          ep=("pod", "model"))
     else:
         ctx = ctx.replace(tp_fast=("model",), ep=("model",))
     return mesh, ctx

@@ -31,7 +31,9 @@ Axis roles
 - ``fsdp``:   weight-sharding axes; weights are all-gathered per layer on the
   forward pass (ZeRO-3 style), which AD transposes into gradient
   reduce-scatters.
-- ``ep``:     expert-parallel axes for MoE layers (usually == tp_fast).
+- ``ep``:     expert-parallel axes for MoE layers: empty, or the TP axes
+  themselves (slow-major), since the experts are sharded over every TP
+  axis (``VirtualMesh.check_ctx`` refuses any other set).
 - ``sp``:     sequence-parallel axes (activations sequence-sharded between
   blocks; usually == tp_fast).
 """

@@ -15,6 +15,7 @@ kernels, the port's layers call these wrappers on the executed path.
 from .decode_attention import decode_attention, paged_decode_attention
 from .flash_attention import flash_attention
 from .fused_matmul_rd import collective_matmul_rd
+from .moe_gemm import moe_expert_ffn
 from .quant_pack import quantize_pack, unpack_dequant
 from .rd_allreduce import rd_all_reduce
 
@@ -23,9 +24,9 @@ def kernel_wrappers():
     """Every kernel wrapper, for launch accounting."""
     return (flash_attention, decode_attention, paged_decode_attention,
             rd_all_reduce, collective_matmul_rd, quantize_pack,
-            unpack_dequant)
+            unpack_dequant, moe_expert_ffn)
 
 
 __all__ = ["flash_attention", "decode_attention", "paged_decode_attention",
            "rd_all_reduce", "collective_matmul_rd", "quantize_pack",
-           "unpack_dequant", "kernel_wrappers"]
+           "unpack_dequant", "moe_expert_ffn", "kernel_wrappers"]

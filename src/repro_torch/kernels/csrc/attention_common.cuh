@@ -1,6 +1,7 @@
 // Shared device code of the port's attention kernels (flash prefill, dense
-// decode, paged decode): 16-byte operand loads widened to f32, the f32
-// online-softmax update, and the error string the Python wrappers report.
+// decode, paged decode), also used by the grouped expert FFN: 16-byte
+// operand loads widened to f32, the f32 online-softmax update, and the
+// error string the Python wrappers report.
 #pragma once
 
 #include <cuda_bf16.h>

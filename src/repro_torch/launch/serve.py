@@ -10,6 +10,10 @@
         --full --tp 8 --pods 4 --ar-strategy auto --overlap   # the paper's
     python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
         --full --tp 8 --pods 4 --ar-strategy hier_rd --ar-quant int8
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full \
+        --batch 8 --prompt-len 128 --block-size 16        # MoE on one card
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full \
+        --layers 4 --tp 8 --pods 4 --ar-strategy hier_rd  # MoE, TP x EP
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -21,11 +25,17 @@ projections with their all-reduces (under ``hier_rd`` in the fused GEMM +
 recursive-doubling kernel).  ``--ar-quant int8|int4`` puts the all-reduces
 on the quantized wire (packed payloads with per-group scales on every
 phase, error feedback on the decode residuals); ``auto`` picks the level
-per call and needs ``--ar-strategy auto``.
+per call and needs ``--ar-strategy auto``.  A MoE arch (``--arch
+qwen3-moe-30b-a3b``, ``dbrx-132b`` for the smoke config only) runs its
+experts through the grouped expert FFN kernel, parallel over the TP ranks
+(the prompt length must then divide by ``--tp``).  ``--layers N`` cuts the
+config's depth to N layers (widths kept), and the ``[serve]`` line then
+shows the depth.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -49,6 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "item 6)")
     p.add_argument("--full", action="store_true",
                    help="full-size config (default: the smoke config)")
+    p.add_argument("--layers", type=int, default=0,
+                   help="> 0: cut the config's depth to this many layers "
+                        "(widths kept)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--max-new", type=int, default=16)
@@ -88,6 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
 def run_batch(args: argparse.Namespace) -> GenerationResult:
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
+    depth = ""
+    if 0 < args.layers < cfg.n_layers:
+        depth = f" ({args.layers} of {cfg.n_layers} layers)"
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mesh, ctx = mesh_and_ctx(args.tp, args.pods,
                              ar_strategy=args.ar_strategy, device=device)
     ctx = ctx.replace(overlap_matmul=args.overlap,
@@ -113,7 +130,7 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
             layout += f"/q={ctx.ar_quant}"
         if args.overlap:
             layout += f" overlap({args.overlap_chunks})"
-    print(f"[serve] {cfg.name} on {device}: batch {args.batch} prompt "
+    print(f"[serve] {cfg.name}{depth} on {device}: batch {args.batch} prompt "
           f"{args.prompt_len} new {args.max_new} {layout} "
           f"| prefill {res.prefill_s * 1e3:.1f}ms "
           f"decode {res.decode_s * 1e3:.1f}ms "

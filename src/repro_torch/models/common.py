@@ -25,6 +25,11 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
     sliding_window: int = 0          # 0 = full attention
     rope_theta: float = 1.0e4
     norm: str = "rmsnorm"
@@ -38,14 +43,30 @@ class ModelConfig:
         assert self.n_heads % max(self.n_kv_heads, 1) == 0, \
             f"{self.name}: q heads must be a multiple of kv heads"
 
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family."""
+        """Analytic parameter count of the dense and MoE families."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         hq = self.n_heads * self.head_dim
         hkv = self.n_kv_heads * self.head_dim
         per_layer = d * (hq + 2 * hkv) + hq * d
-        per_layer += (3 if self.act == "swiglu" else 2) * d * f
+        if self.is_moe:
+            per_layer += d * self.n_experts  # router
+            per_layer += self.n_experts * 3 * d * self.d_ff_expert
+        else:
+            per_layer += (3 if self.act == "swiglu" else 2) * d * f
         return v * d * (1 if self.tie_embeddings else 2) + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only the top-k experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        inactive = self.n_layers * (self.n_experts - self.top_k) \
+            * 3 * self.d_model * self.d_ff_expert
+        return self.param_count() - inactive
 
 
 def pad_to(x: int, m: int) -> int:

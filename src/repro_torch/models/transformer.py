@@ -1,6 +1,6 @@
-"""Model assembly for the dense family: parameters, LM forward, KV caches
-and the decode step, at tp=1 and over the virtual mesh (the port of
-``repro/models/transformer.py``).
+"""Model assembly for the dense and MoE families: parameters, LM forward,
+KV caches and the decode step, at tp=1 and over the virtual mesh (the port
+of ``repro/models/transformer.py``).
 
 The model is an ``nn.Module`` (:class:`DenseLM`) holding frozen
 parameters in the JAX package's layouts, each stacked per rank
@@ -11,7 +11,13 @@ one code path for every tp: activations carry the rank axis, each layer's
 two row-parallel projections go through ``_residual_proj`` (their partial
 sums reduced by ``tp_all_reduce``, or with ``ctx.overlap_matmul`` the
 projection and its reduction overlapped in ``core/overlap.py``), and the
-vocab-parallel embedding through ``tp_all_reduce``.  KV caches are dicts
+vocab-parallel embedding through ``tp_all_reduce``.  A MoE block
+(``models/moe.py``) replaces the MLP: in prefill each rank dispatches its
+own chunk of the sequence through the EP all-to-all and the outputs are
+gathered back (``_moe_tokens``/``_moe_restore``); in decode every rank
+runs its local experts on all tokens and ``tp_all_reduce`` (the paper's
+collective) completes the combine.  Attention ``wo`` keeps
+``_residual_proj`` in both families.  KV caches are dicts
 of tensors with a leading layer axis and the ranks folded into the batch,
 updated in place (JAX rebuilt them with ``.at[].set``).  Under a
 quantized wire (``ctx.ar_quant`` other than "none") the decode cache also
@@ -33,6 +39,7 @@ from ..core import overlap as ov
 from ..core.pcontext import LOCAL, ParallelCtx
 from ..parallel.sharding import shard_params
 from . import layers as L
+from . import moe as M
 from .common import GQAPlan, ModelConfig, dense_init, pad_to, place_heads, \
     plan_gqa
 
@@ -57,15 +64,22 @@ class ArchPlan:
 def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
     """The static plan of one (config, tp).  At tp=1 ``plan_gqa`` picks
     g = n_q / n_kv and no slot is dead; at tp > 1 a plan can have dead
-    slots, which carry zero weights and are masked after attention."""
-    if cfg.family != "dense":
+    slots, which carry zero weights and are masked after attention.  As
+    in the reference, a MoE plan skips the width checks (its FFN is cut
+    on the expert axis); it is refused when tp does not divide the
+    experts, which the reference would replicate while its MoE layer
+    slices them."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with ROADMAP item 10 (other "
-            "families); the port runs the dense family only")
+            "families); the port runs the dense and MoE families")
     for dim, name in ((cfg.d_model, "d_model"), (cfg.d_ff, "d_ff")):
-        if dim % tp:
+        if cfg.family != "moe" and dim % tp:
             raise ValueError(f"{cfg.name}: {name}={dim} not divisible by "
                              f"tp={tp}")
+    if cfg.family == "moe" and (not cfg.is_moe or cfg.n_experts % tp):
+        raise ValueError(f"{cfg.name}: n_experts={cfg.n_experts} not "
+                         f"divisible by tp={tp}")
     return ArchPlan(cfg=cfg, tp=tp, gqa=plan_gqa(cfg.n_heads, cfg.n_kv_heads,
                                                  tp),
                     vocab_pad=pad_to(cfg.vocab_size, tp))
@@ -107,20 +121,22 @@ def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One decoder layer's parameters: ``ln1``, ``attn`` (wq, wk, wv, wo),
-    ``ln2``, ``mlp`` (wg, wu, wd), each (R, *local)."""
+    ``ln2``, and either ``mlp`` (wg, wu, wd) or ``moe`` (router f32; wg,
+    wu, wd cut on the expert axis), each (R, *local)."""
 
     def __init__(self, tensors: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__()
         self.ln1 = _frozen(tensors["ln1"])
         self.attn = _frozen(tensors["attn"])
         self.ln2 = _frozen(tensors["ln2"])
-        self.mlp = _frozen(tensors["mlp"])
+        ffn = "moe" if "moe" in tensors else "mlp"
+        setattr(self, ffn, _frozen(tensors[ffn]))
 
 
 class DenseLM(nn.Module):
-    """Dense decoder parameters: ``embed`` (tok, head), ``blocks``,
-    ``final_norm``, every leaf stacked per rank.  Built by
-    :func:`init_params` or, from the JAX package's parameters, by
+    """A decoder of either FFN kind (dense MLP or MoE): ``embed`` (tok,
+    head), ``blocks``, ``final_norm``, every leaf stacked per rank.  Built
+    by :func:`init_params` or, from the JAX package's parameters, by
     :func:`repro_torch.models.bridge.params_from_numpy`.
     """
 
@@ -148,9 +164,11 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                 mesh=None) -> DenseLM:
     """The port's own seeded init: the shapes and scales of the JAX
     ``init_params`` at ``ap.tp`` (weights Normal(0, 1/fan_in) in the
-    plan's slot layout, norms 1), drawn from a ``torch.Generator`` on
-    ``device`` (not the JAX package's numbers), then cut over ``mesh``
-    (R = ap.tp ranks).  A plan without dead slots (llama3.2-1b at tp=8)
+    plan's slot layout, norms 1, a MoE router in f32), drawn from a
+    ``torch.Generator`` on ``device`` (not the JAX package's numbers),
+    then cut over ``mesh`` (R = ap.tp ranks) one layer at a time, so the
+    global and the cut copy of the whole model are never both held.  A
+    plan without dead slots (llama3.2-1b and qwen3-moe-30b-a3b at tp=8)
     draws the same numbers at every tp, so its model computes the same
     function at every tp."""
     cfg, plan = ap.cfg, ap.gqa
@@ -172,17 +190,21 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                 "wk": place_heads(wk, plan.kv_map).transpose(0, 1).contiguous(),
                 "wv": place_heads(wv, plan.kv_map).transpose(0, 1).contiguous(),
                 "wo": place_heads(wo, plan.q_map)}
-        mlp = {"wg": dense_init(gen, (d, f), d, dt),
-               "wu": dense_init(gen, (d, f), d, dt),
-               "wd": dense_init(gen, (f, d), f, dt)}
-        return {"ln1": ones(d), "attn": attn, "ln2": ones(d), "mlp": mlp}
+        blk = {"ln1": ones(d), "attn": attn, "ln2": ones(d)}
+        if cfg.is_moe:
+            blk["moe"] = M.init_moe(gen, cfg)
+        else:
+            blk["mlp"] = {"wg": dense_init(gen, (d, f), d, dt),
+                          "wu": dense_init(gen, (d, f), d, dt),
+                          "wd": dense_init(gen, (f, d), f, dt)}
+        return shard_params(blk, mesh)
 
     embed = {"tok": dense_init(gen, (ap.vocab_pad, d), d, dt)}
     if not cfg.tie_embeddings:
         embed["head"] = dense_init(gen, (d, ap.vocab_pad), d, dt)
-    return from_global({"embed": embed,
-                        "blocks": [block() for _ in range(cfg.n_layers)],
-                        "final_norm": ones(d)}, mesh)
+    embed = shard_params(embed, mesh)
+    blocks = [block() for _ in range(cfg.n_layers)]
+    return DenseLM(embed, blocks, shard_params(ones(d), mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +235,24 @@ def _residual_proj(x: torch.Tensor, lhs: torch.Tensor, w: torch.Tensor,
     return x + y, ef
 
 
+def _moe_tokens(h: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """MoE consumes per-rank-unique tokens: rank r takes the r-th
+    contiguous chunk of the sequence of h (R, B, S, D) (no exchange)."""
+    if not ctx.has_tp:
+        return h
+    R, B, S, D = h.shape
+    if S % R:
+        raise ValueError(f"sequence {S} is not divisible by tp={R}: the MoE "
+                         "dispatch gives every rank S/tp of its tokens")
+    r = torch.arange(R, device=h.device)
+    return h.reshape(R, B, R, S // R, D)[r, :, r]
+
+
+def _moe_restore(out: torch.Tensor, ctx: ParallelCtx, mesh) -> torch.Tensor:
+    """The ranks' sequence chunks gathered back to the full sequence."""
+    return hier.all_gather_tiled(out, ctx, mesh, dim=1)
+
+
 def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ctx: ParallelCtx = LOCAL, mesh=None, *,
                   positions: torch.Tensor,
@@ -220,14 +260,20 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One causal block over the full sequence, x (R, B, S, D) replicated.
     Returns (x, (k, v)) with this layer's rotated K/V (R, B, S, U, hd),
-    the prefill cache seed.  Both row-parallel projections go through
-    ``_residual_proj`` (no SP)."""
+    the prefill cache seed.  The row-parallel projections go through
+    ``_residual_proj`` (no SP); a MoE block runs the dispatch path on each
+    rank's chunk of the sequence and gathers the outputs back (its
+    load-balancing loss, which only training reads, is dropped)."""
     cfg = ap.cfg
     h = L.apply_norm(x, bp.ln1, cfg)
     heads, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions,
                                     q_mask=q_mask)
     x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
     h2 = L.apply_norm(x, bp.ln2, cfg)
+    if cfg.is_moe:
+        out, _ = M.moe_ffn(bp.moe, _moe_tokens(h2, ctx), cfg, ctx, mesh,
+                           decode=False)
+        return x + _moe_restore(out, ctx, mesh), kv
     x, _ = _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
                           L.mlp_down_w(bp.mlp, cfg), ctx, mesh)
     return x, kv
@@ -249,8 +295,9 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
     (B, S, V_pad) without one.  ``states`` (when ``collect_state``) hold
     the per-layer K/V stacked on a leading layer axis, {"k", "v"}:
     (L, R*B, S, U, hd), the ranks folded into the batch as in the cache;
-    else None.  (The JAX function also returns an aux loss and encoder
-    output, which the dense family does not have.)
+    else None.  (The JAX function also returns the MoE load-balancing
+    loss, which only training reads, and an encoder output, which neither
+    family here has.)
     """
     check_layout(ap, ctx, mesh)
     B, S = tokens.shape
@@ -280,7 +327,8 @@ def ef_sites_for(ctx: ParallelCtx, cfg: ModelConfig) -> int:
     """Error-feedback site count for ``init_cache(..., ef_sites=...)``: the
     dense decode threads EF through its two row-parallel reductions (attn
     wo, MLP down) whenever the ctx may quantize the wire (``ar_quant``
-    forced or "auto"); other families carry no EF leaf."""
+    forced or "auto"); other families (MoE included, as in the reference)
+    carry no EF leaf and take the one-shot rounding."""
     if ctx.ar_quant == "none" or cfg.family != "dense":
         return 0
     return 2
@@ -378,9 +426,12 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
     """One block, one token.  x: (R, B, 1, D) replicated; cache_l: this
     layer's {"k", "v"[, "ef"]} (written in place).  Both row-parallel
     projections go through ``_residual_proj``: their reduction is the
-    collective the paper targets.  With an ``ef`` leaf ((2, R, B, D), one
-    site each) they consume and refresh their error-feedback residue, in
-    the message layout (R, B, 1, D).  Returns x."""
+    collective the paper targets.  A MoE block runs its dense path (every
+    local expert on every token) and completes the TP-partial combine with
+    ``tp_all_reduce``, the same collective.  With an ``ef`` leaf ((2, R,
+    B, D), one site each) the projections consume and refresh their
+    error-feedback residue, in the message layout (R, B, 1, D).  Returns
+    x."""
     cfg = ap.cfg
     ef = cache_l.get("ef")
     ef_in = (None, None) if ef is None \
@@ -392,9 +443,15 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
     x, ef_attn = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh,
                                 ef=ef_in[0])
     h2 = L.apply_norm(x, bp.ln2, cfg)
-    x, ef_mlp = _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
-                               L.mlp_down_w(bp.mlp, cfg), ctx, mesh,
-                               ef=ef_in[1])
+    if cfg.is_moe:
+        x = x + hier.tp_all_reduce(M.moe_ffn_dense(bp.moe, h2, cfg, ctx,
+                                                   mesh), ctx, mesh,
+                                   scatter_dim=-1)
+        ef_mlp = ef_in[1]
+    else:
+        x, ef_mlp = _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
+                                   L.mlp_down_w(bp.mlp, cfg), ctx, mesh,
+                                   ef=ef_in[1])
     for site, new in enumerate((ef_attn, ef_mlp)):
         if new is not ef_in[site]:      # an unquantized call hands it back
             ef[site].copy_(new[:, :, 0])

@@ -1,12 +1,18 @@
 """Tensor-parallel parameter sharding over the virtual mesh: the port of
-the TP rules of ``repro/parallel/sharding.py`` for the dense family.
+the TP rules of ``repro/parallel/sharding.py`` for the dense and MoE
+families.
 
 A leaf's TP dimension is cut into R contiguous pieces, rank r taking piece
 r (slow-major, as ``PartitionSpec((slow, fast))`` cuts it), and the pieces
 are stacked on a new leading rank axis: (R, *local_shape).  A leaf whose
 TP dimension does not divide by R, and a leaf with no TP dimension (the
-norms), is replicated on every rank, as ``_leaf_plan`` leaves it.  FSDP is
-not part of serving here (``fsdp_serve`` is not ported).
+norms, the MoE router), is replicated on every rank, as ``_leaf_plan``
+leaves it.  Under a ``moe`` parent the expert leaves ``wg``/``wu``/``wd``
+((E, D, F) / (E, F, D)) are cut on the expert axis instead
+(``_MOE_EXPERT_LEAVES``); ``transformer.make_plan`` refuses an expert
+count that R does not divide, where the reference would silently
+replicate the experts while its MoE layer slices them.  FSDP is not part
+of serving here (``fsdp_serve`` is not ported).
 
 The decode cache follows ``cache_spec``: its head (slot) dimension is
 sharded, so each rank holds ``ap.gqa.u`` kv slots
@@ -27,12 +33,19 @@ TP_RULES: Dict[str, Optional[int]] = {
     "bq": -2, "bk": -2, "bv": -2,
     "wg": -1, "wu": -1, "w1": -1, "b1": -1, "wd": -2, "w2": -2,
     "w": None, "b": None,
+    "router": None,
 }
+
+# Expert leaves of a MoE layer, cut on their leading expert axis.
+_MOE_EXPERT_LEAVES = {"wg", "wu", "wd"}
 
 
 def tp_dim(path_names: Sequence[str], ndim: int) -> Optional[int]:
-    """The TP dimension of the leaf at ``path_names``, or None."""
+    """The TP dimension of the leaf at ``path_names`` (the names of its
+    parents, then its own), or None."""
     name = path_names[-1]
+    if "moe" in path_names[:-1] and name in _MOE_EXPERT_LEAVES:
+        return ndim - 3
     if name not in TP_RULES:
         raise KeyError(f"no TP rule for param {'/'.join(path_names)}")
     d = TP_RULES[name]
@@ -40,7 +53,10 @@ def tp_dim(path_names: Sequence[str], ndim: int) -> Optional[int]:
 
 
 def shard_leaf(t: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
-    """(R, ...) pieces of ``t`` along ``dim`` (or R copies)."""
+    """(R, ...) pieces of ``t`` along ``dim`` (or R copies); at R = 1 a
+    view of ``t``, no copy."""
+    if n == 1:
+        return t.unsqueeze(0)
     if dim is None or t.shape[dim] % n:
         return t.unsqueeze(0).expand(n, *t.shape).contiguous()
     return torch.stack(torch.chunk(t, n, dim=dim))
