@@ -91,7 +91,33 @@ Phases (any failure exits non-zero and prints no result line):
      (every rank on rank 0's experts; the dispatch's all-to-all dropped)
      must break;
  18. phase 5 for qwen3-moe-30b-a3b (2 layers, f32) at tp=1 and at tp=8
-     under hier_rd: card against CPU.
+     under hier_rd: card against CPU;
+ 19. the RWKV6 time-mix scan kernel (kernel 8) against its plain version
+     (the step-exact recurrence) on the same CUDA tensors, f32, within
+     RWKV_TOL: the CPU tests' shapes, constant log decays -1, -2, -5 (past
+     the reference's chunk clamp), the path's prefill (B 8, T 512, H 64,
+     hd 64), decode (T 1) and tp=8 fold (64 sequences, 8 bonus groups)
+     shapes; two chained calls bitwise equal to one, the in-place
+     (aliased) state update bitwise equal to a separate one; kernel,
+     plain version (fewer calls: a T-step loop) and bound timed;
+ 20. rwkv6-7b at full width and depth (32 layers, 7.53 B parameters,
+     seeded bf16): batch 8, prompt 512, 64 new tokens, exact launch counts
+     (kernel 8 once a layer in prefill and once a layer a decode step),
+     the decode path's teacher-forced logits against the full-sequence
+     forward over the same tokens within RWKV_STEP_BF16 (the recurrence is
+     step-exact in both; the GEMMs round at other places), which a planted
+     fault (the decode state never advancing) must break, one profiled
+     run (16 new tokens) with kernel 8's share of device time;
+ 21. the same model at 4 layers in float32: the tp=1 decode path against
+     the full forward within RWKV_STEP_F32; tp=8 (4 pods x 2, 8 heads a
+     rank) under hier_rd and flat against tp=1: exact launch counts of
+     kernels 4 and 8, tokens by provable_gate, the decode path's
+     teacher-forced logits within (TF_MAX, TF_MEAN), which two planted
+     faults (every rank on rank 0's slice of the channel-mix receptance;
+     the receptance half of the stacked partial left unreduced) must
+     break;
+ 22. phase 5 for rwkv6-7b (2 layers, f32) at tp=1 and at tp=8 under
+     hier_rd: card against CPU.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -124,7 +150,7 @@ from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
                                  decode_attention, flash_attention,
                                  kernel_wrappers, moe_expert_ffn,
                                  paged_decode_attention, quant_pack,
-                                 quantize_pack, rd_all_reduce,
+                                 quantize_pack, rd_all_reduce, rwkv6_scan,
                                  unpack_dequant)
 from repro_torch.kernels.fused_matmul_rd import \
     collective_matmul_rd_ref  # noqa: E402
@@ -135,6 +161,8 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_ref  # noqa: E402
+from repro_torch.models import rwkv  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     decode_step, ef_sites_for, forward_lm, init_cache, init_params,
     make_plan, seed_cache)
@@ -180,6 +208,7 @@ REPLACES = {
     "quantize_pack": "src/repro/kernels/rd_allreduce/quant_kernel.py:29",
     "unpack_dequant": "src/repro/kernels/rd_allreduce/quant_kernel.py:45",
     "moe_expert_ffn": "src/repro/kernels/moe_gemm/kernel.py:25",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:26",
 }
 MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "decode_attention": "tp8_hier_rd",
@@ -188,7 +217,8 @@ MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "collective_matmul_rd": "tp8_auto_overlap",
              "quantize_pack": "tp8_hier_rd_int8",
              "unpack_dequant": "tp8_hier_rd_int8",
-             "moe_expert_ffn": "moe_tp1_dense"}
+             "moe_expert_ffn": "moe_tp1_dense",
+             "rwkv6_scan": "rwkv_tp1"}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -199,6 +229,7 @@ SOURCES = {
     "quantize_pack": "src/repro_torch/kernels/csrc/quant_pack.cu",
     "unpack_dequant": "src/repro_torch/kernels/csrc/quant_pack.cu",
     "moe_expert_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+    "rwkv6_scan": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
 }
 # Kernel 6 at the quantized path's shapes (rows, D) at tp=8 = 4 x 2,
 # batch 8, prompt 512: the decode reduce-scatter packs B x d_model / 2
@@ -1740,6 +1771,300 @@ def phase_moe_tp() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the RWKV6 time-mix scan kernel (kernel 8)
+# ---------------------------------------------------------------------------
+
+# The RWKV path: rwkv6-7b (64 heads of 64 channels), batch 8, prompt 512,
+# 64 new tokens (tp=1); 4 layers f32, 16 new tokens at tp=8.
+RWKV_ARCH = "rwkv6-7b"
+RWKV_H, RWKV_HD = 64, 64
+RWKV_TP_LAYERS, RWKV_TP_NEW = 4, 16
+# Kernel 8's operands on the path, (N, T, H, hd, G): prefill and decode at
+# tp=1, and the tp=8 prefill with the 8 ranks folded into the sequences
+# (8 heads a rank, one bonus group a rank).
+RWKV_SHAPES = {"prefill": (B, PROMPT, RWKV_H, RWKV_HD, 1),
+               "decode": (B, 1, RWKV_H, RWKV_HD, 1),
+               "prefill_tp8": (PODS * FAST * B, PROMPT,
+                               RWKV_H // (PODS * FAST), RWKV_HD, PODS * FAST)}
+# tests/test_kernels.py's RWKV_CASES (G = 1)
+RWKV_SMALL = ((2, 128, 2, 64, 1), (1, 100, 3, 64, 1), (2, 64, 1, 32, 1))
+# tests/test_kernels.py's tolerance.  The kernel's fused multiply-adds and
+# sum order against the plain version's: on the CPU the plain version at
+# T 512 is within 3.3e-5 of a float64 run (|y| up to 114).
+RWKV_TOL = dict(atol=2e-4, rtol=1e-3)
+# The decode path's teacher-forced logits against the full-sequence forward
+# over the same tokens (max |diff|, mean |diff|).  In bf16 (phase 20) the
+# two round at other places (cuBLAS takes other GEMM kernels for 8 rows
+# than for 4600), which 32 layers compound: about 2x the first measurement
+# on the H100 (max 0.2969, mean 3.581e-02; PERF.md).  In f32 (phase 21, 4
+# layers) the same comparison is a sum-order difference.
+RWKV_STEP_BF16 = (0.6, 0.07)
+RWKV_STEP_F32 = (1e-3, 1e-4)
+
+
+def rwkv_operands(gen, N, T, H, hd, G, logw=None):
+    """The CPU tests' draws: r/k/v normal, log decay -exp(U(-6, -0.5)) (or
+    the constant ``logw``), u and s0 0.1 x normal; all f32 on the card."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    lw = -torch.exp(torch.rand((N, T, H, hd), generator=gen, device="cuda")
+                    * 5.5 - 6.0) if logw is None \
+        else torch.full((N, T, H, hd), logw, device="cuda")
+    return (rnd(N, T, H, hd), rnd(N, T, H, hd), rnd(N, T, H, hd), lw,
+            rnd(G, H, hd, scale=0.1), rnd(N, H, hd, hd, scale=0.1))
+
+
+def rwkv_check(label: str, ops) -> float:
+    y, s = rwkv6_scan(*ops)
+    ry, rs = rwkv6_scan_ref(*ops)
+    torch.cuda.synchronize()
+    err = max(max_err(y, ry), max_err(s, rs))
+    ok = torch.allclose(y, ry, **RWKV_TOL) and torch.allclose(s, rs,
+                                                              **RWKV_TOL)
+    log(f"  {label}: max|kernel-plain| = {err:.3e} (atol "
+        f"{RWKV_TOL['atol']:g}, rtol {RWKV_TOL['rtol']:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def rwkv_bound(N, T, H, hd, G) -> tuple:
+    """r/k/v/logw read and y written once, s0 read and the final state
+    written once, u read once (f32); per step and head the kv outer
+    product, the decayed state and its sum (3 hd^2), y's dot (2 hd^2) and
+    the bonus (4 hd), on the CUDA cores."""
+    return bound_ms((5 * N * T * H * hd + 2 * N * H * hd * hd + G * H * hd)
+                    * 4, N * T * H * (5.0 * hd * hd + 4 * hd), torch.float32)
+
+
+def phase_rwkv_kernel() -> dict:
+    """Kernel 8 within RWKV_TOL of its plain version on the CPU tests'
+    shapes, constant decays past the reference's clamp and the path's
+    shapes; chained and in-place calls bitwise equal to one call; kernel,
+    plain version and bound timed at the path's shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    times = {}
+    for shape in RWKV_SMALL + tuple(RWKV_SHAPES.values()):
+        ops = rwkv_operands(gen, *shape)
+        err = rwkv_check(f"rwkv6_scan {shape}", ops)
+        name = next((k for k, v in RWKV_SHAPES.items() if v == shape), None)
+        if name is None:
+            continue
+        t = (time_ms(lambda: rwkv6_scan(*ops)),
+             time_ms(lambda: rwkv6_scan_ref(*ops), reps=3))
+        bnd = rwkv_bound(*shape)
+        log(f"  rwkv6_scan {name} {shape}: kernel_ms={t[0]:.4f} "
+            f"plain_ms={t[1]:.4f} (library_ms=null) bound_ms={bnd[0]:.4f} "
+            f"({bnd[1]})")
+        times[name] = (err, t, bnd)
+        del ops
+    for c in (-1.0, -2.0, -5.0):
+        rwkv_check(f"rwkv6_scan constant logw {c:g}, T 100 (64-step decay "
+                   f"sum {64 * c:g})",
+                   rwkv_operands(gen, 2, 100, 4, 64, 2, logw=c))
+    # two chained calls (the second stepping its state in place, as decode
+    # does) and an aliased s0 / s_out: bitwise equal to one plain call of
+    # the kernel, whose arithmetic does not depend on where T is cut
+    r, k, v, lw, u, s0 = rwkv_operands(gen, 16, 300, 8, 64, 4)
+    y, s = rwkv6_scan(r, k, v, lw, u, s0)
+    y1, st = rwkv6_scan(*(t[:, :123].contiguous() for t in (r, k, v, lw)), u,
+                        s0)
+    y2, _ = rwkv6_scan(*(t[:, 123:].contiguous() for t in (r, k, v, lw)), u,
+                       st, s_out=st)
+    s_alias = s0.clone()
+    y3, _ = rwkv6_scan(r, k, v, lw, u, s_alias, s_out=s_alias)
+    torch.cuda.synchronize()
+    chained = torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(st, s)
+    aliased = torch.equal(y3, y) and torch.equal(s_alias, s)
+    log(f"  two chained calls (T 123 + 177, the second in place) == one "
+        f"call: {chained}; aliased s0/s_out == separate: {aliased}")
+    if not (chained and aliased):
+        raise AssertionError("rwkv6_scan: chained or in-place calls differ")
+    err, t, bnd = times["prefill"]
+    derr, dt, dbnd = times["decode"]
+    return {"max_abs_err": max(err, derr), "ms": t[0], "plain_ms": t[1],
+            "library_ms": None, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "decode_ms": dt[0], "decode_plain_ms": dt[1],
+            "decode_bound_ms": dbnd[0], "tp8_prefill_ms":
+                times["prefill_tp8"][1][0]}
+
+
+# ---------------------------------------------------------------------------
+# Phases 20-22: rwkv6-7b
+# ---------------------------------------------------------------------------
+
+
+def rwkv_launches(L: int, new: int, strategy: str = "") -> dict:
+    """Launches of one RWKV generate: kernel 8 once a layer in prefill and
+    once a layer a decode step; under hier_rd the RD kernel on every
+    all-reduce (the embedding's, then each layer's time-mix output and
+    stacked channel-mix partial) in prefill and in each step."""
+    n = {"rwkv6_scan": L * new}
+    if strategy == "hier_rd":
+        n["rd_all_reduce"] = (2 * L + 1) * new
+    return n
+
+
+def phase_rwkv_path() -> dict:
+    """rwkv6-7b at tp=1, full width and depth, bf16: exact launches, one
+    profile, the decode path's logits against the full forward's, and a
+    planted fault that gate must catch."""
+    free_device()
+    cfg = get_config(RWKV_ARCH)
+    ap = make_plan(cfg, 1)
+    t0 = time.perf_counter()
+    model = init_params(ap, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers (full depth), d_model "
+        f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+        f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B parameters in {cfg.dtype} (w0, u f32), "
+        f"drawn in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, param_count() "
+                             f"{cfg.param_count()}")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    s_max = PROMPT + NEW
+    eng = InferenceEngine(ap, model, s_max=s_max, device="cuda")
+    res, launches = run_path(eng, prompts, "rwkv6-7b tp=1",
+                             rwkv_launches(cfg.n_layers, NEW))
+    # a shorter profiled run: the profiler's processing of a 64-token
+    # generate's ~3e5 events costs about a minute of host time
+    profile_generate(eng, prompts, share_of="rwkv6_scan", new=RWKV_TP_NEW)
+    dec = teacher_forced_decode(model, res.tokens, ap, prompt=PROMPT,
+                                s_max=s_max)
+    full = teacher_forced(model, res.tokens, ap)[:, PROMPT - 1:]
+    if not torch.isfinite(full).all():
+        raise AssertionError("rwkv6-7b: non-finite logits")
+    mx, mean = gate("decode path vs full-sequence forward over the "
+                    "generated tokens", dec, full, RWKV_STEP_BF16)
+    if mx > RWKV_STEP_BF16[0] or mean > RWKV_STEP_BF16[1]:
+        raise AssertionError("rwkv6-7b: decode-path logits differ from the "
+                             "full forward's")
+    with stale_state():
+        bad = teacher_forced_decode(model, res.tokens, ap, prompt=PROMPT,
+                                    s_max=s_max)
+    fmx, fmean = gate("  planted fault stale_state", bad, full,
+                      RWKV_STEP_BF16)
+    if fmx <= RWKV_STEP_BF16[0] and fmean <= RWKV_STEP_BF16[1]:
+        raise AssertionError("the step-exact gate passed the planted fault "
+                             "stale_state")
+    del model, eng, dec, full, bad
+    free_device()
+    return {"rwkv_tp1": launches}
+
+
+@contextlib.contextmanager
+def stale_state():
+    """A deliberate fault in the decode path, for the negative control of
+    the step-exact gate: the time-mix step writes its new state to a fresh
+    buffer, so the cache's state never advances past the prompt."""
+    with mock.patch.object(rwkv, "rwkv_time_mix_step",
+                           lambda p, x, state, cfg: rwkv._time_mix(
+                               p, x, cfg, state["shift_tm"], state["wkv"],
+                               None)):
+        yield
+
+
+@contextlib.contextmanager
+def planted_rwkv_fault(kind: str):
+    """A deliberate fault in the RWKV block, for the negative control of
+    the logits gate: ``rank0_slice`` has every rank contract rank 0's
+    slice of the channel-mix receptance input with its own rows of ``wr``;
+    ``unreduced_receptance`` reduces only the value half of the stacked
+    channel-mix partial, each rank gating with its own partial logit."""
+    if kind == "rank0_slice":
+        patch = mock.patch.object(
+            rwkv, "_own_cols",
+            lambda xr, dloc: xr[..., :dloc].contiguous())
+    else:
+        real = hierarchical.tp_all_reduce
+
+        def value_half_only(x, ctx, mesh, scatter_dim=-1, ef=None):
+            if x.dim() == 5 and x.shape[1] == 2:      # the stacked partial
+                return torch.stack([real(x[:, 0], ctx, mesh, scatter_dim),
+                                    x[:, 1]], dim=1)
+            return real(x, ctx, mesh, scatter_dim, ef)
+        patch = mock.patch.object(hierarchical, "tp_all_reduce",
+                                  value_half_only)
+    with patch:
+        yield
+
+
+def phase_rwkv_tp() -> dict:
+    """rwkv6-7b at full width, 4 layers, float32: the tp=1 decode path
+    against the full forward; tp=8 (4 x 2) under hier_rd and flat against
+    tp=1, exact launches, tokens by
+    provable_gate, decode-path teacher-forced logits within (TF_MAX,
+    TF_MEAN), which two planted faults in the block's wiring must break.
+    The seeded weights are the same numbers at both tps (no head slots,
+    the vocab divides by 8)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=RWKV_TP_LAYERS,
+                              dtype=torch.float32)
+    L, new, s_max = cfg.n_layers, RWKV_TP_NEW, PROMPT + RWKV_TP_NEW
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    tf = dict(prompt=PROMPT, s_max=s_max)
+    ap1 = make_plan(cfg, 1)
+    model1 = init_params(ap1, seed=SEED, device="cuda")
+    launches = {}
+    res1, launches["rwkv_tp1_4l"] = run_path(
+        InferenceEngine(ap1, model1, s_max=s_max, device="cuda"), prompts,
+        "rwkv6-7b 4 layers tp=1", rwkv_launches(L, new), new=new)
+    ref = res1.tokens
+    want = teacher_forced_decode(model1, ref, ap1, **tf)
+    mx, mean = gate("tp=1 decode path vs full-sequence forward", want,
+                    teacher_forced(model1, ref, ap1)[:, PROMPT - 1:],
+                    RWKV_STEP_F32)
+    if mx > RWKV_STEP_F32[0] or mean > RWKV_STEP_F32[1]:
+        raise AssertionError("rwkv6-7b f32: decode-path logits differ from "
+                             "the full forward's")
+    del model1
+    free_device()
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    log(f"  tp={ap.tp} on {mesh}: {ap.rwkv_heads_local} heads a rank, "
+        f"{model.blocks[0].cm['wr'].shape[1]} rows of the channel-mix wr a "
+        "rank")
+    for strategy in ("hier_rd", "flat"):
+        sctx = ctx.replace(ar_strategy=strategy)
+        eng = InferenceEngine(ap, model, ctx=sctx, mesh=mesh, s_max=s_max,
+                              device="cuda")
+        res, launches[f"rwkv_tp8_{strategy}"] = run_path(
+            eng, prompts, f"rwkv6-7b 4 layers tp=8 {strategy}",
+            rwkv_launches(L, new, strategy), new=new)
+        mine = teacher_forced_decode(model, ref, ap, sctx, mesh, **tf)
+        mx, mean = gate(f"tp=8 {strategy} vs tp=1, decode path", mine, want)
+        if mx > TF_MAX or mean > TF_MEAN:
+            raise AssertionError(f"rwkv6-7b tp=8 {strategy} logits differ "
+                                 "from tp=1's")
+        n = provable_gate(res.tokens, ref, mine, want, PROMPT)
+        log(f"    tp=8 {strategy} tokens == tp=1 tokens on {n}/{B * new} "
+            f"steps whose gap allows no flip (fully equal: "
+            f"{np.array_equal(res.tokens, ref)})")
+        if strategy != "hier_rd":
+            continue
+        for kind in ("rank0_slice", "unreduced_receptance"):
+            with planted_rwkv_fault(kind):
+                bad = teacher_forced_decode(model, ref, ap, sctx, mesh, **tf)
+            fmx, fmean = gate(f"  planted fault {kind}", bad, want)
+            if fmx <= TF_MAX and fmean <= TF_MEAN:
+                raise AssertionError(f"the RWKV logits gate passed the "
+                                     f"planted fault {kind}")
+    del model, mesh
+    free_device()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1809,11 +2134,24 @@ def main() -> int:
     free_device()
     card_vs_cpu(1, 1, "flat", arch=MOE_ARCH)
     card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=MOE_ARCH)
+    free_device()
+    log("[19] RWKV6 time-mix scan kernel (kernel 8)")
+    rec["rwkv6_scan"] = phase_rwkv_kernel()
+    log(f"[20] {RWKV_ARCH} tp=1, full width and depth, bf16")
+    launches.update(phase_rwkv_path())
+    log(f"[21] {RWKV_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
+        f"{RWKV_TP_LAYERS} layers, float32")
+    launches.update(phase_rwkv_tp())
+    log(f"[22] card vs CPU, {RWKV_ARCH}, full width, 2 layers, float32: "
+        f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
+    free_device()
+    card_vs_cpu(1, 1, "flat", arch=RWKV_ARCH)
+    card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=RWKV_ARCH)
     # launches: the count of the run of the path each kernel serves (the
     # tp=8 hier_rd path, the paged kernel's tp=1 paged path, the fused
     # kernel's tp=8 auto + overlap path, kernel 6's tp=8 hier_rd int8
-    # path, kernel 7's qwen3-moe tp=1 dense path), and every counted run's
-    # beside it
+    # path, kernel 7's qwen3-moe tp=1 dense path, kernel 8's rwkv6-7b
+    # tp=1 path), and every counted run's beside it
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n],
                 "launches": launches[MAIN_PATH[n]][n], "path": MAIN_PATH[n],

@@ -1,6 +1,6 @@
 """``--arch <id>`` resolution for the port's entry points.
 
-Only the architectures whose family the port runs (dense, moe) are
+Only the architectures whose family the port runs (dense, moe, ssm) are
 registered; the others arrive with ROADMAP item 10 (other families).
 ``dbrx-132b`` is there for its CPU smoke config: the full model does not
 fit one card."""
@@ -14,6 +14,7 @@ _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "dbrx-132b": "dbrx_132b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -23,8 +24,8 @@ def _mod(arch: str):
     if arch not in _MODULES:
         raise KeyError(
             f"arch {arch!r} is not ported yet (known: {list(_MODULES)}); "
-            "the other dense and MoE archs and the other families arrive "
-            "with ROADMAP item 10")
+            "the other dense, MoE and ssm archs and the other families "
+            "arrive with ROADMAP item 10")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 
 

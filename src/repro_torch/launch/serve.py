@@ -14,6 +14,10 @@
         --batch 8 --prompt-len 128 --block-size 16        # MoE on one card
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full \
         --layers 4 --tp 8 --pods 4 --ar-strategy hier_rd  # MoE, TP x EP
+    python -m repro_torch.launch.serve --arch rwkv6-7b --full \
+        --batch 8 --prompt-len 512 --max-new 64           # RWKV6 on one card
+    python -m repro_torch.launch.serve --arch rwkv6-7b --full \
+        --tp 8 --pods 4 --ar-strategy hier_rd             # RWKV6, TP
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -28,7 +32,10 @@ phase, error feedback on the decode residuals); ``auto`` picks the level
 per call and needs ``--ar-strategy auto``.  A MoE arch (``--arch
 qwen3-moe-30b-a3b``, ``dbrx-132b`` for the smoke config only) runs its
 experts through the grouped expert FFN kernel, parallel over the TP ranks
-(the prompt length must then divide by ``--tp``).  ``--layers N`` cuts the
+(the prompt length must then divide by ``--tp``).  The ssm arch
+``rwkv6-7b`` runs every time-mix recurrence, prefill and decode, through
+the RWKV6 scan kernel; its cache is the recurrent state, with no K/V to
+page, so ``--block-size`` > 0 raises.  ``--layers N`` cuts the
 config's depth to N layers (widths kept), and the ``[serve]`` line then
 shows the depth.
 """
@@ -122,7 +129,8 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     res = eng.generate(prompts, args.max_new)
-    layout = f"paged(bs={args.block_size})" if args.block_size else "dense"
+    layout = f"paged(bs={args.block_size})" if args.block_size \
+        else "recurrent" if cfg.attn_free else "dense"
     if mesh is not None:
         layout += (f" tp={args.tp} ({mesh.pods}x{mesh.fast}) "
                    f"ar={args.ar_strategy}")

@@ -26,30 +26,37 @@ def _tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
                         device=device).to(dtype)
 
 
+# Leaves the reference keeps in f32 whatever the model's dtype: a MoE
+# router (rounding it would move the top-k choice) and the RWKV6 time-mix's
+# base decay ``w0`` and bonus ``u``.
+_F32_LEAVES = ("router", "w0", "u")
+
+
 def _group(tree: Mapping[str, Any], dtype, device, layer=None):
-    """A group's leaves in ``dtype``, except a MoE router, which stays f32
-    as the reference keeps it (rounding it would move the top-k choice)."""
+    """A group's leaves in ``dtype``, except ``_F32_LEAVES``."""
     return {k: _tensor(a if layer is None else np.asarray(a)[layer],
-                       torch.float32 if k == "router" else dtype, device)
+                       torch.float32 if k in _F32_LEAVES else dtype, device)
             for k, a in tree.items()}
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device, mesh=None) -> DenseLM:
     """tree: {"embed": {"tok", "head"}, "blocks": {"ln1", "attn", "ln2",
-    and "mlp" or (MoE) "moe": {"router", "wg", "wu", "wd"}} with every
-    leaf stacked on a leading layer axis, "final_norm"}, in the global
-    layout of the plan at tp = the mesh's size (1 without a mesh).  Leaves
-    are cast to ``cfg.dtype`` on ``device`` (the router kept f32), layouts
-    kept, and cut over the mesh's ranks: every leaf becomes (R, *local)."""
-    if cfg.family not in ("dense", "moe"):
+    and "mlp" or (MoE) "moe": {"router", "wg", "wu", "wd"}}, or for the
+    ssm family {"ln1", "tm", "ln2", "cm"}, with every leaf stacked on a
+    leading layer axis, "final_norm"}, in the global layout of the plan at
+    tp = the mesh's size (1 without a mesh).  Leaves are cast to
+    ``cfg.dtype`` on ``device`` (``_F32_LEAVES`` kept f32), layouts kept,
+    and cut over the mesh's ranks: every leaf becomes (R, *local)."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with ROADMAP item 10")
     dt = cfg.dtype
     blocks = tree["blocks"]
-    ffn = "moe" if cfg.is_moe else "mlp"
+    groups = ("ln1", "tm", "ln2", "cm") if cfg.attn_free else \
+        ("ln1", "attn", "ln2", "moe" if cfg.is_moe else "mlp")
     per_layer = [{name: _group(blocks[name], dt, device, layer=i)
-                  for name in ("ln1", "attn", "ln2", ffn)}
+                  for name in groups}
                  for i in range(cfg.n_layers)]
     return from_global({"embed": _group(tree["embed"], dt, device),
                         "blocks": per_layer,

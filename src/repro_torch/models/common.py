@@ -30,6 +30,9 @@ class ModelConfig:
     top_k: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
+    # RWKV6
+    rwkv_head_dim: int = 64
+    decay_lora: int = 64
     sliding_window: int = 0          # 0 = full attention
     rope_theta: float = 1.0e4
     norm: str = "rmsnorm"
@@ -40,16 +43,32 @@ class ModelConfig:
 
     def __post_init__(self):
         assert self.family in FAMILIES, self.family
-        assert self.n_heads % max(self.n_kv_heads, 1) == 0, \
-            f"{self.name}: q heads must be a multiple of kv heads"
+        if self.family != "ssm":
+            assert self.n_heads % max(self.n_kv_heads, 1) == 0, \
+                f"{self.name}: q heads must be a multiple of kv heads"
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
 
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense and MoE families."""
+        """Analytic parameter count of the dense, MoE and ssm (RWKV6)
+        families.  The ssm count is every leaf of the model, the time-mix
+        output projection ``w_o`` included, which the reference's count
+        leaves out (ROADMAP §3)."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        if self.attn_free:
+            # time-mix: r/k/v/g/o (D, D), decay LoRA, 5 shift mixes, w0, u
+            # and the group norm; channel-mix: wk, wv, wr, 2 shift mixes;
+            # the two block norms; the final norm
+            per_layer = 5 * d * d + 2 * d * self.decay_lora + 9 * d \
+                + 2 * d * f + d * d + 2 * d + 2 * d
+            return v * d * (1 if self.tie_embeddings else 2) \
+                + L * per_layer + d
         hq = self.n_heads * self.head_dim
         hkv = self.n_kv_heads * self.head_dim
         per_layer = d * (hq + 2 * hkv) + hq * d

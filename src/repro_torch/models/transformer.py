@@ -1,6 +1,6 @@
-"""Model assembly for the dense and MoE families: parameters, LM forward,
-KV caches and the decode step, at tp=1 and over the virtual mesh (the port
-of ``repro/models/transformer.py``).
+"""Model assembly for the dense, MoE and ssm (RWKV6) families: parameters,
+LM forward, caches and the decode step, at tp=1 and over the virtual mesh
+(the port of ``repro/models/transformer.py``).
 
 The model is an ``nn.Module`` (:class:`DenseLM`) holding frozen
 parameters in the JAX package's layouts, each stacked per rank
@@ -17,7 +17,11 @@ own chunk of the sequence through the EP all-to-all and the outputs are
 gathered back (``_moe_tokens``/``_moe_restore``); in decode every rank
 runs its local experts on all tokens and ``tp_all_reduce`` (the paper's
 collective) completes the combine.  Attention ``wo`` keeps
-``_residual_proj`` in both families.  KV caches are dicts
+``_residual_proj`` in both families.  An ssm block (``models/rwkv.py``)
+has no attention: its time-mix output and its stacked channel-mix partial
+each take one ``tp_all_reduce`` (never overlapped, as in the reference),
+and its cache is the recurrent state (token shifts and the wkv state, no
+K/V).  Caches are dicts
 of tensors with a leading layer axis and the ranks folded into the batch,
 updated in place (JAX rebuilt them with ``.at[].set``).  Under a
 quantized wire (``ctx.ar_quant`` other than "none") the decode cache also
@@ -40,25 +44,35 @@ from ..core.pcontext import LOCAL, ParallelCtx
 from ..parallel.sharding import shard_params
 from . import layers as L
 from . import moe as M
+from . import rwkv as RW
 from .common import GQAPlan, ModelConfig, dense_init, pad_to, place_heads, \
     plan_gqa
 
 Cache = Dict[str, torch.Tensor]
+# The ssm family's per-layer cache leaves (no K/V).
+RECURRENT_LEAVES = ("shift_tm", "shift_cm", "wkv")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchPlan:
     cfg: ModelConfig
     tp: int
-    gqa: GQAPlan
+    gqa: Optional[GQAPlan]       # None for the attention-free ssm family
     vocab_pad: int
 
     @property
     def q_mask_tbl(self) -> Optional[np.ndarray]:
         """(tp, q slots per rank) live-slot mask, or None when no slot is
-        dead (then the layers skip the multiply)."""
+        dead (then the layers skip the multiply) or there is no
+        attention."""
+        if self.gqa is None:
+            return None
         m = self.gqa.q_mask().reshape(self.tp, self.gqa.q_slots_local)
         return None if m.min() >= 1.0 else m
+
+    @property
+    def rwkv_heads_local(self) -> int:
+        return self.cfg.d_model // self.cfg.rwkv_head_dim // self.tp
 
 
 def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
@@ -68,11 +82,13 @@ def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
     in the reference, a MoE plan skips the width checks (its FFN is cut
     on the expert axis); it is refused when tp does not divide the
     experts, which the reference would replicate while its MoE layer
-    slices them."""
-    if cfg.family not in ("dense", "moe"):
+    slices them.  An ssm plan has no GQA plan; it is refused when tp does
+    not divide its heads (d_model / rwkv_head_dim), which the reference
+    would replicate while its state is cut by heads."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with ROADMAP item 10 (other "
-            "families); the port runs the dense and MoE families")
+            "families); the port runs the dense, MoE and ssm families")
     for dim, name in ((cfg.d_model, "d_model"), (cfg.d_ff, "d_ff")):
         if cfg.family != "moe" and dim % tp:
             raise ValueError(f"{cfg.name}: {name}={dim} not divisible by "
@@ -80,8 +96,13 @@ def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
     if cfg.family == "moe" and (not cfg.is_moe or cfg.n_experts % tp):
         raise ValueError(f"{cfg.name}: n_experts={cfg.n_experts} not "
                          f"divisible by tp={tp}")
-    return ArchPlan(cfg=cfg, tp=tp, gqa=plan_gqa(cfg.n_heads, cfg.n_kv_heads,
-                                                 tp),
+    heads = cfg.d_model // cfg.rwkv_head_dim
+    if cfg.attn_free and (cfg.d_model % cfg.rwkv_head_dim or heads % tp):
+        raise ValueError(f"{cfg.name}: {heads} heads of {cfg.rwkv_head_dim} "
+                         f"not divisible by tp={tp}")
+    gqa = None if cfg.attn_free else plan_gqa(cfg.n_heads, cfg.n_kv_heads,
+                                              tp)
+    return ArchPlan(cfg=cfg, tp=tp, gqa=gqa,
                     vocab_pad=pad_to(cfg.vocab_size, tp))
 
 
@@ -120,23 +141,22 @@ def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One decoder layer's parameters: ``ln1``, ``attn`` (wq, wk, wv, wo),
-    ``ln2``, and either ``mlp`` (wg, wu, wd) or ``moe`` (router f32; wg,
-    wu, wd cut on the expert axis), each (R, *local)."""
+    """One decoder layer's parameter groups, each (R, *local): ``ln1``,
+    ``attn`` (wq, wk, wv, wo), ``ln2``, and either ``mlp`` (wg, wu, wd) or
+    ``moe`` (router f32; wg, wu, wd cut on the expert axis); or, for the
+    ssm family, ``ln1``, ``tm`` (the RWKV6 time-mix), ``ln2``, ``cm``
+    (the channel-mix)."""
 
     def __init__(self, tensors: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__()
-        self.ln1 = _frozen(tensors["ln1"])
-        self.attn = _frozen(tensors["attn"])
-        self.ln2 = _frozen(tensors["ln2"])
-        ffn = "moe" if "moe" in tensors else "mlp"
-        setattr(self, ffn, _frozen(tensors[ffn]))
+        for name, group in tensors.items():
+            setattr(self, name, _frozen(group))
 
 
 class DenseLM(nn.Module):
-    """A decoder of either FFN kind (dense MLP or MoE): ``embed`` (tok,
-    head), ``blocks``, ``final_norm``, every leaf stacked per rank.  Built
-    by :func:`init_params` or, from the JAX package's parameters, by
+    """A decoder of any ported family (dense MLP, MoE, RWKV6): ``embed``
+    (tok, head), ``blocks``, ``final_norm``, every leaf stacked per rank.
+    Built by :func:`init_params` or, from the JAX package's parameters, by
     :func:`repro_torch.models.bridge.params_from_numpy`.
     """
 
@@ -164,7 +184,8 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                 mesh=None) -> DenseLM:
     """The port's own seeded init: the shapes and scales of the JAX
     ``init_params`` at ``ap.tp`` (weights Normal(0, 1/fan_in) in the
-    plan's slot layout, norms 1, a MoE router in f32), drawn from a
+    plan's slot layout, norms 1, a MoE router in f32; the RWKV6 groups
+    of ``rwkv.init_rwkv_*``), drawn from a
     ``torch.Generator`` on ``device`` (not the JAX package's numbers),
     then cut over ``mesh`` (R = ap.tp ranks) one layer at a time, so the
     global and the cut copy of the whole model are never both held.  A
@@ -182,6 +203,12 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
         return {"w": torch.ones(n, dtype=dt, device=device)}
 
     def block():
+        if cfg.attn_free:
+            return shard_params({"ln1": ones(d),
+                                 "tm": RW.init_rwkv_time_mix(gen, cfg),
+                                 "ln2": ones(d),
+                                 "cm": RW.init_rwkv_channel_mix(gen, cfg)},
+                                mesh)
         wq = dense_init(gen, (cfg.n_heads, d, hd), d, dt)
         wk = dense_init(gen, (cfg.n_kv_heads, d, hd), d, dt)
         wv = dense_init(gen, (cfg.n_kv_heads, d, hd), d, dt)
@@ -253,19 +280,37 @@ def _moe_restore(out: torch.Tensor, ctx: ParallelCtx, mesh) -> torch.Tensor:
     return hier.all_gather_tiled(out, ctx, mesh, dim=1)
 
 
+def _cm_residual(x: torch.Tensor, stacked: torch.Tensor, ctx: ParallelCtx,
+                 mesh) -> torch.Tensor:
+    """x plus the gated channel-mix: the stacked (value, receptance logit)
+    partial (R, 2, B, S, D) completed by one ``tp_all_reduce``, then
+    ``sigmoid(r) * v``."""
+    red = hier.tp_all_reduce(stacked, ctx, mesh, scatter_dim=-1)
+    return x + torch.sigmoid(red[:, 1].float()).to(x.dtype) * red[:, 0]
+
+
 def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ctx: ParallelCtx = LOCAL, mesh=None, *,
                   positions: torch.Tensor,
                   q_mask: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+                  ) -> Tuple[torch.Tensor, Cache]:
     """One causal block over the full sequence, x (R, B, S, D) replicated.
-    Returns (x, (k, v)) with this layer's rotated K/V (R, B, S, U, hd),
-    the prefill cache seed.  The row-parallel projections go through
-    ``_residual_proj`` (no SP); a MoE block runs the dispatch path on each
-    rank's chunk of the sequence and gathers the outputs back (its
-    load-balancing loss, which only training reads, is dropped)."""
+    Returns (x, the layer's prefill cache seed): the rotated K/V {"k",
+    "v"} (R, B, S, U, hd), or for an ssm block the recurrent state
+    {"shift_tm", "shift_cm"} (R, B, D) and {"wkv"} (R, B, H, hd, hd).
+    The row-parallel projections go through ``_residual_proj`` (no SP); a
+    MoE block runs the dispatch path on each rank's chunk of the sequence
+    and gathers the outputs back (its load-balancing loss, which only
+    training reads, is dropped)."""
     cfg = ap.cfg
     h = L.apply_norm(x, bp.ln1, cfg)
+    if cfg.attn_free:
+        tm, st = RW.rwkv_time_mix(bp.tm, h, cfg, return_state=True)
+        x = x + hier.tp_all_reduce(tm, ctx, mesh, scatter_dim=-1)
+        h2 = L.apply_norm(x, bp.ln2, cfg)
+        stacked, st2 = RW.rwkv_channel_mix(bp.cm, h2, cfg, return_state=True)
+        st["wkv"] = st["wkv"].reshape(*x.shape[:2], *st["wkv"].shape[1:])
+        return _cm_residual(x, stacked, ctx, mesh), {**st, **st2}
     heads, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions,
                                     q_mask=q_mask)
     x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
@@ -273,10 +318,10 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
     if cfg.is_moe:
         out, _ = M.moe_ffn(bp.moe, _moe_tokens(h2, ctx), cfg, ctx, mesh,
                            decode=False)
-        return x + _moe_restore(out, ctx, mesh), kv
+        return x + _moe_restore(out, ctx, mesh), {"k": kv[0], "v": kv[1]}
     x, _ = _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
                           L.mlp_down_w(bp.mlp, cfg), ctx, mesh)
-    return x, kv
+    return x, {"k": kv[0], "v": kv[1]}
 
 
 def _unranked(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -293,27 +338,27 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
 
     ``logits`` are vocab-sharded, (R, B, S, V_local), on a mesh and
     (B, S, V_pad) without one.  ``states`` (when ``collect_state``) hold
-    the per-layer K/V stacked on a leading layer axis, {"k", "v"}:
-    (L, R*B, S, U, hd), the ranks folded into the batch as in the cache;
-    else None.  (The JAX function also returns the MoE load-balancing
-    loss, which only training reads, and an encoder output, which neither
-    family here has.)
+    the per-layer cache seeds stacked on a leading layer axis, the ranks
+    folded into the batch as in the cache: {"k", "v"} (L, R*B, S, U, hd),
+    or for the ssm family {"shift_tm", "shift_cm"} (L, R*B, D) and
+    {"wkv"} (L, R*B, H, hd, hd); else None.  (The JAX function also
+    returns the MoE load-balancing loss, which only training reads, and an
+    encoder output, which no family here has.)
     """
     check_layout(ap, ctx, mesh)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     q_mask = _q_mask(ap, tokens.device)
     x = L.embed_lookup(model.embed, tokens, ctx, mesh, ap.vocab_pad)
-    ks, vs = [], []
+    seeds: List[Cache] = []
     for bp in model.blocks:
-        x, (k, v) = block_forward(bp, x, ap, ctx, mesh, positions=positions,
-                                  q_mask=q_mask)
+        x, st = block_forward(bp, x, ap, ctx, mesh, positions=positions,
+                              q_mask=q_mask)
         if collect_state:
-            ks.append(L._fold(k))
-            vs.append(L._fold(v))
+            seeds.append({n: L._fold(t) for n, t in st.items()})
     x = L.apply_norm(x, model.final_norm, ap.cfg)
     logits = _unranked(L.lm_logits(model.embed, x), mesh)
-    states = {"k": torch.stack(ks), "v": torch.stack(vs)} \
+    states = {n: torch.stack([st[n] for st in seeds]) for n in seeds[0]} \
         if collect_state else None
     return logits, states
 
@@ -352,9 +397,24 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
     ``ef_sites > 0`` adds the error-feedback leaf ``ef`` (L, ef_sites, R,
     batch, d_model) f32, the reference's global layout with the ranks on
     its tp axis.
+
+    The ssm family holds no K/V: its cache is the recurrent state,
+    ``shift_tm``/``shift_cm`` (L, R*batch, d_model) in ``cfg.dtype`` and
+    ``wkv`` (L, R*batch, H_local, hd, hd) f32.  It has nothing to page,
+    so ``block_size > 0`` raises (the reference ignores it).
     """
     cfg = ap.cfg
     R = mesh.size if mesh is not None else 1
+    if cfg.attn_free:
+        if block_size > 0:
+            raise ValueError(
+                f"{cfg.name}: the ssm family has no K/V to page "
+                f"(block_size={block_size}); its cache is the fixed-size "
+                "recurrent state")
+        st = RW.init_rwkv_state(cfg, R * batch, ap.rwkv_heads_local,
+                                device=device, dtype=cfg.dtype)
+        return {n: t.expand(cfg.n_layers, *t.shape).clone()
+                for n, t in st.items()}
     u, hd, Ld = ap.gqa.u, cfg.head_dim, cfg.n_layers
     if block_size > 0:
         if R > 1:
@@ -399,10 +459,16 @@ def _paged_splice(phys: torch.Tensor, states: torch.Tensor,
 def seed_cache(cache: Cache, states: Cache) -> Cache:
     """Splice prefill-collected layer states into a decode cache at
     position 0, batch-wide, in place; returns ``cache``.  A paged cache
-    (``block_tbl`` present) routes K/V through the block table.  An
-    ``ef`` leaf is zeroed: a fresh batch starts with no rounding residue."""
+    (``block_tbl`` present) routes K/V through the block table; the ssm
+    family's recurrent leaves are copied whole.  An ``ef`` leaf is
+    zeroed: a fresh batch starts with no rounding residue."""
     if "ef" in cache:
         cache["ef"].zero_()
+    for n in RECURRENT_LEAVES:
+        if n in cache:
+            cache[n].copy_(states[n])
+    if "k" not in cache:
+        return cache
     if "block_tbl" in cache:
         _paged_splice(cache["k"], states["k"], cache["block_tbl"])
         _paged_splice(cache["v"], states["v"], cache["block_tbl"])
@@ -430,9 +496,26 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
     local expert on every token) and completes the TP-partial combine with
     ``tp_all_reduce``, the same collective.  With an ``ef`` leaf ((2, R,
     B, D), one site each) the projections consume and refresh their
-    error-feedback residue, in the message layout (R, B, 1, D).  Returns
-    x."""
+    error-feedback residue, in the message layout (R, B, 1, D).  An ssm
+    block reads and updates its recurrent leaves ({"shift_tm",
+    "shift_cm"} (R*B, D), {"wkv"} (R*B, H, hd, hd)) in place: kernel 8
+    steps the state, and the time-mix output and the stacked channel-mix
+    partial each take one ``tp_all_reduce``.  Returns x."""
     cfg = ap.cfg
+    if cfg.attn_free:
+        shape = (*x.shape[:2], x.shape[-1])
+        tm, st = RW.rwkv_time_mix_step(
+            bp.tm, L.apply_norm(x, bp.ln1, cfg),
+            {"shift_tm": cache_l["shift_tm"].view(shape),
+             "wkv": cache_l["wkv"]}, cfg)
+        cache_l["shift_tm"].copy_(st["shift_tm"].reshape(-1, shape[-1]))
+        x = x + hier.tp_all_reduce(tm, ctx, mesh, scatter_dim=-1)
+        stacked, st2 = RW.rwkv_channel_mix(
+            bp.cm, L.apply_norm(x, bp.ln2, cfg), cfg,
+            state={"shift_cm": cache_l["shift_cm"].view(shape)},
+            return_state=True)
+        cache_l["shift_cm"].copy_(st2["shift_cm"].reshape(-1, shape[-1]))
+        return _cm_residual(x, stacked, ctx, mesh)
     ef = cache_l.get("ef")
     ef_in = (None, None) if ef is None \
         else (ef[0, :, :, None], ef[1, :, :, None])
@@ -474,7 +557,8 @@ def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
     q_mask = _q_mask(ap, tokens.device)
     x = L.embed_lookup(model.embed, tokens[:, None], ctx, mesh, ap.vocab_pad)
     for i, bp in enumerate(model.blocks):
-        cache_l = {n: cache[n][i] for n in ("k", "v", "ef") if n in cache}
+        cache_l = {n: cache[n][i] for n in ("k", "v", "ef")
+                   + RECURRENT_LEAVES if n in cache}
         x = block_decode(bp, x, cache_l, ap, ctx, mesh, positions=positions,
                          kv_positions=kv_positions, q_mask=q_mask,
                          block_tbl=block_tbl)
@@ -485,4 +569,4 @@ def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
 __all__ = ["ArchPlan", "make_plan", "check_layout", "Block", "DenseLM",
            "from_global", "init_params", "block_forward", "forward_lm",
            "ef_sites_for", "init_cache", "seed_cache", "block_decode",
-           "decode_step"]
+           "decode_step", "RECURRENT_LEAVES"]

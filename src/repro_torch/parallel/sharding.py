@@ -1,6 +1,6 @@
 """Tensor-parallel parameter sharding over the virtual mesh: the port of
-the TP rules of ``repro/parallel/sharding.py`` for the dense and MoE
-families.
+the TP rules of ``repro/parallel/sharding.py`` for the dense, MoE and ssm
+(RWKV6) families.
 
 A leaf's TP dimension is cut into R contiguous pieces, rank r taking piece
 r (slow-major, as ``PartitionSpec((slow, fast))`` cuts it), and the pieces
@@ -11,7 +11,12 @@ leaves it.  Under a ``moe`` parent the expert leaves ``wg``/``wu``/``wd``
 ((E, D, F) / (E, F, D)) are cut on the expert axis instead
 (``_MOE_EXPERT_LEAVES``); ``transformer.make_plan`` refuses an expert
 count that R does not divide, where the reference would silently
-replicate the experts while its MoE layer slices them.  FSDP is not part
+replicate the experts while its MoE layer slices them.  Under an RWKV6
+channel-mix parent (``cm``) ``wk`` (D, F) is cut on its columns, ``wv``
+(F, D) and ``wr`` (D, D) on their rows, and ``mu`` is replicated: the
+attention rule of ``wk`` (the slot axis) would cut it on the wrong axis.
+The time-mix's head-sharded leaves are cut on their A axis, ``w_o`` on
+its rows; ``w_a`` and the shift mixes ``mu`` are replicated.  FSDP is not part
 of serving here (``fsdp_serve`` is not ported).
 
 The decode cache follows ``cache_spec``: its head (slot) dimension is
@@ -34,10 +39,17 @@ TP_RULES: Dict[str, Optional[int]] = {
     "wg": -1, "wu": -1, "w1": -1, "b1": -1, "wd": -2, "w2": -2,
     "w": None, "b": None,
     "router": None,
+    # rwkv time-mix: A (= heads x hd) sharded; w_o row-sharded
+    "w_r": -1, "w_k": -1, "w_v": -1, "w_g": -1, "w0": -1, "u": -1,
+    "ln_w": -1, "ln_b": -1, "w_a": None, "w_b": -1, "w_o": -2,
+    "mu": None,
 }
 
 # Expert leaves of a MoE layer, cut on their leading expert axis.
 _MOE_EXPERT_LEAVES = {"wg", "wu", "wd"}
+# An RWKV6 channel-mix: wk (D, F) col, wv (F, D) row, wr (D, D) row.
+_CM_RULES: Dict[str, Optional[int]] = {"wk": -1, "wv": -2, "wr": -2,
+                                       "mu": None}
 
 
 def tp_dim(path_names: Sequence[str], ndim: int) -> Optional[int]:
@@ -46,6 +58,9 @@ def tp_dim(path_names: Sequence[str], ndim: int) -> Optional[int]:
     name = path_names[-1]
     if "moe" in path_names[:-1] and name in _MOE_EXPERT_LEAVES:
         return ndim - 3
+    if "cm" in path_names[:-1]:
+        d = _CM_RULES[name]
+        return None if d is None else ndim + d
     if name not in TP_RULES:
         raise KeyError(f"no TP rule for param {'/'.join(path_names)}")
     d = TP_RULES[name]
