@@ -117,6 +117,34 @@ Phases (any failure exits non-zero and prints no result line):
      the receptance half of the stacked partial left unreduced) must
      break;
  22. phase 5 for rwkv6-7b (2 layers, f32) at tp=1 and at tp=8 under
+     hier_rd: card against CPU;
+ 23. the Mamba selective-scan kernel (kernel 9) against its plain version
+     (the step-exact recurrence) on the same CUDA tensors, f32, within
+     SSM_TOL: the JAX kernel test's shapes, the path's prefill (B 8,
+     T 1280, Ci 3200, S 16), decode (T 1) and tp=8 fold (64 sequences,
+     Ci 400, 8 A groups) shapes, decays that underflow (dt up to 5); two
+     chained calls bitwise equal to one, the in-place (aliased) state
+     update bitwise equal to a separate one; kernel, plain version (fewer
+     calls: a T-step loop) and bound (the special-function units'
+     exponentials or the bytes) timed;
+ 24. hymba-1.5b at full width and depth (32 layers, 1.80 B parameters,
+     seeded bf16): batch 8, prompt 1280 (past the 1024 window), 64 new
+     tokens, dense and paged (block 16), exact launch counts (kernel 9
+     once a layer in prefill and once a layer a decode step: 2048; flash
+     32; decode and paged decode 2016 each), paged tokens == dense tokens,
+     one profiled run (16 new tokens) with kernel 9's share of device
+     time, the decode path's teacher-forced logits against the full
+     forward within HYB_STEP_BF16, which a planted fault (the mamba state
+     never advancing past the prompt) must break;
+ 25. the same model at 4 layers in float32 with per-channel A_log
+     planted: the tp=1 decode path against the full forward within
+     HYB_STEP_F32; tp=8 (4 pods x 2; GQA slots with 7 dead q and 1 dead
+     kv, d_inner 400 a rank) under hier_rd and flat against tp=1: exact
+     launch counts of kernels 4 and 9, tokens by provable_gate, the decode
+     path's teacher-forced logits within (TF_MAX, TF_MEAN), which two
+     planted faults (every rank on rank 0's A group; the mamba partial
+     left out of the mixed reduction) must break;
+ 26. phase 5 for hymba-1.5b (2 layers, f32) at tp=1 and at tp=8 under
      hier_rd: card against CPU.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
@@ -151,7 +179,7 @@ from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
                                  kernel_wrappers, moe_expert_ffn,
                                  paged_decode_attention, quant_pack,
                                  quantize_pack, rd_all_reduce, rwkv6_scan,
-                                 unpack_dequant)
+                                 ssm_scan, unpack_dequant)
 from repro_torch.kernels.fused_matmul_rd import \
     collective_matmul_rd_ref  # noqa: E402
 from repro_torch.kernels.rd_allreduce import (  # noqa: E402
@@ -162,10 +190,12 @@ from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_ref  # noqa: E402
-from repro_torch.models import rwkv  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
+from repro_torch.models import rwkv, ssm, transformer  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     decode_step, ef_sites_for, forward_lm, init_cache, init_params,
     make_plan, seed_cache)
+from repro_torch.parallel.sharding import shard_params  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -209,6 +239,7 @@ REPLACES = {
     "unpack_dequant": "src/repro/kernels/rd_allreduce/quant_kernel.py:45",
     "moe_expert_ffn": "src/repro/kernels/moe_gemm/kernel.py:25",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:26",
+    "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:26",
 }
 MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "decode_attention": "tp8_hier_rd",
@@ -218,7 +249,8 @@ MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "quantize_pack": "tp8_hier_rd_int8",
              "unpack_dequant": "tp8_hier_rd_int8",
              "moe_expert_ffn": "moe_tp1_dense",
-             "rwkv6_scan": "rwkv_tp1"}
+             "rwkv6_scan": "rwkv_tp1",
+             "ssm_scan": "hymba_tp1"}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -230,6 +262,7 @@ SOURCES = {
     "unpack_dequant": "src/repro_torch/kernels/csrc/quant_pack.cu",
     "moe_expert_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu",
     "rwkv6_scan": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+    "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
 }
 # Kernel 6 at the quantized path's shapes (rows, D) at tp=8 = 4 x 2,
 # batch 8, prompt 512: the decode reduce-scatter packs B x d_model / 2
@@ -641,9 +674,11 @@ def card_vs_cpu(tp: int, pods: int, strategy: str,
                             device="cuda").generate(prompts, new)
     res_c = InferenceEngine(ap, cpu, ctx=ctx, mesh=mesh_c, s_max=s + new,
                             device="cpu").generate(prompts, new)
-    # both devices' decode paths teacher-forced on the CPU's sequence
+    # both devices' decode paths teacher-forced on the CPU's sequence, over
+    # the real vocab (a padded vocab's zero columns would enter the gaps)
     tf = {dev: teacher_forced_decode(m, res_c.tokens, ap, ctx, mesh,
-                                     prompt=s, s_max=s + new, device=dev)
+                                     prompt=s, s_max=s + new,
+                                     device=dev)[..., :cfg.vocab_size]
           for dev, m, mesh in (("cuda", gpu, mesh_g), ("cpu", cpu, mesh_c))}
     n = provable_gate(res_g.tokens, res_c.tokens, tf["cuda"], tf["cpu"], s)
     log(f"  greedy tokens card == CPU on {n}/{b * new} steps whose CPU "
@@ -2065,6 +2100,376 @@ def phase_rwkv_tp() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the Mamba selective-scan kernel (kernel 9)
+# ---------------------------------------------------------------------------
+
+# The hybrid path: hymba-1.5b (d_inner 3200, 16 states), batch 8, prompt
+# 1280 (past the 1024 window), 64 new tokens (tp=1); 4 layers f32, 16 new
+# tokens at tp=8.
+HYB_ARCH = "hymba-1.5b"
+HYB_CI, HYB_S, HYB_PROMPT = 3200, 16, 1280
+HYB_TP_LAYERS, HYB_NEW_SHORT = 4, 16
+# Kernel 9's operands on the path, (N, T, Ci, S, G): prefill and decode at
+# tp=1, and the tp=8 prefill with the 8 ranks folded into the sequences
+# (400 channels a rank, one A group a rank).
+SSM_SHAPES = {"prefill": (B, HYB_PROMPT, HYB_CI, HYB_S, 1),
+              "decode": (B, 1, HYB_CI, HYB_S, 1),
+              "prefill_tp8": (PODS * FAST * B, HYB_PROMPT,
+                              HYB_CI // (PODS * FAST), HYB_S, PODS * FAST)}
+# tests/test_kernels.py's SSM_CASES (B, T, Ci, S; G = 1) and tolerance
+SSM_SMALL = ((2, 128, 128, 16, 1), (1, 100, 64, 8, 1), (2, 64, 200, 16, 1))
+SSM_TOL = dict(atol=1e-4, rtol=1e-4)
+# The special-function units' exponentials: 16 a clock on each SM
+# (CUDA programming guide, throughput table, compute capability 9.0) of
+# the 132 at the 1.98 GHz boost clock of the published peaks.
+SFU_PER_S = 16 * 132 * 1.98e9
+
+
+def ssm_operands(gen, N, T, Ci, S, G, dt_max=0.1, a_max=4.0):
+    """The JAX kernel test's draws: x, b, c normal, dt U(0.001, dt_max),
+    a -U(0.5, a_max), h0 0.1 x normal; all f32 on the card."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+    return (rnd(N, T, Ci), uni(0.001, dt_max, N, T, Ci), rnd(N, T, S),
+            rnd(N, T, S), -uni(0.5, a_max, G, Ci, S), 0.1 * rnd(N, Ci, S))
+
+
+def ssm_check(label: str, ops) -> float:
+    y, h = ssm_scan(*ops)
+    ry, rh = ssm_scan_ref(*ops)
+    torch.cuda.synchronize()
+    err = max(max_err(y, ry), max_err(h, rh))
+    ok = torch.allclose(y, ry, **SSM_TOL) and torch.allclose(h, rh, **SSM_TOL)
+    log(f"  {label}: max|kernel-plain| = {err:.3e} (atol "
+        f"{SSM_TOL['atol']:g}, rtol {SSM_TOL['rtol']:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def ssm_bound(N, T, Ci, S, G, h0: bool) -> tuple:
+    """x and dt read and y written once, b and c read once, a read once,
+    h0 read (when given) and the final state written once (f32); N T Ci S
+    exponentials on the special-function units, and per element dt a, the
+    decayed state's FMA, the drive and y's FMA (6 operations) on the CUDA
+    cores.  The larger of the three times bounds the call."""
+    n_bytes = (3 * N * T * Ci + 2 * N * T * S + G * Ci * S
+               + (2 if h0 else 1) * N * Ci * S) * 4
+    elems = N * T * Ci * S
+    t_bytes, t_exp = n_bytes / HBM_BYTES_PER_S * 1e3, elems / SFU_PER_S * 1e3
+    t_ops = 6.0 * elems / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= max(t_exp, t_ops) \
+        else (max(t_exp, t_ops), "operations")
+
+
+def phase_ssm_kernel() -> dict:
+    """Kernel 9 within SSM_TOL of its plain version on the JAX test's
+    shapes, the path's shapes and decays that underflow; chained and
+    in-place calls bitwise equal to one call; kernel, plain version and
+    bound timed at the path's shapes (the prefill without h0, as the path
+    calls it; decode updating h0 in place)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 23)
+    times = {}
+    for shape in SSM_SMALL + tuple(SSM_SHAPES.values()):
+        ops = ssm_operands(gen, *shape)
+        err = ssm_check(f"ssm_scan {shape}", ops)
+        name = next((k for k, v in SSM_SHAPES.items() if v == shape), None)
+        if name is None:
+            continue
+        if name == "decode":
+            call = (*ops[:5], ops[5])
+            kw = {"h_out": ops[5]}
+        else:
+            call, kw = ops[:5], {}
+        t = (time_ms(lambda: ssm_scan(*call, **kw)),
+             time_ms(lambda: ssm_scan_ref(*call), reps=3))
+        bnd = ssm_bound(*shape, h0=name == "decode")
+        log(f"  ssm_scan {name} {shape}: kernel_ms={t[0]:.4f} "
+            f"plain_ms={t[1]:.4f} (library_ms=null) bound_ms={bnd[0]:.4f} "
+            f"({bnd[1]})")
+        times[name] = (err, t, bnd)
+        del ops, call
+    # dt up to 5 against A down to -24: decays down to exp(-120), past
+    # f32's smallest normal (exp(-87.3)) and its smallest subnormal
+    ops = ssm_operands(gen, 2, 200, 300, 16, 2, dt_max=5.0, a_max=24.0)
+    low = float((ops[4].amin() * ops[1].amax()).item())
+    ssm_check(f"ssm_scan dt up to 5, a down to -24 (log decay down to "
+              f"{low:.1f})", ops)
+    # two chained calls (the second stepping its state in place, as decode
+    # does) and an aliased h0 / h_out: bitwise equal to one call of the
+    # kernel, whose arithmetic does not depend on where T is cut
+    x, dt, b, c, a, h0 = ssm_operands(gen, 16, 300, 500, 16, 4)
+    y, h = ssm_scan(x, dt, b, c, a, h0)
+    y1, st = ssm_scan(*(t[:, :123].contiguous() for t in (x, dt, b, c)), a,
+                      h0)
+    y2, _ = ssm_scan(*(t[:, 123:].contiguous() for t in (x, dt, b, c)), a,
+                     st, h_out=st)
+    h_alias = h0.clone()
+    y3, _ = ssm_scan(x, dt, b, c, a, h_alias, h_out=h_alias)
+    torch.cuda.synchronize()
+    chained = torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(st, h)
+    aliased = torch.equal(y3, y) and torch.equal(h_alias, h)
+    log(f"  two chained calls (T 123 + 177, the second in place) == one "
+        f"call: {chained}; aliased h0/h_out == separate: {aliased}")
+    if not (chained and aliased):
+        raise AssertionError("ssm_scan: chained or in-place calls differ")
+    err, t, bnd = times["prefill"]
+    derr, dt_, dbnd = times["decode"]
+    return {"max_abs_err": max(err, derr), "ms": t[0], "plain_ms": t[1],
+            "library_ms": None, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "decode_ms": dt_[0], "decode_plain_ms": dt_[1],
+            "decode_bound_ms": dbnd[0], "tp8_prefill_ms":
+                times["prefill_tp8"][1][0]}
+
+
+# ---------------------------------------------------------------------------
+# Phases 24-26: hymba-1.5b
+# ---------------------------------------------------------------------------
+
+# The decode path's teacher-forced logits against the full-sequence forward
+# over the same tokens (max |diff|, mean |diff|).  In bf16 (phase 24) the
+# two round at other places: cuBLAS takes other GEMM kernels for 8 rows
+# than for 10240, and the reference's conv is rounded tap by tap in
+# prefill and once in decode, which the port copies; 32 layers of this
+# random-weight model amplify that to a plateau of about 0.4 mean after
+# four decode steps.  About 1.5x the first measurement on the H100 (max
+# 6.2344, mean 0.4128; PERF.md), below the planted fault's mean (1.046).
+# In f32 (phase 25, 4 layers) the same comparison is a sum-order
+# difference.
+HYB_STEP_BF16 = (9.4, 0.62)
+HYB_STEP_F32 = (1e-3, 1e-4)
+
+
+def hybrid_launches(L: int, new: int, strategy: str = "",
+                    paged: bool = False) -> dict:
+    """Launches of one hybrid generate: flash once a layer; the (paged)
+    decode kernel once a layer a step; kernel 9 once a layer in prefill and
+    once a layer a decode step; under hier_rd the RD kernel on every
+    all-reduce (the embedding's, then each layer's mixed attention + mamba
+    partial and its MLP down projection) in prefill and in each step."""
+    n = {"flash_attention": L,
+         "paged_decode_attention" if paged else "decode_attention":
+             L * (new - 1),
+         "ssm_scan": L * new}
+    if strategy == "hier_rd":
+        n["rd_all_reduce"] = (2 * L + 1) * new
+    return n
+
+
+@contextlib.contextmanager
+def frozen_ssm_state():
+    """A deliberate fault in the decode path, for the negative control of
+    the decode-path gate: kernel 9 writes each step's new state to a fresh
+    buffer, so the cache's mamba state never advances past the prompt."""
+    real = ssm.ssm_scan
+
+    def no_update(x, dt, b, c, a, h0=None, h_out=None):
+        return real(x, dt, b, c, a, h0)
+    with mock.patch.object(ssm, "ssm_scan", no_update):
+        yield
+
+
+@contextlib.contextmanager
+def planted_hybrid_fault(kind: str):
+    """A deliberate fault in the hybrid block, for the negative control of
+    the tp=8 logits gate: ``rank0_channels`` has every rank's sequences
+    read rank 0's A group in kernel 9 (the A group index wrong);
+    ``unreduced_ssm`` leaves the mamba partial out of the mixed reduction,
+    each rank adding its own partial."""
+    if kind == "rank0_channels":
+        real = ssm.ssm_scan
+
+        def group0(x, dt, b, c, a, h0=None, h_out=None):
+            return real(x, dt, b, c, a[:1].contiguous(), h0, h_out=h_out)
+        patch = mock.patch.object(ssm, "ssm_scan", group0)
+    else:
+        def unreduced(x, beta, attn, ssm_out, ctx, mesh):
+            b = beta.to(attn.dtype)
+            return x + hierarchical.tp_all_reduce(
+                b[:, :1, None, None] * attn, ctx, mesh, scatter_dim=-1) \
+                + b[:, 1:, None, None] * ssm_out
+        patch = mock.patch.object(transformer, "_mixed_residual", unreduced)
+    with patch:
+        yield
+
+
+def plant_a_log(model, mesh, seed: int) -> None:
+    """Seeded per-channel A_log (log U(1, 16)) in every layer, cut over the
+    mesh as the sharding rules cut it: the reference's init puts A = -[1..s]
+    on every channel, which would make the ranks' A groups equal and an A
+    group fault invisible.  The same numbers at every tp."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for bp in model.blocks:
+        R, ci, s = bp.ssm["A_log"].shape
+        g = torch.log(1 + 15 * torch.rand((R * ci, s), generator=gen,
+                                          device="cuda"))
+        bp.ssm["A_log"].copy_(shard_params({"ssm": {"A_log": g}},
+                                           mesh)["ssm"]["A_log"])
+
+
+def step_gate(label: str, dec: torch.Tensor, full: torch.Tensor,
+              limits: tuple) -> None:
+    mx, mean = gate(label, dec, full, limits)
+    if not torch.isfinite(full).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    if mx > limits[0] or mean > limits[1]:
+        raise AssertionError(f"{label}: decode-path logits differ from the "
+                             "full forward's")
+
+
+def phase_hybrid_path() -> dict:
+    """hymba-1.5b at tp=1, full width and depth, bf16: dense and paged with
+    exact launches, paged tokens == dense tokens, one profile (16 new
+    tokens), the decode path's logits against the full forward's within
+    HYB_STEP_BF16, and a planted fault that gate must catch."""
+    free_device()
+    cfg = get_config(HYB_ARCH)
+    ap = make_plan(cfg, 1)
+    t0 = time.perf_counter()
+    model = init_params(ap, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers (full depth), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+        f"{cfg.head_dim}, window {cfg.sliding_window}, d_inner "
+        f"{cfg.d_inner}, {cfg.ssm_state} states, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B parameters in "
+        f"{cfg.dtype} (A_log, D_skip, dt_bias, beta f32), drawn in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, param_count() "
+                             f"{cfg.param_count()}")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, HYB_PROMPT))
+    L, s_max = cfg.n_layers, HYB_PROMPT + NEW
+    launches, tokens = {}, {}
+    for layout, bsz in (("dense", 0), ("paged", BLOCK)):
+        eng = InferenceEngine(ap, model, s_max=s_max, block_size=bsz,
+                              device="cuda")
+        key = "hymba_tp1" if not bsz else "hymba_tp1_paged"
+        res, launches[key] = run_path(
+            eng, prompts, f"hymba-1.5b tp=1 {layout}",
+            hybrid_launches(L, NEW, paged=bool(bsz)))
+        tokens[layout] = res.tokens
+        if not bsz:
+            # a shorter profiled run: the profiler's processing of a
+            # 64-token generate's events costs about a minute of host time
+            profile_generate(eng, prompts, share_of="ssm_scan",
+                             new=HYB_NEW_SHORT)
+    if not np.array_equal(tokens["dense"], tokens["paged"]):
+        raise AssertionError("hymba-1.5b: paged tokens differ from dense")
+    log("  paged tokens == dense tokens")
+    tf = dict(prompt=HYB_PROMPT, s_max=s_max)
+    dec = teacher_forced_decode(model, tokens["dense"], ap, **tf)
+    full = teacher_forced(model, tokens["dense"], ap)[:, HYB_PROMPT - 1:]
+    step_gate("decode path vs full-sequence forward over the generated "
+              "tokens", dec, full, HYB_STEP_BF16)
+    by_step = (dec.float() - full.float()).abs().mean(dim=(0, 2)).tolist()
+    log(f"    mean |diff| by step: {' '.join(f'{v:.4f}' for v in by_step[:6])}"
+        f" ... {by_step[-1]:.4f}")
+    # informative: the decode conv rounded tap by tap, as prefill rounds it
+    with mock.patch.object(ssm, "_conv_step", lambda hist, w, b:
+                           ssm._causal_conv(hist, w, b)[:, :, -1]):
+        tap = teacher_forced_decode(model, tokens["dense"], ap, **tf)
+    gate("  (printed only) the decode conv rounded tap by tap", tap, full,
+         HYB_STEP_BF16)
+    with frozen_ssm_state():
+        bad = teacher_forced_decode(model, tokens["dense"], ap, **tf)
+    fmx, fmean = gate("  planted fault frozen_ssm_state", bad, full,
+                      HYB_STEP_BF16)
+    if fmx <= HYB_STEP_BF16[0] and fmean <= HYB_STEP_BF16[1]:
+        raise AssertionError("the decode-path gate passed the planted fault "
+                             "frozen_ssm_state")
+    del model, eng, dec, full, bad, tap
+    free_device()
+    return launches
+
+
+def phase_hybrid_tp() -> dict:
+    """hymba-1.5b at full width, 4 layers, float32, with per-channel A_log
+    planted (``plant_a_log``): the tp=1 decode path against the full
+    forward within HYB_STEP_F32; tp=8 (4 x 2: 25 q / 5 kv heads in 32 / 16
+    slots, 7 and 1 dead; d_inner 400 a rank) under hier_rd and flat
+    against tp=1, exact launches of kernels 4 and 9, tokens by
+    provable_gate, the decode path's teacher-forced logits within (TF_MAX,
+    TF_MEAN), which two planted faults in the block's wiring must break.
+    The seeded weights are one function at both tps (the vocab, 32001, is
+    drawn unpadded and zero-padded to 32008 at tp=8)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(HYB_ARCH), n_layers=HYB_TP_LAYERS,
+                              dtype=torch.float32)
+    L, new = cfg.n_layers, HYB_NEW_SHORT
+    s_max = HYB_PROMPT + new
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, HYB_PROMPT))
+    tf = dict(prompt=HYB_PROMPT, s_max=s_max)
+    ap1 = make_plan(cfg, 1)
+    model1 = init_params(ap1, seed=SEED, device="cuda")
+    plant_a_log(model1, None, SEED + 25)
+    launches = {}
+    res1, launches["hymba_tp1_4l"] = run_path(
+        InferenceEngine(ap1, model1, s_max=s_max, device="cuda"), prompts,
+        "hymba-1.5b 4 layers tp=1", hybrid_launches(L, new), new=new)
+    ref = res1.tokens
+    # the logits over the real vocab: tp=8 pads it to 32008 with zero
+    # columns, which greedy sampling masks
+    V = cfg.vocab_size
+    want = teacher_forced_decode(model1, ref, ap1, **tf)[..., :V]
+    step_gate("tp=1 decode path vs full-sequence forward", want,
+              teacher_forced(model1, ref, ap1)[:, HYB_PROMPT - 1:, :V],
+              HYB_STEP_F32)
+    del model1
+    free_device()
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    plant_a_log(model, mesh, SEED + 25)
+    log(f"  tp={ap.tp} on {mesh}: GQA g={ap.gqa.g} u={ap.gqa.u} "
+        f"({list(ap.gqa.q_map).count(-1)} dead q slots, "
+        f"{list(ap.gqa.kv_map).count(-1)} dead kv slot), d_inner "
+        f"{ap.d_inner_local} a rank, vocab padded to {ap.vocab_pad}")
+    for strategy in ("hier_rd", "flat"):
+        sctx = ctx.replace(ar_strategy=strategy)
+        eng = InferenceEngine(ap, model, ctx=sctx, mesh=mesh, s_max=s_max,
+                              device="cuda")
+        res, launches[f"hymba_tp8_{strategy}"] = run_path(
+            eng, prompts, f"hymba-1.5b 4 layers tp=8 {strategy}",
+            hybrid_launches(L, new, strategy), new=new)
+        mine = teacher_forced_decode(model, ref, ap, sctx, mesh,
+                                     **tf)[..., :V]
+        mx, mean = gate(f"tp=8 {strategy} vs tp=1, decode path", mine, want)
+        if mx > TF_MAX or mean > TF_MEAN:
+            raise AssertionError(f"hymba-1.5b tp=8 {strategy} logits differ "
+                                 "from tp=1's")
+        n = provable_gate(res.tokens, ref, mine, want, HYB_PROMPT)
+        log(f"    tp=8 {strategy} tokens == tp=1 tokens on {n}/{B * new} "
+            f"steps whose gap allows no flip (fully equal: "
+            f"{np.array_equal(res.tokens, ref)})")
+        if strategy != "hier_rd":
+            continue
+        for kind in ("rank0_channels", "unreduced_ssm"):
+            with planted_hybrid_fault(kind):
+                bad = teacher_forced_decode(model, ref, ap, sctx, mesh,
+                                            **tf)[..., :V]
+            fmx, fmean = gate(f"  planted fault {kind}", bad, want)
+            if fmx <= TF_MAX and fmean <= TF_MEAN:
+                raise AssertionError(f"the hybrid logits gate passed the "
+                                     f"planted fault {kind}")
+    del model, mesh
+    free_device()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2147,11 +2552,25 @@ def main() -> int:
     free_device()
     card_vs_cpu(1, 1, "flat", arch=RWKV_ARCH)
     card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=RWKV_ARCH)
+    free_device()
+    log("[23] Mamba selective-scan kernel (kernel 9)")
+    rec["ssm_scan"] = phase_ssm_kernel()
+    log(f"[24] {HYB_ARCH} tp=1, full width and depth, bf16")
+    launches.update(phase_hybrid_path())
+    log(f"[25] {HYB_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
+        f"{HYB_TP_LAYERS} layers, float32")
+    launches.update(phase_hybrid_tp())
+    log(f"[26] card vs CPU, {HYB_ARCH}, full width, 2 layers, float32: "
+        f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
+    free_device()
+    card_vs_cpu(1, 1, "flat", arch=HYB_ARCH)
+    card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=HYB_ARCH)
     # launches: the count of the run of the path each kernel serves (the
     # tp=8 hier_rd path, the paged kernel's tp=1 paged path, the fused
     # kernel's tp=8 auto + overlap path, kernel 6's tp=8 hier_rd int8
     # path, kernel 7's qwen3-moe tp=1 dense path, kernel 8's rwkv6-7b
-    # tp=1 path), and every counted run's beside it
+    # tp=1 path, kernel 9's hymba-1.5b tp=1 dense path), and every counted
+    # run's beside it
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n],
                 "launches": launches[MAIN_PATH[n]][n], "path": MAIN_PATH[n],

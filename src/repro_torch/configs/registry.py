@@ -1,7 +1,8 @@
 """``--arch <id>`` resolution for the port's entry points.
 
-Only the architectures whose family the port runs (dense, moe, ssm) are
-registered; the others arrive with ROADMAP item 10 (other families).
+Only the architectures whose family the port runs (dense, moe, ssm,
+hybrid) are registered; the others (whisper, pixtral, the other dense
+archs) arrive with ROADMAP item 10 (other families).
 ``dbrx-132b`` is there for its CPU smoke config: the full model does not
 fit one card."""
 from __future__ import annotations
@@ -15,6 +16,7 @@ _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "dbrx-132b": "dbrx_132b",
     "rwkv6-7b": "rwkv6_7b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -24,8 +26,8 @@ def _mod(arch: str):
     if arch not in _MODULES:
         raise KeyError(
             f"arch {arch!r} is not ported yet (known: {list(_MODULES)}); "
-            "the other dense, MoE and ssm archs and the other families "
-            "arrive with ROADMAP item 10")
+            "the other dense, MoE, ssm and hybrid archs and the other "
+            "families arrive with ROADMAP item 10")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 
 

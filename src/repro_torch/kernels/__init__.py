@@ -19,16 +19,17 @@ from .moe_gemm import moe_expert_ffn
 from .quant_pack import quantize_pack, unpack_dequant
 from .rd_allreduce import rd_all_reduce
 from .rwkv6_scan import rwkv6_scan
+from .ssm_scan import ssm_scan
 
 
 def kernel_wrappers():
     """Every kernel wrapper, for launch accounting."""
     return (flash_attention, decode_attention, paged_decode_attention,
             rd_all_reduce, collective_matmul_rd, quantize_pack,
-            unpack_dequant, moe_expert_ffn, rwkv6_scan)
+            unpack_dequant, moe_expert_ffn, rwkv6_scan, ssm_scan)
 
 
 __all__ = ["flash_attention", "decode_attention", "paged_decode_attention",
            "rd_all_reduce", "collective_matmul_rd", "quantize_pack",
-           "unpack_dequant", "moe_expert_ffn", "rwkv6_scan",
+           "unpack_dequant", "moe_expert_ffn", "rwkv6_scan", "ssm_scan",
            "kernel_wrappers"]

@@ -1,7 +1,8 @@
 // Shared device code of the port's attention kernels (flash prefill, dense
 // decode, paged decode), also used by the grouped expert FFN: 16-byte
 // operand loads widened to f32, the f32 online-softmax update, and the
-// error string the Python wrappers report.
+// error string the Python wrappers report (the scan kernels include it for
+// that string).
 #pragma once
 
 #include <cuda_bf16.h>

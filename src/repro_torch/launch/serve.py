@@ -18,6 +18,12 @@
         --batch 8 --prompt-len 512 --max-new 64           # RWKV6 on one card
     python -m repro_torch.launch.serve --arch rwkv6-7b --full \
         --tp 8 --pods 4 --ar-strategy hier_rd             # RWKV6, TP
+    python -m repro_torch.launch.serve --arch hymba-1.5b --full \
+        --batch 8 --prompt-len 1280 --max-new 64 --block-size 16  # hybrid
+    python -m repro_torch.launch.serve --arch hymba-1.5b --full \
+        --tp 8 --pods 4 --ar-strategy hier_rd             # hybrid, TP
+    python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu \
+        --block-size 16                   # hybrid smoke config on the CPU
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -35,9 +41,13 @@ experts through the grouped expert FFN kernel, parallel over the TP ranks
 (the prompt length must then divide by ``--tp``).  The ssm arch
 ``rwkv6-7b`` runs every time-mix recurrence, prefill and decode, through
 the RWKV6 scan kernel; its cache is the recurrent state, with no K/V to
-page, so ``--block-size`` > 0 raises.  ``--layers N`` cuts the
-config's depth to N layers (widths kept), and the ``[serve]`` line then
-shows the depth.
+page, so ``--block-size`` > 0 raises.  The hybrid arch ``hymba-1.5b``
+runs attention (windowed, through the attention kernels) and a Mamba
+mixer side by side in every block, every selective-scan recurrence,
+prefill and decode, through the selective-scan kernel; its cache is the
+K/V (paged under ``--block-size``) beside the mamba state.  ``--layers
+N`` cuts the config's depth to N layers (widths kept), and the
+``[serve]`` line then shows the depth.
 """
 from __future__ import annotations
 
@@ -131,6 +141,8 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
     res = eng.generate(prompts, args.max_new)
     layout = f"paged(bs={args.block_size})" if args.block_size \
         else "recurrent" if cfg.attn_free else "dense"
+    if cfg.family == "hybrid":
+        layout += "+conv/ssm state"
     if mesh is not None:
         layout += (f" tp={args.tp} ({mesh.pods}x{mesh.fast}) "
                    f"ar={args.ar_strategy}")

@@ -27,35 +27,50 @@ def _tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 # Leaves the reference keeps in f32 whatever the model's dtype: a MoE
-# router (rounding it would move the top-k choice) and the RWKV6 time-mix's
-# base decay ``w0`` and bonus ``u``.
-_F32_LEAVES = ("router", "w0", "u")
+# router (rounding it would move the top-k choice), the RWKV6 time-mix's
+# base decay ``w0`` and bonus ``u``, and the hybrid family's mamba
+# ``A_log``, ``D_skip`` and ``dt_bias`` and its mix ``beta``.  No other
+# family has a leaf of these names.
+_F32_LEAVES = ("router", "w0", "u", "A_log", "D_skip", "dt_bias", "beta")
+
+
+def _leaf(name: str, a: Any, dtype, device, layer=None) -> torch.Tensor:
+    """One leaf (its ``layer``-th slice when given) in ``dtype``, or f32
+    when ``name`` is one of ``_F32_LEAVES``."""
+    return _tensor(a if layer is None else np.asarray(a)[layer],
+                   torch.float32 if name in _F32_LEAVES else dtype, device)
 
 
 def _group(tree: Mapping[str, Any], dtype, device, layer=None):
     """A group's leaves in ``dtype``, except ``_F32_LEAVES``."""
-    return {k: _tensor(a if layer is None else np.asarray(a)[layer],
-                       torch.float32 if k in _F32_LEAVES else dtype, device)
-            for k, a in tree.items()}
+    return {k: _leaf(k, a, dtype, device, layer) for k, a in tree.items()}
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device, mesh=None) -> DenseLM:
     """tree: {"embed": {"tok", "head"}, "blocks": {"ln1", "attn", "ln2",
-    and "mlp" or (MoE) "moe": {"router", "wg", "wu", "wd"}}, or for the
-    ssm family {"ln1", "tm", "ln2", "cm"}, with every leaf stacked on a
-    leading layer axis, "final_norm"}, in the global layout of the plan at
-    tp = the mesh's size (1 without a mesh).  Leaves are cast to
-    ``cfg.dtype`` on ``device`` (``_F32_LEAVES`` kept f32), layouts kept,
-    and cut over the mesh's ranks: every leaf becomes (R, *local)."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    and "mlp" or (MoE) "moe": {"router", "wg", "wu", "wd"}}, for the
+    hybrid family {"ln1", "attn", "ssm", "beta" (a bare leaf), "ln2",
+    "mlp"}, or for the ssm family {"ln1", "tm", "ln2", "cm"}, with every
+    leaf stacked on a leading layer axis, "final_norm"}, in the global
+    layout of the plan at tp = the mesh's size (1 without a mesh).  Leaves
+    are cast to ``cfg.dtype`` on ``device`` (``_F32_LEAVES`` kept f32),
+    layouts kept, and cut over the mesh's ranks: every leaf becomes
+    (R, *local)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with ROADMAP item 10")
     dt = cfg.dtype
     blocks = tree["blocks"]
-    groups = ("ln1", "tm", "ln2", "cm") if cfg.attn_free else \
-        ("ln1", "attn", "ln2", "moe" if cfg.is_moe else "mlp")
+    if cfg.attn_free:
+        groups = ("ln1", "tm", "ln2", "cm")
+    elif cfg.family == "hybrid":
+        groups = ("ln1", "attn", "ssm", "beta", "ln2", "mlp")
+    else:
+        groups = ("ln1", "attn", "ln2", "moe" if cfg.is_moe else "mlp")
     per_layer = [{name: _group(blocks[name], dt, device, layer=i)
+                  if isinstance(blocks[name], Mapping)
+                  else _leaf(name, blocks[name], dt, device, layer=i)
                   for name in groups}
                  for i in range(cfg.n_layers)]
     return from_global({"embed": _group(tree["embed"], dt, device),

@@ -30,6 +30,11 @@ class ModelConfig:
     top_k: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
+    # SSM (mamba-style; the hybrid family's mixer)
+    ssm_state: int = 0
+    d_inner: int = 0
+    d_conv: int = 4
+    dt_rank: int = 0
     # RWKV6
     rwkv_head_dim: int = 64
     decay_lora: int = 64
@@ -56,10 +61,14 @@ class ModelConfig:
         return self.n_experts > 0
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense, MoE and ssm (RWKV6)
-        families.  The ssm count is every leaf of the model, the time-mix
-        output projection ``w_o`` included, which the reference's count
-        leaves out (ROADMAP §3)."""
+        """Analytic parameter count of the dense, MoE, ssm (RWKV6) and
+        hybrid families.  The ssm count is every leaf of the model, the
+        time-mix output projection ``w_o`` included, which the reference's
+        count leaves out (ROADMAP §3).  The hybrid count is every leaf too:
+        the mamba branch's full (D, d_inner) ``w_dt`` and its (D, 2 s)
+        ``w_bc``, where the reference's count assumes a low-rank
+        ``dt_rank`` projection that its ``init_ssm`` does not build, plus
+        ``beta`` and the norms (ROADMAP §3)."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         if self.attn_free:
             # time-mix: r/k/v/g/o (D, D), decay LoRA, 5 shift mixes, w0, u
@@ -72,6 +81,14 @@ class ModelConfig:
         hq = self.n_heads * self.head_dim
         hkv = self.n_kv_heads * self.head_dim
         per_layer = d * (hq + 2 * hkv) + hq * d
+        if self.family == "hybrid":
+            di, s, k = self.d_inner, self.ssm_state, self.d_conv
+            # w_x, w_z, w_dt, w_out; w_bc; conv_w; dt_bias, conv_b, D_skip;
+            # A_log; the MLP; beta and the two block norms; the final norm
+            per_layer += 4 * d * di + 2 * d * s + k * di + 3 * di + di * s \
+                + 3 * d * f + 2 + 2 * d
+            return v * d * (1 if self.tie_embeddings else 2) \
+                + L * per_layer + d
         if self.is_moe:
             per_layer += d * self.n_experts  # router
             per_layer += self.n_experts * 3 * d * self.d_ff_expert

@@ -1,6 +1,6 @@
-"""Model assembly for the dense, MoE and ssm (RWKV6) families: parameters,
-LM forward, caches and the decode step, at tp=1 and over the virtual mesh
-(the port of ``repro/models/transformer.py``).
+"""Model assembly for the dense, MoE, ssm (RWKV6) and hybrid (Hymba)
+families: parameters, LM forward, caches and the decode step, at tp=1 and
+over the virtual mesh (the port of ``repro/models/transformer.py``).
 
 The model is an ``nn.Module`` (:class:`DenseLM`) holding frozen
 parameters in the JAX package's layouts, each stacked per rank
@@ -21,9 +21,15 @@ collective) completes the combine.  Attention ``wo`` keeps
 has no attention: its time-mix output and its stacked channel-mix partial
 each take one ``tp_all_reduce`` (never overlapped, as in the reference),
 and its cache is the recurrent state (token shifts and the wkv state, no
-K/V).  Caches are dicts
-of tensors with a leading layer axis and the ranks folded into the batch,
-updated in place (JAX rebuilt them with ``.at[].set``).  Under a
+K/V).  A hybrid block (``models/ssm.py``) runs attention and a Mamba-style
+selective-state-space mixer side by side on the same normed input: the
+attention heads are projected by ``wo`` without a reduction, mixed with
+the mixer's TP-partial output by ``beta``, and the mix takes ONE
+``tp_all_reduce`` (never overlapped, as in the reference); its MLP goes
+through ``_residual_proj`` as the dense family's; its cache holds the K/V
+(dense or paged) and the recurrent ``conv``/``ssm`` leaves.  Caches are
+dicts of tensors with a leading layer axis and the ranks folded into the
+batch, updated in place (JAX rebuilt them with ``.at[].set``).  Under a
 quantized wire (``ctx.ar_quant`` other than "none") the decode cache also
 carries the error-feedback leaf ``ef`` (:func:`ef_sites_for`), which the
 two row-parallel reductions of every decode block consume and refresh;
@@ -45,12 +51,14 @@ from ..parallel.sharding import shard_params
 from . import layers as L
 from . import moe as M
 from . import rwkv as RW
+from . import ssm as SSM
 from .common import GQAPlan, ModelConfig, dense_init, pad_to, place_heads, \
     plan_gqa
 
 Cache = Dict[str, torch.Tensor]
-# The ssm family's per-layer cache leaves (no K/V).
-RECURRENT_LEAVES = ("shift_tm", "shift_cm", "wkv")
+# The recurrent per-layer cache leaves, batch-indexed under paging too: the
+# ssm family's (no K/V) and the hybrid family's mamba state (beside K/V).
+RECURRENT_LEAVES = ("shift_tm", "shift_cm", "wkv", "conv", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +82,10 @@ class ArchPlan:
     def rwkv_heads_local(self) -> int:
         return self.cfg.d_model // self.cfg.rwkv_head_dim // self.tp
 
+    @property
+    def d_inner_local(self) -> int:
+        return self.cfg.d_inner // self.tp
+
 
 def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
     """The static plan of one (config, tp).  At tp=1 ``plan_gqa`` picks
@@ -84,11 +96,14 @@ def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
     experts, which the reference would replicate while its MoE layer
     slices them.  An ssm plan has no GQA plan; it is refused when tp does
     not divide its heads (d_model / rwkv_head_dim), which the reference
-    would replicate while its state is cut by heads."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    would replicate while its state is cut by heads.  A hybrid plan is the
+    dense GQA plan; it is refused when tp does not divide d_inner, which
+    the reference does not check (ROADMAP §3)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with ROADMAP item 10 (other "
-            "families); the port runs the dense, MoE and ssm families")
+            "families); the port runs the dense, MoE, ssm and hybrid "
+            "families")
     for dim, name in ((cfg.d_model, "d_model"), (cfg.d_ff, "d_ff")):
         if cfg.family != "moe" and dim % tp:
             raise ValueError(f"{cfg.name}: {name}={dim} not divisible by "
@@ -100,6 +115,9 @@ def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
     if cfg.attn_free and (cfg.d_model % cfg.rwkv_head_dim or heads % tp):
         raise ValueError(f"{cfg.name}: {heads} heads of {cfg.rwkv_head_dim} "
                          f"not divisible by tp={tp}")
+    if cfg.family == "hybrid" and cfg.d_inner % tp:
+        raise ValueError(f"{cfg.name}: d_inner={cfg.d_inner} not divisible "
+                         f"by tp={tp}")
     gqa = None if cfg.attn_free else plan_gqa(cfg.n_heads, cfg.n_kv_heads,
                                               tp)
     return ArchPlan(cfg=cfg, tp=tp, gqa=gqa,
@@ -143,19 +161,22 @@ def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 class Block(nn.Module):
     """One decoder layer's parameter groups, each (R, *local): ``ln1``,
     ``attn`` (wq, wk, wv, wo), ``ln2``, and either ``mlp`` (wg, wu, wd) or
-    ``moe`` (router f32; wg, wu, wd cut on the expert axis); or, for the
-    ssm family, ``ln1``, ``tm`` (the RWKV6 time-mix), ``ln2``, ``cm``
-    (the channel-mix)."""
+    ``moe`` (router f32; wg, wu, wd cut on the expert axis); a hybrid
+    block adds ``ssm`` (the mamba mixer) and ``beta``, a bare (R, 2) f32
+    tensor; or, for the ssm family, ``ln1``, ``tm`` (the RWKV6 time-mix),
+    ``ln2``, ``cm`` (the channel-mix)."""
 
     def __init__(self, tensors: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__()
         for name, group in tensors.items():
-            setattr(self, name, _frozen(group))
+            setattr(self, name, nn.Parameter(group, requires_grad=False)
+                    if isinstance(group, torch.Tensor) else _frozen(group))
 
 
 class DenseLM(nn.Module):
-    """A decoder of any ported family (dense MLP, MoE, RWKV6): ``embed``
-    (tok, head), ``blocks``, ``final_norm``, every leaf stacked per rank.
+    """A decoder of any ported family (dense MLP, MoE, RWKV6, hybrid):
+    ``embed`` (tok, head), ``blocks``, ``final_norm``, every leaf stacked
+    per rank.
     Built by :func:`init_params` or, from the JAX package's parameters, by
     :func:`repro_torch.models.bridge.params_from_numpy`.
     """
@@ -185,13 +206,16 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
     """The port's own seeded init: the shapes and scales of the JAX
     ``init_params`` at ``ap.tp`` (weights Normal(0, 1/fan_in) in the
     plan's slot layout, norms 1, a MoE router in f32; the RWKV6 groups
-    of ``rwkv.init_rwkv_*``), drawn from a
-    ``torch.Generator`` on ``device`` (not the JAX package's numbers),
-    then cut over ``mesh`` (R = ap.tp ranks) one layer at a time, so the
-    global and the cut copy of the whole model are never both held.  A
-    plan without dead slots (llama3.2-1b and qwen3-moe-30b-a3b at tp=8)
-    draws the same numbers at every tp, so its model computes the same
-    function at every tp."""
+    of ``rwkv.init_rwkv_*``; the mamba group of ``ssm.init_ssm`` and
+    ``beta`` ones in f32), drawn from a ``torch.Generator`` on ``device``
+    (not the JAX package's numbers), then cut over ``mesh`` (R = ap.tp
+    ranks) one layer at a time, so the global and the cut copy of the
+    whole model are never both held.  Every draw has a shape that does not
+    depend on tp: the attention weights are drawn per original head and
+    then placed into the plan's slots (dead slots zero), and ``tok``/
+    ``head`` are drawn at the real vocab and zero-padded to the plan's
+    ``vocab_pad``.  So one seed gives one function at every tp, dead slots
+    and vocab padding included."""
     cfg, plan = ap.cfg, ap.gqa
     if (mesh.size if mesh is not None else 1) != ap.tp:
         raise ValueError(f"plan tp={ap.tp} on {mesh}")
@@ -218,6 +242,9 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                 "wv": place_heads(wv, plan.kv_map).transpose(0, 1).contiguous(),
                 "wo": place_heads(wo, plan.q_map)}
         blk = {"ln1": ones(d), "attn": attn, "ln2": ones(d)}
+        if cfg.family == "hybrid":
+            blk["ssm"] = SSM.init_ssm(gen, cfg)
+            blk["beta"] = torch.ones(2, dtype=torch.float32, device=device)
         if cfg.is_moe:
             blk["moe"] = M.init_moe(gen, cfg)
         else:
@@ -226,9 +253,12 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                           "wd": dense_init(gen, (f, d), f, dt)}
         return shard_params(blk, mesh)
 
-    embed = {"tok": dense_init(gen, (ap.vocab_pad, d), d, dt)}
+    pad = ap.vocab_pad - cfg.vocab_size
+    embed = {"tok": torch.nn.functional.pad(
+        dense_init(gen, (cfg.vocab_size, d), d, dt), (0, 0, 0, pad))}
     if not cfg.tie_embeddings:
-        embed["head"] = dense_init(gen, (d, ap.vocab_pad), d, dt)
+        embed["head"] = torch.nn.functional.pad(
+            dense_init(gen, (d, cfg.vocab_size), d, dt), (0, pad))
     embed = shard_params(embed, mesh)
     blocks = [block() for _ in range(cfg.n_layers)]
     return DenseLM(embed, blocks, shard_params(ones(d), mesh))
@@ -289,6 +319,17 @@ def _cm_residual(x: torch.Tensor, stacked: torch.Tensor, ctx: ParallelCtx,
     return x + torch.sigmoid(red[:, 1].float()).to(x.dtype) * red[:, 0]
 
 
+def _mixed_residual(x: torch.Tensor, beta: torch.Tensor, attn: torch.Tensor,
+                    ssm: torch.Tensor, ctx: ParallelCtx, mesh) -> torch.Tensor:
+    """x plus the hybrid block's mix: ``beta`` (R, 2) f32 cast to the
+    activation dtype, as the reference casts it, ``beta0 * attn + beta1 *
+    ssm`` over the two TP-partial outputs (R, B, S, D), completed by one
+    ``tp_all_reduce``."""
+    b = beta.to(attn.dtype)
+    mix = L.per_rank(b[:, :1], attn) * attn + L.per_rank(b[:, 1:], ssm) * ssm
+    return x + hier.tp_all_reduce(mix, ctx, mesh, scatter_dim=-1)
+
+
 def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ctx: ParallelCtx = LOCAL, mesh=None, *,
                   positions: torch.Tensor,
@@ -296,12 +337,15 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ) -> Tuple[torch.Tensor, Cache]:
     """One causal block over the full sequence, x (R, B, S, D) replicated.
     Returns (x, the layer's prefill cache seed): the rotated K/V {"k",
-    "v"} (R, B, S, U, hd), or for an ssm block the recurrent state
-    {"shift_tm", "shift_cm"} (R, B, D) and {"wkv"} (R, B, H, hd, hd).
-    The row-parallel projections go through ``_residual_proj`` (no SP); a
-    MoE block runs the dispatch path on each rank's chunk of the sequence
-    and gathers the outputs back (its load-balancing loss, which only
-    training reads, is dropped)."""
+    "v"} (R, B, S, U, hd), for a hybrid block with the mamba state
+    {"conv"} (R, B, K-1, Ci) and {"ssm"} (R, B, Ci, s) beside them, or for
+    an ssm block the recurrent state {"shift_tm", "shift_cm"} (R, B, D)
+    and {"wkv"} (R, B, H, hd, hd).  The row-parallel projections go
+    through ``_residual_proj`` (no SP), except a hybrid block's attention
+    ``wo``, whose partial is mixed with the mamba mixer's before its one
+    reduction (``_mixed_residual``); a MoE block runs the dispatch path on
+    each rank's chunk of the sequence and gathers the outputs back (its
+    load-balancing loss, which only training reads, is dropped)."""
     cfg = ap.cfg
     h = L.apply_norm(x, bp.ln1, cfg)
     if cfg.attn_free:
@@ -313,15 +357,23 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
         return _cm_residual(x, stacked, ctx, mesh), {**st, **st2}
     heads, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions,
                                     q_mask=q_mask)
-    x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
+    st = {"k": kv[0], "v": kv[1]}
+    if cfg.family == "hybrid":
+        so, sst = SSM.ssm_mixer(bp.ssm, h, cfg, return_state=True)
+        st["conv"] = sst["conv"]
+        st["ssm"] = sst["ssm"].reshape(*x.shape[:2], *sst["ssm"].shape[1:])
+        x = _mixed_residual(x, bp.beta, ov.project(heads, bp.attn["wo"]), so,
+                            ctx, mesh)
+    else:
+        x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
     h2 = L.apply_norm(x, bp.ln2, cfg)
     if cfg.is_moe:
         out, _ = M.moe_ffn(bp.moe, _moe_tokens(h2, ctx), cfg, ctx, mesh,
                            decode=False)
-        return x + _moe_restore(out, ctx, mesh), {"k": kv[0], "v": kv[1]}
+        return x + _moe_restore(out, ctx, mesh), st
     x, _ = _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
                           L.mlp_down_w(bp.mlp, cfg), ctx, mesh)
-    return x, {"k": kv[0], "v": kv[1]}
+    return x, st
 
 
 def _unranked(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -340,10 +392,11 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
     (B, S, V_pad) without one.  ``states`` (when ``collect_state``) hold
     the per-layer cache seeds stacked on a leading layer axis, the ranks
     folded into the batch as in the cache: {"k", "v"} (L, R*B, S, U, hd),
-    or for the ssm family {"shift_tm", "shift_cm"} (L, R*B, D) and
-    {"wkv"} (L, R*B, H, hd, hd); else None.  (The JAX function also
-    returns the MoE load-balancing loss, which only training reads, and an
-    encoder output, which no family here has.)
+    for the hybrid family with {"conv"} (L, R*B, K-1, Ci) and {"ssm"}
+    (L, R*B, Ci, s) beside them, or for the ssm family {"shift_tm",
+    "shift_cm"} (L, R*B, D) and {"wkv"} (L, R*B, H, hd, hd); else None.
+    (The JAX function also returns the MoE load-balancing loss, which only
+    training reads, and an encoder output, which no family here has.)
     """
     check_layout(ap, ctx, mesh)
     B, S = tokens.shape
@@ -372,8 +425,8 @@ def ef_sites_for(ctx: ParallelCtx, cfg: ModelConfig) -> int:
     """Error-feedback site count for ``init_cache(..., ef_sites=...)``: the
     dense decode threads EF through its two row-parallel reductions (attn
     wo, MLP down) whenever the ctx may quantize the wire (``ar_quant``
-    forced or "auto"); other families (MoE included, as in the reference)
-    carry no EF leaf and take the one-shot rounding."""
+    forced or "auto"); other families (MoE and hybrid included, as in the
+    reference) carry no EF leaf and take the one-shot rounding."""
     if ctx.ar_quant == "none" or cfg.family != "dense":
         return 0
     return 2
@@ -402,6 +455,11 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
     ``shift_tm``/``shift_cm`` (L, R*batch, d_model) in ``cfg.dtype`` and
     ``wkv`` (L, R*batch, H_local, hd, hd) f32.  It has nothing to page,
     so ``block_size > 0`` raises (the reference ignores it).
+
+    The hybrid family holds the K/V above (dense or paged) and the mamba
+    state: ``conv`` (L, R*batch, d_conv-1, Ci_local) in ``cfg.dtype`` and
+    ``ssm`` (L, R*batch, Ci_local, s) f32, batch-indexed under paging
+    too, as in the reference.
     """
     cfg = ap.cfg
     R = mesh.size if mesh is not None else 1
@@ -429,12 +487,18 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
         shape = (Ld, n_blocks, block_size, u, hd)
         tbl = 1 + torch.arange(batch * max_blocks, dtype=torch.int32,
                                device=device).reshape(batch, max_blocks)
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "block_tbl": tbl}
-    shape = (Ld, R * batch, s_max, u, hd)
-    cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+        cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                 "block_tbl": tbl}
+    else:
+        shape = (Ld, R * batch, s_max, u, hd)
+        cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if cfg.family == "hybrid":
+        st = SSM.init_ssm_state(cfg, R * batch, ap.d_inner_local,
+                                device=device, dtype=cfg.dtype)
+        cache.update({n: t.expand(Ld, *t.shape).clone()
+                      for n, t in st.items()})
     if ef_sites > 0:
         cache["ef"] = torch.zeros((Ld, ef_sites, R, batch, cfg.d_model),
                                   dtype=torch.float32, device=device)
@@ -459,8 +523,9 @@ def _paged_splice(phys: torch.Tensor, states: torch.Tensor,
 def seed_cache(cache: Cache, states: Cache) -> Cache:
     """Splice prefill-collected layer states into a decode cache at
     position 0, batch-wide, in place; returns ``cache``.  A paged cache
-    (``block_tbl`` present) routes K/V through the block table; the ssm
-    family's recurrent leaves are copied whole.  An ``ef`` leaf is
+    (``block_tbl`` present) routes K/V through the block table; the
+    recurrent leaves (``RECURRENT_LEAVES``: the ssm family's, the hybrid
+    family's ``conv``/``ssm``) are copied whole.  An ``ef`` leaf is
     zeroed: a fresh batch starts with no rounding residue."""
     if "ef" in cache:
         cache["ef"].zero_()
@@ -496,7 +561,10 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
     local expert on every token) and completes the TP-partial combine with
     ``tp_all_reduce``, the same collective.  With an ``ef`` leaf ((2, R,
     B, D), one site each) the projections consume and refresh their
-    error-feedback residue, in the message layout (R, B, 1, D).  An ssm
+    error-feedback residue, in the message layout (R, B, 1, D).  A hybrid
+    block mixes its attention partial with the mamba step's (kernel 9
+    stepping the cache's ``ssm`` in place, the new ``conv`` history copied
+    back) before one ``tp_all_reduce``; it carries no ``ef``.  An ssm
     block reads and updates its recurrent leaves ({"shift_tm",
     "shift_cm"} (R*B, D), {"wkv"} (R*B, H, hd, hd)) in place: kernel 8
     steps the state, and the time-mix output and the stacked channel-mix
@@ -523,8 +591,18 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
     heads = L.attention_decode(bp.attn, h, cache_l, cfg, positions=positions,
                                kv_positions=kv_positions, q_mask=q_mask,
                                block_tbl=block_tbl)
-    x, ef_attn = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh,
-                                ef=ef_in[0])
+    if cfg.family == "hybrid":
+        conv = cache_l["conv"]
+        so, st = SSM.ssm_step(bp.ssm, h, {
+            "conv": conv.view(*x.shape[:2], *conv.shape[1:]),
+            "ssm": cache_l["ssm"]}, cfg)
+        conv.copy_(st["conv"].reshape(conv.shape))
+        x = _mixed_residual(x, bp.beta, ov.project(heads, bp.attn["wo"]), so,
+                            ctx, mesh)
+        ef_attn = ef_in[0]
+    else:
+        x, ef_attn = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh,
+                                    ef=ef_in[0])
     h2 = L.apply_norm(x, bp.ln2, cfg)
     if cfg.is_moe:
         x = x + hier.tp_all_reduce(M.moe_ffn_dense(bp.moe, h2, cfg, ctx,

@@ -1,6 +1,6 @@
 """Tensor-parallel parameter sharding over the virtual mesh: the port of
-the TP rules of ``repro/parallel/sharding.py`` for the dense, MoE and ssm
-(RWKV6) families.
+the TP rules of ``repro/parallel/sharding.py`` for the dense, MoE, ssm
+(RWKV6) and hybrid families.
 
 A leaf's TP dimension is cut into R contiguous pieces, rank r taking piece
 r (slow-major, as ``PartitionSpec((slow, fast))`` cuts it), and the pieces
@@ -16,8 +16,12 @@ channel-mix parent (``cm``) ``wk`` (D, F) is cut on its columns, ``wv``
 (F, D) and ``wr`` (D, D) on their rows, and ``mu`` is replicated: the
 attention rule of ``wk`` (the slot axis) would cut it on the wrong axis.
 The time-mix's head-sharded leaves are cut on their A axis, ``w_o`` on
-its rows; ``w_a`` and the shift mixes ``mu`` are replicated.  FSDP is not part
-of serving here (``fsdp_serve`` is not ported).
+its rows; ``w_a`` and the shift mixes ``mu`` are replicated.  The hybrid
+family's mamba leaves are cut on d_inner (``A_log`` and ``w_out`` on their
+rows); ``w_bc`` and the block's mix ``beta`` are replicated.  No hybrid
+leaf name meets a rule written for another family (``w``/``b`` are the
+norms').  FSDP is not part of serving here (``fsdp_serve`` is not
+ported).
 
 The decode cache follows ``cache_spec``: its head (slot) dimension is
 sharded, so each rank holds ``ap.gqa.u`` kv slots
@@ -43,6 +47,12 @@ TP_RULES: Dict[str, Optional[int]] = {
     "w_r": -1, "w_k": -1, "w_v": -1, "w_g": -1, "w0": -1, "u": -1,
     "ln_w": -1, "ln_b": -1, "w_a": None, "w_b": -1, "w_o": -2,
     "mu": None,
+    # mamba (the hybrid family's ssm group): d_inner-sharded leaves, A_log
+    # and w_out cut on their rows; w_bc (B and C) and the mix beta
+    # replicated
+    "w_x": -1, "w_z": -1, "w_dt": -1, "dt_bias": -1,
+    "conv_w": -1, "conv_b": -1, "A_log": -2, "D_skip": -1,
+    "w_out": -2, "w_bc": None, "beta": None,
 }
 
 # Expert leaves of a MoE layer, cut on their leading expert axis.

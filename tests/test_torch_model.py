@@ -204,6 +204,6 @@ def test_plan_and_registry_refuse_what_the_slice_does_not_port():
     with pytest.raises(ValueError, match="not divisible by tp=3"):
         TT.make_plan(cfg, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        TT.make_plan(dataclasses.replace(cfg, family="hybrid"), 1)
+        TT.make_plan(dataclasses.replace(cfg, family="encdec"), 1)
     with pytest.raises(KeyError, match="ROADMAP item 10"):
-        get_config("hymba-1.5b")
+        get_config("whisper-medium")

@@ -287,3 +287,27 @@ def test_serve_cli_tp_on_cpu(capsys):
     assert res.new_tokens.shape == (2, 4)
     assert res.new_tokens.max() < 97
     assert "tp=8 (4x2) ar=hier_rd" in capsys.readouterr().out
+
+
+def test_seeded_init_is_one_function_at_every_tp():
+    """The port's seeded init draws ``tok``/``head`` at the real vocab and
+    zero-pads them to the plan's padding, before any block draw: llama3.2-1b
+    smoke (vocab 97, padded to 100 at tp=4) in f32 at tp=4 (2 x 2) and at
+    tp=1 from one seed give the same logits over the real vocab (4.58
+    apart on these tokens when the draws followed the padded shapes)."""
+    from repro_torch.configs import get_smoke
+    tcfg = dataclasses.replace(get_smoke("llama3.2-1b"), dtype=torch.float32)
+    mesh, ctx = mesh_and_ctx(4, 2, ar_strategy="flat", device="cpu")
+    ap1, ap4 = TT.make_plan(tcfg, 1), TT.make_plan(tcfg, 4)
+    assert ap4.vocab_pad == 100 != tcfg.vocab_size
+    tokens = torch.tensor(_prompts(tcfg.vocab_size, seed=3)[:2]).long()
+    with torch.inference_mode():
+        lg1, _ = TT.forward_lm(TT.init_params(ap1, seed=0, device="cpu"),
+                               tokens, ap1)
+        m4 = TT.init_params(ap4, seed=0, device="cpu", mesh=mesh)
+        lg4, _ = TT.forward_lm(m4, tokens, ap4, ctx, mesh)
+    lg4 = lg4.movedim(0, -2).flatten(-2)
+    v = tcfg.vocab_size
+    np.testing.assert_allclose(lg4[..., :v].numpy(), lg1[..., :v].numpy(),
+                               atol=1e-5, rtol=1e-5)
+    assert not m4.embed["tok"].reshape(-1, tcfg.d_model)[v:].any()
