@@ -4,13 +4,16 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernels from src/repro_torch/kernels/csrc and hold each
-     attention kernel against its plain PyTorch version on the same CUDA
-     tensors, in bf16 and f32, at the main path's shapes; time kernel,
-     plain version and the library yardstick (scaled_dot_product_attention,
-     timed here only); then the same check over the CPU tests' shape
-     sweep, with the paged kernel's trash isolation and the decode
-     kernel's blindness past pos;
+  2. build the kernels from src/repro_torch/kernels/csrc (ptxas's
+     registers, static shared memory and spills for each kernel) and hold
+     each attention kernel against its plain PyTorch version on the same
+     CUDA tensors, in bf16 and f32, at the main path's shapes and flash at
+     hymba-1.5b's prefill shape (25 q / 5 kv heads, 1280 tokens, window
+     1024); time kernel, plain version and the library yardstick
+     (scaled_dot_product_attention, with the windowed causal mask for
+     hymba's shape, timed here only); then the same check over the CPU
+     tests' shape sweep, with the paged kernel's trash isolation and the
+     decode kernel's blindness past pos;
   3. the recursive-doubling all-reduce kernel against its plain version,
      bitwise, in bf16 and f32, over pods {2, 4, 8} x fast {1, 2}, per-rank
      messages of 16 KB to 8 MB and 1 or 4 chunks, the scalar kernels on
@@ -34,13 +37,15 @@ Phases (any failure exits non-zero and prints no result line):
   7. phase 5 at tp=8 (hier_rd): card against CPU;
   8. the fused GEMM + recursive-doubling kernel against its plain version
      in bf16 and f32 on 4 x 2 and 2 x 1 meshes at the path's decode
-     shapes (attention wo, MLP down) and its prefill shape: within TOL,
+     shapes (attention wo, MLP down), its prefill shape and two ragged
+     row counts (12: the bf16 decode form's two n8 blocks; 100): within TOL,
      bitwise equal across n_chunks 1/2/4/8, every rank of a fast column
      bitwise equal, every output element written (the allocator's free
      block poisoned first); 1000 back-to-back calls on fresh inputs with
      alternating chunk counts, each checked; kernel, plain version and the
      library yardstick (one bmm over the fast columns with the pods folded
-     into K) timed;
+     into K) timed at all three path shapes, with the kernel's time
+     without the exchange (pods = 1) beside it;
   9. phase 6 under the paper's deployment, ``auto`` + overlapped
      projections: exact launch counts derived from the autotuner's picks,
      tokens margin-gated against phase 6's flat and phase 4's tp=1, the
@@ -75,9 +80,13 @@ Phases (any failure exits non-zero and prints no result line):
      within TOL, and bitwise equal to itself on a second call, in bf16
      and f32, on the CPU tests' cases, a shape off its 16-byte path and
      the MoE path's three shapes (prefill dispatch, tp=1 and tp=8 dense
-     decode); 1000 back-to-back calls on fresh inputs, each checked;
-     kernel, plain version and a three-bmm chain (informative: no single
-     PyTorch call computes the function) timed against the bound;
+     decode); then past one CTA's shared memory: the D-tiled two-launch
+     form bitwise equal to the one-launch form at D 4096, and dbrx-132b's
+     expert widths (D 6144, F 10752, 4 experts, C 8 and C 80, bf16 and
+     f32) within TOL and bitwise equal to a second call; 1000
+     back-to-back calls on fresh inputs, each checked; kernel, plain
+     version and a three-bmm chain (informative: no single PyTorch call
+     computes the function) timed against the bound;
  16. qwen3-moe-30b-a3b at full width and depth (48 layers, seeded bf16
      weights): batch 8, prompt 128, 16 new tokens, dense and paged
      (block 16), exact launch counts (kernel 7 once a layer in prefill
@@ -189,6 +198,7 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
 from repro_torch.models import rwkv, ssm, transformer  # noqa: E402
@@ -216,6 +226,13 @@ D_MODEL, D_FF = 2048, 8192
 FUSED_SHAPES = {"decode_wo": (B, HQ * HD // (PODS * FAST)),
                 "decode_mlp": (B, D_FF // (PODS * FAST)),
                 "prefill_mlp": (B * PROMPT, D_FF // (PODS * FAST))}
+# Checked only: the bf16 decode form with two n8 blocks (M 9-16) and
+# ragged row tiles of both forms.
+FUSED_EXTRA = {"rows12": (12, 1024), "rows100": (100, 264)}
+# Kernel 3's prefill shapes (B, Hq, Hkv, S, hd, window): llama3.2-1b's, and
+# hymba-1.5b's (25 q / 5 kv heads, 1280 tokens past its 1024 window).
+FLASH_SHAPES = {"llama_prefill": (B, HQ, HKV, PROMPT, HD, 0),
+                "hymba_prefill": (B, 25, 5, 1280, 64, 1024)}
 RD_SIZES = (16 * 2**10, 128 * 2**10, 512 * 2**10, 2 * 2**20, 8 * 2**20)
 # bf16 greedy tokens of two reduction orders may differ where the top-1/
 # top-2 logit gap is within a few bf16 roundings of O(1) logits.
@@ -329,32 +346,52 @@ def check_close(name, out, ref, dtype) -> float:
 # ---------------------------------------------------------------------------
 
 
+def flash_case(gen, dtype, shape) -> tuple:
+    """Kernel 3 at one prefill shape (b, hq, hkv, s, hd, window), causal,
+    q/k/v as the model holds them, (B, S, H, hd), passed as (B, H, S, hd)
+    views: (max |kernel - plain|, (kernel, plain, SDPA) ms, bound)."""
+    b, hq, hkv, s, hd, win = shape
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q = rnd(b, s, hq, hd).transpose(1, 2)
+    k = rnd(b, s, hkv, hd).transpose(1, 2)
+    v = rnd(b, s, hkv, hd).transpose(1, 2)
+    out = flash_attention(q, k, v, causal=True, window=win)
+    ref = flash_attention_ref(q, k, v, causal=True, window=win)
+    torch.cuda.synchronize()
+    err = check_close(f"flash_attention {shape}", out, ref, dtype)
+    del out, ref
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    pos = torch.arange(s, device="cuda")
+    mask = None if not win else ((pos[None, :] <= pos[:, None])
+                                 & (pos[None, :] > pos[:, None] - win))
+    t = (time_ms(lambda: flash_attention(q, k, v, causal=True, window=win)),
+         time_ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                             window=win)),
+         time_ms(lambda: F.scaled_dot_product_attention(
+             qc, kc, vc, is_causal=mask is None, attn_mask=mask,
+             enable_gqa=True)))
+    # (query, key) pairs the causal, windowed mask keeps
+    pairs = sum(min(i + 1, win) if win else i + 1 for i in range(s))
+    bnd = bound_ms(q.element_size() * b * hd * s * (2 * hq + 2 * hkv),
+                   4.0 * b * hq * hd * pairs, dtype)
+    return err, t, bnd
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    hyb_gen = torch.Generator(device="cuda")
+    hyb_gen.manual_seed(SEED + 1)
     rec = {}
     for dtype in (torch.bfloat16, torch.float32):
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-        # prefill: q/k/v as the model holds them, (B, S, H, hd), passed as
-        # (B, H, S, hd) views
-        q = rnd(B, PROMPT, HQ, HD).transpose(1, 2)
-        k = rnd(B, PROMPT, HKV, HD).transpose(1, 2)
-        v = rnd(B, PROMPT, HKV, HD).transpose(1, 2)
-        out = flash_attention(q, k, v, causal=True)
-        ref = flash_attention_ref(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        err_f = check_close("flash_attention", out, ref, dtype)
-        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-        t_f = (time_ms(lambda: flash_attention(q, k, v, causal=True)),
-               time_ms(lambda: flash_attention_ref(q, k, v, causal=True)),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   qc, kc, vc, is_causal=True, enable_gqa=True)))
-        pairs = PROMPT * (PROMPT + 1) // 2
-        isz = q.element_size()
-        bf = bound_ms(isz * B * HD * PROMPT * (2 * HQ + 2 * HKV),
-                      4.0 * B * HQ * HD * pairs, dtype)
+        err_f, t_f, bf = flash_case(gen, dtype, FLASH_SHAPES["llama_prefill"])
+        isz = torch.empty((), dtype=dtype).element_size()
 
         # decode: ragged positions over an S_MAX cache
         qd = rnd(B, HQ, HD)
@@ -408,6 +445,19 @@ def phase_kernels() -> dict:
                 rec[name] = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
                              "library_ms": t[2], "bound_ms": bnd[0],
                              "bound_by": bnd[1]}
+        # hymba-1.5b's prefill: 25 q / 5 kv heads (g = 5), 1280 tokens past
+        # its 1024 window; SDPA given the windowed causal mask (its own
+        # generator: the other cases keep their inputs)
+        err, t, bnd = flash_case(hyb_gen, dtype,
+                                 FLASH_SHAPES["hymba_prefill"])
+        log(f"  flash_attention hymba_prefill [{str(dtype)[6:]}]: "
+            f"kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms="
+            f"{t[2]:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        if dtype == torch.bfloat16:
+            rec["flash_attention"]["hymba_prefill"] = {
+                "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "library_ms": t[2], "bound_ms": bnd[0], "bound_by": bnd[1]}
+        free_device()
     return rec
 
 
@@ -934,7 +984,7 @@ def phase_fused() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for pods, fast in ((PODS, FAST), (2, 1)):
             R = pods * fast
-            for label, (M, K) in FUSED_SHAPES.items():
+            for label, (M, K) in {**FUSED_SHAPES, **FUSED_EXTRA}.items():
                 x, w = operands(R, M, K, dtype)
                 ref = collective_matmul_rd_ref(x, w, pods)
                 outs = []
@@ -983,7 +1033,7 @@ def phase_fused() -> dict:
     if int(bad):
         raise AssertionError("collective_matmul_rd: back-to-back calls "
                              "disagree")
-    rec = {}
+    rec = {"shapes": {}}
     for label, (M, K) in FUSED_SHAPES.items():
         x, w = operands(R, M, K, torch.bfloat16)
         out = collective_matmul_rd(x, w, PODS, n_chunks=4, workspace=ws)
@@ -994,14 +1044,21 @@ def phase_fused() -> dict:
              time_ms(lambda: collective_matmul_rd_ref(x, w, PODS)),
              time_ms(lambda: torch.bmm(xl, wl)))
         bnd = fused_bound(R, M, K, D_MODEL, torch.bfloat16)
+        # the same launch with pods = 1: the GEMMs alone, no exchange
+        gemm = time_ms(lambda: collective_matmul_rd(x, w, 1, n_chunks=4,
+                                                    workspace=ws))
         log(f"  collective_matmul_rd [bfloat16] {PODS}x{FAST} ranks, "
             f"{label} M={M} K={K} N={D_MODEL}: kernel_ms={t[0]:.4f} "
             f"plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
-            f"bound_ms={bnd[0]:.6f} ({bnd[1]})")
-        if label == "decode_mlp":      # the larger of the path's two shapes
-            rec = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
-                   "library_ms": t[2], "bound_ms": bnd[0],
-                   "bound_by": bnd[1]}
+            f"bound_ms={bnd[0]:.6f} ({bnd[1]}); without the exchange "
+            f"(pods=1) {gemm:.4f}")
+        one = {"M": M, "K": K, "N": D_MODEL, "max_abs_err": err, "ms": t[0],
+               "plain_ms": t[1], "library_ms": t[2], "bound_ms": bnd[0],
+               "bound_by": bnd[1], "gemm_only_ms": gemm}
+        rec["shapes"][label] = one
+        if label == "decode_mlp":  # the larger of the decode path's shapes
+            rec.update({k: v for k, v in one.items()
+                        if k not in ("M", "K", "N", "gemm_only_ms")})
     log(f"  workspace {ws.nbytes / 2**20:.1f} MiB")
     return rec
 
@@ -1572,6 +1629,11 @@ MOE_SHAPES = {"prefill": (MOE_E, 80, D_MODEL, MOE_F, MOE_E),
               "decode": (MOE_E, B, D_MODEL, MOE_F, 1),
               "decode_tp8": (MOE_E, B, D_MODEL, MOE_F, PODS * FAST)}
 # tests/test_kernels.py's MOE_CASES, and one shape off the 16-byte path
+# dbrx-132b's expert widths (d_model 6144, d_ff 10752 an expert) at 4
+# experts: a decode block shared by every expert (C 8) and a dispatch
+# block each (C 80); 1.59 GB of weights in bf16.  Past one CTA's shared
+# memory, so kernel 7 tiles D.
+MOE_WIDE = {"C8": (4, 8, 6144, 10752, 1), "C80": (4, 80, 6144, 10752, 4)}
 MOE_SMALL = ((4, 128, 64, 128, 4), (2, 100, 128, 200, 2),
              (8, 256, 64, 96, 8), (3, 13, 72, 50, 3), (8, 5, 40, 24, 2))
 
@@ -1599,6 +1661,64 @@ def moe_bound(E, C, D, Fh, G, dtype) -> tuple:
     esz = torch.empty((), dtype=dtype).element_size()
     return bound_ms((3 * E * D * Fh + G * C * D + E * C * D) * esz,
                     6.0 * E * C * D * Fh, dtype)
+
+
+def phase_moe_wide(gen) -> dict:
+    """Kernel 7 past one CTA's shared memory: the two-launch form (D tiled,
+    h staged) bitwise equal to the one-launch form at a D both take, then
+    dbrx-132b's expert widths (``MOE_WIDE``) in bf16 and f32 within TOL
+    of the plain version and bitwise equal to a second call; kernel, plain
+    version and bmm chain timed against the bound.  Returns the bf16
+    record by shape."""
+    smem = _build.c_function("moe_gemm", "moe_ffn_smem_bytes",
+                             (ctypes.c_int, ctypes.c_int))
+    for D in (D_MODEL, 4096, MOE_WIDE["C8"][2]):
+        for is_bf16, esz in ((1, 2), (0, 4)):
+            if smem(D, is_bf16) != moe_gemm_ops.smem_bytes(D, esz):
+                raise AssertionError("moe_gemm: the wrapper's shared-memory "
+                                     "size differs from the kernel's")
+        log(f"  d_model {D}: one-launch CTA needs bf16 {smem(D, 1)} B, f32 "
+            f"{smem(D, 0)} B; D columns a CTA: bf16 "
+            f"{moe_gemm_ops.d_tile(D, 2)}, f32 {moe_gemm_ops.d_tile(D, 4)}")
+    ops = moe_operands(gen, 4, 24, 4096, 1000, 4, torch.bfloat16)
+    one = moe_expert_ffn(*ops)                      # fits: one launch
+    with mock.patch.object(moe_gemm_ops, "d_tile", lambda D, esz: 2048):
+        two = moe_expert_ffn(*ops)
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError("moe_expert_ffn: the D-tiled form differs from "
+                             "the one-launch form")
+    log("  (4, 24, 4096, 1000, 4) bf16: D tiled by 2048 == one launch, "
+        "bitwise")
+    del ops, one, two
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape in MOE_WIDE.items():
+            ops = moe_operands(gen, *shape, dtype)
+            out = moe_expert_ffn(*ops)
+            again = moe_expert_ffn(*ops)
+            ref = moe_expert_ffn_ref(*ops)
+            torch.cuda.synchronize()
+            err = check_close(f"moe_expert_ffn dbrx {name} {shape}", out, ref,
+                              dtype)
+            if not torch.equal(out, again):
+                raise AssertionError(f"moe_expert_ffn {shape}: two calls "
+                                     "differ")
+            t = (time_ms(lambda: moe_expert_ffn(*ops), reps=5),
+                 time_ms(lambda: moe_expert_ffn_ref(*ops), reps=5),
+                 time_ms(lambda: bmm_chain(*ops), reps=5))
+            bnd = moe_bound(*shape, dtype)
+            log(f"  moe_expert_ffn dbrx {name} {shape} [{str(dtype)[6:]}]: "
+                f"kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} "
+                f"bmm_chain_ms={t[2]:.4f} (library_ms=null) "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            if dtype == torch.bfloat16:
+                rec[name] = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                             "bmm_chain_ms": t[2], "bound_ms": bnd[0],
+                             "bound_by": bnd[1]}
+            del ops, out, again, ref
+            free_device()
+    return rec
 
 
 def phase_moe_kernel() -> dict:
@@ -1642,6 +1762,7 @@ def phase_moe_kernel() -> dict:
                        "library_ms": None, "bmm_chain_ms": t[2],
                        "bound_ms": bnd[0], "bound_by": bnd[1]}
             del ops, out, again, ref
+    rec["dbrx"] = phase_moe_wide(gen)
     E, C, D, Fh, G = 16, 24, D_MODEL, MOE_F, 16
     x, wg, wu, wd = moe_operands(gen, E, C, D, Fh, G, torch.bfloat16)
     bad = 0
@@ -2470,6 +2591,36 @@ def phase_hybrid_tp() -> dict:
     return launches
 
 
+def ptxas_report() -> None:
+    """ptxas's -v report of this build's libraries, a line a kernel: its
+    registers, static shared memory and spills (the bf16 tensor-core
+    kernels' shared memory is dynamic: their configs' sizes are in the
+    sources)."""
+    import re
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        f = _build._target(src).with_suffix(".log")
+        if not f.exists():      # built by an earlier run: no report kept
+            continue
+        text = f.read_text()
+        names = re.findall(r"Compiling entry function '(\w+)'", text)
+        try:
+            shown = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.split("\n")
+        except (OSError, subprocess.CalledProcessError):
+            shown = names
+        # each entry: "Compiling entry function", then its spill line and
+        # its "Used N registers" line
+        blocks = re.split(r"Compiling entry function '\w+'", text)[1:]
+        for name, block in zip(shown, blocks):
+            used = re.search(r"Used (\d+) registers[^\n]*", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", block)
+            log(f"    {src.stem}: {name[:100]}: "
+                f"{used.group(0) if used else '?'}; "
+                f"{spill.group(0) if spill else '?'}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2486,10 +2637,7 @@ def main() -> int:
     _build.build()
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"({_build.BUILD_DIR})")
-    for f in sorted(_build.BUILD_DIR.glob("*.log")):
-        for line in f.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {f.stem}: {line.strip()}")
+    ptxas_report()
     rec = phase_kernels()
     phase_sweep()
     log("[3] recursive-doubling all-reduce kernel")

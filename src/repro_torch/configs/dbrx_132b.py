@@ -3,8 +3,8 @@
 d_ff=10752/expert vocab=100352.
 
 Registered for the CPU smoke config: 132 B parameters do not fit one
-card, and d_model 6144 is past the shared memory of the grouped expert
-FFN kernel's CTA (its wrapper refuses it)."""
+card.  The grouped expert FFN kernel takes its widths (d_model 6144 in
+its two-launch form, which tiles D; checked on the card at 4 experts)."""
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(

@@ -11,21 +11,36 @@
 // 8.6 GFLOP against 42 MB of q/k/v/o, about 200 flop/byte; the tensor-core
 // bound and the byte bound are both about 10 us there.
 //
-// What the design does about it: one CTA per (b, q head, 64-row q tile)
-// keeps its q tile, one 64-key K/V tile and the f32 online-softmax state
-// on chip, so the (Sq, Skv) score matrix never reaches device memory; K/V
-// tiles wholly above the causal diagonal or outside the window are never
-// loaded; GQA is an index (h // g), never an expanded copy of K/V.  The
-// products run on the CUDA cores in f32 (4x4 register tiles per thread),
-// which keeps f32 operands exact: this first version is far from the
-// tensor-core bound.  wgmma on bf16 tiles fed by TMA is later work.
+// Common to both forms: one CTA per (b, q head, 64-row q tile) keeps its q
+// tile, one 64-key K/V tile and the f32 online-softmax state on chip, so
+// the (Sq, Skv) score matrix never reaches device memory; K/V tiles wholly
+// above the causal diagonal or outside the window are never loaded; GQA is
+// an index (h // g), never an expanded copy of K/V.
+//
+// bf16, on the tensor cores (the FlashAttention-2 shape): 4 warps, each
+// owning 16 query rows.  Q, K and V stay bf16 in shared memory, K/V tiles
+// double-buffered by 16-byte cp.async (rows past Skv zero-filled); Q
+// fragments are loaded once (ldmatrix), K with ldmatrix and V with
+// ldmatrix.trans; S = Q K^T and O = P V run as mma.sync m16n8k16 with f32
+// accumulators held in registers; the online softmax works on the S
+// fragments (row max and row sum over the 4 lanes of a row by shuffles).
+// P is rounded to bf16 for the PV product (the plain version keeps it
+// f32; the sum l is taken over the f32 values).  The mask is applied only
+// on tiles that straddle Skv, the causal diagonal or the window's edge.
+// The CTAs of the longest rows are issued first.
+//
+// f32: on the CUDA cores (4x4 register tiles per thread, 256 threads),
+// which keeps f32 operands exact (no TF32).
 //
 // Operands may be strided (the model passes (B, S, H, hd) views transposed
-// to (B, H, S, hd)); only the last dimension must be contiguous.
+// to (B, H, S, hd)); only the last dimension must be contiguous, and the
+// wrapper checks that rows start on 16-byte boundaries.
 
 #include <cmath>
+#include <type_traits>
 
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -182,6 +197,224 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;  // 4 warps x 16 query rows = kBQ
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct TcSmem {
+  static constexpr int S = HD + 8;  // padded row stride: ldmatrix rows on
+                                    // distinct banks
+  static constexpr int TILE = kBK * S;
+  static constexpr int BYTES = 2 * (kBQ * S + 4 * TILE);  // Q, 2 x (K, V)
+};
+
+// Issue the 16-byte copies of `rows` rows of hd elements from src (row
+// stride ld) into dst (stride S); rows at or past `valid` are zeros.
+template <int HD>
+__device__ __forceinline__ void tc_copy_rows(bf16* dst, const bf16* src,
+                                             long long ld, int rows,
+                                             int valid) {
+  constexpr int CH = HD / 8;
+  for (int c = threadIdx.x; c < rows * CH; c += kTcThreads) {
+    const int r = c / CH, d0 = (c % CH) * 8;
+    const bool ok = r < valid;
+    tc::cp_async16(dst + r * TcSmem<HD>::S + d0, ok ? src + r * ld + d0 : src,
+                   ok ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_attention_tc_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          Strides sq, Strides sk, Strides sv, Strides so,
+                          int g, int Sq, int Skv, int causal, int window,
+                          float scale) {
+  using L = TcSmem<HD>;
+  constexpr int S = L::S;
+  constexpr int DK = HD / 16;   // k16 steps of Q K^T
+  constexpr int DN = HD / 8;    // n8 blocks of O
+  constexpr int NB = kBK / 8;   // n8 blocks of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // (kBQ, S)
+  bf16* KVs = Qs + kBQ * S;                       // [buf][K, V] (kBK, S)
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const bf16* kb = k + b * sk.b + (h / g) * sk.h;
+  const bf16* vb = v + b * sv.b + (h / g) * sv.h;
+
+  int kt_end = (Skv + kBK - 1) / kBK;
+  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+
+  tc_copy_rows<HD>(Qs, q + b * sq.b + h * sq.h + q0 * sq.s, sq.s, kBQ,
+                   Sq - q0);
+  auto load_kv = [&](int kt, int buf) {
+    const int k0 = kt * kBK;
+    bf16* Ks = KVs + buf * 2 * L::TILE;
+    tc_copy_rows<HD>(Ks, kb + k0 * sk.s, sk.s, kBK, Skv - k0);
+    tc_copy_rows<HD>(Ks + L::TILE, vb + k0 * sv.s, sv.s, kBK, Skv - k0);
+  };
+  if (kt_begin < kt_end) load_kv(kt_begin, 0);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[DK][4];  // this warp's 16 query rows as A fragments
+#pragma unroll
+  for (int d = 0; d < DK; ++d)
+    tc::ldmatrix_x4(qf[d], Qs + (warp * 16 + (lane & 15)) * S + d * 16 +
+                               (lane >> 4) * 8);
+
+  // this warp's query rows: r_lo = q0 + 16 warp + gq and r_lo + 8
+  const int r_lo = q0 + warp * 16 + gq;
+  const float sl2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
+  float m_r[2] = {attn::kNegInf, attn::kNegInf}, l_r[2] = {0.f, 0.f};
+  float acc[DN][4];
+#pragma unroll
+  for (int j = 0; j < DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    const int k0 = kt * kBK;
+    __syncthreads();  // the other buffer's reads (tile kt-1) are done
+    if (kt + 1 < kt_end) load_kv(kt + 1, buf ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // tile kt landed
+    __syncthreads();
+    const bf16* Ks = KVs + buf * 2 * L::TILE;
+    const bf16* Vs = Ks + L::TILE;
+
+    float s[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DK; ++d)
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        unsigned r[4];
+        tc::ldmatrix_x4(r, Ks + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * S +
+                               d * 16 + ((lane >> 3) & 1) * 8);
+        tc::mma_bf16(s[2 * n2], qf[d], r[0], r[1]);
+        tc::mma_bf16(s[2 * n2 + 1], qf[d], r[2], r[3]);
+      }
+
+    // the mask, only where this warp's 16 rows meet an edge of the tile
+    const int w_lo = q0 + warp * 16, w_hi = w_lo + 15;
+    const bool edge = k0 + kBK > Skv || (causal && k0 + kBK - 1 > w_lo) ||
+                      (window > 0 && k0 <= w_hi - window);
+    float mx[2] = {attn::kNegInf, attn::kNegInf};
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (edge) {
+          const int kpos = k0 + n * 8 + 2 * tq + (e & 1);
+          const int qpos = r_lo + (e >> 1) * 8;
+          bool ok = kpos < Skv;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          x = ok ? x : attn::kNegInf;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i]);
+      alpha[i] = exp2f(m_r[i] - m_new);
+      m_r[i] = m_new;
+      l_r[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    // P = exp2(s - m) in f32 (this lane's share of the row sums), then as
+    // bf16 A fragments: keys 16j..16j+15 are n8 blocks 2j and 2j+1
+    unsigned pa[NB / 2][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const float p0 = exp2f(s[n][0] - m_r[0]);
+      const float p1 = exp2f(s[n][1] - m_r[0]);
+      const float p2 = exp2f(s[n][2] - m_r[1]);
+      const float p3 = exp2f(s[n][3] - m_r[1]);
+      l_r[0] += p0 + p1;
+      l_r[1] += p2 + p3;
+      pa[n / 2][(n & 1) * 2] = tc::pack_bf16(p0, p1);
+      pa[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int j = 0; j < NB / 2; ++j)
+#pragma unroll
+      for (int d2 = 0; d2 < DN / 2; ++d2) {
+        unsigned r[4];
+        tc::ldmatrix_x4_trans(r, Vs + (j * 16 + (lane & 15)) * S + d2 * 16 +
+                                     (lane >> 4) * 8);
+        tc::mma_bf16(acc[2 * d2], pa[j], r[0], r[1]);
+        tc::mma_bf16(acc[2 * d2 + 1], pa[j], r[2], r[3]);
+      }
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = r_lo + i * 8;
+    if (r >= Sq) continue;
+    const float inv = 1.f / fmaxf(l, attn::kMinDenom);
+    bf16* orow = o + b * so.b + h * so.h + r * so.s;
+#pragma unroll
+    for (int j = 0; j < DN; ++j)
+      *reinterpret_cast<unsigned*>(orow + j * 8 + 2 * tq) =
+          tc::pack_bf16(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+  }
+}
+
+template <int HD>
+int launch_tc_hd(const void* q, const void* k, const void* v, void* o,
+                 const Strides* st, int B, int Hq, int g, int Sq, int Skv,
+                 int causal, int window, void* stream) {
+  constexpr int smem = TcSmem<HD>::BYTES;
+  auto kern = flash_attention_tc_kernel<HD>;
+  static bool configured = false;  // per template instance
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const float scale = static_cast<float>(1.0 / std::sqrt(double(HD)));
+  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  kern<<<grid, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), st[0], st[1],
+      st[2], st[3], g, Sq, Skv, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
               const Strides* st, int B, int Hq, int g, int Sq, int Skv,
@@ -206,23 +439,26 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 takes the tensor-core kernel, f32 the CUDA-core one.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Strides* st, int B, int Hq, int g, int Sq, int Skv, int hd,
            int causal, int window, void* stream) {
+  constexpr bool kTc = std::is_same<T, bf16>::value;
   switch (hd) {
-    case 16:
-      return launch_hd<T, 16>(q, k, v, o, st, B, Hq, g, Sq, Skv, causal,
+#define FLASH_HD(HD)                                                        \
+  case HD:                                                                  \
+    if constexpr (kTc)                                                      \
+      return launch_tc_hd<HD>(q, k, v, o, st, B, Hq, g, Sq, Skv, causal,    \
+                              window, stream);                              \
+    else                                                                    \
+      return launch_hd<T, HD>(q, k, v, o, st, B, Hq, g, Sq, Skv, causal,    \
                               window, stream);
-    case 32:
-      return launch_hd<T, 32>(q, k, v, o, st, B, Hq, g, Sq, Skv, causal,
-                              window, stream);
-    case 64:
-      return launch_hd<T, 64>(q, k, v, o, st, B, Hq, g, Sq, Skv, causal,
-                              window, stream);
-    case 128:
-      return launch_hd<T, 128>(q, k, v, o, st, B, Hq, g, Sq, Skv, causal,
-                               window, stream);
+    FLASH_HD(16)
+    FLASH_HD(32)
+    FLASH_HD(64)
+    FLASH_HD(128)
+#undef FLASH_HD
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

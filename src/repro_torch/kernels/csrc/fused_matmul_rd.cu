@@ -16,14 +16,29 @@
 // rank of a fast column ends bitwise equal).  The sum over the fast ranks
 // is left to the caller, as in the TPU kernel.
 //
-// The GEMM.  Written out here, no library: a CTA of 256 threads computes a
-// BM x BN tile with a k loop over BK-deep slices staged through shared
-// memory as f32 (global loads of the next slice are issued before the
-// current one is multiplied), each thread TM x TN outputs with explicit
-// f32 FMAs in ascending k.  Every output element therefore sees one fixed
-// sequence of FMAs, whatever the tile config or the column blocks, so the
-// output is bitwise the same for every n_chunks.  Two configs: BM = 16 for
-// the decode rows (M <= 16), BM = 64 above.
+// The GEMM, f32.  Written out here, no library: a CTA of 256 threads
+// computes a BM x BN tile with a k loop over BK-deep slices staged through
+// shared memory as f32 (global loads of the next slice are issued before
+// the current one is multiplied), each thread TM x TN outputs with
+// explicit f32 FMAs in ascending k, so f32 operands stay exact (no TF32).
+// Two configs: BM = 16 for the decode rows (M <= 16), BM = 64 above.
+//
+// The GEMM, bf16, on the tensor cores (mma.sync m16n8k16, f32
+// accumulators).  bf16 tiles go global -> shared by 16-byte cp.async in a
+// ring of STAGES slices, without widening, and ldmatrix feeds the mma.
+// Prefill rows (M > 16): 128 x 128 tiles, 8 warps of 64 x 32, BK 32, 4
+// stages.  Decode rows (M <= 16): the kernel computes out^T = w^T x^T, so
+// the rows are the n = 8 side of the mma (one n8 block for M <= 8, two
+// for M <= 16) and no work is padded; a CTA of 4 warps owns 64 columns
+// (16 a warp) and streams its w slices through 6 stages of 64 x 64, five
+// in flight while one is multiplied, over 256 tiles at the path's decode
+// shapes (every SM busy).  The f32 sums of the mma go in ascending k in
+// 16-deep steps whatever the tile: the bf16 tile config depends on M
+// only, so every output element sees one fixed sequence of operations.
+// Both forms need K and N / n_chunks in multiples of 8 and 16-byte
+// aligned operands; the wrapper refuses others.
+//
+// In every form the output is bitwise the same for every n_chunks.
 //
 // The exchange and the overlap.  The N columns are split into n_chunks
 // blocks and every block into BN-wide tiles; a tile is (rank, row tile,
@@ -39,24 +54,27 @@
 // before it waits on any flag of that step, so no CTA waits on a tile
 // queued behind a waiting CTA: by induction over the steps every wait is
 // met.  Per-step buffers and flags, the sequence numbers and the ~1 s
-// trap on a wait are kernel 4's protocol (rd_allreduce.cu).
+// trap on a wait are kernel 4's protocol (rd_allreduce.cu).  Each thread
+// adds, in every pass, exactly the elements it wrote in pass 0.
 //
 // What bounds it on an H100.  In decode (M = 8 rows a rank) bytes: the
-// weights, R K N elements, read once; the kernel streams them through
-// 16-byte loads with one slice in flight per CTA.  In prefill operations:
-// f32 FMAs on the CUDA cores (not the tensor cores), which is the simple
-// right kernel; tensor-core mma and TMA are later work.
+// weights, R K N elements, read once, which the bf16 form streams with
+// many slices in flight per SM.  In prefill operations: the bf16 form
+// runs them on the tensor cores (wgmma and TMA are later work); the f32
+// form on the CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "exchange_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
 using namespace exchange;
+using namespace tc;
 
-constexpr int kThreads = 256;  // THREADS in fused_matmul_rd/ops.py
+constexpr int kThreads = 256;  // threads of the f32 kernel
 
 template <int BM_, int BN_, int BK_, int TM_, int TN_>
 struct Cfg {
@@ -64,8 +82,8 @@ struct Cfg {
   static_assert((BM / TM) * (BN / TN) == kThreads,
                 "one output group a thread");
 };
-using SmallM = Cfg<16, 64, 128, 1, 4>;  // decode rows, M <= 16
-using LargeM = Cfg<64, 64, 16, 4, 4>;   // prefill rows
+using SmallM = Cfg<16, 64, 128, 1, 4>;  // f32 decode rows, M <= 16
+using LargeM = Cfg<64, 64, 16, 4, 4>;   // f32 prefill rows
 constexpr int kSmallM = 16;
 
 struct Args {
@@ -298,6 +316,266 @@ fused_matmul_rd_kernel(const Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// A tile config of the bf16 kernel: a BM x BN output tile, BK-deep slices
+// in a ring of STAGES, WM x WN warps.  SWAP: the decode form, out^T =
+// w^T x^T, with a warp's 16 columns the m side and the BM rows the n side.
+template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_,
+          bool SWAP_>
+struct TcCfg {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
+  static constexpr int WM = WM_, WN = WN_, THREADS = 32 * WM_ * WN_;
+  static constexpr bool SWAP = SWAP_;
+  // m16 and n8 blocks of a warp's accumulator
+  static constexpr int MI = SWAP ? 1 : BM / WM / 16;
+  static constexpr int NI = SWAP ? BM / 8 : BN / WN / 8;
+  // row strides in shared memory, padded by 16 bytes: the 8 rows of an
+  // ldmatrix fall on distinct banks
+  static constexpr int XS = BK + 8, WS = BN + 8, OS = BN + 8;
+  static constexpr int STAGE = BM * XS + BK * WS;  // elements a slice
+  static constexpr int SMEM =
+      2 * (STAGES * STAGE > BM * OS ? STAGES * STAGE : BM * OS);
+  static_assert(!SWAP || (WM == 1 && BN == 16 * WN && BM % 8 == 0 &&
+                          BM <= 16),
+                "decode form: 16 columns a warp, at most 16 rows");
+  static_assert(SWAP || (MI * 16 * WM == BM && NI * 8 * WN == BN &&
+                         NI % 2 == 0),
+                "prefill form: whole m16 and pairs of n8 blocks a warp");
+};
+using TcPrefill = TcCfg<128, 128, 32, 4, 2, 4, false>;
+template <int MN>
+using TcDecode = TcCfg<8 * MN, 64, 64, 6, 1, 4, true>;
+
+// Issue the cp.async copies of one BK-deep slice: x rows [row0, row0+BM)
+// x k and w k rows x columns [col0, col_end), 16 bytes a copy, zeros
+// outside (K, N / n_chunks multiples of 8: a copy is all in or all out).
+template <class C>
+__device__ __forceinline__ void tc_load(bf16* st, const bf16* x,
+                                        const bf16* w, const Args& a,
+                                        const Tile& t, int k0) {
+  bf16* xs = st;
+  bf16* ws = st + C::BM * C::XS;
+  constexpr int XC = C::BM * C::BK / 8, WC = C::BK * C::BN / 8;
+#pragma unroll
+  for (int u = 0; u < (XC + C::THREADS - 1) / C::THREADS; ++u) {
+    const int i = threadIdx.x + u * C::THREADS;
+    if (XC % C::THREADS && i >= XC) break;
+    const int row = i / (C::BK / 8), kc = (i % (C::BK / 8)) * 8;
+    const int m = t.row0 + row, k = k0 + kc;
+    const bool ok = m < a.M && k < a.K;
+    cp_async16(xs + row * C::XS + kc,
+               ok ? x + (static_cast<long long>(t.r) * a.M + m) * a.K + k
+                  : x,
+               ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int u = 0; u < (WC + C::THREADS - 1) / C::THREADS; ++u) {
+    const int i = threadIdx.x + u * C::THREADS;
+    if (WC % C::THREADS && i >= WC) break;
+    const int kr = i / (C::BN / 8), nc = (i % (C::BN / 8)) * 8;
+    const int k = k0 + kr, n = t.col0 + nc;
+    const bool ok = k < a.K && n < t.col_end;
+    cp_async16(ws + kr * C::WS + nc,
+               ok ? w + (static_cast<long long>(t.r) * a.K + k) * a.N + n
+                  : w,
+               ok ? 16 : 0);
+  }
+}
+
+// acc = the tile's x @ w in f32: slices in ascending k, 16-deep mma steps
+// in ascending k within a slice.
+template <class C>
+__device__ __forceinline__ void tc_gemm(const bf16* x, const bf16* w,
+                                        const Args& a, const Tile& t,
+                                        bf16* smem,
+                                        float (&acc)[C::MI][C::NI][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / C::WN, wn = warp % C::WN;
+#pragma unroll
+  for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int KT = (a.K + C::BK - 1) / C::BK;
+  __syncthreads();  // the previous tile's staged output has been read
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < KT) tc_load<C>(smem + s * C::STAGE, x, w, a, t, s * C::BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // slice kt landed; slice kt-1's slot is free
+    const int nk = kt + C::STAGES - 1;
+    if (nk < KT)
+      tc_load<C>(smem + (nk % C::STAGES) * C::STAGE, x, w, a, t,
+                 nk * C::BK);
+    cp_async_commit();
+    const bf16* xs = smem + (kt % C::STAGES) * C::STAGE;
+    const bf16* ws = xs + C::BM * C::XS;
+#pragma unroll
+    for (int kk = 0; kk < C::BK; kk += 16) {
+      if constexpr (C::SWAP) {
+        // A = w^T (16 columns x 16 k) from w's k-major rows, transposed
+        unsigned af[4];
+        ldmatrix_x4_trans(af, ws + (kk + (lane & 7) + ((lane >> 4) & 1) * 8)
+                                       * C::WS
+                                  + wn * 16 + ((lane >> 3) & 1) * 8);
+        // B = x^T (16 k x 8 rows): x's rows as they are
+        if constexpr (C::NI == 1) {
+          unsigned b[2];
+          ldmatrix_x2(b, xs + (lane & 7) * C::XS + kk +
+                             ((lane >> 3) & 1) * 8);
+          mma_bf16(acc[0][0], af, b[0], b[1]);
+        } else {
+          unsigned b[4];
+          ldmatrix_x4(b, xs + ((lane & 7) + (lane >> 4) * 8) * C::XS + kk +
+                             ((lane >> 3) & 1) * 8);
+          mma_bf16(acc[0][0], af, b[0], b[1]);
+          mma_bf16(acc[0][1], af, b[2], b[3]);
+        }
+      } else {
+        unsigned af[C::MI][4];
+#pragma unroll
+        for (int i = 0; i < C::MI; ++i)
+          ldmatrix_x4(af[i], xs + (wm * (C::BM / C::WM) + i * 16 +
+                                   (lane & 15)) * C::XS +
+                                 kk + (lane >> 4) * 8);
+        unsigned bq[C::NI][2];
+#pragma unroll
+        for (int j2 = 0; j2 < C::NI / 2; ++j2) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, ws + (kk + (lane & 15)) * C::WS +
+                                   wn * (C::BN / C::WN) + j2 * 16 +
+                                   (lane >> 4) * 8);
+          bq[2 * j2][0] = r[0];
+          bq[2 * j2][1] = r[1];
+          bq[2 * j2 + 1][0] = r[2];
+          bq[2 * j2 + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+          for (int j = 0; j < C::NI; ++j)
+            mma_bf16(acc[i][j], af[i], bq[j][0], bq[j][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+}
+
+// Round the tile's accumulators to bf16 into shared memory as the
+// (BM, BN) output tile (row stride OS), for 16-byte stores.
+template <class C>
+__device__ __forceinline__ void tc_stage(bf16* os,
+                                         const float (&acc)[C::MI][C::NI][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wm = warp / C::WN, wn = warp % C::WN;
+  if constexpr (C::SWAP) {
+    const int col = wn * 16 + g;
+#pragma unroll
+    for (int j = 0; j < C::NI; ++j) {
+      const int row = j * 8 + 2 * tq;
+      os[row * C::OS + col] = __float2bfloat16_rn(acc[0][j][0]);
+      os[(row + 1) * C::OS + col] = __float2bfloat16_rn(acc[0][j][1]);
+      os[row * C::OS + col + 8] = __float2bfloat16_rn(acc[0][j][2]);
+      os[(row + 1) * C::OS + col + 8] = __float2bfloat16_rn(acc[0][j][3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < C::NI; ++j) {
+        const int row = wm * (C::BM / C::WM) + i * 16 + g;
+        const int col = wn * (C::BN / C::WN) + j * 8 + 2 * tq;
+        *reinterpret_cast<unsigned*>(os + row * C::OS + col) =
+            pack_bf16(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<unsigned*>(os + (row + 8) * C::OS + col) =
+            pack_bf16(acc[i][j][2], acc[i][j][3]);
+      }
+  }
+  __syncthreads();
+}
+
+// The bf16 kernel: the passes of the f32 kernel over 16-byte pieces of a
+// tile, piece i of a tile always the thread i mod THREADS's, with one
+// change that saves two of the nine passes over R M N elements that two
+// steps take: a partial goes only to the peer's receive buffer (the rank
+// reads its own back from there in the next pass, as the peer does) and
+// out is written once, by the last pass.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 2)
+fused_matmul_rd_tc_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  using P = Pack<bf16, 8>;
+  constexpr int CPR = C::BN / 8;  // pieces of a tile row
+  constexpr int PIECES = C::BM * CPR;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* w = static_cast<const bf16*>(a.w);
+  bf16* out = static_cast<bf16*>(a.out);
+  bf16* recv = static_cast<bf16*>(a.recv);
+  const long long MN = static_cast<long long>(a.M) * a.N;
+
+  for (long long tau = blockIdx.x; tau < a.n_tiles; tau += gridDim.x) {
+    const Tile t = tile_of<C>(a, tau);
+    float acc[C::MI][C::NI][4];
+    tc_gemm<C>(x, w, a, t, smem, acc);
+    tc_stage<C>(smem, acc);
+    const int peer = a.steps ? peer_of(t.r, a.fast, 0) : 0;
+    bf16* dst = a.steps ? recv + static_cast<long long>(peer) * MN
+                        : out + t.r * MN;
+    for (int i = threadIdx.x; i < PIECES; i += C::THREADS) {
+      const int m = t.row0 + i / CPR, n = t.col0 + (i % CPR) * 8;
+      if (m >= a.M || n >= t.col_end) continue;
+      const P v = *reinterpret_cast<const P*>(smem + (i / CPR) * C::OS +
+                                              (i % CPR) * 8);
+      store_cg(reinterpret_cast<P*>(dst + static_cast<long long>(m) * a.N + n),
+               v);
+    }
+    if (a.steps) publish(flag_of(a, 0, peer, t.t_loc), a.seq);
+  }
+
+  // Pass s + 1: this rank's partial is the one it put to its step-s peer
+  // (read back, as the peer reads it), the peer's is in its own slot.
+  for (int s = 0; s < a.steps; ++s) {
+    const bf16* buf = recv + static_cast<long long>(s) * a.R * MN;
+    const bool more = s + 1 < a.steps;
+    for (long long tau = blockIdx.x; tau < a.n_tiles; tau += gridDim.x) {
+      const Tile t = tile_of<C>(a, tau);
+      const bf16* mine = buf + static_cast<long long>(
+                                   peer_of(t.r, a.fast, s)) * MN;
+      const bf16* theirs = buf + t.r * MN;
+      const int next = more ? peer_of(t.r, a.fast, s + 1) : 0;
+      bf16* dst = more ? recv + (static_cast<long long>(s + 1) * a.R + next)
+                                    * MN
+                       : out + t.r * MN;
+      cta_wait(flag_of(a, s, t.r, t.t_loc), a.seq);
+      for (int i = threadIdx.x; i < PIECES; i += C::THREADS) {
+        const int m = t.row0 + i / CPR, n = t.col0 + (i % CPR) * 8;
+        if (m >= a.M || n >= t.col_end) continue;
+        const long long o = static_cast<long long>(m) * a.N + n;
+        const P v = add(load_cg(reinterpret_cast<const P*>(mine + o)),
+                        load_cg(reinterpret_cast<const P*>(theirs + o)));
+        store_cg(reinterpret_cast<P*>(dst + o), v);
+      }
+      if (more) publish(flag_of(a, s + 1, next, t.t_loc), a.seq);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
 template <class C>
 bool plan(int M, int N, int n_chunks, int* tiles_per_rank) {
   if (M <= 0 || N <= 0 || n_chunks <= 0 || N % n_chunks) return false;
@@ -306,15 +584,17 @@ bool plan(int M, int N, int n_chunks, int* tiles_per_rank) {
   return true;
 }
 
-template <typename T, class C, int VEC>
-int launch(const void* x, const void* w, void* out, void* recv, void* flags,
-           long long n_flags, int R, int pods, int M, int K, int N,
-           int n_chunks, int grid, unsigned seq, void* stream) {
-  Args a;
+// Fill the kernel arguments of config C; false when the call is refused.
+// vec: elements of a 16-byte vector that K and N / n_chunks must be
+// multiples of (1: no constraint).
+template <class C>
+bool make_args(Args& a, const void* x, const void* w, void* out, void* recv,
+               void* flags, long long n_flags, int R, int pods, int M, int K,
+               int N, int n_chunks, int grid, unsigned seq, int vec) {
   int tiles = 0;
   if (R <= 0 || pods <= 0 || R % pods || (pods & (pods - 1)) || K <= 0 ||
       !plan<C>(M, N, n_chunks, &tiles))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return false;
   a.x = x;
   a.w = w;
   a.out = out;
@@ -333,9 +613,18 @@ int launch(const void* x, const void* w, void* out, void* recv, void* flags,
   a.tiles_per_rank = tiles;
   a.n_tiles = static_cast<long long>(R) * tiles;
   a.seq = seq;
-  if ((VEC > 1 && (K % VEC || a.chunk_w % VEC)) || grid <= 0 ||
-      grid > a.n_tiles ||
-      static_cast<long long>(a.steps) * R * tiles > n_flags)
+  return !((vec > 1 && (K % vec || a.chunk_w % vec)) || grid <= 0 ||
+           grid > a.n_tiles ||
+           static_cast<long long>(a.steps) * R * tiles > n_flags);
+}
+
+template <typename T, class C, int VEC>
+int launch(const void* x, const void* w, void* out, void* recv, void* flags,
+           long long n_flags, int R, int pods, int M, int K, int N,
+           int n_chunks, int grid, unsigned seq, void* stream) {
+  Args a;
+  if (!make_args<C>(a, x, w, out, recv, flags, n_flags, R, pods, M, K, N,
+                    n_chunks, grid, seq, VEC))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(
@@ -345,31 +634,80 @@ int launch(const void* x, const void* w, void* out, void* recv, void* flags,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, class C, int VEC>
-int max_ctas() {
+// The bf16 kernel's dynamic shared memory is above the 48 KB default.
+template <class C>
+cudaError_t tc_configure() {
+  static bool done = false;  // per config
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_matmul_rd_tc_kernel<C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  done = e == cudaSuccess;
+  return e;
+}
+
+template <class C>
+int launch_tc(const void* x, const void* w, void* out, void* recv,
+              void* flags, long long n_flags, int R, int pods, int M, int K,
+              int N, int n_chunks, int grid, unsigned seq, void* stream) {
+  Args a;
+  if (!make_args<C>(a, x, w, out, recv, flags, n_flags, R, pods, M, K, N,
+                    n_chunks, grid, seq, 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = tc_configure<C>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(fused_matmul_rd_tc_kernel<C>), dim3(grid),
+      dim3(C::THREADS), args, C::SMEM, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+cudaError_t resident(const void* kern, int threads, int smem, int* n) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_matmul_rd_kernel<T, C, VEC>, kThreads, 0);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  return sms * per_sm;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  *n = sms * per_sm;
+  return e;
 }
 
-// The one dispatch over (type, vector width, tile config), for both the
-// launch and the occupancy query: f.go<T, C, VEC>().
+template <typename T, class C, int VEC>
+int max_ctas() {
+  int n = 0;
+  const cudaError_t e = resident(
+      reinterpret_cast<const void*>(fused_matmul_rd_kernel<T, C, VEC>),
+      kThreads, 0, &n);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+template <class C>
+int max_ctas_tc() {
+  cudaError_t e = tc_configure<C>();
+  int n = 0;
+  if (e == cudaSuccess)
+    e = resident(reinterpret_cast<const void*>(fused_matmul_rd_tc_kernel<C>),
+                 C::THREADS, C::SMEM, &n);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// The one dispatch over (type, vector width, tile config), for the
+// launch, the occupancy query and the tile count: f.go<T, C, VEC>() for
+// f32, f.go_tc<C>() for bf16, which takes 16-byte vectors only (-1, which
+// is also minus cudaErrorInvalidValue, without them).
 template <class F>
 int dispatch(int is_bf16, int vec, int M, F& f) {
-  using bf = __nv_bfloat16;
-  const bool small = M <= kSmallM;
   if (is_bf16) {
-    if (vec) return small ? f.template go<bf, SmallM, 8>()
-                          : f.template go<bf, LargeM, 8>();
-    return small ? f.template go<bf, SmallM, 1>()
-                 : f.template go<bf, LargeM, 1>();
+    if (!vec) return -1;
+    if (M <= 8) return f.template go_tc<TcDecode<1>>();
+    if (M <= kSmallM) return f.template go_tc<TcDecode<2>>();
+    return f.template go_tc<TcPrefill>();
   }
+  const bool small = M <= kSmallM;
   if (vec) return small ? f.template go<float, SmallM, 4>()
                         : f.template go<float, LargeM, 4>();
   return small ? f.template go<float, SmallM, 1>()
@@ -388,21 +726,41 @@ struct Launch {
     return launch<T, C, VEC>(x, w, out, recv, flags, n_flags, R, pods, M, K,
                              N, n_chunks, grid, seq, stream);
   }
+  template <class C>
+  int go_tc() {
+    return launch_tc<C>(x, w, out, recv, flags, n_flags, R, pods, M, K, N,
+                        n_chunks, grid, seq, stream);
+  }
 };
 
 struct MaxCtas {
   template <typename T, class C, int VEC>
   int go() { return max_ctas<T, C, VEC>(); }
+  template <class C>
+  int go_tc() { return max_ctas_tc<C>(); }
+};
+
+struct Tiles {
+  int M, N, n_chunks;
+  template <class C>
+  int count() {
+    int tiles = 0;
+    return plan<C>(M, N, n_chunks, &tiles) ? tiles : -1;
+  }
+  template <typename T, class C, int VEC>
+  int go() { return count<C>(); }
+  template <class C>
+  int go_tc() { return count<C>(); }
 };
 
 }  // namespace
 
 // x (R, M, K), w (R, K, N), out (R, M, N): contiguous f32 (or bf16 when
 // is_bf16); vec: K, N and N / n_chunks are multiples of 16 bytes' worth of
-// elements and the pointers 16-byte aligned.  recv: (steps, R, M, N) of
-// the same type; flags: n_flags uint32 >= steps * R * tiles_per_rank, zero
-// at first use.  `grid` CTAs (at most the resident count and the tile
-// count), launched cooperatively on `stream`.
+// elements and the pointers 16-byte aligned (bf16 requires it).  recv:
+// (steps, R, M, N) of the same type; flags: n_flags uint32 >= steps * R *
+// tiles_per_rank, zero at first use.  `grid` CTAs (at most the resident
+// count and the tile count), launched cooperatively on `stream`.
 extern "C" int fused_matmul_rd_launch(const void* x, const void* w, void* out,
                                       void* recv, void* flags,
                                       long long n_flags, int R, int pods,
@@ -411,16 +769,16 @@ extern "C" int fused_matmul_rd_launch(const void* x, const void* w, void* out,
                                       int vec, void* stream) {
   Launch l{x, w, out, recv, flags, n_flags, R, pods, M, K, N, n_chunks,
            grid, seq, stream};
-  return dispatch(is_bf16, vec, M, l);
+  const int err = dispatch(is_bf16, vec, M, l);
+  return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;
 }
 
 // Tiles a rank of the call has (the flags it needs a step), or -1 when the
-// shape is refused (N not divisible by n_chunks).
-extern "C" int fused_matmul_rd_tiles(int M, int N, int n_chunks) {
-  int tiles = 0;
-  const bool ok = M <= kSmallM ? plan<SmallM>(M, N, n_chunks, &tiles)
-                               : plan<LargeM>(M, N, n_chunks, &tiles);
-  return ok ? tiles : -1;
+// shape is refused (N not divisible by n_chunks, or bf16 without vec).
+extern "C" int fused_matmul_rd_tiles(int M, int N, int n_chunks, int is_bf16,
+                                     int vec) {
+  Tiles q{M, N, n_chunks};
+  return dispatch(is_bf16, vec, M, q);
 }
 
 // CTAs of one launch for M rows that the card holds resident at once, or

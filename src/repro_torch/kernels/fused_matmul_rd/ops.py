@@ -33,18 +33,37 @@ SOURCE = "fused_matmul_rd"
 _plans: Dict[Tuple, Tuple[int, int]] = {}
 
 
+def tile_shape(M: int, is_bf16: bool) -> Tuple[int, int]:
+    """(rows, columns) of one output tile of the kernel for M rows a rank
+    (``csrc/fused_matmul_rd.cu``): it depends on M and the type only, so
+    every output element's sum runs in one order whatever ``n_chunks``.
+    bf16: the tensor-core decode form (rows on the mma's n side, 8 or 16)
+    up to 16 rows, 128 x 128 tiles above; f32: 16 x 64 and 64 x 64."""
+    if is_bf16:
+        return (8, 64) if M <= 8 else (16, 64) if M <= 16 else (128, 128)
+    return (16, 64) if M <= 16 else (64, 64)
+
+
+def tiles_per_rank(M: int, N: int, n_chunks: int, is_bf16: bool) -> int:
+    """Tiles of one rank's output (and the flags a step needs): every
+    column block of N / n_chunks is cut into whole and partial tiles."""
+    bm, bn = tile_shape(M, is_bf16)
+    return n_chunks * -(-M // bm) * -(-(N // n_chunks) // bn)
+
+
 def _plan(device: torch.device, M: int, N: int, n_chunks: int, is_bf16: int,
           vec: int) -> Tuple[int, int]:
-    """(tiles a rank, CTAs resident at once) of a call shape: the kernel
-    picks its tile config from M, and the grid is sized from the card's
-    occupancy for that config."""
+    """(tiles a rank, CTAs resident at once) of a call shape: the grid is
+    sized from the card's occupancy for the tile config; the kernel's own
+    tile count must be :func:`tiles_per_rank`'s."""
     key = (device, M, N, n_chunks, is_bf16, vec)
     if key not in _plans:
-        tiles = _build.c_function(SOURCE, "fused_matmul_rd_tiles",
-                                  (_I, _I, _I))(M, N, n_chunks)
-        if tiles < 0:
-            raise ValueError(f"collective_matmul_rd: N={N} is not "
-                             f"divisible by n_chunks={n_chunks}")
+        tiles = tiles_per_rank(M, N, n_chunks, bool(is_bf16))
+        got = _build.c_function(SOURCE, "fused_matmul_rd_tiles",
+                                (_I,) * 5)(M, N, n_chunks, is_bf16, vec)
+        if got != tiles:
+            raise RuntimeError(f"collective_matmul_rd: the kernel counts "
+                               f"{got} tiles a rank, the wrapper {tiles}")
         fn = _build.c_function(SOURCE, "fused_matmul_rd_max_ctas",
                                (_I, _I, _I))
         with torch.cuda.device(device):
@@ -56,6 +75,15 @@ def _plan(device: torch.device, M: int, N: int, n_chunks: int, is_bf16: int,
                                "fits on an SM")
         _plans[key] = (tiles, n)
     return _plans[key]
+
+
+def vector_ok(tensors, K: int, chunk_w: int) -> bool:
+    """K and the column block width are whole 16-byte vectors of the type
+    and every pointer is 16-byte aligned: the kernel's vector path, the
+    only one its bf16 (tensor-core) form has."""
+    per_vec = 16 // tensors[0].element_size()
+    return (K % per_vec == 0 and chunk_w % per_vec == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def collective_matmul_rd(x: torch.Tensor, w: torch.Tensor, pods: int, *,
@@ -95,10 +123,12 @@ def collective_matmul_rd(x: torch.Tensor, w: torch.Tensor, pods: int, *,
     xc, wc = x.contiguous(), w.contiguous()
     out = torch.empty((R, M, N), dtype=x.dtype, device=x.device)
     esz = xc.element_size()
-    per_vec = 16 // esz
-    vec = int(K % per_vec == 0 and (N // n_chunks) % per_vec == 0
-              and all(t.data_ptr() % 16 == 0 for t in (xc, wc, out)))
+    vec = int(vector_ok((xc, wc, out), K, N // n_chunks))
     is_bf16 = int(x.dtype == torch.bfloat16)
+    if is_bf16 and not vec:
+        raise ValueError(f"collective_matmul_rd: the bf16 kernel takes K "
+                         f"({K}) and N / n_chunks ({N // n_chunks}) in "
+                         "multiples of 8 and 16-byte aligned operands")
     tiles, max_ctas = _plan(x.device, M, N, n_chunks, is_bf16, vec)
     steps = pods.bit_length() - 1
     n_flags = max(1, steps * R * tiles)
@@ -116,4 +146,5 @@ def collective_matmul_rd(x: torch.Tensor, w: torch.Tensor, pods: int, *,
 
 collective_matmul_rd.launches = 0
 
-__all__ = ["collective_matmul_rd", "collective_matmul_rd_ref"]
+__all__ = ["collective_matmul_rd", "collective_matmul_rd_ref", "tile_shape",
+           "tiles_per_rank", "vector_ok"]

@@ -18,10 +18,31 @@ from .._checks import DTYPES
 from .ref import moe_expert_ffn_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 5 + (_I,) * 7 + (_P,)
+_ARGTYPES = (_P,) * 6 + (_I,) * 8 + (_P,)
 SOURCE = "moe_gemm"
 # Dynamic shared memory one CTA may take on an H100 (hopper-kernels §1).
 MAX_SMEM = 232448
+# csrc/moe_gemm.cu: token rows a CTA, and the shared memory of the
+# one-launch kernel besides its (kBC, D) f32 accumulator and token rows
+# (the gate/up partial sums and the h tile).
+KBC = 8
+SMEM_FIXED = (2 * 4 * KBC * 64 + KBC * 64) * 4
+# D columns a CTA computes when all of D does not fit: the kernel's
+# 2048-column down pass (kDownCols), so both forms sum in one order.
+D_TILE = 2048
+
+
+def smem_bytes(D: int, esz: int) -> int:
+    """Dynamic shared memory of one CTA of the one-launch kernel at this
+    d_model (``smem_bytes`` in the source)."""
+    return KBC * D * (4 + esz) + SMEM_FIXED
+
+
+def d_tile(D: int, esz: int) -> int:
+    """D columns one CTA computes: all of D while the one-launch kernel
+    fits one CTA's shared memory, else ``D_TILE`` (the two-launch form,
+    which stages h in an f32 scratch)."""
+    return D if smem_bytes(D, esz) <= MAX_SMEM else D_TILE
 
 
 def moe_expert_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -32,7 +53,9 @@ def moe_expert_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     x: (G, C, D) with G dividing E: expert e reads token block
     g(e) = e // (E // G) (G == E: one block per expert, the dispatch path;
     G < E: a block shared by E / G experts, the decode path, without E
-    copies); wg/wu: (E, D, F); wd: (E, F, D) -> (E, C, D)."""
+    copies); wg/wu: (E, D, F); wd: (E, F, D) -> (E, C, D).  Any D: on
+    CUDA, :func:`d_tile` picks the kernel's form, which never changes the
+    result."""
     if x.dim() != 3 or wg.dim() != 3 or wu.shape != wg.shape \
             or wd.dim() != 3:
         raise ValueError(f"moe_expert_ffn: x {tuple(x.shape)}, wg "
@@ -56,19 +79,17 @@ def moe_expert_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("moe_expert_ffn: operands must be contiguous")
     is_bf16 = int(x.dtype == torch.bfloat16)
-    smem = _build.c_function(SOURCE, "moe_ffn_smem_bytes", (_I, _I))(
-        D, is_bf16)
-    if smem > MAX_SMEM:
-        raise ValueError(f"moe_expert_ffn: d_model {D} needs {smem} B of "
-                         f"shared memory a CTA, more than {MAX_SMEM}")
+    dt = d_tile(D, x.element_size())
     out = torch.empty((E, C, D), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    h = torch.empty((E, C, Fh) if dt < D else (0,), dtype=torch.float32,
+                    device=x.device)
     vec = int(D % 8 == 0 and Fh % 8 == 0
               and all(t.data_ptr() % 16 == 0 for t in ops + (out,)))
     fn = _build.c_function(SOURCE, "moe_ffn_launch", _ARGTYPES)
     err = fn(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-             out.data_ptr(), E, C, D, Fh, G, is_bf16, vec,
+             out.data_ptr(), h.data_ptr(), E, C, D, Fh, G, dt, is_bf16, vec,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(SOURCE, "moe_expert_ffn", err)
     moe_expert_ffn.launches += 1
@@ -77,4 +98,5 @@ def moe_expert_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 moe_expert_ffn.launches = 0
 
-__all__ = ["moe_expert_ffn", "moe_expert_ffn_ref"]
+__all__ = ["moe_expert_ffn", "moe_expert_ffn_ref", "d_tile", "smem_bytes",
+           "D_TILE"]

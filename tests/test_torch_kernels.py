@@ -219,6 +219,33 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
     assert [w.launches for w in kernel_wrappers()] == before
 
 
+def test_attention_operand_layouts_the_kernels_take():
+    """What the attention wrappers refuse before a launch: a type other
+    than f32/bf16, a head dim outside 16-128, a head dim that is not
+    contiguous, rows that do not start on 16-byte boundaries (the bf16
+    flash kernel copies 16-byte row pieces into shared memory), mixed
+    types.  The model's (B, S, H, hd) views transposed to (B, H, S, hd)
+    pass."""
+    from repro_torch.kernels._checks import check_operands, layout_error
+    hds = (16, 32, 64, 128)
+    q = torch.zeros((2, 12, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert layout_error((q, q), hds) is None
+    assert layout_error((q.float(), q.float()), hds) is None
+    assert "dtype" in layout_error((q.half(),), hds)
+    assert "head dim" in layout_error((q[..., :48],), hds)
+    square = torch.zeros((2, 4, 16, 16), dtype=torch.bfloat16)
+    assert "strides" in layout_error((square.transpose(2, 3),), hds)
+    odd = torch.zeros((2, 12, 4, 68), dtype=torch.bfloat16)[..., :64]
+    assert "strides" in layout_error((odd.transpose(1, 2),), hds)
+    assert "strides" not in (layout_error(
+        (torch.zeros((2, 12, 4, 68))[..., :64],), hds) or "")
+    off = torch.zeros(2 * 4 * 12 * 64 + 1, dtype=torch.bfloat16)[1:]
+    assert "aligned" in layout_error((off.view(2, 4, 12, 64),), hds)
+    assert "share" in layout_error((q, q.float()), hds)
+    with pytest.raises(ValueError, match="CUDA"):
+        check_operands("flash_attention", (q,), hds)
+
+
 def test_build_names_each_library_by_its_sources(tmp_path, monkeypatch):
     """A library's file name carries a hash of its source and the shared
     headers, so an edited source is rebuilt and an unchanged one reused."""

@@ -160,6 +160,31 @@ def test_expert_ffn_wrapper_checks_and_never_falls_back():
     assert moe_expert_ffn.launches == before
 
 
+@pytest.mark.parametrize("D,esz,dt", [
+    (2048, 2, 2048), (2048, 4, 2048),     # qwen3-moe: one launch
+    (4458, 2, 4458), (4459, 2, 2048),     # the bf16 limit
+    (3344, 4, 3344), (3345, 4, 2048),     # the f32 limit
+    (6144, 2, 2048), (6144, 4, 2048),     # dbrx-132b: D tiled
+])
+def test_expert_ffn_d_tiling(D, esz, dt):
+    """Kernel 7 keeps its one-launch design while the (8, D) f32
+    accumulator and token rows fit one CTA's shared memory (227 KB), and
+    tiles D by 2048 columns past it, whatever D."""
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    assert moe_ops.d_tile(D, esz) == dt
+    assert (moe_ops.smem_bytes(D, esz) <= moe_ops.MAX_SMEM) == (dt == D)
+    assert moe_ops.smem_bytes(2048, 2) == 116736      # 114 KB (PERF.md)
+
+
+def test_expert_ffn_wrapper_takes_any_d():
+    """No d_model is refused (the wrapper raised past 227 KB a CTA)."""
+    from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref
+    x, wg, wu, wd = (torch.tensor(a, dtype=torch.float32)
+                     for a in _ffn_operands(2, 3, 6144, 8, seed=2))
+    assert torch.equal(moe_expert_ffn(x, wg, wu, wd),
+                       moe_expert_ffn_ref(x, wg, wu, wd))
+
+
 # ---------------------------------------------------------------------------
 # The MoE layer at tp=1
 # ---------------------------------------------------------------------------

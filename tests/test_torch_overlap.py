@@ -222,6 +222,60 @@ def test_kernel_wrapper_on_cpu_launches_nothing():
         fmrd.collective_matmul_rd(x, w, 4, n_chunks=5)
 
 
+# (M, N, n_chunks, bf16) -> (tile, tiles a rank): llama3.2-1b's decode
+# (wo and MLP down, 8 rows) and prefill (4096 rows; 4600 in the teacher-
+# forced prefill) at tp=8 over N = d_model 2048, and ragged row counts.
+FUSED_PLANS = [
+    (8, 2048, 1, True, (8, 64), 32),       # decode: rows on the n8 side
+    (8, 2048, 8, True, (8, 64), 32),
+    (12, 2048, 4, True, (16, 64), 32),     # two n8 blocks
+    (16, 2048, 2, True, (16, 64), 32),
+    (17, 2048, 2, True, (128, 128), 16),
+    (4096, 2048, 1, True, (128, 128), 512),
+    (4096, 2048, 8, True, (128, 128), 512),
+    (4600, 2048, 4, True, (128, 128), 36 * 16),
+    (100, 200, 1, True, (128, 128), 2),    # a partial column tile
+    (100, 200, 5, True, (128, 128), 5),
+    (8, 2048, 4, False, (16, 64), 32),     # f32: its CUDA-core configs
+    (4096, 2048, 2, False, (64, 64), 64 * 32),
+]
+
+
+@pytest.mark.parametrize("M,N,chunks,bf16,tile,tiles", FUSED_PLANS)
+def test_fused_kernel_tile_plan(M, N, chunks, bf16, tile, tiles):
+    """The kernel's tile config depends on M and the type only (so an
+    element's sum order never depends on ``n_chunks``), and the flags a
+    step needs follow its tile count."""
+    assert fmrd.tile_shape(M, bf16) == tile
+    assert fmrd.tiles_per_rank(M, N, chunks, bf16) == tiles
+
+
+def test_fused_kernel_chunks_cut_whole_tiles_on_the_path():
+    """At the path's N (d_model 2048) every chunk count the tuner may pick
+    cuts whole tiles, so each tile's columns start at the same offsets
+    whatever ``n_chunks``, and the tile count does not move."""
+    for M in (8, 4096):
+        for bf16 in (True, False):
+            bn = fmrd.tile_shape(M, bf16)[1]
+            counts = {fmrd.tiles_per_rank(M, 2048, k, bf16)
+                      for k in (1, 2, 4, 8)}
+            assert all((2048 // k) % bn == 0 for k in (1, 2, 4, 8))
+            assert len(counts) == 1
+
+
+def test_fused_kernel_vector_path_conditions():
+    """The bf16 (tensor-core) kernel takes whole 16-byte vectors only: K
+    and N / n_chunks multiples of 8 bf16 (4 f32) and aligned pointers;
+    the wrapper refuses a CUDA call without them."""
+    x = torch.zeros((2, 8, 1024), dtype=torch.bfloat16)
+    assert fmrd.vector_ok((x,), 1024, 256)
+    assert not fmrd.vector_ok((x,), 1020, 256)
+    assert not fmrd.vector_ok((x,), 1024, 252)
+    assert fmrd.vector_ok((x.float(),), 1020, 252)
+    off = torch.zeros(2 * 8 * 1024 + 1, dtype=torch.bfloat16)[1:]
+    assert not fmrd.vector_ok((off,), 1024, 256)
+
+
 def _tiny_tree(jap):
     """Seeded numpy parameters in the JAX layout of ``jap`` (norms 1,
     every other leaf N(0, 1/64)): drawn with numpy, not by the JAX
