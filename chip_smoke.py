@@ -9,11 +9,18 @@ Phases (any failure exits non-zero and prints no result line):
      each attention kernel against its plain PyTorch version on the same
      CUDA tensors, in bf16 and f32, at the main path's shapes and flash at
      hymba-1.5b's prefill shape (25 q / 5 kv heads, 1280 tokens, window
-     1024); time kernel, plain version and the library yardstick
-     (scaled_dot_product_attention, with the windowed causal mask for
-     hymba's shape, timed here only); then the same check over the CPU
-     tests' shape sweep, with the paged kernel's trash isolation and the
-     decode kernel's blindness past pos;
+     1024); the decode kernels (1 and 2) at DECODE_SHAPES (llama3.2-1b at
+     tp=1 and its tp=8 fold, hymba-1.5b past its window, qwen3-moe-30b-a3b
+     at hd 128), the paged kernel on the dense cache scattered over a
+     shuffled block pool bitwise equal to the dense one, second calls
+     bitwise equal; time kernel, plain version and the library yardstick
+     (scaled_dot_product_attention, with the rows' windowed mask, timed
+     here only); then the same check over the CPU tests' shape sweep, with
+     the paged kernel's trash isolation, the decode kernel's blindness past
+     pos and the split plan's edges (split boundaries, pos = -1 -> zeros,
+     windows starting mid-split, blocks that do not divide the split);
+     then 200 back-to-back calls of each decode kernel on fresh inputs,
+     each checked;
   3. the recursive-doubling all-reduce kernel against its plain version,
      bitwise, in bf16 and f32, over pods {2, 4, 8} x fast {1, 2}, per-rank
      messages of 16 KB to 8 MB and 1 or 4 chunks, the scalar kernels on
@@ -193,8 +200,10 @@ from repro_torch.kernels.fused_matmul_rd import \
     collective_matmul_rd_ref  # noqa: E402
 from repro_torch.kernels.rd_allreduce import (  # noqa: E402
     RDWorkspace, rd_all_reduce_ref)
+from repro_torch.kernels.decode_attention.ops import \
+    SPLIT_KEYS  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    decode_attention_ref, paged_decode_attention_ref)
+    decode_attention_ref, paged_decode_attention_ref, visible_keys)
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref  # noqa: E402
@@ -233,6 +242,17 @@ FUSED_EXTRA = {"rows12": (12, 1024), "rows100": (100, 264)}
 # hymba-1.5b's (25 q / 5 kv heads, 1280 tokens past its 1024 window).
 FLASH_SHAPES = {"llama_prefill": (B, HQ, HKV, PROMPT, HD, 0),
                 "hymba_prefill": (B, 25, 5, 1280, 64, 1024)}
+# Kernels 1 and 2 at the paths' decode shapes (B, Hq, Hkv, hd, S, window,
+# positions lo..hi): llama3.2-1b at tp=1 (ragged rows); its tp=8 fold (8
+# ranks x 8 sequences, 4 q / 1 kv head a rank); hymba-1.5b (25 / 5 heads,
+# prompt 1280 + 64 past its 1024 window); qwen3-moe-30b-a3b (32 / 4 heads
+# of 128, prompt 128 + 16).
+DECODE_SHAPES = {
+    "llama_tp1": (B, HQ, HKV, HD, S_MAX, 0, (0, S_MAX - 1)),
+    "llama_tp8_fold": (B * PODS * FAST, HQ // (PODS * FAST),
+                       HKV // (PODS * FAST), HD, S_MAX, 0, (0, S_MAX - 1)),
+    "hymba": (B, 25, 5, 64, 1344, 1024, (1280, 1343)),
+    "qwen3_moe": (B, 32, 4, 128, 144, 0, (128, 143))}
 RD_SIZES = (16 * 2**10, 128 * 2**10, 512 * 2**10, 2 * 2**20, 8 * 2**20)
 # bf16 greedy tokens of two reduction orders may differ where the top-1/
 # top-2 logit gap is within a few bf16 roundings of O(1) logits.
@@ -380,6 +400,97 @@ def flash_case(gen, dtype, shape) -> tuple:
     return err, t, bnd
 
 
+def scatter_blocks(gen, k: torch.Tensor, v: torch.Tensor, bs: int) -> tuple:
+    """The dense cache k/v (B, S, Hkv, hd) scattered over a shuffled pool
+    of B S / bs + 1 blocks: (block table, k pool, v pool).  Block 0, which
+    no row maps, holds 999 / -999."""
+    b, s = k.shape[:2]
+    mb = s // bs
+    if mb * bs != s:
+        raise ValueError(f"cache length {s} is not whole blocks of {bs}")
+    nb = b * mb + 1
+    tbl = (1 + torch.randperm(nb - 1, generator=gen, device="cuda")
+           ).to(torch.int32).reshape(b, mb)
+    rows = tbl.long().flatten()
+    pools = []
+    for x, fill in ((k, 999.0), (v, -999.0)):
+        pool = torch.full((nb, bs) + tuple(x.shape[2:]), fill,
+                          dtype=x.dtype, device="cuda")
+        pool[rows] = x.reshape(b * mb, bs, *x.shape[2:])
+        pools.append(pool)
+    return tbl, pools[0], pools[1]
+
+
+def decode_case(gen, dtype, name: str) -> tuple:
+    """Kernels 1 and 2 at one of DECODE_SHAPES: each within TOL of its
+    plain version, the paged kernel on the dense cache scattered over a
+    shuffled block pool bitwise equal to the dense one, a second call of
+    each bitwise equal to the first; kernel, plain version and SDPA (with
+    the row's mask, the window included) timed beside the bound.  Returns
+    the dense and the paged kernel's records."""
+    b, hq, hkv, hd, s, win, (lo, hi) = DECODE_SHAPES[name]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q = rnd(b, hq, hd)
+    k, v = rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
+    pos = torch.randint(lo, hi + 1, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    tbl, kp, vp = scatter_blocks(gen, k, v, BLOCK)
+
+    def dense():
+        return decode_attention(q, k, v, pos, window=win)
+
+    def paged():
+        return paged_decode_attention(q, kp, vp, tbl, pos, window=win)
+
+    out, outp = dense(), paged()
+    torch.cuda.synchronize()
+    tag = f"{name} {tuple(q.shape)} S={s} window={win}"
+    err_d = check_close(f"decode_attention {tag}", out,
+                        decode_attention_ref(q, k, v, pos, window=win), dtype)
+    err_p = check_close(f"paged_decode_attention {tag}", outp,
+                        paged_decode_attention_ref(q, kp, vp, tbl, pos,
+                                                   window=win), dtype)
+    if not torch.equal(outp, out):
+        raise AssertionError(f"{tag}: paged kernel != dense kernel")
+    if not (torch.equal(dense(), out) and torch.equal(paged(), outp)):
+        raise AssertionError(f"{tag}: a second call differs from the first")
+    kpos, last = torch.arange(s, device="cuda")[None, :], pos.long()[:, None]
+    mask = (kpos <= last) & (kpos > last - win) if win else kpos <= last
+    amask = mask[:, None, None, :]
+    qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    t_sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kt, vt, attn_mask=amask, enable_gqa=True))
+    t_d = (time_ms(dense),
+           time_ms(lambda: decode_attention_ref(q, k, v, pos, window=win)))
+    t_p = (time_ms(paged),
+           time_ms(lambda: paged_decode_attention_ref(q, kp, vp, tbl, pos,
+                                                      window=win)))
+    n_keys = int(mask.sum())          # keys the rows see, all rows
+    blocks = sum(last // BLOCK - first // BLOCK + 1
+                 for first, last in (visible_keys(p, s, win)
+                                     for p in pos.tolist()))
+    isz = q.element_size()
+    io = isz * (2 * b * hq * hd + 2 * n_keys * hkv * hd) + 4 * b
+    ops = 4.0 * hq * hd * n_keys
+    bd, bp = bound_ms(io, ops, dtype), bound_ms(io + 4 * blocks, ops, dtype)
+    dt = str(dtype)[6:]
+    log(f"  decode_attention {name} [{dt}]: kernel_ms={t_d[0]:.4f} "
+        f"plain_ms={t_d[1]:.4f} library_ms={t_sdpa:.4f} (SDPA; kernel / "
+        f"SDPA {t_d[0] / t_sdpa:.2f}) bound_ms={bd[0]:.4f} ({bd[1]})")
+    log(f"  paged_decode_attention {name} [{dt}]: kernel_ms={t_p[0]:.4f} "
+        f"plain_ms={t_p[1]:.4f} library_ms=null sdpa_ms={t_sdpa:.4f} "
+        f"(dense SDPA; kernel / SDPA {t_p[0] / t_sdpa:.2f}) "
+        f"bound_ms={bp[0]:.4f} ({bp[1]})")
+    return ({"max_abs_err": err_d, "ms": t_d[0], "plain_ms": t_d[1],
+             "library_ms": t_sdpa, "bound_ms": bd[0], "bound_by": bd[1]},
+            {"max_abs_err": err_p, "ms": t_p[0], "plain_ms": t_p[1],
+             "library_ms": None, "sdpa_ms": t_sdpa, "bound_ms": bp[0],
+             "bound_by": bp[1]})
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -387,64 +498,24 @@ def phase_kernels() -> dict:
     hyb_gen.manual_seed(SEED + 1)
     rec = {}
     for dtype in (torch.bfloat16, torch.float32):
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
         err_f, t_f, bf = flash_case(gen, dtype, FLASH_SHAPES["llama_prefill"])
-        isz = torch.empty((), dtype=dtype).element_size()
-
-        # decode: ragged positions over an S_MAX cache
-        qd = rnd(B, HQ, HD)
-        kd, vd = rnd(B, S_MAX, HKV, HD), rnd(B, S_MAX, HKV, HD)
-        pos = torch.randint(0, S_MAX, (B,), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        out = decode_attention(qd, kd, vd, pos)
-        ref = decode_attention_ref(qd, kd, vd, pos)
-        torch.cuda.synchronize()
-        err_d = check_close("decode_attention", out, ref, dtype)
-        kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)
-        amask = (torch.arange(S_MAX, device="cuda")[None, :]
-                 <= pos[:, None].long())[:, None, None, :]
-        t_d = (time_ms(lambda: decode_attention(qd, kd, vd, pos)),
-               time_ms(lambda: decode_attention_ref(qd, kd, vd, pos)),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   qd[:, :, None], kt, vt, attn_mask=amask,
-                   enable_gqa=True)))
-        n_keys = int((pos.long() + 1).sum())
-        bd = bound_ms(isz * (2 * B * HQ * HD + 2 * n_keys * HKV * HD)
-                      + 4 * B, 4.0 * HQ * HD * n_keys, dtype)
-
-        # paged: the same cache scattered over a shuffled block pool
-        mb = S_MAX // BLOCK
-        nb = B * mb + 1
-        tbl = (1 + torch.randperm(nb - 1, generator=gen, device="cuda")
-               ).to(torch.int32).reshape(B, mb)
-        kp = rnd(nb, BLOCK, HKV, HD)
-        vp = rnd(nb, BLOCK, HKV, HD)
-        out = paged_decode_attention(qd, kp, vp, tbl, pos)
-        ref = paged_decode_attention_ref(qd, kp, vp, tbl, pos)
-        torch.cuda.synchronize()
-        err_p = check_close("paged_decode_attention", out, ref, dtype)
-        t_p = (time_ms(lambda: paged_decode_attention(qd, kp, vp, tbl, pos)),
-               time_ms(lambda: paged_decode_attention_ref(qd, kp, vp, tbl,
-                                                          pos)),
-               None)
-        n_blk = int(((pos.long() + BLOCK) // BLOCK).sum())
-        bp = bound_ms(isz * (2 * B * HQ * HD + 2 * n_keys * HKV * HD)
-                      + 4 * B + 4 * n_blk, 4.0 * HQ * HD * n_keys, dtype)
-
-        for name, err, t, bnd in (("flash_attention", err_f, t_f, bf),
-                                  ("decode_attention", err_d, t_d, bd),
-                                  ("paged_decode_attention", err_p, t_p,
-                                   bp)):
-            lib = "null" if t[2] is None else f"{t[2]:.4f}"
-            log(f"  {name} [{str(dtype)[6:]}]: kernel_ms={t[0]:.4f} "
-                f"plain_ms={t[1]:.4f} library_ms={lib} "
-                f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
-            if dtype == torch.bfloat16:   # the main path's type
-                rec[name] = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
-                             "library_ms": t[2], "bound_ms": bnd[0],
-                             "bound_by": bnd[1]}
+        log(f"  flash_attention [{str(dtype)[6:]}]: kernel_ms={t_f[0]:.4f} "
+            f"plain_ms={t_f[1]:.4f} library_ms={t_f[2]:.4f} "
+            f"bound_ms={bf[0]:.4f} ({bf[1]})")
+        if dtype == torch.bfloat16:   # the main path's type
+            rec["flash_attention"] = {
+                "max_abs_err": err_f, "ms": t_f[0], "plain_ms": t_f[1],
+                "library_ms": t_f[2], "bound_ms": bf[0], "bound_by": bf[1]}
+        # kernels 1 and 2: the llama tp=1 shape first (its draws as in
+        # earlier runs), then the other paths' shapes; the records carry
+        # every shape, their top level the llama tp=1 one
+        for shape in DECODE_SHAPES:
+            res = decode_case(gen, dtype, shape)
+            if dtype != torch.bfloat16:
+                continue
+            for name, r in zip(("decode_attention", "paged_decode_attention"),
+                               res):
+                rec.setdefault(name, {**r, "shapes": {}})["shapes"][shape] = r
         # hymba-1.5b's prefill: 25 q / 5 kv heads (g = 5), 1280 tokens past
         # its 1024 window; SDPA given the windowed causal mask (its own
         # generator: the other cases keep their inputs)
@@ -465,7 +536,10 @@ def phase_sweep() -> None:
     """The kernels against their plain versions over the shape sweep of
     the CPU tests (GQA, ragged length, window, non-causal, hd 16 to 128),
     plus the paged kernel's trash isolation and the decode kernel's
-    indifference to keys past pos, both bitwise."""
+    indifference to keys past pos, both bitwise; then the decode kernels
+    at the edges of their split plan (rows on split boundaries and with
+    no key, windows that start mid-split, g 5, blocks that do not divide
+    the split, bf16 off the tensor cores)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
 
@@ -530,7 +604,84 @@ def phase_sweep() -> None:
         if not torch.equal(out, paged_decode_attention(q, k2, v2, tbl, pos,
                                                        window=win)):
             raise AssertionError("paged_decode_attention read a dead block")
+    # the split plan's edges: rows on split boundaries, at the cache's last
+    # key and with no key (pos = -1: zeros); windows that start mid-split
+    # (383 - 100 + 1 = 284, 255 - 100 + 1 = 156; 383 - 200 + 1 = 184); g 5;
+    # the paged kernel with blocks that do not divide the split, bitwise
+    # equal to the dense one; the last two rows take bf16 off the tensor
+    # cores (g 32 > 16; hd 40)
+    split = SPLIT_KEYS
+    s = 3 * split
+    for hq, hkv, hd, win, bs, dt in ((5, 1, 64, 0, 48, f32),
+                                     (10, 2, 64, 100, 48, bf16),
+                                     (8, 1, 128, 200, 16, bf16),
+                                     (2, 2, 16, 0, 16, f32),
+                                     (32, 1, 32, 100, 48, bf16),
+                                     (8, 2, 40, 0, 16, bf16)):
+        pos = torch.tensor([0, split - 1, split, 2 * split - 1, s - 1, -1],
+                           dtype=torch.int32, device="cuda")
+        b = pos.shape[0]
+        q = rnd((b, hq, hd), dt)
+        k, v = rnd((b, s, hkv, hd), dt), rnd((b, s, hkv, hd), dt)
+        out = decode_attention(q, k, v, pos, window=win)
+        tag = (f"{b},{hq},{hkv},{s},{hd},window={win},bs={bs},"
+               f"pos={pos.tolist()}")
+        seen = pos >= 0
+        check_close(f"decode_attention split edges {tag}", out[seen],
+                    decode_attention_ref(q, k, v, pos, window=win)[seen], dt)
+        if torch.count_nonzero(out[~seen]):
+            raise AssertionError(f"{tag}: a row with pos = -1 is not zeros")
+        tbl, kp, vp = scatter_blocks(gen, k, v, bs)
+        if not torch.equal(paged_decode_attention(q, kp, vp, tbl, pos,
+                                                  window=win), out):
+            raise AssertionError(f"{tag}: paged kernel != dense kernel")
     torch.cuda.synchronize()
+
+
+def phase_decode_repeat(n: int = 200) -> None:
+    """n back-to-back calls of kernels 1 and 2 on fresh inputs, turn by
+    turn over DECODE_SHAPES, bf16 and f32, dense or paged first: each
+    within TOL of its plain version, paged == dense bitwise and a second
+    call on the same inputs bitwise equal to the first, so the workspace
+    carries nothing from one call to the next."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    names = list(DECODE_SHAPES)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for i in range(n):
+        name = names[(i // 2) % len(names)]
+        dtype = torch.bfloat16 if (i // 8) % 2 == 0 else torch.float32
+        b, hq, hkv, hd, s, win, (lo, hi) = DECODE_SHAPES[name]
+        q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, s, hkv, hd), generator=gen, device="cuda"
+                        ).to(dtype)
+        v = torch.randn((b, s, hkv, hd), generator=gen, device="cuda"
+                        ).to(dtype)
+        pos = torch.randint(lo, hi + 1, (b,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        tbl, kp, vp = scatter_blocks(gen, k, v, BLOCK)
+        calls = [lambda: decode_attention(q, k, v, pos, window=win),
+                 lambda: paged_decode_attention(q, kp, vp, tbl, pos,
+                                                window=win)]
+        if i % 2:
+            calls.reverse()
+        outs = [c() for c in calls] + [c() for c in calls]
+        ref = decode_attention_ref(q, k, v, pos, window=win)
+        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+            raise AssertionError(f"call {i} ({name}, {dtype}): the four "
+                                 "kernel outputs are not bitwise equal")
+        tol = TOL[dtype]
+        if not torch.allclose(outs[0].float(), ref.float(), atol=tol,
+                              rtol=tol):
+            raise AssertionError(f"call {i} ({name}, {dtype}) disagrees "
+                                 "with the plain version")
+        worst[dtype] = max(worst[dtype], max_err(outs[0], ref))
+    torch.cuda.synchronize()
+    log(f"  {n} back-to-back calls of each (fresh inputs, shapes "
+        f"{', '.join(names)} in turn): within TOL of the plain version "
+        f"(max |kernel-plain| bf16 {worst[torch.bfloat16]:.3e}, f32 "
+        f"{worst[torch.float32]:.3e}), paged == dense and second calls "
+        "bitwise")
 
 
 # ---------------------------------------------------------------------------
@@ -548,10 +699,11 @@ def counts() -> dict:
 
 
 def profile_generate(eng: InferenceEngine, prompts: np.ndarray,
-                     share_of: str = "", new: int = NEW) -> None:
+                     share_of=(), new: int = NEW) -> None:
     """Where one generate's time goes: device busy share of the wall time,
     the kernels that take the most device time (torch.profiler) and, with
-    ``share_of``, the share of device time of kernels of that name."""
+    ``share_of`` (a name or several), the share of device time of kernels
+    whose names hold each."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -569,10 +721,10 @@ def profile_generate(eng: InferenceEngine, prompts: np.ndarray,
     log(f"    profile: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
         f"({100 * busy / wall_ms:.1f}%; idle {100 - 100 * busy / wall_ms:.1f}"
         f"%) under the profiler")
-    if share_of:
-        mine = [r for r in rows if share_of in r[2]]
+    for name in (share_of,) if isinstance(share_of, str) else share_of:
+        mine = [r for r in rows if name in r[2]]
         ms = sum(r[0] for r in mine)
-        log(f"    profile: {share_of} kernels {ms:.3f} ms over "
+        log(f"    profile: {name} kernels {ms:.3f} ms over "
             f"{sum(r[1] for r in mine)} launches, {100 * ms / busy:.2f}% of "
             "device time")
     for ms, n, key in rows[:8]:
@@ -669,7 +821,7 @@ def phase_path() -> tuple:
                                                   expect[layout])
         tokens[layout] = res.tokens
         if layout == "dense":
-            profile_generate(eng, prompts)
+            profile_generate(eng, prompts, share_of="decode_attention")
     if not np.array_equal(tokens["dense"], tokens["paged"]):
         raise AssertionError("paged tokens differ from dense tokens")
     log("  paged tokens == dense tokens")
@@ -2484,7 +2636,8 @@ def phase_hybrid_path() -> dict:
         if not bsz:
             # a shorter profiled run: the profiler's processing of a
             # 64-token generate's events costs about a minute of host time
-            profile_generate(eng, prompts, share_of="ssm_scan",
+            profile_generate(eng, prompts,
+                             share_of=("ssm_scan", "decode_attention"),
                              new=HYB_NEW_SHORT)
     if not np.array_equal(tokens["dense"], tokens["paged"]):
         raise AssertionError("hymba-1.5b: paged tokens differ from dense")
@@ -2640,6 +2793,7 @@ def main() -> int:
     ptxas_report()
     rec = phase_kernels()
     phase_sweep()
+    phase_decode_repeat()
     log("[3] recursive-doubling all-reduce kernel")
     rec["rd_all_reduce"] = phase_rd()
     log("[4] llama3.2-1b full width and depth, bf16")
