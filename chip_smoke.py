@@ -22,11 +22,17 @@ Phases (any failure exits non-zero and prints no result line):
      then 200 back-to-back calls of each decode kernel on fresh inputs,
      each checked;
   3. the recursive-doubling all-reduce kernel against its plain version,
-     bitwise, in bf16 and f32, over pods {2, 4, 8} x fast {1, 2}, per-rank
-     messages of 16 KB to 8 MB and 1 or 4 chunks, the scalar kernels on
-     unaligned rows, then 1000 back-to-back calls on fresh inputs, each
-     checked; kernel, plain version and the library yardstick (a sum over
-     the stacked ranks) timed per size;
+     bitwise, under each of its two protocols forced in turn (LL packets;
+     pieces and flags), in bf16 and f32, over pods {2, 4, 8} x fast
+     {1, 2}, per-rank messages of 16 KB to 8 MB and 1 or 4 chunks, and on
+     unaligned rows (the scalar paths); then 1000 back-to-back calls on
+     fresh inputs whose size crosses the protocols' threshold, each
+     checked; one call captured in a CUDA graph and replayed 200 times on
+     fresh inputs copied into its operand, each replay checked (the epoch
+     lives in device memory); kernel (the size's protocol, and both
+     forced), plain version and the library yardstick (a sum over the
+     stacked ranks) timed per size, beside the times of the kernel
+     before its LL redesign (RD_PARENT_MS);
   4. llama3.2-1b at full width and depth, bf16, seeded weights: batched
      generation (batch 8, prompt 512, 64 new tokens, s_max 1024) dense and
      paged (block 16) through the kernels, with launch counts checked and
@@ -83,17 +89,20 @@ Phases (any failure exits non-zero and prints no result line):
      picks (kernel 6 in prefill at int4, kernel 5 in decode), tokens
      margin-gated against flat's and tp=1's;
  14. phase 5 at tp=8 under hier_rd + int8: card against CPU;
- 15. the grouped expert FFN kernel (kernel 7) against its plain version
-     within TOL, and bitwise equal to itself on a second call, in bf16
-     and f32, on the CPU tests' cases, a shape off its 16-byte path and
-     the MoE path's three shapes (prefill dispatch, tp=1 and tp=8 dense
-     decode); then past one CTA's shared memory: the D-tiled two-launch
-     form bitwise equal to the one-launch form at D 4096, and dbrx-132b's
-     expert widths (D 6144, F 10752, 4 experts, C 8 and C 80, bf16 and
-     f32) within TOL and bitwise equal to a second call; 1000
-     back-to-back calls on fresh inputs, each checked; kernel, plain
-     version and a three-bmm chain (informative: no single PyTorch call
-     computes the function) timed against the bound;
+ 15. the grouped expert FFN kernel (kernel 7; bf16 on the tensor cores
+     with F split across CTAs, f32 on the CUDA cores) against its plain
+     version within TOL, and bitwise equal to itself on a second call, in
+     bf16 and f32, on the CPU tests' cases, a shape off its 16-byte path
+     and the MoE path's three shapes (prefill dispatch, tp=1 and tp=8
+     dense decode), the bf16 form also beside its plain split form; one
+     shared token block bitwise equal to E copies of it at the decode
+     shape; the f32 D-tiled two-launch form bitwise equal to its
+     one-launch form at D 3072; dbrx-132b's expert widths (D 6144, F
+     10752, 4 experts, C 8 and C 80, bf16 and f32) within TOL and bitwise
+     equal to a second call; 1000 back-to-back calls on fresh inputs,
+     each checked; kernel, plain version and a three-bmm chain
+     (informative: no single PyTorch call computes the function) timed
+     against the bound;
  16. qwen3-moe-30b-a3b at full width and depth (48 layers, seeded bf16
      weights): batch 8, prompt 128, 16 new tokens, dense and paged
      (block 16), exact launch counts (kernel 7 once a layer in prefill
@@ -200,13 +209,15 @@ from repro_torch.kernels.fused_matmul_rd import \
     collective_matmul_rd_ref  # noqa: E402
 from repro_torch.kernels.rd_allreduce import (  # noqa: E402
     RDWorkspace, rd_all_reduce_ref)
+from repro_torch.kernels.rd_allreduce import ops as rd_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import \
     SPLIT_KEYS  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref, visible_keys)
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
-from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import (  # noqa: E402
+    moe_expert_ffn_ref, moe_expert_ffn_split_ref)
 from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
@@ -254,6 +265,12 @@ DECODE_SHAPES = {
     "hymba": (B, 25, 5, 64, 1344, 1024, (1280, 1343)),
     "qwen3_moe": (B, 32, 4, 128, 144, 0, (128, 143))}
 RD_SIZES = (16 * 2**10, 128 * 2**10, 512 * 2**10, 2 * 2**20, 8 * 2**20)
+# The times at RD_SIZES (bf16, 4 x 2 ranks, time_ms) of the kernel before
+# its LL redesign (pieces and flags alone, a host sequence number): the
+# mean of its two runs in a chip_compare.py parent / change / change /
+# parent call on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed
+# beside this run's.
+RD_PARENT_MS = (0.0124, 0.0134, 0.0204, 0.0596, 0.2478)
 # bf16 greedy tokens of two reduction orders may differ where the top-1/
 # top-2 logit gap is within a few bf16 roundings of O(1) logits.
 BF16_GAP = 0.1
@@ -908,10 +925,11 @@ def rd_exchange_ms(R: int, pods: int, m: int, esz: int) -> float:
     return 4.0 * steps * R * m * esz / HBM_BYTES_PER_S * 1e3
 
 
-def phase_rd() -> dict:
-    ws = RDWorkspace()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 3)
+def rd_sweep(ws: RDWorkspace, gen: torch.Generator, label: str) -> None:
+    """Kernel 4 bitwise against its plain version over the whole sweep:
+    bf16, f32 x pods 2/4/8 x fast 1/2 x RD_SIZES x chunks 1/4, then rows
+    that take the scalar paths (an odd length; a start one element past a
+    16-byte boundary)."""
     n_checked = 0
     for dtype in (torch.bfloat16, torch.float32):
         esz = torch.empty((), dtype=dtype).element_size()
@@ -927,15 +945,15 @@ def phase_rd() -> dict:
                         if not torch.equal(out, ref):
                             torch.cuda.synchronize()
                             raise AssertionError(
-                                f"rd_all_reduce {dtype} pods={pods} "
-                                f"fast={fast} {nbytes} B chunks={chunks}: "
-                                f"max|kernel-plain| = {max_err(out, ref)}")
+                                f"rd_all_reduce ({label}) {dtype} pods="
+                                f"{pods} fast={fast} {nbytes} B chunks="
+                                f"{chunks}: max|kernel-plain| = "
+                                f"{max_err(out, ref)}")
                         n_checked += 1
     torch.cuda.synchronize()
-    log(f"  rd_all_reduce == plain version bitwise on {n_checked} cases "
-        "(bf16, f32 x pods 2/4/8 x fast 1/2 x 16 KB-8 MB x chunks 1/4)")
-    # the scalar kernels (no 16-byte vectors): rows of an odd length, and
-    # rows that start one element past a 16-byte boundary
+    log(f"  rd_all_reduce ({label}) == plain version bitwise on {n_checked} "
+        "cases (bf16, f32 x pods 2/4/8 x fast 1/2 x 16 KB-8 MB x chunks "
+        "1/4)")
     n_checked = 0
     for dtype in (torch.bfloat16, torch.float32):
         esz = torch.empty((), dtype=dtype).element_size()
@@ -957,32 +975,77 @@ def phase_rd() -> dict:
                                             workspace=ws)
                         if not torch.equal(out, ref):
                             raise AssertionError(
-                                f"rd_all_reduce (scalar) {dtype} pods={pods} "
-                                f"fast={fast} m={x.shape[1]} off="
-                                f"{x.data_ptr() % 16} chunks={chunks}: "
+                                f"rd_all_reduce ({label}, scalar) {dtype} "
+                                f"pods={pods} fast={fast} m={x.shape[1]} "
+                                f"off={x.data_ptr() % 16} chunks={chunks}: "
                                 f"max|kernel-plain| = {max_err(out, ref)}")
                         n_checked += 1
     torch.cuda.synchronize()
-    log(f"  rd_all_reduce (scalar, unaligned rows) == plain version bitwise "
-        f"on {n_checked} cases (bf16, f32 x pods 2/4/8 x fast 1/2 x odd "
-        "length / shifted start x chunks 1/4)")
-    # back-to-back calls on fresh inputs at the decode message, alternating
-    # chunk counts, every result checked on the device (one sync at the end)
+    log(f"  rd_all_reduce ({label}, scalar paths, unaligned rows) == plain "
+        f"version bitwise on {n_checked} cases (bf16, f32 x pods 2/4/8 x "
+        "fast 1/2 x odd length / shifted start x chunks 1/4)")
+
+
+def rd_graph_replays(ws: RDWorkspace, gen: torch.Generator,
+                     n: int = 200) -> None:
+    """One call at the decode message captured in a CUDA graph and
+    replayed ``n`` times on fresh inputs copied into its operand, every
+    replay checked on the device: the kernel takes its epoch from device
+    memory, so a replay waits for the current one, not a frozen number."""
     R, m = PODS * FAST, RD_SIZES[0] // 2
-    x = torch.empty((R, m), dtype=torch.bfloat16, device="cuda")
+    x = torch.randn((R, m), generator=gen, device="cuda").to(torch.bfloat16)
+    rd_all_reduce(x, PODS, workspace=ws)        # workspace and caches
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rd_all_reduce(x, PODS, workspace=ws)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(n):
+        x.copy_(torch.randn((R, m), generator=gen, device="cuda"))
+        graph.replay()
+        bad += (out != rd_all_reduce_ref(x, PODS)).any()
+    torch.cuda.synchronize()
+    log(f"  {n} CUDA-graph replays of one captured call ({R} x {m} bf16): "
+        f"{int(bad)} wrong")
+    if int(bad):
+        raise AssertionError("rd_all_reduce: graph replays disagree")
+    del graph
+
+
+def phase_rd() -> dict:
+    ws = RDWorkspace()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    log(f"  protocol by message size: LL up to {rd_ops.LL_MAX_BYTES} B a "
+        "rank, pieces and flags above")
+    for proto in ("ll", "simple"):
+        with mock.patch.object(rd_ops, "PROTOCOL", proto):
+            rd_sweep(ws, gen, f"{proto} forced")
+    # back-to-back calls on fresh inputs whose size crosses the threshold
+    # (the decode message by LL, twice the threshold by pieces and flags),
+    # alternating chunk counts, every result checked on the device (one
+    # sync at the end)
+    R = PODS * FAST
+    sizes = (RD_SIZES[0] // 2, 2 * rd_ops.LL_MAX_BYTES // 2)
+    xs = [torch.empty((R, m), dtype=torch.bfloat16, device="cuda")
+          for m in sizes]
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     t0 = time.perf_counter()
     for i in range(1000):
-        x.copy_(torch.randn((R, m), generator=gen, device="cuda"))
-        out = rd_all_reduce(x, PODS, n_chunks=1 + 3 * (i % 2), workspace=ws)
+        x = xs[i % 2]
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        out = rd_all_reduce(x, PODS, n_chunks=1 + 3 * (i // 2 % 2),
+                            workspace=ws)
         bad += (out != rd_all_reduce_ref(x, PODS)).any()
     torch.cuda.synchronize()
-    log(f"  1000 back-to-back calls: {int(bad)} wrong "
-        f"({time.perf_counter() - t0:.2f} s)")
+    log(f"  1000 back-to-back calls, {sizes[0] * 2} and {sizes[1] * 2} B a "
+        f"rank in turn ({[rd_ops.rd_protocol(2 * m) for m in sizes]}): "
+        f"{int(bad)} wrong ({time.perf_counter() - t0:.2f} s)")
     if int(bad):
         raise AssertionError("rd_all_reduce: back-to-back calls disagree")
+    rd_graph_replays(ws, gen)
     rec = {}
-    for nbytes in RD_SIZES:
+    for nbytes, parent_ms in zip(RD_SIZES, RD_PARENT_MS):
         xs = torch.randn((R, nbytes // 2), generator=gen,
                          device="cuda").to(torch.bfloat16)
         out = rd_all_reduce(xs, PODS, workspace=ws)
@@ -990,12 +1053,20 @@ def phase_rd() -> dict:
         t = (time_ms(lambda: rd_all_reduce(xs, PODS, workspace=ws)),
              time_ms(lambda: rd_all_reduce_ref(xs, PODS)),
              time_ms(lambda: xs.view(PODS, FAST, -1).sum(0)))
+        forced = {}
+        for proto in ("ll", "simple"):
+            with mock.patch.object(rd_ops, "PROTOCOL", proto):
+                forced[proto] = time_ms(
+                    lambda: rd_all_reduce(xs, PODS, workspace=ws))
         bnd = rd_bound(R, PODS, nbytes // 2, 2)
         log(f"  rd_all_reduce [bfloat16] {PODS}x{FAST} ranks, "
-            f"{nbytes // 1024} KB a rank: kernel_ms={t[0]:.4f} "
-            f"plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
-            f"bound_ms={bnd[0]:.6f} ({bnd[1]}); exchange traffic at the "
-            f"HBM rate {rd_exchange_ms(R, PODS, nbytes // 2, 2):.6f} ms")
+            f"{nbytes // 1024} KB a rank ({rd_ops.rd_protocol(nbytes)}): "
+            f"kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+            f"bound_ms={bnd[0]:.6f} ({bnd[1]}); ll_ms={forced['ll']:.4f} "
+            f"simple_ms={forced['simple']:.4f}; before the LL redesign "
+            f"{parent_ms:.4f} "
+            f"ms (x{t[0] / parent_ms:.3f}); exchange traffic at the HBM "
+            f"rate {rd_exchange_ms(R, PODS, nbytes // 2, 2):.6f} ms")
         if nbytes == RD_SIZES[0]:       # the path's decode message
             rec = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
                    "library_ms": t[2], "bound_ms": bnd[0],
@@ -1816,12 +1887,13 @@ def moe_bound(E, C, D, Fh, G, dtype) -> tuple:
 
 
 def phase_moe_wide(gen) -> dict:
-    """Kernel 7 past one CTA's shared memory: the two-launch form (D tiled,
-    h staged) bitwise equal to the one-launch form at a D both take, then
-    dbrx-132b's expert widths (``MOE_WIDE``) in bf16 and f32 within TOL
-    of the plain version and bitwise equal to a second call; kernel, plain
-    version and bmm chain timed against the bound.  Returns the bf16
-    record by shape."""
+    """Kernel 7 at wide d_model: the f32 two-launch form (D tiled, h
+    staged) bitwise equal to its one-launch form at a D both take, then
+    dbrx-132b's expert widths (``MOE_WIDE``: bf16 tiles D inside the CTA,
+    f32 takes two launches) in bf16 and f32 within TOL of the plain
+    version and bitwise equal to a second call; kernel, plain version and
+    bmm chain timed against the bound.  Returns the bf16 record by
+    shape."""
     smem = _build.c_function("moe_gemm", "moe_ffn_smem_bytes",
                              (ctypes.c_int, ctypes.c_int))
     for D in (D_MODEL, 4096, MOE_WIDE["C8"][2]):
@@ -1829,18 +1901,19 @@ def phase_moe_wide(gen) -> dict:
             if smem(D, is_bf16) != moe_gemm_ops.smem_bytes(D, esz):
                 raise AssertionError("moe_gemm: the wrapper's shared-memory "
                                      "size differs from the kernel's")
-        log(f"  d_model {D}: one-launch CTA needs bf16 {smem(D, 1)} B, f32 "
-            f"{smem(D, 0)} B; D columns a CTA: bf16 "
-            f"{moe_gemm_ops.d_tile(D, 2)}, f32 {moe_gemm_ops.d_tile(D, 4)}")
-    ops = moe_operands(gen, 4, 24, 4096, 1000, 4, torch.bfloat16)
+        log(f"  d_model {D}: a CTA needs bf16 {smem(D, 1)} B (tensor cores, "
+            f"any D), f32 {smem(D, 0)} B (one launch); D columns a CTA: "
+            f"bf16 {moe_gemm_ops.d_tile(D, 2)}, f32 "
+            f"{moe_gemm_ops.d_tile(D, 4)}")
+    ops = moe_operands(gen, 4, 24, 3072, 1000, 4, torch.float32)
     one = moe_expert_ffn(*ops)                      # fits: one launch
     with mock.patch.object(moe_gemm_ops, "d_tile", lambda D, esz: 2048):
         two = moe_expert_ffn(*ops)
     torch.cuda.synchronize()
     if not torch.equal(one, two):
-        raise AssertionError("moe_expert_ffn: the D-tiled form differs from "
-                             "the one-launch form")
-    log("  (4, 24, 4096, 1000, 4) bf16: D tiled by 2048 == one launch, "
+        raise AssertionError("moe_expert_ffn: the f32 D-tiled form differs "
+                             "from the one-launch form")
+    log("  (4, 24, 3072, 1000, 4) f32: D tiled by 2048 == one launch, "
         "bitwise")
     del ops, one, two
     rec = {}
@@ -1897,6 +1970,9 @@ def phase_moe_kernel() -> dict:
             if not torch.equal(out, again):
                 raise AssertionError(f"moe_expert_ffn {shape}: two calls "
                                      "differ")
+            if dtype == torch.bfloat16:
+                log(f"    max|kernel-split form| = "
+                    f"{max_err(out, moe_expert_ffn_split_ref(*ops)):.3e}")
             name = next((k for k, v in MOE_SHAPES.items() if v == shape),
                         None)
             if name is None:
@@ -1914,6 +1990,17 @@ def phase_moe_kernel() -> dict:
                        "library_ms": None, "bmm_chain_ms": t[2],
                        "bound_ms": bnd[0], "bound_by": bnd[1]}
             del ops, out, again, ref
+    # the plan never looks at G: one shared block == E copies, bitwise
+    E, C, D, Fh, _ = MOE_SHAPES["decode"]
+    x, wg, wu, wd = moe_operands(gen, E, C, D, Fh, 1, torch.bfloat16)
+    one = moe_expert_ffn(x, wg, wu, wd)
+    copies = moe_expert_ffn(x.expand(E, C, D).contiguous(), wg, wu, wd)
+    torch.cuda.synchronize()
+    if not torch.equal(one, copies):
+        raise AssertionError("moe_expert_ffn: one shared token block "
+                             "differs from E copies of it")
+    log(f"  ({E}, {C}, {D}, {Fh}) bf16: G = 1 == G = {E}, bitwise")
+    del x, wg, wu, wd, one, copies
     rec["dbrx"] = phase_moe_wide(gen)
     E, C, D, Fh, G = 16, 24, D_MODEL, MOE_F, 16
     x, wg, wu, wd = moe_operands(gen, E, C, D, Fh, G, torch.bfloat16)

@@ -1,7 +1,8 @@
 // Device helpers shared by the two exchange kernels of the port
 // (rd_allreduce.cu, fused_matmul_rd.cu): f32 <-> operand conversions,
-// packed L2-only loads and stores for buffers other SMs write, and the
-// release/acquire flag protocol with a bounded spin.
+// packed L2-only loads and stores for buffers other SMs write, the
+// release/acquire flag protocol with a bounded spin, and (rd_allreduce.cu)
+// the LL packets and the epoch kept in device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -102,6 +103,96 @@ __device__ __forceinline__ void publish(unsigned* flag, unsigned seq) {
 __device__ __forceinline__ void cta_wait(const unsigned* flag, unsigned seq) {
   if (threadIdx.x == 0) wait_flag(flag, seq);
   __syncthreads();
+}
+
+// LL packets (the paper's low-latency protocol): 8 bytes, the data in the
+// low word and the call's flag value (epoch_value) in the high word,
+// written and read as one
+// scalar 64-bit access, which the PTX memory model makes single-copy
+// atomic.  A receiver that sees the epoch sees the data stored with it:
+// no fence, no barrier and no separate flag word.
+__device__ __forceinline__ void store_packet(unsigned long long* p,
+                                             unsigned data, unsigned epoch) {
+  const unsigned long long v =
+      (static_cast<unsigned long long>(epoch) << 32) | data;
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_packet(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Spin until the packet at p carries the flag value epoch and return its
+// data; a wait past ~1 s traps, as wait_flag does.
+__device__ __forceinline__ unsigned wait_packet(const unsigned long long* p,
+                                                unsigned epoch) {
+  const long long t0 = clock64();
+  unsigned long long v = load_packet(p);
+  while (static_cast<unsigned>(v >> 32) != epoch) {
+    if (clock64() - t0 > kSpinLimit) __trap();
+    v = load_packet(p);
+  }
+  return static_cast<unsigned>(v);
+}
+
+// The epoch of a launch, in device memory as kEpochWords 64-bit words, 128
+// bytes apart, each (epoch << 32) | ticket (uint32 [ticket, epoch]; the
+// epoch starts at 1).  The CTAs of piece index blockIdx.x use word
+// blockIdx.x % kEpochWords, so every CTA that exchanges with a CTA uses its
+// word, and no more than an eighth of the grid's CTAs meet on one address.
+// One thread a CTA takes the CTA's ticket once: one atomic add both reads
+// the word's epoch and counts the CTA, so no CTA counts itself before it
+// has read.  epoch_ticket issues the add and returns at once (take it at
+// the start: its round trip then overlaps the CTA's first put, and it is
+// back before the put's fence, which would wait for it); epoch_value
+// reads the result, and the CTA that made the word's count whole stores
+// its next epoch with the ticket reset.  A CUDA graph that replays the
+// launch reads the current epochs.
+constexpr int kEpochWords = 8;    // EPOCH_WORDS in rd_allreduce/ops.py
+constexpr int kEpochStride = 32;  // uint32s between words
+
+__device__ __forceinline__ unsigned* epoch_word(unsigned* ctl) {
+  return ctl + (blockIdx.x % kEpochWords) * kEpochStride;
+}
+
+__device__ __forceinline__ unsigned long long epoch_ticket(unsigned* ctl) {
+  unsigned long long old;
+  asm volatile("atom.relaxed.gpu.global.add.u64 %0, [%1], 1;"
+               : "=l"(old)
+               : "l"(epoch_word(ctl))
+               : "memory");
+  return old;
+}
+
+// The call's flag value, (epoch << 3) | word: never 0, which fresh flags
+// and packets hold, and one word's values never equal another's, so a
+// slot that another piece index wrote in an earlier call cannot match.
+__device__ __forceinline__ unsigned epoch_value(unsigned* ctl,
+                                                unsigned long long old) {
+  const unsigned k = blockIdx.x % kEpochWords;
+  const unsigned n = gridDim.y * gridDim.z *
+                     ((gridDim.x - k + kEpochWords - 1) / kEpochWords);
+  const unsigned epoch = static_cast<unsigned>(old >> 32);
+  if (static_cast<unsigned>(old) == n - 1) {
+    const unsigned next = epoch + 1 == (1u << 29) ? 1 : epoch + 1;
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(epoch_word(ctl)),
+                 "l"(static_cast<unsigned long long>(next) << 32)
+                 : "memory");
+  }
+  return epoch << 3 | k;
+}
+
+// Bring a line another SM will write and this one will poll into L2, so
+// neither the put nor the first poll goes to device memory.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
 }  // namespace exchange

@@ -136,6 +136,83 @@ def test_cpu_wrapper_runs_the_plain_version_without_launching():
         rdk.rd_pieces(64, 16, 100, 1056)
 
 
+@pytest.mark.parametrize("protocol", ["ll", "simple"])
+def test_cpu_wrapper_launches_nothing_under_a_forced_protocol(protocol,
+                                                              monkeypatch):
+    """Forcing a protocol changes nothing on the CPU: the plain version,
+    no launch, whatever the message size."""
+    monkeypatch.setattr(rdk.ops, "PROTOCOL", protocol)
+    before = rdk.rd_all_reduce.launches
+    for shape in ((8, 2, 64), (4, 4097)):
+        x = torch.tensor(_data(shape, seed=5))
+        got = rdk.rd_all_reduce(x, 4, workspace=rdk.RDWorkspace())
+        assert torch.equal(got, rdk.rd_all_reduce_ref(x, 4))
+    assert rdk.rd_all_reduce.launches == before
+
+
+@pytest.mark.parametrize("nbytes,want", [
+    (16 * 2**10, "ll"),                  # the llama tp=8 decode message
+    (rdk.LL_MAX_BYTES, "ll"), (rdk.LL_MAX_BYTES + 2, "simple"),
+    (8 * 2**20, "simple"),               # the llama tp=8 prefill message
+])
+def test_rd_protocol_by_size(nbytes, want, monkeypatch):
+    """LL packets up to the crossover, pieces and flags above it; the
+    module attribute forces either, whatever the size."""
+    assert rdk.rd_protocol(nbytes) == want
+    for forced in ("ll", "simple"):
+        monkeypatch.setattr(rdk.ops, "PROTOCOL", forced)
+        assert rdk.rd_protocol(nbytes) == forced
+    monkeypatch.setattr(rdk.ops, "PROTOCOL", "fast")
+    with pytest.raises(ValueError, match="PROTOCOL"):
+        rdk.rd_protocol(nbytes)
+
+
+def test_ll_packets_and_receive_buffers():
+    """An 8-byte packet carries 4 data bytes (two bf16 or one f32, the last
+    one padded), so a step's receive buffer is twice the payload, one
+    buffer a step.  A rank's packets go to CTAs of the fewest packets a
+    thread (1, 2 or 4) that cover them in one round of resident CTAs,
+    else to as many CTAs of 4 a thread as stay resident."""
+    assert rdk.ll_packets(8192, 2) == 4096           # 16 KB of bf16
+    assert rdk.ll_packets(4097, 2) == 2049           # odd: last one padded
+    assert rdk.ll_packets(4097, 4) == 4097
+    for steps, R, m, esz in ((2, 8, 8192, 2), (3, 16, 2**20, 4),
+                             (1, 2, 4096, 2)):
+        assert rdk.ll_recv_bytes(steps, R, m, esz) == 2 * steps * R * m * esz
+    assert rdk.ll_recv_bytes(1, 2, 4097, 2) == 2 * 2049 * 8
+    assert rdk.ll_plan(4096, 8, 1056) == (16, 1)     # the decode message
+    assert rdk.ll_plan(2**15, 8, 1056) == (128, 1)   # 128 KB of bf16
+    assert rdk.ll_plan(2**15, 16, 1056) == (64, 2)   # ... on 16 ranks
+    assert rdk.ll_plan(2**16, 16, 1056) == (64, 4)
+    assert rdk.ll_plan(2**22, 8, 1056) == (132, 4)   # capped: rounds
+    assert rdk.ll_plan(10, 8, 1056) == (1, 1)
+    with pytest.raises(ValueError, match="resident"):
+        rdk.ll_plan(64, 16, 8)
+
+
+def test_workspace_holds_the_epoch():
+    """The kernel's epochs live in the workspace: 8 words a device, 128
+    bytes apart, each int32 [ticket, epoch] read as one 64-bit word
+    (epoch << 32) | ticket, the epoch starting at 1 (flags and packets
+    start at 0); the LL buffer starts zeroed and only grows; the fused
+    kernel keeps its host counter."""
+    ws = rdk.RDWorkspace()
+    dev = torch.device("cpu")
+    ctl = ws.control(dev)
+    assert ctl.dtype == torch.int32 and ctl.shape == (8, 32)
+    assert ctl.element_size() * ctl.stride(0) == 128
+    words = ctl[:, :2].contiguous().view(torch.int64).flatten()
+    assert words.tolist() == [1 << 32] * 8
+    assert not ctl[:, 2:].any()
+    assert ws.control(dev) is ctl
+    buf = ws.ll_buffer(dev, 4096)
+    assert buf.numel() == 4096 and not buf.any()
+    assert ws.ll_buffer(dev, 1024) is buf
+    assert ws.ll_buffer(dev, 8192).numel() == 8192
+    assert ws.nbytes == 8 * 128 + 8192
+    assert (ws.next_seq(), ws.next_seq()) == (1, 2)
+
+
 @pytest.mark.parametrize("knob,item", [
     (dict(ar_quant="int8"), None),
     (dict(compress_slow=True), None),

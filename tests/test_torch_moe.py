@@ -162,18 +162,21 @@ def test_expert_ffn_wrapper_checks_and_never_falls_back():
 
 @pytest.mark.parametrize("D,esz,dt", [
     (2048, 2, 2048), (2048, 4, 2048),     # qwen3-moe: one launch
-    (4458, 2, 4458), (4459, 2, 2048),     # the bf16 limit
+    (4458, 2, 4458), (4459, 2, 4459),     # bf16: D tiled inside the CTA
     (3344, 4, 3344), (3345, 4, 2048),     # the f32 limit
-    (6144, 2, 2048), (6144, 4, 2048),     # dbrx-132b: D tiled
+    (6144, 2, 6144), (6144, 4, 2048),     # dbrx-132b: D tiled in f32
 ])
 def test_expert_ffn_d_tiling(D, esz, dt):
-    """Kernel 7 keeps its one-launch design while the (8, D) f32
-    accumulator and token rows fit one CTA's shared memory (227 KB), and
-    tiles D by 2048 columns past it, whatever D."""
+    """Kernel 7's f32 form keeps its one-launch design while the (8, D)
+    f32 accumulator and token rows fit one CTA's shared memory (227 KB),
+    and tiles D by 2048 columns past it, whatever D; the bf16 form tiles D
+    inside the CTA (256 columns a down pass), so one CTA's output spans
+    all of D at any d_model and its shared memory does not grow with D."""
     from repro_torch.kernels.moe_gemm import ops as moe_ops
     assert moe_ops.d_tile(D, esz) == dt
     assert (moe_ops.smem_bytes(D, esz) <= moe_ops.MAX_SMEM) == (dt == D)
-    assert moe_ops.smem_bytes(2048, 2) == 116736      # 114 KB (PERF.md)
+    assert moe_ops.smem_bytes(2048, 4) == 149504      # 146 KB (PERF.md)
+    assert moe_ops.smem_bytes(D, 2) == 96384          # 94 KB, any D
 
 
 def test_expert_ffn_wrapper_takes_any_d():
