@@ -1,23 +1,30 @@
-"""Time kernels 4 (recursive-doubling all-reduce) and 7 (grouped expert
-FFN) of one tree of this repository on one NVIDIA card, to compare two
-commits in turns in one call.
+"""Time kernels of one tree of this repository on one NVIDIA card, to
+compare two commits in turns in one call.
 
-    python3 chip_compare.py [ROOT [LABEL]]
+    python3 chip_compare.py [ROOT [LABEL [SECTIONS]]]
 
 ROOT (default: this file's directory) is a checkout of the repository, for
 instance a parent commit unpacked with ``git archive`` into ``build/parent``.
 The script imports that tree's ``chip_smoke.py`` and ``repro_torch``, builds
 its kernels there and prints one line a measurement, each prefixed with
-LABEL (default: ROOT):
+LABEL (default: ROOT).  SECTIONS (default ``rd,moe,quant``) picks among:
 
-- the timing floor: ``time_ms`` of an empty kernel (``torch.cuda._sleep``);
-- kernel 4 in bf16 on 4 x 2 ranks at ``RD_SIZES`` (the tree's default
-  protocol and, where the tree has them, each protocol forced and the LL
-  kernel at 1, 2 and 4 packets a thread), beside ``x.view(4, 2, m).sum(0)``;
-  then the LL kernel at 16 KB a rank on 8 ranks as 2 x 4, 4 x 2 and 8 x 1
-  (1, 2 and 3 steps);
-- kernel 7 at the MoE path's shapes and dbrx-132b's widths in bf16, and at
-  the path's shapes in f32.
+- ``rd``: kernel 4 (recursive-doubling all-reduce) in bf16 on 4 x 2 ranks
+  at ``RD_SIZES`` (the tree's default protocol and, where the tree has
+  them, each protocol forced and the LL kernel at 1, 2 and 4 packets a
+  thread), beside ``x.view(4, 2, m).sum(0)``; then the LL kernel at 16 KB
+  a rank on 8 ranks as 2 x 4, 4 x 2 and 8 x 1 (1, 2 and 3 steps);
+- ``moe``: kernel 7 (grouped expert FFN) at the MoE path's shapes and
+  dbrx-132b's widths in bf16, and at the path's shapes in f32;
+- ``quant``: the quantized wire on the 4 x 2 ``hier_rd`` mesh: one
+  ``tp_all_reduce`` at the decode message (bf16, error feedback on) and
+  the prefill message, int8 and int4; the slow phase alone
+  (``hierarchical.quant_rd_all_reduce`` on one rank's f32 shard);
+  kernel 6's standalone pack and unpack at the prefill reduce-scatter
+  shape; then llama3.2-1b at tp=8 on the int8 and int4 wire: the decode
+  path's teacher-forced logits (error feedback on) over a seeded
+  sequence, printed as a SHA-256 of their bytes (equal digests: bitwise
+  equal logits), and one generate's prefill ms and decode tok/s.
 
 Every time is ``chip_smoke.time_ms`` (median of CUDA-event timed calls,
 L2 flushed between calls).  Run parent, change, change, parent in one call:
@@ -26,6 +33,8 @@ L2 flushed between calls).  Run parent, change, change, parent in one call:
 
 Exits non-zero, printing nothing, without a CUDA card.
 """
+import hashlib
+import inspect
 import os
 import sys
 import time
@@ -33,28 +42,21 @@ import time
 ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1
                        else os.path.dirname(os.path.abspath(__file__)))
 LABEL = sys.argv[2] if len(sys.argv) > 2 else ROOT
+SECTIONS = (sys.argv[3] if len(sys.argv) > 3 else "rd,moe,quant").split(",")
 sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_compare: no CUDA device available", file=sys.stderr)
-        return 2
-    import chip_smoke as cs
-    from repro_torch.kernels import _build, moe_expert_ffn, rd_all_reduce
+def log(msg: str) -> None:
+    print(f"[{LABEL}] {msg}", flush=True)
+
+
+def section_rd(cs) -> None:
+    from repro_torch.kernels import rd_all_reduce
     from repro_torch.kernels.rd_allreduce import RDWorkspace
     from repro_torch.kernels.rd_allreduce import ops as rdo
-
-    def log(msg: str) -> None:
-        print(f"[{LABEL}] {msg}", flush=True)
-
-    t0 = time.perf_counter()
-    _build.build()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s from {ROOT}; "
-        f"{torch.cuda.get_device_name(0)}")
-    log(f"floor (empty kernel) {cs.time_ms(lambda: torch.cuda._sleep(1)):.4f}")
     ws = RDWorkspace()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED + 3)
@@ -76,7 +78,8 @@ def main() -> int:
                 rdo.LL_PPT = ppt or plan[1]
             if not torch.equal(rd_all_reduce(x, pods, workspace=ws), ref):
                 raise AssertionError(f"kernel 4 {name} {nbytes} B differs")
-            row.append(f"{name}={cs.time_ms(lambda: rd_all_reduce(x, pods, workspace=ws)):.4f}")
+            ms = cs.time_ms(lambda: rd_all_reduce(x, pods, workspace=ws))
+            row.append(f"{name}={ms:.4f}")
         if forced:
             rdo.PROTOCOL, rdo.LL_PPT = plan
         lib = cs.time_ms(lambda: x.view(pods, fast, -1).sum(0))
@@ -88,6 +91,11 @@ def main() -> int:
                             device="cuda").to(torch.bfloat16)
             log(f"kernel 4 16 KB a rank, {p} pods x {f}: "
                 f"{cs.time_ms(lambda: rd_all_reduce(x, p, workspace=ws)):.4f}")
+
+
+def section_moe(cs) -> None:
+    from repro_torch.kernels import moe_expert_ffn
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED + 15)
     for dtype in (torch.bfloat16, torch.float32):
         shapes = dict(cs.MOE_SHAPES)
@@ -99,6 +107,87 @@ def main() -> int:
             log(f"kernel 7 {name} {shape} {str(dtype)[6:]}: {t:.4f}")
             del ops
             cs.free_device()
+
+
+def section_quant(cs) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core import hierarchical as H
+    from repro_torch.core.mesh import mesh_and_ctx
+    from repro_torch.inference.engine import InferenceEngine
+    from repro_torch.kernels import quantize_pack, unpack_dequant
+    from repro_torch.models.transformer import init_params, make_plan
+    R = cs.PODS * cs.FAST
+    mesh, ctx = mesh_and_ctx(R, cs.PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED + 21)
+    slow_kw = ({"workspace": mesh.workspace} if "workspace" in
+               inspect.signature(H.quant_rd_all_reduce).parameters else {})
+    for stage, shape in (("decode", (cs.B, 1, cs.D_MODEL)),
+                         ("prefill", (cs.B, cs.PROMPT, cs.D_MODEL))):
+        x = torch.randn((R, *shape), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ef = 0.01 * torch.randn((R, *shape), generator=gen, device="cuda")
+        t = torch.randn((cs.PODS, cs.FAST, x[0].numel() // cs.FAST),
+                        generator=gen, device="cuda")
+        for quant in ("int8", "int4"):
+            qctx = ctx.replace(ar_quant=quant)
+            bits = H.QUANT_BITS[quant]
+            kw = {"ef": ef} if stage == "decode" else {}
+            ar = cs.time_ms(lambda: H.tp_all_reduce(x, qctx, mesh, **kw))
+            slow = cs.time_ms(lambda: H.quant_rd_all_reduce(t, 0, bits,
+                                                            **slow_kw))
+            log(f"quantized tp_all_reduce {stage} {tuple(x.shape)} bf16 "
+                f"{quant}{' EF' if kw else ''}: {ar:.4f}; slow phase "
+                f"{tuple(t.shape)} f32: {slow:.4f}")
+    rows, D = cs.QP_SHAPES["prefill_rs"]
+    x = torch.randn((rows, D), generator=gen, device="cuda")
+    for bits, group in ((8, 128), (4, 64)):
+        q, s = quantize_pack(x, bits, group)
+        pack = cs.time_ms(lambda: quantize_pack(x, bits, group))
+        unpack = cs.time_ms(lambda: unpack_dequant(q, s, bits, group))
+        log(f"kernel 6 prefill_rs {rows}x{D} bits={bits}: pack {pack:.4f} "
+            f"unpack {unpack:.4f}")
+    del x, q, s, t, ef
+    cfg = get_config("llama3.2-1b")
+    ap = make_plan(cfg, R)
+    model = init_params(ap, seed=cs.SEED, device="cuda", mesh=mesh)
+    rng = np.random.default_rng(cs.SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (cs.B, cs.PROMPT))
+    seq = rng.integers(0, cfg.vocab_size, (cs.B, cs.PROMPT + cs.NEW))
+    for quant in ("int8", "int4"):
+        qctx = ctx.replace(ar_quant=quant)
+        lg = cs.teacher_forced_decode(model, seq, ap, qctx, mesh)
+        digest = hashlib.sha256(lg.float().contiguous().cpu().numpy()
+                                .tobytes()).hexdigest()[:16]
+        eng = InferenceEngine(ap, model, ctx=qctx, mesh=mesh, s_max=cs.S_MAX,
+                              device="cuda")
+        eng.generate(prompts, 2)
+        res = eng.generate(prompts, cs.NEW)
+        log(f"llama3.2-1b tp=8 hier_rd {quant}: teacher-forced decode "
+            f"logits sha256 {digest} (max |logit| "
+            f"{float(lg.float().abs().max()):.4f}); prefill "
+            f"{res.prefill_s * 1e3:.2f} ms, decode "
+            f"{res.decode_tokens_per_s:.1f} tok/s")
+    del model
+    cs.free_device()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA device available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s from {ROOT}; "
+        f"{torch.cuda.get_device_name(0)}")
+    log(f"floor (empty kernel) {cs.time_ms(lambda: torch.cuda._sleep(1)):.4f}")
+    sections = {"rd": section_rd, "moe": section_moe, "quant": section_quant}
+    for name in SECTIONS:
+        sections[name](cs)
     return 0
 
 

@@ -76,14 +76,31 @@ Phases (any failure exits non-zero and prints no result line):
      65536 x 1024); NaN/+-Inf poisoning group by group, unaligned row
      counts and starts, 1000 back-to-back calls on fresh inputs, each
      checked; kernel and plain version timed per shape (no single
-     PyTorch call computes the function: no library yardstick);
+     PyTorch call computes the function: no library yardstick); then the
+     quantized recursive doubling in one launch (quant_rd_allreduce.cu)
+     bitwise against the plain loop on the card (NaN where it has NaN)
+     over pods 2/4 x fast 1/2, int8 and int4, the decode and prefill
+     messages, ragged and bf16 rows, the fast axis, an unaligned start
+     and NaN/+-Inf poisoning; 1000 back-to-back calls whose size and bits
+     change and 200 replays of a captured call, each checked; the pack
+     with its EF residue, the unpack-sum over the all-to-all's transpose
+     and the unpack of the all-gather's broadcast into the gathered
+     layout bitwise against their plain versions at the decode and
+     prefill shapes; the quantized overlapped projection's y and EF
+     bitwise across 1, 2 and 4 chunks (integer operands, whose GEMM is
+     exact in any order; cuBLAS's random-normal gap printed); each timed
+     beside the parent
+     tree's composition (quant_rd_loop: per step a pack, two unpacks, two
+     index_selects and an add), its plain version and its bound;
  12. phase 6 on the quantized wire, hier_rd + int8 and hier_rd + int4,
-     error feedback on: exact launch counts derived from the dispatch,
-     one profiled int8 run with kernel 6's share of device time, the
-     decode path's teacher-forced logits within (QUANT_TF[bits]) of
-     flat's and tp=1's decode paths, which two planted faults (unpack
-     ignoring the scale; the quantized slow exchange skipped) must
-     break, and the same gate without error feedback, printed only;
+     error feedback on: exact launch counts derived from the dispatch (2
+     packs, 2 unpacks and 1 quantized RD launch an all-reduce, no payload
+     copy), one profiled int8 run with the quantized wire's share of
+     device time, the decode path's teacher-forced logits within
+     (QUANT_TF[bits]) of flat's and tp=1's decode paths, which two
+     planted faults (unpack ignoring the scale; the quantized slow
+     exchange skipped) must break, and the same gate without error
+     feedback, printed only;
  13. the paper's deployment on the quantized wire, ``auto`` + ``auto``
      quantization + overlap: launch counts derived from the tuner's
      picks (kernel 6 in prefill at int4, kernel 5 in decode), tokens
@@ -203,8 +220,9 @@ from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
                                  decode_attention, flash_attention,
                                  kernel_wrappers, moe_expert_ffn,
                                  paged_decode_attention, quant_pack,
-                                 quantize_pack, rd_all_reduce, rwkv6_scan,
-                                 ssm_scan, unpack_dequant)
+                                 quant_rd_all_reduce, quantize_pack,
+                                 rd_all_reduce, rwkv6_scan, ssm_scan,
+                                 unpack_dequant)
 from repro_torch.kernels.fused_matmul_rd import \
     collective_matmul_rd_ref  # noqa: E402
 from repro_torch.kernels.rd_allreduce import (  # noqa: E402
@@ -219,6 +237,8 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.kernels.moe_gemm import (  # noqa: E402
     moe_expert_ffn_ref, moe_expert_ffn_split_ref)
 from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops  # noqa: E402
+from repro_torch.kernels.quant_rd_allreduce.ref import (  # noqa: E402
+    quant_rd_all_reduce_ref, xor_exchange)
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
 from repro_torch.models import rwkv, ssm, transformer  # noqa: E402
@@ -291,6 +311,8 @@ REPLACES = {
         "src/repro/kernels/rd_allreduce/fused_matmul.py:43",
     "quantize_pack": "src/repro/kernels/rd_allreduce/quant_kernel.py:29",
     "unpack_dequant": "src/repro/kernels/rd_allreduce/quant_kernel.py:45",
+    "quant_rd_all_reduce":
+        "src/repro/kernels/rd_allreduce/quant_kernel.py:29",
     "moe_expert_ffn": "src/repro/kernels/moe_gemm/kernel.py:25",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:26",
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:26",
@@ -302,6 +324,7 @@ MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "collective_matmul_rd": "tp8_auto_overlap",
              "quantize_pack": "tp8_hier_rd_int8",
              "unpack_dequant": "tp8_hier_rd_int8",
+             "quant_rd_all_reduce": "tp8_hier_rd_int8",
              "moe_expert_ffn": "moe_tp1_dense",
              "rwkv6_scan": "rwkv_tp1",
              "ssm_scan": "hymba_tp1"}
@@ -314,15 +337,18 @@ SOURCES = {
     "collective_matmul_rd": "src/repro_torch/kernels/csrc/fused_matmul_rd.cu",
     "quantize_pack": "src/repro_torch/kernels/csrc/quant_pack.cu",
     "unpack_dequant": "src/repro_torch/kernels/csrc/quant_pack.cu",
+    "quant_rd_all_reduce":
+        "src/repro_torch/kernels/csrc/quant_rd_allreduce.cu",
     "moe_expert_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu",
     "rwkv6_scan": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
     "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
 }
 # Kernel 6 at the quantized path's shapes (rows, D) at tp=8 = 4 x 2,
 # batch 8, prompt 512: the decode reduce-scatter packs B x d_model / 2
-# pieces of every rank (R B 2 rows), the recursive doubling each rank's
-# whole shard (R rows of B d_model / 2), the all-gather each rank's shard
-# rows (R B rows); prefill packs R B S 2 rows.
+# pieces of every rank (R B 2 rows), the all-gather each rank's shard rows
+# (R B rows); prefill packs R B S 2 rows.  The recursive doubling's
+# message, each rank's whole shard (R rows of B d_model / 2), is packed
+# inside quant_rd_allreduce.cu and stays here as a shape.
 QP_SHAPES = {"decode_rs": (PODS * FAST * B * 2, D_MODEL // 2),
              "decode_rd": (PODS * FAST, B * D_MODEL // 2),
              "decode_ag": (PODS * FAST * B, D_MODEL // 2),
@@ -1657,6 +1683,334 @@ def phase_quant_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11 (continued): the reduce-scatter's fused pack and unpack, and the
+# quantized recursive doubling in one launch (quant_rd_allreduce.cu)
+# ---------------------------------------------------------------------------
+
+# The quantized wire's messages at tp=8 = 4 x 2, batch 8, prompt 512, f32:
+# the reduce-scatter's input v (one rank's (B, S, d_model)), which it packs
+# as 2 pieces of d_model / 2 (with the EF residue) and sums back from the
+# all-to-all's transpose; the all-gather's shard (B, S, d_model / 2),
+# packed and unpacked from the broadcast into the gathered layout; the slow
+# phase's message, one rank's shard (B S d_model / 2 elements).
+QF_MSG = {"decode": (B, 1, D_MODEL), "prefill": (B, PROMPT, D_MODEL)}
+# Slow-phase cases beyond the path's: (pods, fast, m) with ragged m (a
+# partial tile, an odd length that takes the scalar loads, fewer elements
+# than a group) and both axes.
+QRD_RAGGED = ((4, 2, B * D_MODEL // 2 + 37), (2, 1, 1000), (4, 1, 3),
+              (2, 2, 4097), (4, 2, 256 * 129))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, and NaN exactly where the other has NaN (a poisoned
+    group dequantizes to NaN on both sides)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
+
+
+def quant_rd_loop(t: torch.Tensor, axis: int, bits: int) -> torch.Tensor:
+    """The slow phase as the parent tree composed it on the card: per step
+    one pack, two unpacks, two index_selects of the payload and scales and
+    an add, on the message padded to 256 in f32, through kernel 6's
+    standalone wrappers (timed beside the kernel that replaced it)."""
+    n = t.shape[axis]
+    P, Fn = t.shape[:2]
+    acc = t.reshape(P, Fn, -1).float()
+    m = acc.shape[-1]
+    pad = (-m) % 256
+    if pad:
+        acc = F.pad(acc, (0, pad))
+    group = quant_pack.GROUP_CAP[bits]
+    step = 1
+    while step < n:
+        q, s = quantize_pack(acc, bits, group)
+        acc = (unpack_dequant(q, s, bits, group)
+               + unpack_dequant(xor_exchange(q, axis, step),
+                                xor_exchange(s, axis, step), bits, group))
+        step <<= 1
+    return acc[..., :m].reshape(t.shape).to(t.dtype)
+
+
+def qrd_bound(R: int, m: int, esz: int) -> tuple:
+    """x read once and out written once; per step and element the
+    quantization (|x|, max, division, rounding, clip), two products and a
+    sum in f32 (CUDA cores)."""
+    steps = PODS.bit_length() - 1
+    return bound_ms(2.0 * R * m * esz, 8.0 * steps * R * m, torch.float32)
+
+
+def qrd_case(ws, t: torch.Tensor, axis: int, bits: int, label: str) -> None:
+    out = quant_rd_all_reduce(t, axis, bits, workspace=ws)
+    ref = quant_rd_all_reduce_ref(t, axis, bits)
+    if not same_bits(out, ref):
+        torch.cuda.synchronize()
+        raise AssertionError(f"quant_rd_all_reduce {label} bits={bits}: "
+                             f"differs from the plain loop (max|diff| "
+                             f"{max_err(out.nan_to_num(), ref.nan_to_num())})")
+
+
+def qrd_sweep(ws, gen) -> None:
+    """The slow-phase kernel bitwise against the plain loop on the card:
+    every layout with pods 2 / 4 and fast 1 / 2, int8 and int4, the decode
+    and prefill messages, ragged lengths, bf16 operands, the fast axis,
+    and NaN / +-Inf poisoning (NaN where the plain loop has NaN)."""
+    n_checked = 0
+    for pods in (2, 4):
+        for fast in (1, 2):
+            for stage, msg in QF_MSG.items():
+                m = msg[0] * msg[1] * msg[2] // FAST
+                t = torch.randn((pods, fast, m), generator=gen,
+                                device="cuda")
+                for bits in (8, 4):
+                    qrd_case(ws, t, 0, bits, f"{pods}x{fast} {stage} m={m}")
+                    n_checked += 1
+    for pods, fast, m in QRD_RAGGED:
+        t = torch.randn((pods, fast, m), generator=gen, device="cuda") * 3
+        for bits in (8, 4):
+            qrd_case(ws, t, 0, bits, f"{pods}x{fast} ragged m={m}")
+            qrd_case(ws, t.to(torch.bfloat16), 0, bits,
+                     f"{pods}x{fast} bf16 m={m}")
+            n_checked += 2
+    t = torch.randn((2, 4, 8192), generator=gen, device="cuda")
+    for bits in (8, 4):
+        qrd_case(ws, t, 1, bits, "2x4 over the fast axis")
+        n_checked += 1
+    shifted = torch.empty(PODS * FAST * 8192 + 1, device="cuda")[1:]
+    shifted.copy_(torch.randn(shifted.shape, generator=gen, device="cuda"))
+    for bits in (8, 4):
+        qrd_case(ws, shifted.view(PODS, FAST, 8192), 0, bits,
+                 "unaligned start")
+        n_checked += 1
+    for bits in (8, 4):
+        t = torch.randn((PODS, FAST, 8192), generator=gen, device="cuda")
+        for i, bad in enumerate((float("nan"), float("inf"),
+                                 -float("inf"))):
+            t[i, i % FAST, 300 * i + 5] = bad
+        qrd_case(ws, t, 0, bits, "poisoned")
+        n_checked += 1
+    torch.cuda.synchronize()
+    log(f"  quant_rd_all_reduce == plain loop bitwise on {n_checked} cases "
+        "(pods 2/4 x fast 1/2 x decode/prefill x int8/int4; ragged and "
+        "bf16; the fast axis; an unaligned start; NaN/+-Inf poisoning)")
+
+
+def qrd_repeat(ws, gen, n: int = 1000) -> None:
+    """Back-to-back calls on fresh inputs whose size and bits change, each
+    checked on the device (one sync at the end)."""
+    cycle = ((B * D_MODEL // 2, 8), (B * D_MODEL // 2 + 37, 4),
+             (65536, 8), (1000, 4), (B * D_MODEL // 2, 4))
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(n):
+        m, bits = cycle[i % len(cycle)]
+        t = torch.randn((PODS, FAST, m), generator=gen, device="cuda")
+        out = quant_rd_all_reduce(t, 0, bits, workspace=ws)
+        bad += (out != quant_rd_all_reduce_ref(t, 0, bits)).any()
+    torch.cuda.synchronize()
+    log(f"  {n} back-to-back quant_rd_all_reduce calls (sizes "
+        f"{sorted({c[0] for c in cycle})}, int8/int4 in turn): {int(bad)} "
+        f"wrong ({time.perf_counter() - t0:.2f} s)")
+    if int(bad):
+        raise AssertionError("quant_rd_all_reduce: back-to-back calls "
+                             "disagree")
+
+
+def qrd_graph_replays(ws, gen, n: int = 200) -> None:
+    """One call at the decode message captured in a CUDA graph and
+    replayed ``n`` times on fresh inputs copied into its operand, each
+    replay checked on the device (the epoch lives in device memory)."""
+    m = B * D_MODEL // 2
+    t = torch.randn((PODS, FAST, m), generator=gen, device="cuda")
+    quant_rd_all_reduce(t, 0, 8, workspace=ws)     # workspace and caches
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant_rd_all_reduce(t, 0, 8, workspace=ws)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(n):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+        graph.replay()
+        bad += (out != quant_rd_all_reduce_ref(t, 0, 8)).any()
+    torch.cuda.synchronize()
+    log(f"  {n} CUDA-graph replays of one captured quant_rd_all_reduce "
+        f"({PODS}x{FAST} x {m} f32, int8): {int(bad)} wrong")
+    if int(bad):
+        raise AssertionError("quant_rd_all_reduce: graph replays disagree")
+    del graph
+
+
+def rs_views(v: torch.Tensor, bits: int, err: bool):
+    """The trailing-dim reduce-scatter's operands of v (P, F, *lead, D):
+    its pack of 2 pieces (with the EF residue) and the all-to-all's
+    transposed views of the payload and scales."""
+    n = v.shape[1]
+    shard = v.shape[-1] // n
+    group = quant_pack.group_for(shard, bits)
+    packed = quantize_pack(v.reshape(*v.shape[:-1], n, shard), bits, group,
+                           err=err)
+    piece = packed[0].dim() - 2
+    return packed, packed[0].transpose(1, piece), \
+        packed[1].transpose(1, piece), group, piece
+
+
+def quant_fused_checks(gen) -> None:
+    """Pack-with-error and the strided unpack (the reduce-scatter's
+    transposed pieces summed; the all-gather's broadcast written into the
+    gathered layout) bitwise against their plain versions at the path's
+    shapes, f32 and bf16 inputs, with NaN / Inf poisoning."""
+    n_checked = 0
+    for stage, msg in QF_MSG.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            v = (torch.randn((PODS, FAST, *msg), generator=gen,
+                             device="cuda") * 3).to(dtype)
+            if stage == "decode":
+                v[0, 1, 3, 0, 77] = float("nan")
+                v[3, 0, 5, 0, 1500] = float("inf")
+            for bits in (8, 4):
+                (q, s, e), qv, sv, group, piece = rs_views(v, bits, True)
+                qr, sr, er = quant_pack.quantize_pack_err_ref(
+                    v.reshape(q.shape[:-1] + (-1,)), bits, group)
+                fin = torch.isfinite(sr)
+                if not (torch.equal(s[fin], sr[fin]) and same_bits(e, er)
+                        and torch.equal(q[fin.repeat_interleave(
+                            group * bits // 8, -1)],
+                            qr[fin.repeat_interleave(group * bits // 8,
+                                                     -1)])):
+                    raise AssertionError(f"quantize_pack(err) {stage} "
+                                         f"{dtype} bits={bits} differs")
+                red = unpack_dequant(qv, sv, bits, group, piece_dim=piece)
+                if not same_bits(red, quant_pack.unpack_dequant_sum_ref(
+                        qv, sv, bits, group, piece)):
+                    raise AssertionError(f"unpack_dequant(piece_dim) {stage}"
+                                         f" {dtype} bits={bits} differs")
+                # the all-gather of the reduced shard red (P, F, *lead, D/2)
+                y = red.contiguous()
+                g2 = quant_pack.group_for(y.shape[-1], bits)
+                q2, s2 = quantize_pack(y, bits, g2)
+                qg = q2.unsqueeze(1).expand(PODS, FAST, *q2.shape[1:])
+                sg = s2.unsqueeze(1).expand(PODS, FAST, *s2.shape[1:])
+                full = torch.empty((*y.shape[:-1], FAST, y.shape[-1]),
+                                   device="cuda")
+                unpack_dequant(qg, sg, bits, g2, out=full.movedim(-2, 2))
+                if not same_bits(full.movedim(-2, 2),
+                                 quant_pack.unpack_dequant_ref(qg, sg, bits,
+                                                               g2)):
+                    raise AssertionError(f"unpack_dequant(out) {stage} "
+                                         f"{dtype} bits={bits} differs")
+                n_checked += 3
+    torch.cuda.synchronize()
+    log(f"  pack with error, unpack-sum over the all-to-all's transpose and "
+        f"unpack of the all-gather's broadcast into the gathered layout == "
+        f"plain versions bitwise on {n_checked} cases (decode / prefill x "
+        "f32 / bf16 x int8 / int4, decode with NaN and Inf)")
+
+
+def quant_overlap_chunks(gen) -> None:
+    """The quantized overlapped projection (core/overlap.py) on the card:
+    y and EF bitwise equal across chunk counts 1, 2 and 4 (each a real
+    split: _quant_chunk_ok holds), int8 and int4, 4 x 2 hier_rd.  cuBLAS
+    takes another kernel for a column block than for the whole product,
+    so a block of a random-normal GEMM is not bitwise the same columns of
+    the whole one (printed); x and w are small integers (w scaled by
+    2^-5), whose products' sums are exact in any order, so the check
+    holds the quantized wire, not the GEMM, to chunk invariance."""
+    R = PODS * FAST
+    mesh, ctx = mesh_and_ctx(R, PODS, ar_strategy="hier_rd", device="cuda")
+    xr = torch.randn((R, B, 1, 256), generator=gen, device="cuda")
+    wr = torch.randn((R, 256, 4096), generator=gen, device="cuda")
+    gemm = max_err(overlap.project(xr, wr)[..., :2048],
+                   overlap.project(xr, wr[..., :2048]))
+    log(f"  random-normal f32 GEMM, a 2048-column block against the same "
+        f"columns of the 4096-column product: max|diff| {gemm:.3e}")
+    x = torch.randint(-3, 4, (R, B, 1, 256), generator=gen,
+                      device="cuda").float()
+    w = torch.randint(-3, 4, (R, 256, 4096), generator=gen,
+                      device="cuda").float() / 32
+    ef0 = 0.01 * torch.randn((R, B, 1, 4096), generator=gen, device="cuda")
+    for quant in ("int8", "int4"):
+        c = ctx.replace(ar_quant=quant, overlap_matmul=True)
+        bits = hierarchical.QUANT_BITS[quant]
+        res = {}
+        for k in (1, 2, 4):
+            if k > 1 and not overlap._quant_chunk_ok(4096, k, R, bits):
+                raise AssertionError(f"{k} chunks would not split")
+            res[k] = overlap.collective_matmul(x, w, c, mesh, chunks=k,
+                                               ef=ef0)
+        for k in (2, 4):
+            if not (torch.equal(res[k][0], res[1][0])
+                    and torch.equal(res[k][1], res[1][1])):
+                raise AssertionError(f"quantized overlap {quant}: {k} chunks"
+                                     " differ from one")
+    log("  quantized overlapped projection (4x2 hier_rd, int8 / int4, EF "
+        "on): y and EF bitwise equal across 1, 2 and 4 chunks")
+
+
+def phase_quant_fused() -> dict:
+    """The slow-phase kernel, pack-with-error and the strided unpack:
+    checks, then each timed beside the parent tree's composition, its
+    plain version and its bound."""
+    ws = RDWorkspace()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    qrd_sweep(ws, gen)
+    qrd_repeat(ws, gen)
+    qrd_graph_replays(ws, gen)
+    quant_fused_checks(gen)
+    quant_overlap_chunks(gen)
+    rec = {}
+    R = PODS * FAST
+    for stage, msg in QF_MSG.items():
+        m = msg[0] * msg[1] * msg[2] // FAST
+        t = torch.randn((PODS, FAST, m), generator=gen, device="cuda")
+        for bits in (8, 4):
+            out = quant_rd_all_reduce(t, 0, bits, workspace=ws)
+            err = max_err(out, quant_rd_all_reduce_ref(t, 0, bits))
+            ms = (time_ms(lambda: quant_rd_all_reduce(t, 0, bits,
+                                                      workspace=ws)),
+                  time_ms(lambda: quant_rd_loop(t, 0, bits)),
+                  time_ms(lambda: quant_rd_all_reduce_ref(t, 0, bits)))
+            bnd = qrd_bound(R, m, 4)
+            log(f"  quant_rd_all_reduce [f32] {stage} {PODS}x{FAST} x {m} "
+                f"bits={bits}: kernel_ms={ms[0]:.4f} parent_loop_ms="
+                f"{ms[1]:.4f} plain_ms={ms[2]:.4f} library_ms=null "
+                f"bound_ms={bnd[0]:.6f} ({bnd[1]}); workspace "
+                f"{ws.nbytes / 2**20:.1f} MiB")
+            if stage == "decode" and bits == 8:
+                rec = {"max_abs_err": err, "ms": ms[0], "plain_ms": ms[2],
+                       "library_ms": None, "bound_ms": bnd[0],
+                       "bound_by": bnd[1], "parent_loop_ms": ms[1]}
+        # the reduce-scatter's pack with its EF residue, and its unpack-sum
+        v = torch.randn((PODS, FAST, *msg), generator=gen, device="cuda")
+        for bits in (8, 4):
+            (q, s, e), qv, sv, group, piece = rs_views(v, bits, True)
+            x2 = v.reshape(q.shape[:-1] + (-1,))
+            n = x2.numel()
+            pb = n * bits / 8 + 2.0 * n / group
+            t_pack = (time_ms(lambda: quantize_pack(x2, bits, group,
+                                                    err=True)),
+                      time_ms(lambda: x2 - unpack_dequant(
+                          *quantize_pack(x2, bits, group), bits, group)),
+                      time_ms(lambda: quant_pack.quantize_pack_err_ref(
+                          x2, bits, group)))
+            b_pack = bound_ms(4.0 * n + pb + 4.0 * n, 6.0 * n, torch.float32)
+            t_unp = (time_ms(lambda: unpack_dequant(qv, sv, bits, group,
+                                                    piece_dim=piece)),
+                     time_ms(lambda: unpack_dequant(
+                         qv.contiguous(), sv.contiguous(), bits,
+                         group).sum(-2)),
+                     time_ms(lambda: quant_pack.unpack_dequant_sum_ref(
+                         qv, sv, bits, group, piece)))
+            b_unp = bound_ms(pb + 4.0 * n / FAST, 2.0 * n, torch.float32)
+            for name, t3, bnd in (("pack+err", t_pack, b_pack),
+                                  ("unpack-sum", t_unp, b_unp)):
+                log(f"  {name} [f32] {stage}_rs {tuple(v.shape)} bits="
+                    f"{bits} group={group}: kernel_ms={t3[0]:.4f} "
+                    f"parent_ms={t3[1]:.4f} plain_ms={t3[2]:.4f} "
+                    f"bound_ms={bnd[0]:.6f} ({bnd[1]})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phases 12-13: the quantized wire at full size
 # ---------------------------------------------------------------------------
 
@@ -1683,28 +2037,33 @@ def planted_quant_fault(kind: str):
         real = quant_pack.unpack_dequant
         patch = mock.patch.object(
             hierarchical.qp, "unpack_dequant",
-            lambda q, s, bits, group: real(q, torch.ones_like(s), bits,
-                                           group))
+            lambda q, s, bits, group, **kw: real(q, torch.ones_like(s), bits,
+                                                 group, **kw))
     else:
         patch = mock.patch.object(hierarchical, "quant_rd_all_reduce",
-                                  lambda t, axis, bits: t)
+                                  lambda t, axis, bits, workspace=None: t)
     with patch:
         yield
 
 
-def quant_ar_launches(strategy: str, ef: bool) -> tuple:
-    """(packs, unpacks) of one quantized tp_all_reduce on the PODS x FAST
-    mesh, as core/hierarchical.py dispatches it: per reduce-scatter stage
-    (both axes under flat, the fast axis otherwise) one pack and one
-    unpack of the received pieces, plus one unpack of the rank's own
-    payload for error feedback at the first; per recursive-doubling step
-    (hier_rd, hier_rd_halving) one pack and two unpacks; per all-gather
-    stage one pack and one unpack."""
+# kernel launches of the quantized wire, in quant_ar_launches' order
+QUANT_KERNELS = ("quantize_pack", "unpack_dequant", "quant_rd_all_reduce")
+
+
+def quant_ar_launches(strategy: str) -> tuple:
+    """(packs, unpacks, quantized RD launches) of one quantized
+    tp_all_reduce on the PODS x FAST mesh, with or without error feedback,
+    as core/hierarchical.py dispatches it: per reduce-scatter stage (both
+    axes under flat, the fast axis otherwise) one pack, which also writes
+    the EF residue at the first, and one unpack that reads the received
+    pieces through the all-to-all's transpose and sums them; under
+    hier_rd and hier_rd_halving one launch of the quantized recursive
+    doubling over the pods; per all-gather stage one pack and one unpack.
+    No payload is copied."""
     stages = sum(n > 1 for n in ((PODS, FAST) if strategy == "flat"
                                  else (FAST,)))
-    steps = PODS.bit_length() - 1 \
-        if strategy in ("hier_rd", "hier_rd_halving") else 0
-    return 2 * stages + steps, 2 * stages + int(ef) + 2 * steps
+    rd = int(strategy in ("hier_rd", "hier_rd_halving") and PODS > 1)
+    return 2 * stages, 2 * stages, rd
 
 
 def quant_path_launches(choices: dict, L: int, overlap_chunks: int = 0
@@ -1713,11 +2072,11 @@ def quant_path_launches(choices: dict, L: int, overlap_chunks: int = 0
     resolve to ``choices`` ("prefill"/"decode" -> (strategy, quant)):
     2 L projections (in overlap column blocks where the quantized wire
     keeps them, see overlap._quant_chunk_ok) and the embedding's
-    all-reduce per step, error feedback on the decode projections."""
+    all-reduce per step (error feedback on the decode projections changes
+    no count)."""
     n = {"flash_attention": L, "decode_attention": L * (NEW - 1)}
     for stage, steps in (("prefill", 1), ("decode", NEW - 1)):
         strategy, quant = choices[stage]
-        ef = stage == "decode"
         if quant == "none":
             if strategy == "hier_rd":
                 fused = overlap_chunks > 0
@@ -1732,11 +2091,9 @@ def quant_path_launches(choices: dict, L: int, overlap_chunks: int = 0
             k = overlap._resolve_chunks(D_MODEL, FAST, overlap_chunks)
             if not overlap._quant_chunk_ok(D_MODEL, k, PODS * FAST, bits):
                 k = 1
-        proj = quant_ar_launches(strategy, ef)
-        embed = quant_ar_launches(strategy, False)
-        for i, name in enumerate(("quantize_pack", "unpack_dequant")):
-            n[name] = n.get(name, 0) + steps * (2 * L * k * proj[i]
-                                                + embed[i])
+        per_ar = quant_ar_launches(strategy)
+        for name, c in zip(QUANT_KERNELS, per_ar):
+            n[name] = n.get(name, 0) + steps * (2 * L * k + 1) * c
     return n
 
 
@@ -2904,8 +3261,10 @@ def main() -> int:
     log(f"[10] card vs CPU at tp=8 ({PODS}x{FAST}, auto + overlap), full "
         "width, 2 layers, float32")
     card_vs_cpu(PODS * FAST, PODS, "auto", overlap_matmul=True)
-    log("[11] group-quantized pack and unpack kernels (kernel 6)")
+    log("[11] group-quantized pack and unpack kernels (kernel 6), and the "
+        "quantized recursive doubling in one launch")
     rec.update(phase_quant_kernels())
+    rec["quant_rd_all_reduce"] = phase_quant_fused()
     log(f"[12] llama3.2-1b tp=8 ({PODS}x{FAST}) hier_rd on the int8 and "
         "int4 wire, error feedback on, full width and depth, bf16")
     launches.update(phase_quant(decode_refs))

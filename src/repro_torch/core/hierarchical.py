@@ -29,16 +29,21 @@ the pods (``hier_rd``, ``hier_rd_halving``; ``hier_ring`` sums the pods in
 bf16) and a packed all-gather; under ``flat`` both axes are
 reduce-scattered, pod first, and gathered model first.  Every pack and
 unpack goes through :mod:`repro_torch.kernels.quant_pack` (kernel 6 on
-CUDA tensors).  On the virtual mesh an exchange is an index across the
-rank axis, viewed as (pods, fast): the reference's ``lax.all_to_all``
-over an axis is a transpose of that axis with the piece axis,
-``lax.all_gather`` a broadcast of the axis into a new one, and the XOR
-``lax.ppermute`` an index of the pods.  Error feedback (``ef``): the
-first reduce-scatter stage is where a rank's own contribution is
-rounded, so the call returns ``err = v - deq(Q(v))`` for the caller to
-add to its next message.  The legacy int8 knobs (``compress_slow``,
-``quant_ag``) use the same kernels at bits 8, group 128.  Only the
-sequence-parallel layout is not ported: a ctx asking for it raises.
+CUDA tensors), and the quantized recursive doubling through
+:mod:`repro_torch.kernels.quant_rd_allreduce` (its packs, exchanges and
+unpacks in one launch on CUDA tensors).  On the virtual mesh an exchange
+is an index across the rank axis, viewed as (pods, fast): the
+reference's ``lax.all_to_all`` over an axis is a transpose of that axis
+with the piece axis, ``lax.all_gather`` a broadcast of the axis into a
+new one, and the XOR ``lax.ppermute`` an index of the pods; the unpack
+reads the transpose and the broadcast as views, and sums a reduce-
+scatter's received pieces in the same pass.  Error feedback (``ef``):
+the first reduce-scatter stage is where a rank's own contribution is
+rounded, so the call returns ``err = v - deq(Q(v))`` (written by the
+pack) for the caller to add to its next message.  The legacy int8 knobs
+(``compress_slow``, ``quant_ag``) use the standalone pack and unpack at
+bits 8, group 128.  Only the sequence-parallel layout is not ported: a
+ctx asking for it raises.
 
 The MoE layer's exchanges live here too: ``ep_all_to_all`` (the dispatch's
 ``lax.all_to_all`` over the EP axes, which are the TP axes: a transpose of
@@ -55,7 +60,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import quant_pack as qp
+from ..kernels import quant_rd_allreduce as qrd
 from ..kernels import rd_allreduce as rdk
+from ..kernels.quant_rd_allreduce.ref import xor_exchange as _xor_exchange
 from ..kernels.rd_allreduce.ref import is_pow2 as _is_pow2
 from ..kernels.rd_allreduce.ref import slow_sum
 from . import autotune
@@ -221,13 +228,6 @@ def rd_halving_all_reduce(x: torch.Tensor, pods: int) -> torch.Tensor:
     return out.reshape(shape)
 
 
-def _xor_exchange(t: torch.Tensor, axis: int, stride: int) -> torch.Tensor:
-    """What every rank receives from its XOR peer along ``axis`` of the
-    (pods, fast, ...) view (``lax.ppermute`` by ``_xor_perm``)."""
-    idx = torch.arange(t.shape[axis], device=t.device) ^ stride
-    return t.index_select(axis, idx)
-
-
 def compressed_rd_all_reduce(x: torch.Tensor, pods: int,
                              group: int = 128) -> torch.Tensor:
     """Recursive doubling over the slow axis with int8 exchanges
@@ -333,34 +333,22 @@ def _psum(t: torch.Tensor, axes) -> torch.Tensor:
     return t.sum(axes, keepdim=True).expand_as(t)
 
 
-def quant_rd_all_reduce(t: torch.Tensor, axis: int,
-                        bits: int) -> torch.Tensor:
+def quant_rd_all_reduce(t: torch.Tensor, axis: int, bits: int,
+                        workspace: Optional[rdk.RDWorkspace] = None
+                        ) -> torch.Tensor:
     """Recursive doubling over ``axis`` of t (P, F, *s) with a symmetric
     low-bit exchange: BOTH peers of a step requantize, ``acc <- deq(Q(acc))
     + deq(Q(acc_peer))``, so the two compute one sum and the result is
-    exactly replicated across the axis.  Each rank's message is padded to
-    a multiple of 256 (group-cap aligned) and grouped at the cap."""
+    exactly replicated across the axis.  Each rank's message is grouped at
+    the cap, as if padded with zeros to a multiple of 256.  On CUDA
+    tensors one launch of the quantized RD kernel, which needs the mesh's
+    ``workspace``; on CPU tensors its plain loop."""
     n = t.shape[axis]
     if n == 1:
         return t
     if not _is_pow2(n):
         return _psum(t, axis)
-    P, Fn = t.shape[:2]
-    acc = t.reshape(P, Fn, -1).float()
-    m = acc.shape[-1]
-    pad = (-m) % 256
-    if pad:
-        acc = F.pad(acc, (0, pad))
-    group = qp.GROUP_CAP[bits]
-    step = 1
-    while step < n:
-        q, s = qp.quantize_pack(acc, bits, group)
-        acc = (qp.unpack_dequant(q, s, bits, group)
-               + qp.unpack_dequant(_xor_exchange(q, axis, step),
-                                   _xor_exchange(s, axis, step), bits,
-                                   group))
-        step <<= 1
-    return acc[..., :m].reshape(t.shape).to(t.dtype)
+    return qrd.quant_rd_all_reduce(t, axis, bits, workspace=workspace)
 
 
 def _pad_last(t: torch.Tensor, mult: int):
@@ -380,18 +368,18 @@ def _quant_rs_one(v: torch.Tensor, axis: int, dim: int, bits: int,
     nd = v.dim() - 2
     dim = dim % nd
     if dim == nd - 1:
+        # one pack (with the EF residue), then the received pieces read
+        # through the all-to-all's transpose and summed in one unpack
         shard = v.shape[-1] // n
         group = qp.group_for(shard, bits)
-        q, s = qp.quantize_pack(v.reshape(*v.shape[:-1], n, shard), bits,
-                                group)
+        packed = qp.quantize_pack(v.reshape(*v.shape[:-1], n, shard), bits,
+                                  group, err=want_err)
+        q, s = packed[:2]
         piece = q.dim() - 2
         red = qp.unpack_dequant(_all_to_all(q, axis, piece),
-                                _all_to_all(s, axis, piece), bits,
-                                group).sum(-2)
-        err = None
-        if want_err:
-            err = v - qp.unpack_dequant(q, s, bits, group).reshape(v.shape)
-        return red, err
+                                _all_to_all(s, axis, piece), bits, group,
+                                piece_dim=piece)
+        return red, (packed[2].reshape(v.shape) if want_err else None)
     # Scatter along a non-trailing dim: groups stay on the feature (last)
     # dim, untouched by the split.
     size = v.shape[2 + dim]
@@ -443,11 +431,15 @@ def _quant_ag_one(y: torch.Tensor, axis: int, dim: int,
         yp, pad = _pad_last(y, 2)
     group = qp.group_for(yp.shape[-1], bits)
     q, s = qp.quantize_pack(yp, bits, group)
-    deq = qp.unpack_dequant(_all_gather(q, axis), _all_gather(s, axis), bits,
-                            group)                    # (P, F, n, *s)
+    qg, sg = _all_gather(q, axis), _all_gather(s, axis)   # (P, F, n, *s)
     if pad:
-        deq = deq[..., :-pad]
-    out = deq.movedim(2, 2 + dim)                    # n right before dim
+        deq = qp.unpack_dequant(qg, sg, bits, group)[..., :-pad]
+        out = deq.movedim(2, 2 + dim)                # n right before dim
+    else:
+        # the unpack writes each gathered piece where the result wants it
+        out = torch.empty((*y.shape[:2 + dim], n, *y.shape[2 + dim:]),
+                          dtype=torch.float32, device=y.device)
+        qp.unpack_dequant(qg, sg, bits, group, out=out.movedim(2 + dim, 2))
     return out.reshape(*y.shape[:2 + dim], n * y.shape[2 + dim],
                        *y.shape[3 + dim:])
 
@@ -461,13 +453,13 @@ def _quant_all_gather(y: torch.Tensor, axes, dim: int,
     return y
 
 
-def _quant_slow_phase(t: torch.Tensor, slow, ctx: ParallelCtx,
-                      bits: int) -> torch.Tensor:
+def _quant_slow_phase(t: torch.Tensor, slow, ctx: ParallelCtx, bits: int,
+                      mesh: Mesh) -> torch.Tensor:
     """The slow phase under ar_quant: the recursive-doubling strategies
     carry the quantized exchange; ring and flat sum the pods in bf16."""
     for ax in slow:
         if ctx.ar_strategy in ("hier_rd", "hier_rd_halving"):
-            t = quant_rd_all_reduce(t, ax, bits)
+            t = quant_rd_all_reduce(t, ax, bits, mesh.workspace)
         else:
             t = _psum(t.to(torch.bfloat16), ax).to(t.dtype)
     return t
@@ -509,7 +501,7 @@ def _quant_tp_all_reduce(x: torch.Tensor, ctx: ParallelCtx,
     if not fast:
         # slow-only group: the quantized RD rounds the whole exchange and
         # there is no per-rank RS rounding to feed back
-        y = _quant_slow_phase(v, slow, ctx, bits)
+        y = _quant_slow_phase(v, slow, ctx, bits, mesh)
         return y.reshape(x.shape).to(x.dtype), \
             (torch.zeros_like(v).reshape(x.shape) if ef is not None else None)
     if not _quant_scatter_ok(t, fast, dim, bits):
@@ -517,7 +509,7 @@ def _quant_tp_all_reduce(x: torch.Tensor, ctx: ParallelCtx,
     red, err = _quant_reduce_scatter(v, fast, dim, bits,
                                      want_err=ef is not None)
     if slow:
-        red = _quant_slow_phase(red, slow, ctx, bits)
+        red = _quant_slow_phase(red, slow, ctx, bits, mesh)
     y = _quant_all_gather(red, fast, dim, bits)
     return y.reshape(x.shape).to(x.dtype), \
         (None if err is None else err.reshape(x.shape))
@@ -621,7 +613,7 @@ def tp_reduce_scatter(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
         if _quant_scatter_ok(t, fast_ax, dim, bits):
             y, _ = _quant_reduce_scatter(t.float(), fast_ax, dim, bits,
                                          want_err=False)
-            y = _quant_slow_phase(y, slow_ax, ctx, bits)
+            y = _quant_slow_phase(y, slow_ax, ctx, bits, mesh)
             return y.reshape(x.shape[0], *y.shape[2:]).to(x.dtype)
     if ctx.tp_fast:
         x = _fast_reduce_scatter(x, pods, fast, dim)

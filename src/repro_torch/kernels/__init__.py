@@ -17,6 +17,7 @@ from .flash_attention import flash_attention
 from .fused_matmul_rd import collective_matmul_rd
 from .moe_gemm import moe_expert_ffn
 from .quant_pack import quantize_pack, unpack_dequant
+from .quant_rd_allreduce import quant_rd_all_reduce
 from .rd_allreduce import rd_all_reduce
 from .rwkv6_scan import rwkv6_scan
 from .ssm_scan import ssm_scan
@@ -26,10 +27,11 @@ def kernel_wrappers():
     """Every kernel wrapper, for launch accounting."""
     return (flash_attention, decode_attention, paged_decode_attention,
             rd_all_reduce, collective_matmul_rd, quantize_pack,
-            unpack_dequant, moe_expert_ffn, rwkv6_scan, ssm_scan)
+            unpack_dequant, quant_rd_all_reduce, moe_expert_ffn, rwkv6_scan,
+            ssm_scan)
 
 
 __all__ = ["flash_attention", "decode_attention", "paged_decode_attention",
            "rd_all_reduce", "collective_matmul_rd", "quantize_pack",
-           "unpack_dequant", "moe_expert_ffn", "rwkv6_scan", "ssm_scan",
-           "kernel_wrappers"]
+           "unpack_dequant", "quant_rd_all_reduce", "moe_expert_ffn",
+           "rwkv6_scan", "ssm_scan", "kernel_wrappers"]

@@ -94,5 +94,27 @@ def unpack_dequant(packed: torch.Tensor, scales: torch.Tensor, bits: int,
     return (g * scales.float()[..., None]).reshape(*q.shape[:-1], D)
 
 
+def quantize_pack_err(x: torch.Tensor, bits: int, group: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`quantize_pack` and the f32 rounding residue of the same
+    call, ``x - unpack_dequant(q, s)`` (the error feedback of the
+    reduce-scatter), which the kernel writes in the same pass."""
+    q, s = quantize_pack(x, bits, group)
+    return q, s, x.float() - unpack_dequant(q, s, bits, group)
+
+
+def unpack_dequant_sum(packed: torch.Tensor, scales: torch.Tensor, bits: int,
+                       group: int, piece_dim: int) -> torch.Tensor:
+    """:func:`unpack_dequant` of every piece along ``piece_dim`` (a dim of
+    the payload other than the last), summed in index order, one f32
+    rounding a term: the kernel's order, so the two agree bitwise."""
+    parts = unpack_dequant(packed, scales, bits, group).unbind(piece_dim)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
 __all__ = ["QMAX", "GROUP_CAP", "group_for", "wire_factor", "packed_width",
-           "quantize_pack", "unpack_dequant"]
+           "quantize_pack", "quantize_pack_err", "unpack_dequant",
+           "unpack_dequant_sum"]
