@@ -24,7 +24,13 @@ LABEL (default: ROOT).  SECTIONS (default ``rd,moe,quant``) picks among:
   shape; then llama3.2-1b at tp=8 on the int8 and int4 wire: the decode
   path's teacher-forced logits (error feedback on) over a seeded
   sequence, printed as a SHA-256 of their bytes (equal digests: bitwise
-  equal logits), and one generate's prefill ms and decode tok/s.
+  equal logits), and one generate's prefill ms and decode tok/s;
+- ``scan``: kernels 8 (RWKV6 scan) and 9 (selective scan) at their paths'
+  prefill, decode and tp=8-fold shapes (``RWKV_SHAPES``, ``SSM_SHAPES``;
+  kernel 9's prefill from a zero state, its decode step in place, as the
+  paths call them) and, as the decode steps' yardstick, one copy of each
+  decode state; then rwkv6-7b's and hymba-1.5b's tp=1 prefill at full
+  width and depth (batch 8, prompts 512 and 1280; the median of three).
 
 Every time is ``chip_smoke.time_ms`` (median of CUDA-event timed calls,
 L2 flushed between calls).  Run parent, change, change, parent in one call:
@@ -173,6 +179,46 @@ def section_quant(cs) -> None:
     cs.free_device()
 
 
+def section_scan(cs) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan, ssm_scan
+    from repro_torch.models.transformer import init_params, make_plan
+    from repro_torch.inference.engine import InferenceEngine
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED + 22)
+    for name, shape in cs.RWKV_SHAPES.items():
+        ops = cs.rwkv_operands(gen, *shape)
+        log(f"kernel 8 {name} {shape}: "
+            f"{cs.time_ms(lambda: rwkv6_scan(*ops)):.4f}")
+        if name == "decode":
+            log(f"  a copy of its state {tuple(ops[5].shape)}: "
+                f"{cs.time_ms(lambda: ops[5].clone()):.4f}")
+    for name, shape in cs.SSM_SHAPES.items():
+        x, dt, b, c, a, h0 = cs.ssm_operands(gen, *shape)
+        if name == "decode":
+            t = cs.time_ms(lambda: ssm_scan(x, dt, b, c, a, h0, h_out=h0))
+            log(f"  a copy of its state {tuple(h0.shape)}: "
+                f"{cs.time_ms(lambda: h0.clone()):.4f}")
+        else:
+            t = cs.time_ms(lambda: ssm_scan(x, dt, b, c, a))
+        log(f"kernel 9 {name} {shape}: {t:.4f}")
+    del ops, x, dt, b, c, a, h0
+    for arch, prompt in ((cs.RWKV_ARCH, cs.PROMPT),
+                         (cs.HYB_ARCH, cs.HYB_PROMPT)):
+        cs.free_device()
+        ap = make_plan(get_config(arch), 1)
+        model = init_params(ap, seed=cs.SEED, device="cuda")
+        prompts = np.random.default_rng(cs.SEED).integers(
+            0, ap.cfg.vocab_size, (cs.B, prompt))
+        eng = InferenceEngine(ap, model, s_max=prompt + 2, device="cuda")
+        eng.generate(prompts, 1)
+        ms = [eng.generate(prompts, 1).prefill_s * 1e3 for _ in range(3)]
+        log(f"{arch} tp=1 prefill (B {cs.B}, prompt {prompt}): "
+            f"{np.median(ms):.2f} ms ({' '.join(f'{m:.2f}' for m in ms)})")
+        del model, eng
+    cs.free_device()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device available", file=sys.stderr)
@@ -185,7 +231,8 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s from {ROOT}; "
         f"{torch.cuda.get_device_name(0)}")
     log(f"floor (empty kernel) {cs.time_ms(lambda: torch.cuda._sleep(1)):.4f}")
-    sections = {"rd": section_rd, "moe": section_moe, "quant": section_quant}
+    sections = {"rd": section_rd, "moe": section_moe, "quant": section_quant,
+                "scan": section_scan}
     for name in SECTIONS:
         sections[name](cs)
     return 0

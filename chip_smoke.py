@@ -2541,6 +2541,9 @@ RWKV_SHAPES = {"prefill": (B, PROMPT, RWKV_H, RWKV_HD, 1),
                                RWKV_H // (PODS * FAST), RWKV_HD, PODS * FAST)}
 # tests/test_kernels.py's RWKV_CASES (G = 1)
 RWKV_SMALL = ((2, 128, 2, 64, 1), (1, 100, 3, 64, 1), (2, 64, 1, 32, 1))
+# Ragged at the kernel's tile split: 3 heads of 32 (one warp a head, four
+# key groups), T not a multiple of the chunk.
+RWKV_RAGGED = ((2, 77, 3, 32, 1),)
 # tests/test_kernels.py's tolerance.  The kernel's fused multiply-adds and
 # sum order against the plain version's: on the CPU the plain version at
 # T 512 is within 3.3e-5 of a float64 run (|y| up to 114).
@@ -2582,6 +2585,22 @@ def rwkv_check(label: str, ops) -> float:
     return err
 
 
+def decode_steps_equal_one_call(scan, ops, out_kw: str,
+                                prompt: int = 100) -> bool:
+    """A ``prompt``-step call, then one single-step call a remaining step,
+    each updating the state in place as the decode path does (the kernels'
+    T = 1 form), bitwise equal to one call over all the steps."""
+    *seq, p, st0 = ops
+    y, s = scan(*seq, p, st0)
+    ys, st = scan(*(t[:, :prompt].contiguous() for t in seq), p, st0)
+    ys = [ys]
+    for i in range(prompt, seq[0].shape[1]):
+        ys.append(scan(*(t[:, i:i + 1].contiguous() for t in seq), p, st,
+                       **{out_kw: st})[0])
+    torch.cuda.synchronize()
+    return torch.equal(torch.cat(ys, 1), y) and torch.equal(st, s)
+
+
 def rwkv_bound(N, T, H, hd, G) -> tuple:
     """r/k/v/logw read and y written once, s0 read and the final state
     written once, u read once (f32); per step and head the kv outer
@@ -2599,7 +2618,7 @@ def phase_rwkv_kernel() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 19)
     times = {}
-    for shape in RWKV_SMALL + tuple(RWKV_SHAPES.values()):
+    for shape in RWKV_SMALL + RWKV_RAGGED + tuple(RWKV_SHAPES.values()):
         ops = rwkv_operands(gen, *shape)
         err = rwkv_check(f"rwkv6_scan {shape}", ops)
         name = next((k for k, v in RWKV_SHAPES.items() if v == shape), None)
@@ -2635,6 +2654,12 @@ def phase_rwkv_kernel() -> dict:
         f"call: {chained}; aliased s0/s_out == separate: {aliased}")
     if not (chained and aliased):
         raise AssertionError("rwkv6_scan: chained or in-place calls differ")
+    stepped = decode_steps_equal_one_call(
+        rwkv6_scan, rwkv_operands(gen, 16, 108, 8, 64, 4), "s_out")
+    log(f"  a 100-step call, then 8 single-step calls each updating the "
+        f"state in place (the decode form) == one 108-step call: {stepped}")
+    if not stepped:
+        raise AssertionError("rwkv6_scan: decode steps differ from one call")
     err, t, bnd = times["prefill"]
     derr, dt, dbnd = times["decode"]
     return {"max_abs_err": max(err, derr), "ms": t[0], "plain_ms": t[1],
@@ -2836,6 +2861,10 @@ SSM_SHAPES = {"prefill": (B, HYB_PROMPT, HYB_CI, HYB_S, 1),
                               HYB_CI // (PODS * FAST), HYB_S, PODS * FAST)}
 # tests/test_kernels.py's SSM_CASES (B, T, Ci, S; G = 1) and tolerance
 SSM_SMALL = ((2, 128, 128, 16, 1), (1, 100, 64, 8, 1), (2, 64, 200, 16, 1))
+# Ragged at the kernel's lane split: the last CTA of a sequence holds 12 of
+# its 16 channels; Ci 301 takes the 4-byte copies of x and dt.  T is not a
+# multiple of the chunk.
+SSM_RAGGED = ((2, 77, 300, 8, 1), (2, 77, 300, 16, 1), (2, 77, 301, 16, 1))
 SSM_TOL = dict(atol=1e-4, rtol=1e-4)
 # The special-function units' exponentials: 16 a clock on each SM
 # (CUDA programming guide, throughput table, compute capability 9.0) of
@@ -2894,7 +2923,7 @@ def phase_ssm_kernel() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 23)
     times = {}
-    for shape in SSM_SMALL + tuple(SSM_SHAPES.values()):
+    for shape in SSM_SMALL + SSM_RAGGED + tuple(SSM_SHAPES.values()):
         ops = ssm_operands(gen, *shape)
         err = ssm_check(f"ssm_scan {shape}", ops)
         name = next((k for k, v in SSM_SHAPES.items() if v == shape), None)
@@ -2937,6 +2966,28 @@ def phase_ssm_kernel() -> dict:
         f"call: {chained}; aliased h0/h_out == separate: {aliased}")
     if not (chained and aliased):
         raise AssertionError("ssm_scan: chained or in-place calls differ")
+    stepped = decode_steps_equal_one_call(
+        ssm_scan, ssm_operands(gen, 16, 108, 500, 16, 4), "h_out")
+    log(f"  a 100-step call, then 8 single-step calls each updating the "
+        f"state in place (the decode form) == one 108-step call: {stepped}")
+    if not stepped:
+        raise AssertionError("ssm_scan: decode steps differ from one call")
+    # b and c as the two halves of one (N, T, 2S) tensor, as the mixer
+    # passes them: bitwise the contiguous copies' result
+    for name in ("prefill", "decode"):
+        N, T, Ci, S, G = SSM_SHAPES[name]
+        x, dt, _, _, a, h0 = ssm_operands(gen, N, T, Ci, S, G)
+        bc = torch.randn((N, T, 2 * S), generator=gen, device="cuda")
+        got = ssm_scan(x, dt, bc[..., :S], bc[..., S:], a, h0)
+        want = ssm_scan(x, dt, bc[..., :S].contiguous(),
+                        bc[..., S:].contiguous(), a, h0)
+        torch.cuda.synchronize()
+        same = all(map(torch.equal, got, want))
+        log(f"  {name}: b, c as views of one bc tensor == contiguous "
+            f"copies: {same}")
+        if not same:
+            raise AssertionError("ssm_scan: strided b/c differ")
+        del x, dt, bc, a, h0, got, want
     err, t, bnd = times["prefill"]
     derr, dt_, dbnd = times["decode"]
     return {"max_abs_err": max(err, derr), "ms": t[0], "plain_ms": t[1],

@@ -5,7 +5,9 @@ CUDA kernel masks both and takes any T >= 1 and any Ci).
 
 A CUDA tensor launches the kernel (or the wrapper raises); CPU tensors
 take the plain version in ``ref.py``.  There is no fallback between the
-two: the device of the operands decides.
+two: the device of the operands decides.  ``b`` and ``c`` may be the two
+halves of one (N, T, 2S) tensor (the mixer's ``bc`` projection): the kernel
+reads their rows at a stride, so neither is copied.
 """
 from __future__ import annotations
 
@@ -18,9 +20,22 @@ from .. import _build
 from .ref import ssm_scan_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 8 + (_I,) * 5 + (_P,)
+_ARGTYPES = (_P,) * 8 + (_I,) * 6 + (_P,)
 SOURCE = "ssm_scan"
 STATE_DIMS = (8, 16)
+
+
+def row_stride(t: torch.Tensor) -> Optional[int]:
+    """The element stride between consecutive (n, t) rows of an (N, T, S)
+    operand whose rows are contiguous and evenly spaced (a contiguous
+    tensor, or a last-dim slice of one (N, T, W) tensor), else None."""
+    N, T, S = t.shape
+    if S > 1 and t.stride(2) != 1:
+        return None
+    if T > 1:
+        rs = t.stride(1)
+        return rs if N == 1 or t.stride(0) == T * rs else None
+    return t.stride(0) if N > 1 else S
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -31,7 +46,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     """The selective-scan recurrence over T steps, f32 throughout:
     ``h <- exp(a dt_t) h + (dt_t x_t) b_t^T``, ``y_t = h c_t``.
 
-    x/dt: (N, T, Ci) f32; b/c: (N, T, S) f32; a: (G, Ci, S) f32 with G
+    x/dt: (N, T, Ci) f32; b/c: (N, T, S) f32 (on the card: rows of S
+    contiguous floats evenly spaced by one stride, as contiguous tensors or
+    the halves of one (N, T, 2S) tensor are); a: (G, Ci, S) f32 with G
     dividing N, sequence n reading group n // (N // G) (the ranks of a
     virtual mesh folded into the sequences, each with its own channels'
     A); h0: (N, Ci, S) f32 or None (zero state).  Returns (y (N, T, Ci),
@@ -68,14 +85,18 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     y = torch.empty_like(x)
     if h_out is None:
         h_out = torch.empty(state, dtype=torch.float32, device=x.device)
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in ops + [y, h_out]):
-        raise ValueError("ssm_scan: operands must be contiguous and "
-                         "16-byte aligned")
+    dense = [t for t in (x, dt, a, h0, y, h_out) if t is not None]
+    rs = row_stride(b)
+    if (rs is None or row_stride(c) != rs or rs % 4
+            or not all(t.is_contiguous() for t in dense)
+            or any(t.data_ptr() % 16 for t in dense + [b, c])):
+        raise ValueError("ssm_scan: operands must be contiguous and 16-byte "
+                         "aligned (b and c: rows of S contiguous floats, "
+                         "one stride, a multiple of 4, apart)")
     fn = _build.c_function(SOURCE, "ssm_scan_launch", _ARGTYPES)
     err = fn(x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
              a.data_ptr(), None if h0 is None else h0.data_ptr(),
-             y.data_ptr(), h_out.data_ptr(), N, T, Ci, S, a.shape[0],
+             y.data_ptr(), h_out.data_ptr(), N, T, Ci, S, a.shape[0], rs,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(SOURCE, "ssm_scan", err)
     ssm_scan.launches += 1

@@ -98,14 +98,14 @@ def _ssd_inputs(p: Params, h: torch.Tensor):
 def _scan_out(p: Params, h: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
               bc: torch.Tensor, dt: torch.Tensor, s: int,
               h0: Optional[torch.Tensor], h_out: Optional[torch.Tensor]):
-    """Kernel 9 over the conv output x (R, B, T, Ci), then the skip, the
-    silu(z) gate in f32, the cast to h's dtype and the row-sharded output
-    projection.  Returns (the TP-partial output (R, B, T, D), the final
-    state (R*B, Ci, s))."""
+    """Kernel 9 over the conv output x (R, B, T, Ci), B and C read in place
+    as the two halves of ``bc``; then the skip, the silu(z) gate in f32,
+    the cast to h's dtype and the row-sharded output projection.  Returns
+    (the TP-partial output (R, B, T, D), the final state (R*B, Ci, s))."""
     xf = x.float()
-    y, hs = ssm_scan(_fold(xf), _fold(dt), _fold(bc[..., :s].contiguous()),
-                     _fold(bc[..., s:].contiguous()), -torch.exp(p["A_log"]),
-                     h0, h_out=h_out)
+    y, hs = ssm_scan(_fold(xf), _fold(dt), _fold(bc[..., :s]),
+                     _fold(bc[..., s:]), -torch.exp(p["A_log"]), h0,
+                     h_out=h_out)
     y = y.reshape(xf.shape) + per_rank(p["D_skip"], xf) * xf
     y = (y * F.silu(z.float())).to(h.dtype)
     return rank_matmul(y, p["w_out"]), hs

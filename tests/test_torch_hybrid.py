@@ -35,6 +35,7 @@ from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
 from repro_torch.kernels import ssm_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan.ops import row_stride  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import common as TC  # noqa: E402
 from repro_torch.models import ssm as TSM  # noqa: E402
@@ -150,6 +151,39 @@ def test_scan_grouped_a_equals_per_group_calls():
                             h0[rows])
         np.testing.assert_array_equal(y[rows].numpy(), yg.numpy())
         np.testing.assert_array_equal(h[rows].numpy(), hg.numpy())
+
+
+def test_scan_b_c_as_views_of_one_bc_tensor():
+    """The mixer passes B and C as the two halves of one (N, T, 2S) tensor:
+    the same y and state as contiguous copies, and as the JAX oracle."""
+    x, dt, b, c, a, h0 = _scan_operands(2, 24, 40, 16, seed=9)
+    bc = torch.tensor(np.concatenate([b, c], axis=-1))
+    y, h = ssm_scan(*(torch.tensor(v) for v in (x, dt)), bc[..., :16],
+                    bc[..., 16:], torch.tensor(a), torch.tensor(h0))
+    yc, hc = _port_scan(x, dt, b, c, a, h0)
+    np.testing.assert_array_equal(y.numpy(), yc.numpy())
+    np.testing.assert_array_equal(h.numpy(), hc.numpy())
+    want_y, want_h = _jit(jax_scan_ref, *(jnp.asarray(v) for v in
+                                          (x, dt, b, c, a[0], h0)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **SCAN_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("T", [1, 5])
+def test_scan_row_stride_of_b_c_layouts(T):
+    """The kernel's B/C addressing: rows of S contiguous floats evenly
+    spaced by one stride, as contiguous tensors and the halves of one bc
+    tensor (also folded from (R, B, T, 2S), as the mixer folds them) are;
+    any other layout has none, and the wrapper refuses it on the card."""
+    bc = torch.zeros((3, 4, T, 32))
+    folded = bc.reshape(12, T, 32)
+    assert row_stride(torch.zeros((12, T, 16))) == 16
+    assert row_stride(folded[..., :16]) == row_stride(folded[..., 16:]) == 32
+    assert row_stride(bc[..., 16:].reshape(12, T, 16)) == 32
+    assert row_stride(torch.zeros((1, 1, 8))) == 8
+    assert row_stride(folded[..., ::2]) is None
+    if T > 1:
+        assert row_stride(torch.zeros((T, 12, 16)).transpose(0, 1)) is None
 
 
 def test_scan_wrapper_refusals():
