@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; each
+phase's seconds are printed after it):
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from src/repro_torch/kernels/csrc (ptxas's
      registers, static shared memory and spills for each kernel) and hold
@@ -36,7 +37,15 @@ Phases (any failure exits non-zero and prints no result line):
   4. llama3.2-1b at full width and depth, bf16, seeded weights: batched
      generation (batch 8, prompt 512, 64 new tokens, s_max 1024) dense and
      paged (block 16) through the kernels, with launch counts checked and
-     paged tokens equal to dense tokens, and one profiled dense run;
+     paged tokens equal to dense tokens, and one profiled dense run of
+     each form (eager, and the decode steps replayed from a CUDA graph).
+     On every path a phase drives through ``run_path`` (phases 4, 6, 9,
+     12, 13, 16, 17, 20, 21, 24, 25) the exact launch counts are the eager
+     form's (``cuda_graph=False``); then the graph form (one eager step,
+     one captured, replays after) must give the eager tokens bitwise, its
+     launches counted at the capture times the steps they stand for plus
+     the prefill's must equal the eager counts, and both forms' decode
+     tok/s are printed (medians of 3);
   5. the same seeded weights at full width, 2 layers, float32: the card
      (kernels) against the CPU (plain versions): prefill logits allclose,
      greedy tokens equal wherever the CPU's top-1/top-2 gap is clear;
@@ -45,8 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
      tokens equal to flat's and to phase 4's tp=1 tokens wherever the
      reference's top-1/top-2 gap is clear, teacher-forced logits within
      (TF_MAX, TF_MEAN) of both, which two planted faults in the
-     all-reduce must break, one profiled hier_rd run with the RD kernel's
-     share of device time;
+     all-reduce must break, one profiled hier_rd run of each form with the
+     RD kernel's share of device time;
   7. phase 5 at tp=8 (hier_rd): card against CPU;
   8. the fused GEMM + recursive-doubling kernel against its plain version
      in bf16 and f32 on 4 x 2 and 2 x 1 meshes at the path's decode
@@ -55,7 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
      bitwise equal across n_chunks 1/2/4/8, every rank of a fast column
      bitwise equal, every output element written (the allocator's free
      block poisoned first); 1000 back-to-back calls on fresh inputs with
-     alternating chunk counts, each checked; kernel, plain version and the
+     alternating chunk counts, each checked; one call captured in a CUDA
+     graph and replayed 200 times on fresh inputs, each replay bitwise a
+     direct call and within TOL of the plain version (the flag value lives
+     in device memory); kernel, plain version and the
      library yardstick (one bmm over the fast columns with the pods folded
      into K) timed at all three path shapes, with the kernel's time
      without the exchange (pods = 1) beside it;
@@ -67,7 +79,10 @@ Phases (any failure exits non-zero and prints no result line):
      exchange dropped; the fast sum dropped) must break, one profiled run
      with the fused kernel's share of device time, the host cost of the
      per-call ``auto`` resolution; then ``hier_rd`` + overlap once, so the
-     fused kernel runs at the prefill size too, gated the same way;
+     fused kernel runs at the prefill size too, gated the same way; then a
+     graph captured at prompt 512 and a generate at prompt 768, whose
+     prefill grows kernel 5's buffers the graph holds: the step captured
+     anew exactly once, its tokens bitwise the eager form's;
  10. phase 5 at tp=8 under ``auto`` + overlap: card against CPU;
  11. the group-quantized pack and unpack kernels (kernel 6) against their
      plain versions, bitwise (payload, scales, dequant), for bits 8/4 x
@@ -187,7 +202,27 @@ Phases (any failure exits non-zero and prints no result line):
      planted faults (every rank on rank 0's A group; the mamba partial
      left out of the mixed reduction) must break;
  26. phase 5 for hymba-1.5b (2 layers, f32) at tp=1 and at tp=8 under
-     hier_rd: card against CPU.
+     hier_rd: card against CPU (phases 20 and 24 also profile one
+     generate of the graph form);
+ 27. the continuous batcher (ContinuousBatcher, full-prefill admission)
+     serving llama3.2-1b at full width and depth, bf16, seeded: 8 slots of
+     1024 positions, a make_trace trace of 32 requests (prompts ~256,
+     outputs ~64 tokens, 0.5 arrivals a step); tp=1 dense and paged (block
+     16) and tp=8 (4 x 2, hier_rd) paged, each a warm-up replay and three
+     timed ones (throughput, TTFT, TPOT: medians of 3); paged == dense and
+     graph == eager (the serve step run eagerly) bitwise; each request
+     against its own batch-1 generate and tp=8 against tp=1 by
+     provable_gate over teacher-forced decode paths of the same row count;
+     a pool of half the blocks the undisturbed run peaked at preempts and
+     returns the undisturbed tokens; sampled serving (temperature 1, top
+     50) equal under its seed, at tp=1 and tp=8 (three runs), and
+     different under another; tp=8 dense == tp=8 paged bitwise; tp=8
+     hier_rd + overlap paged, where admissions longer than any before grow
+     kernel 5's buffers after the capture: captured anew at least once,
+     tokens bitwise its eager steps'; and in f32 at 2 layers, tp=8 paged
+     against tp=1 dense by provable_gate, which must check at least three
+     quarters of the steps.  Then both forms' decode tok/s of every path,
+     side by side.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -216,6 +251,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import autotune, hierarchical, overlap  # noqa: E402
 from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
+from repro_torch.inference.scheduler import (  # noqa: E402
+    ContinuousBatcher, Request, make_trace)
 from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
                                  decode_attention, flash_attention,
                                  kernel_wrappers, moe_expert_ffn,
@@ -246,6 +283,7 @@ from repro_torch.models.transformer import (  # noqa: E402
     decode_step, ef_sites_for, forward_lm, init_cache, init_params,
     make_plan, seed_cache)
 from repro_torch.parallel.sharding import shard_params  # noqa: E402
+from repro_torch.parallel.steps import CapturedStep  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -742,15 +780,24 @@ def counts() -> dict:
 
 
 def profile_generate(eng: InferenceEngine, prompts: np.ndarray,
-                     share_of=(), new: int = NEW) -> None:
+                     share_of=(), new: int = NEW, graph: bool = False
+                     ) -> None:
     """Where one generate's time goes: device busy share of the wall time,
     the kernels that take the most device time (torch.profiler) and, with
     ``share_of`` (a name or several), the share of device time of kernels
-    whose names hold each."""
+    whose names hold each.  ``graph``: the decode steps replayed from the
+    engine's CUDA graph (captured by a generate before the profiled one);
+    the engine is left in the form it had."""
     from torch.profiler import ProfilerActivity, profile
+    form = eng.cuda_graph
+    if graph:
+        eng.cuda_graph = True
+        eng.generate(prompts, 3)
+        log(f"    profile of the graph form ({new - 1} replayed steps):")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         res = eng.generate(prompts, new)
+    eng.cuda_graph = form
     wall_ms = (res.prefill_s + res.decode_s) * 1e3
     # kernel (and memcpy/memset) events only: device time is counted once
     rows = [(e.device_time_total / 1e3, e.count, e.key)
@@ -815,10 +862,24 @@ def margin_gate(tokens_a, tokens_b, gap, prompt_len, tol) -> int:
     return checked
 
 
+# decode tok/s of every path run_path drives, eager and graph (medians of
+# 3 generates each, in this run), printed together before the result
+GRAPH_TPS: dict = {}
+
+
 def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
              expect: dict, new: int = NEW):
-    """Warm up, then one counted generate of ``new`` tokens; raise unless
-    the launches are exactly ``expect``.  Returns (result, launches)."""
+    """The eager form (``eng.cuda_graph`` False): warm up, then one
+    counted generate of ``new`` tokens; raise unless the launches are
+    exactly ``expect``.  Then the graph form on a fresh decode loop (one
+    eager step, one captured, replays after): its tokens bitwise the eager
+    form's, and for every kernel the launches counted at the capture
+    times the steps it stands for (the replays and the eager warm-up step,
+    which counts the same) plus the prefill's (a ``generate`` of one
+    token) equal to the eager count.  Decode tok/s of both forms, medians
+    of 3.  Returns (eager result, eager launches); the engine is left
+    eager."""
+    eng.cuda_graph = False
     eng.generate(prompts, 2)          # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -833,6 +894,40 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
         f"{peak:.3f} GiB, launches {got}")
     if got != expect:
         raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    eager_tps = [res.decode_tokens_per_s] + [
+        eng.generate(prompts, new).decode_tokens_per_s for _ in range(2)]
+    eng.cuda_graph = True
+    reset_counts()
+    g = eng.generate(prompts, new)
+    captured = counts()
+    reset_counts()
+    eng.generate(prompts, 1)
+    pre = counts()
+    if not np.array_equal(g.tokens, res.tokens):
+        raise AssertionError(f"{label}: graph tokens differ from eager")
+    if g.graph_replays != new - 2:
+        raise AssertionError(f"{label}: {g.graph_replays} replays, "
+                             f"expected {new - 2}")
+    for k in got:
+        step, odd = divmod(captured[k] - pre[k], 2)
+        if odd or pre[k] + step * (1 + g.graph_replays) != got[k]:
+            raise AssertionError(
+                f"{label}: {k} counted {captured[k]} with the capture, "
+                f"{pre[k]} in prefill, eager {got[k]}")
+    graph_tps = [eng.generate(prompts, new).decode_tokens_per_s
+                 for _ in range(3)]
+    eng.cuda_graph = False
+    GRAPH_TPS[label] = (float(np.median(eager_tps)),
+                        float(np.median(graph_tps)))
+    replay_ms = g.new_tokens.size / GRAPH_TPS[label][1] * 1e3
+    log(f"    graph form: tokens == eager bitwise; launches at the capture "
+        f"x {1 + g.graph_replays} steps + prefill's == eager; decode tok/s "
+        f"eager {GRAPH_TPS[label][0]:.1f} graph {GRAPH_TPS[label][1]:.1f} "
+        f"(medians of 3; {eager_tps[0]:.1f}/{eager_tps[1]:.1f}/"
+        f"{eager_tps[2]:.1f}, {graph_tps[0]:.1f}/{graph_tps[1]:.1f}/"
+        f"{graph_tps[2]:.1f}); decode of the capturing generate "
+        f"{g.decode_s * 1e3:.2f} ms, of a replaying one {replay_ms:.2f} ms "
+        "(median)")
     return res, got
 
 
@@ -865,6 +960,8 @@ def phase_path() -> tuple:
         tokens[layout] = res.tokens
         if layout == "dense":
             profile_generate(eng, prompts, share_of="decode_attention")
+            profile_generate(eng, prompts, share_of="decode_attention",
+                             graph=True)
     if not np.array_equal(tokens["dense"], tokens["paged"]):
         raise AssertionError("paged tokens differ from dense tokens")
     log("  paged tokens == dense tokens")
@@ -1163,6 +1260,8 @@ def phase_tp(tp1_tokens: np.ndarray, tp1_logits: torch.Tensor) -> tuple:
         tokens[strategy] = res.tokens
         if strategy == "hier_rd":
             profile_generate(eng, prompts, share_of="rd_allreduce")
+            profile_generate(eng, prompts, share_of="rd_allreduce",
+                             graph=True)
         else:
             flat_logits = teacher_forced(model, res.tokens, ap, sctx, mesh)
     # hier_rd against each reference: tokens margin-gated on the
@@ -1215,6 +1314,39 @@ def fold_pods(x: torch.Tensor, w: torch.Tensor, pods: int, fast: int):
                                                               pods * K)
     wl = w.view(pods, fast, K, -1).transpose(0, 1).reshape(fast, pods * K, -1)
     return xl.contiguous(), wl.contiguous()
+
+
+def fused_graph_replays(ws: RDWorkspace, gen: torch.Generator,
+                        x: torch.Tensor, w: torch.Tensor,
+                        n: int = 200) -> None:
+    """One call at the decode MLP shape (4 chunks) captured in a CUDA
+    graph and replayed ``n`` times on fresh inputs copied into its
+    operand, every replay checked on the device: bitwise a direct call on
+    the same inputs and within TOL of the plain version.  The kernel takes
+    its flag value from its own epoch words in device memory, so a replay
+    waits for the current one, not a number frozen at the capture."""
+    R, M, K = x.shape
+    tol = TOL[x.dtype]
+    collective_matmul_rd(x, w, PODS, n_chunks=4, workspace=ws)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = collective_matmul_rd(x, w, PODS, n_chunks=4, workspace=ws)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(n):
+        x.copy_(torch.randn((R, M, K), generator=gen, device="cuda"))
+        graph.replay()
+        direct = collective_matmul_rd(x, w, PODS, n_chunks=4, workspace=ws)
+        ref = collective_matmul_rd_ref(x, w, PODS)
+        bad += (out != direct).any() | ((out.float() - ref.float()).abs()
+                                        > tol + tol * ref.float().abs()).any()
+    torch.cuda.synchronize()
+    log(f"  {n} CUDA-graph replays of one captured call ({R} x {M} x {K} "
+        f"bf16, 4 chunks): {int(bad)} wrong (bitwise a direct call, within "
+        "TOL of the plain version)")
+    if int(bad):
+        raise AssertionError("collective_matmul_rd: graph replays disagree")
+    del graph
 
 
 def phase_fused() -> dict:
@@ -1282,6 +1414,7 @@ def phase_fused() -> dict:
     if int(bad):
         raise AssertionError("collective_matmul_rd: back-to-back calls "
                              "disagree")
+    fused_graph_replays(ws, gen, x, w)
     rec = {"shapes": {}}
     for label, (M, K) in FUSED_SHAPES.items():
         x, w = operands(R, M, K, torch.bfloat16)
@@ -1528,7 +1661,31 @@ def phase_overlap(tp1_tokens, tp1_logits, flat_tokens, flat_logits
         if mx > TF_MAX or mean > TF_MEAN:
             raise AssertionError(f"tp=8 hier_rd+overlap logits differ from "
                                  f"{name}'s")
+    longer_prompt_recaptures(eng, prompts)
     return launches, decode_refs
+
+
+def longer_prompt_recaptures(eng: InferenceEngine, prompts: np.ndarray,
+                             longer: int = 768, new: int = 32) -> None:
+    """A graph captured at one prompt length, then a generate whose prompt
+    is longer than any the mesh has prefilled: under overlap its prefill
+    grows kernel 5's buffers, which the graph holds, so the decode step
+    must be captured anew (once) before it replays; the tokens bitwise the
+    eager form's on the same prompts."""
+    eng.cuda_graph = True
+    eng.generate(prompts, 4)
+    long_prompts = np.random.default_rng(SEED + 1).integers(
+        0, eng.cfg.vocab_size, (prompts.shape[0], longer))
+    g = eng.generate(long_prompts, new)
+    eng.cuda_graph = False
+    e = eng.generate(long_prompts, new)
+    log(f"  prompt {prompts.shape[1]} -> {longer} after the capture: "
+        f"{g.graph_recaptures} capture(s) anew, {g.graph_replays} replays; "
+        f"tokens == eager: {np.array_equal(g.tokens, e.tokens)}")
+    if g.graph_recaptures != 1 or not np.array_equal(g.tokens, e.tokens):
+        raise AssertionError("a longer prompt after the capture: the step "
+                             "was not captured anew once, or its tokens "
+                             "differ from the eager form's")
 
 
 
@@ -2714,6 +2871,8 @@ def phase_rwkv_path() -> dict:
     # a shorter profiled run: the profiler's processing of a 64-token
     # generate's ~3e5 events costs about a minute of host time
     profile_generate(eng, prompts, share_of="rwkv6_scan", new=RWKV_TP_NEW)
+    profile_generate(eng, prompts, share_of="rwkv6_scan", new=RWKV_TP_NEW,
+                     graph=True)
     dec = teacher_forced_decode(model, res.tokens, ap, prompt=PROMPT,
                                 s_max=s_max)
     full = teacher_forced(model, res.tokens, ap)[:, PROMPT - 1:]
@@ -3131,9 +3290,10 @@ def phase_hybrid_path() -> dict:
         if not bsz:
             # a shorter profiled run: the profiler's processing of a
             # 64-token generate's events costs about a minute of host time
-            profile_generate(eng, prompts,
-                             share_of=("ssm_scan", "decode_attention"),
-                             new=HYB_NEW_SHORT)
+            for graph in (False, True):
+                profile_generate(eng, prompts,
+                                 share_of=("ssm_scan", "decode_attention"),
+                                 new=HYB_NEW_SHORT, graph=graph)
     if not np.array_equal(tokens["dense"], tokens["paged"]):
         raise AssertionError("hymba-1.5b: paged tokens differ from dense")
     log("  paged tokens == dense tokens")
@@ -3239,6 +3399,297 @@ def phase_hybrid_tp() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the continuous batcher
+# ---------------------------------------------------------------------------
+
+# llama3.2-1b served from a make_trace trace: 32 requests, prompts and
+# outputs lognormal around 256 and 64 tokens, arrivals at 0.5 a step (a
+# request holds a slot about 64 steps, so 8 slots free one every ~8 steps
+# and a queue forms: the slots stay full).
+SERVE_SLOTS, SERVE_REQS, SERVE_RATE = 8, 32, 0.5
+SERVE_MEAN_IN, SERVE_MEAN_OUT = 256, 64
+SERVE_STATS: dict = {}
+
+
+def fresh(reqs):
+    return [Request(r.rid, r.prompt, r.max_new, r.arrival_s) for r in reqs]
+
+
+def serve_run(b: ContinuousBatcher, reqs) -> tuple:
+    """One replay of the trace: ({rid: tokens}, metrics)."""
+    done = b.run(fresh(reqs))
+    return {r.rid: r.output for r in done}, b.metrics(done)
+
+
+def same_outputs(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+
+def serve_timed(label: str, b: ContinuousBatcher, reqs) -> tuple:
+    """A warm-up replay (it captures the step and meets every prompt
+    length once), then three timed ones, each with the same tokens;
+    throughput, TTFT and TPOT as medians of the three."""
+    first, _ = serve_run(b, reqs)
+    ms = []
+    for _ in range(3):
+        outs, m = serve_run(b, reqs)
+        if not same_outputs(outs, first):
+            raise AssertionError(f"{label}: a replay changed the tokens")
+        ms.append(m)
+
+    def med(f):
+        return float(np.median([getattr(m, f) for m in ms]))
+
+    st = {f: med(f) for f in ("throughput_tok_s", "ttft_s_p50", "ttft_s_p99",
+                              "tpot_s_p50", "tpot_s_p99", "wall_s")}
+    SERVE_STATS[label] = st
+    m = ms[-1]
+    log(f"  {label}: {m.completed}/{m.requests} requests, "
+        f"{m.total_new_tokens} tokens in {m.steps} steps "
+        f"({b.graph_replays} replayed so far), {m.preemptions} preemptions; "
+        f"throughput {st['throughput_tok_s']:.1f} tok/s, TTFT p50/p99 "
+        f"{st['ttft_s_p50'] * 1e3:.2f}/{st['ttft_s_p99'] * 1e3:.2f} ms, TPOT "
+        f"p50/p99 {st['tpot_s_p50'] * 1e3:.3f}/{st['tpot_s_p99'] * 1e3:.3f} "
+        f"ms (medians of 3; throughput "
+        + "/".join(f"{x.throughput_tok_s:.1f}" for x in ms) + ")")
+    if m.completed != m.requests:
+        raise AssertionError(f"{label}: requests left unserved")
+    return first, m
+
+
+class ForcedDecode:
+    """Decode-path logits teacher-forced on given sequences, ``rows`` of
+    them at a time through one dense cache and one captured step: each
+    prompt prefilled alone (batch 1, as the batcher admits it) into its
+    row, then its own tokens fed one step at a time.  A GEMM's rounding
+    depends on its row count, not on the other rows, so with the row count
+    of the path being checked (the batcher's slots, or 1 for a batch-1
+    generate) each row's logits are that path's, row for row."""
+
+    def __init__(self, model, ap, rows: int, ctx=None, mesh=None):
+        self.model, self.ap, self.rows, self.mesh = model, ap, rows, mesh
+        self.kw = {} if mesh is None else {"ctx": ctx, "mesh": mesh}
+        self.cache = init_cache(ap, rows, S_MAX, device="cuda", mesh=mesh)
+        self.tok = torch.zeros(rows, dtype=torch.int32, device="cuda")
+        self.pos = torch.zeros(rows, dtype=torch.int32, device="cuda")
+        self.out = torch.zeros((rows, ap.cfg.vocab_size), device="cuda")
+
+        def body():
+            with torch.inference_mode():
+                lg, _ = decode_step(model, self.cache, self.tok, self.pos,
+                                    ap, **self.kw)
+                self.out.copy_(self.full(lg))
+
+        self.step = CapturedStep(body, graph=True,
+                                 workspace=getattr(mesh, "workspace", None))
+
+    def full(self, lg: torch.Tensor) -> torch.Tensor:
+        lg = lg if self.mesh is None else gather_vocab(lg)
+        return lg[..., :self.ap.cfg.vocab_size].float()
+
+    def logits(self, seqs) -> list:
+        """seqs: [(prompt, output)] -> [(len(output), V) f32]: row t holds
+        the logits that chose output token t."""
+        res = []
+        for g0 in range(0, len(seqs), self.rows):
+            group = seqs[g0:g0 + self.rows]
+            per = []
+            with torch.inference_mode():
+                for i, (p, _) in enumerate(group):
+                    lg, st = forward_lm(self.model, torch.as_tensor(
+                        p[None], device="cuda").long(), self.ap,
+                        collect_state=True, **self.kw)
+                    seed_cache(self.cache, st, slot=i)
+                    per.append([self.full(lg[..., -1, :])[0]])
+            tok = np.zeros(self.rows, np.int32)
+            pos = np.zeros(self.rows, np.int32)
+            for t in range(1, max(len(o) for _, o in group)):
+                for i, (p, o) in enumerate(group):
+                    tok[i] = o[min(t, len(o)) - 1]
+                    pos[i] = min(len(p) + t - 1, S_MAX - 1)
+                self.tok.copy_(torch.from_numpy(tok))
+                self.pos.copy_(torch.from_numpy(pos))
+                self.step()
+                for i, (_, o) in enumerate(group):
+                    if t < len(o):
+                        per[i].append(self.out[i].clone())
+            res += [torch.stack(x) for x in per]
+        return res
+
+
+def serve_gate(label: str, reqs, outs: dict, ref: dict, lg: list,
+               ref_lg: list) -> int:
+    """provable_gate over a served trace: each request's tokens equal the
+    reference's at every step until the first at which the reference
+    path's top-1/top-2 gap is not above twice the two paths' largest logit
+    difference (both teacher-forced on the reference's tokens)."""
+    checked = 0
+    for r, a, b in zip(reqs, lg, ref_lg):
+        gap = top2_gap(b)
+        diff = (a - b).abs().amax(-1).cpu().numpy()
+        want, got = ref[r.rid], outs[r.rid]
+        for t in range(len(want)):
+            if gap[t] <= 2 * diff[t]:
+                break
+            if t >= len(got) or got[t] != want[t]:
+                raise AssertionError(f"{label}: request {r.rid} step {t}: "
+                                     f"tokens differ with gap {gap[t]:.4g} "
+                                     f"above twice {diff[t]:.4g}")
+            checked += 1
+    n = sum(len(ref[r.rid]) for r in reqs)
+    log(f"  {label}: tokens equal on {checked}/{n} steps that provable_gate "
+        "checks (gap above twice the paths' logit difference)")
+    return checked
+
+
+def phase_serve() -> None:
+    cfg = get_config("llama3.2-1b")
+    reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
+                      mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
+                      vocab=cfg.vocab_size, seed=SEED)
+    lens = [len(r.prompt) for r in reqs]
+    log(f"  trace: {len(reqs)} requests, prompts {min(lens)}-{max(lens)} "
+        f"(mean {np.mean(lens):.1f}), {sum(r.max_new for r in reqs)} new "
+        f"tokens, arrivals over {reqs[-1].arrival_s:.1f} steps; "
+        f"{SERVE_SLOTS} slots of {S_MAX} positions, bf16, seeded weights")
+    ap = make_plan(cfg, 1)
+    model = init_params(ap, seed=SEED, device="cuda")
+
+    def batcher(**kw):
+        return ContinuousBatcher(ap, model, slots=SERVE_SLOTS, s_max=S_MAX,
+                                 device="cuda", **kw)
+
+    dense, _ = serve_timed("tp=1 dense", batcher(), reqs)
+    paged, m_paged = serve_timed(f"tp=1 paged (block {BLOCK})",
+                                 batcher(block_size=BLOCK), reqs)
+    if not same_outputs(paged, dense):
+        raise AssertionError("serve: paged tokens differ from dense")
+    log("  paged tokens == dense tokens")
+    t0 = time.perf_counter()
+    eager, m_eager = serve_run(batcher(block_size=BLOCK, cuda_graph=False),
+                               reqs)
+    log(f"  tp=1 paged, eager steps: throughput "
+        f"{m_eager.throughput_tok_s:.1f} tok/s, TPOT p50 "
+        f"{m_eager.tpot_s_p50 * 1e3:.3f} ms (one run, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not same_outputs(eager, paged):
+        raise AssertionError("serve: graph tokens differ from eager")
+    log("  graph tokens == eager tokens")
+    n_blocks = max(S_MAX // BLOCK + 1,
+                   m_paged.cache_stats["peak_used_blocks"] // 2 + 1)
+    small, m_small = serve_run(batcher(block_size=BLOCK, n_blocks=n_blocks),
+                               reqs)
+    log(f"  pool of {n_blocks} blocks (half the undisturbed run's peak "
+        f"{m_paged.cache_stats['peak_used_blocks']}): "
+        f"{m_small.preemptions} preemptions, {m_small.wasted_tokens} tokens "
+        f"recomputed, {m_small.steps} steps")
+    if m_small.preemptions == 0 or not same_outputs(small, dense):
+        raise AssertionError("serve: the small pool did not preempt, or "
+                             "changed a token")
+    log("  preempted run's tokens == the undisturbed run's")
+    samp = dict(block_size=BLOCK, temperature=1.0, top_k=50)
+    s1, _ = serve_run(batcher(seed=SEED, **samp), reqs)
+    s2, _ = serve_run(batcher(seed=SEED, **samp), reqs)
+    s3, _ = serve_run(batcher(seed=SEED + 1, **samp), reqs)
+    differ = sum(not np.array_equal(s1[k], s3[k]) for k in s1)
+    if not same_outputs(s1, s2) or not differ:
+        raise AssertionError("serve: sampling is not a function of its seed")
+    log(f"  sampled (temperature 1, top-50): two runs under one seed equal, "
+        f"{differ}/{len(s1)} requests differ under another seed")
+    eng = InferenceEngine(ap, model, s_max=S_MAX, device="cuda")
+    gen1 = {r.rid: eng.generate(r.prompt[None], r.max_new).new_tokens[0]
+            for r in reqs}
+    del eng
+    fd_slots = ForcedDecode(model, ap, SERVE_SLOTS)
+    seqs = [(r.prompt, gen1[r.rid]) for r in reqs]
+    serve_gate("tp=1 batcher against each request's batch-1 generate",
+               reqs, dense, gen1, fd_slots.logits(seqs),
+               ForcedDecode(model, ap, 1).logits(seqs))
+    free_device()
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    ap8 = make_plan(cfg, PODS * FAST)
+    model8 = init_params(ap8, seed=SEED, device="cuda", mesh=mesh)
+
+    def batcher8(block_size=BLOCK, c=ctx, **kw):
+        return ContinuousBatcher(ap8, model8, slots=SERVE_SLOTS, s_max=S_MAX,
+                                 ctx=c, mesh=mesh, device="cuda",
+                                 block_size=block_size, **kw)
+
+    tp8, _ = serve_timed(f"tp=8 ({PODS}x{FAST}) hier_rd paged", batcher8(),
+                         reqs)
+    tp8_dense, _ = serve_run(batcher8(block_size=0), reqs)
+    if not same_outputs(tp8, tp8_dense):
+        raise AssertionError("serve: tp=8 paged tokens differ from tp=8 "
+                             "dense")
+    log("  tp=8 paged tokens == tp=8 dense tokens (the folded table, the "
+        "slot splice and kernel 2 over the ranks' pools)")
+    seqs = [(r.prompt, dense[r.rid]) for r in reqs]
+    serve_gate("tp=8 against tp=1", reqs, tp8, dense,
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh).logits(seqs),
+               fd_slots.logits(seqs))
+    samp8 = dict(temperature=1.0, top_k=50)
+    t = [serve_run(batcher8(seed=SEED, **samp8), reqs)[0] for _ in range(3)]
+    if not (same_outputs(t[0], t[1]) and same_outputs(t[0], t[2])):
+        raise AssertionError("serve: sampling on the mesh is not a "
+                             "function of its seed")
+    log("  tp=8 sampled (temperature 1, top-50): three runs under one seed "
+        "equal")
+    # under overlap an admission longer than any before grows kernel 5's
+    # buffers, which the captured step holds: the step is captured anew
+    octx = ctx.replace(overlap_matmul=True, overlap_chunks=4)
+    b = batcher8(c=octx)
+    t0 = time.perf_counter()
+    ov, _ = serve_run(b, reqs)
+    ov_s = time.perf_counter() - t0
+    ov_eager, _ = serve_run(batcher8(c=octx, cuda_graph=False), reqs)
+    log(f"  tp=8 hier_rd+overlap paged: {b.graph_recaptures} captures anew "
+        f"after an admission grew kernel 5's buffers, {b.graph_replays} "
+        f"replays ({ov_s:.1f} s)")
+    if b.graph_recaptures < 1 or not same_outputs(ov, ov_eager):
+        raise AssertionError("serve: under overlap the graph was not "
+                             "captured anew, or its tokens differ from the "
+                             "eager steps'")
+    log("  tp=8 hier_rd+overlap graph tokens == eager tokens")
+    del model, model8, fd_slots, b
+    free_device()
+    serve_f32(reqs)
+
+
+def serve_f32(reqs) -> None:
+    """The batcher in f32 at full width and 2 layers, tp=8 (4x2 hier_rd)
+    paged against tp=1 dense by provable_gate: f32 keeps the two paths'
+    logit difference near 1e-5, so the gate checks most steps, and it
+    fails below three quarters of them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+                              dtype=torch.float32)
+    ap = make_plan(cfg, 1)
+    model = init_params(ap, seed=SEED, device="cuda")
+    one, _ = serve_run(ContinuousBatcher(ap, model, slots=SERVE_SLOTS,
+                                         s_max=S_MAX, device="cuda"), reqs)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    ap8 = make_plan(cfg, PODS * FAST)
+    model8 = init_params(ap8, seed=SEED, device="cuda", mesh=mesh)
+    eight, _ = serve_run(ContinuousBatcher(
+        ap8, model8, slots=SERVE_SLOTS, s_max=S_MAX, ctx=ctx, mesh=mesh,
+        block_size=BLOCK, device="cuda"), reqs)
+    seqs = [(r.prompt, one[r.rid]) for r in reqs]
+    checked = serve_gate(
+        "f32, 2 layers: tp=8 paged against tp=1 dense", reqs, eight, one,
+        ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh).logits(seqs),
+        ForcedDecode(model, ap, SERVE_SLOTS).logits(seqs))
+    n = sum(len(one[r.rid]) for r in reqs)
+    if 4 * checked < 3 * n:
+        raise AssertionError(f"serve f32: provable_gate checked only "
+                             f"{checked}/{n} steps")
+    del model, model8
+    free_device()
+
+
 def ptxas_report() -> None:
     """ptxas's -v report of this build's libraries, a line a kernel: its
     registers, static shared memory and spills (the bf16 tensor-core
@@ -3269,6 +3720,21 @@ def ptxas_report() -> None:
                 f"{spill.group(0) if spill else '?'}")
 
 
+_PHASE = {"title": "", "t": 0.0}
+
+
+def phase(title: str) -> None:
+    """Log the running phase's seconds, then start the next (an empty
+    title ends the last)."""
+    now = time.perf_counter()
+    if _PHASE["title"]:
+        log(f"    {_PHASE['title'].split(']')[0]}] took "
+            f"{now - _PHASE['t']:.1f} s")
+    if title:
+        log(title)
+    _PHASE.update(title=title, t=now)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3277,93 +3743,101 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    log("[1] card (nvidia-smi name, power.limit):")
+    phase("[1] card (nvidia-smi name, power.limit):")
     log(smi)
     log(f"    torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.build()
-    log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
+    phase(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"({_build.BUILD_DIR})")
     ptxas_report()
     rec = phase_kernels()
     phase_sweep()
     phase_decode_repeat()
-    log("[3] recursive-doubling all-reduce kernel")
+    phase("[3] recursive-doubling all-reduce kernel")
     rec["rd_all_reduce"] = phase_rd()
-    log("[4] llama3.2-1b full width and depth, bf16")
+    phase("[4] llama3.2-1b full width and depth, bf16")
     launches, tp1_tokens, tp1_logits = phase_path()
-    log("[5] card vs CPU, full width, 2 layers, float32")
+    phase("[5] card vs CPU, full width, 2 layers, float32")
     card_vs_cpu(1, 1, "flat")
-    log(f"[6] llama3.2-1b tp=8 ({PODS} pods x {FAST}) full width and "
+    phase(f"[6] llama3.2-1b tp=8 ({PODS} pods x {FAST}) full width and "
         "depth, bf16")
     tp_launches, flat_tokens, flat_logits = phase_tp(tp1_tokens, tp1_logits)
     launches.update(tp_launches)
-    log(f"[7] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd), full width, "
+    phase(f"[7] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd), full width, "
         "2 layers, float32")
     card_vs_cpu(PODS * FAST, PODS, "hier_rd")
-    log("[8] fused GEMM + recursive-doubling kernel")
+    phase("[8] fused GEMM + recursive-doubling kernel")
     rec["collective_matmul_rd"] = phase_fused()
-    log(f"[9] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + overlapped "
+    phase(f"[9] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + overlapped "
         "projections, full width and depth, bf16")
     ov_launches, decode_refs = phase_overlap(tp1_tokens, tp1_logits,
                                              flat_tokens, flat_logits)
     launches.update(ov_launches)
-    log(f"[10] card vs CPU at tp=8 ({PODS}x{FAST}, auto + overlap), full "
+    phase(f"[10] card vs CPU at tp=8 ({PODS}x{FAST}, auto + overlap), full "
         "width, 2 layers, float32")
     card_vs_cpu(PODS * FAST, PODS, "auto", overlap_matmul=True)
-    log("[11] group-quantized pack and unpack kernels (kernel 6), and the "
+    phase("[11] group-quantized pack and unpack kernels (kernel 6), and the "
         "quantized recursive doubling in one launch")
     rec.update(phase_quant_kernels())
     rec["quant_rd_all_reduce"] = phase_quant_fused()
-    log(f"[12] llama3.2-1b tp=8 ({PODS}x{FAST}) hier_rd on the int8 and "
+    phase(f"[12] llama3.2-1b tp=8 ({PODS}x{FAST}) hier_rd on the int8 and "
         "int4 wire, error feedback on, full width and depth, bf16")
     launches.update(phase_quant(decode_refs))
-    log(f"[13] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + auto quantization + "
+    phase(f"[13] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + auto quantization + "
         "overlapped projections, full width and depth, bf16")
     launches.update(phase_auto_quant(decode_refs))
-    log(f"[14] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd + int8), full "
+    phase(f"[14] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd + int8), full "
         "width, 2 layers, float32")
     card_vs_cpu(PODS * FAST, PODS, "hier_rd", ar_quant="int8",
                 tol=QUANT_CPU_TOL)
-    log("[15] grouped expert FFN kernel (kernel 7)")
+    phase("[15] grouped expert FFN kernel (kernel 7)")
     rec["moe_expert_ffn"] = phase_moe_kernel()
-    log(f"[16] {MOE_ARCH} tp=1, full width and depth, bf16")
+    phase(f"[16] {MOE_ARCH} tp=1, full width and depth, bf16")
     launches.update(phase_moe_path())
-    log(f"[17] {MOE_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
+    phase(f"[17] {MOE_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
         "4 layers, float32")
     launches.update(phase_moe_tp())
-    log(f"[18] card vs CPU, {MOE_ARCH}, full width, 2 layers, float32: "
+    phase(f"[18] card vs CPU, {MOE_ARCH}, full width, 2 layers, float32: "
         f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
     free_device()
     card_vs_cpu(1, 1, "flat", arch=MOE_ARCH)
     card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=MOE_ARCH)
     free_device()
-    log("[19] RWKV6 time-mix scan kernel (kernel 8)")
+    phase("[19] RWKV6 time-mix scan kernel (kernel 8)")
     rec["rwkv6_scan"] = phase_rwkv_kernel()
-    log(f"[20] {RWKV_ARCH} tp=1, full width and depth, bf16")
+    phase(f"[20] {RWKV_ARCH} tp=1, full width and depth, bf16")
     launches.update(phase_rwkv_path())
-    log(f"[21] {RWKV_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
+    phase(f"[21] {RWKV_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
         f"{RWKV_TP_LAYERS} layers, float32")
     launches.update(phase_rwkv_tp())
-    log(f"[22] card vs CPU, {RWKV_ARCH}, full width, 2 layers, float32: "
+    phase(f"[22] card vs CPU, {RWKV_ARCH}, full width, 2 layers, float32: "
         f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
     free_device()
     card_vs_cpu(1, 1, "flat", arch=RWKV_ARCH)
     card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=RWKV_ARCH)
     free_device()
-    log("[23] Mamba selective-scan kernel (kernel 9)")
+    phase("[23] Mamba selective-scan kernel (kernel 9)")
     rec["ssm_scan"] = phase_ssm_kernel()
-    log(f"[24] {HYB_ARCH} tp=1, full width and depth, bf16")
+    phase(f"[24] {HYB_ARCH} tp=1, full width and depth, bf16")
     launches.update(phase_hybrid_path())
-    log(f"[25] {HYB_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
+    phase(f"[25] {HYB_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
         f"{HYB_TP_LAYERS} layers, float32")
     launches.update(phase_hybrid_tp())
-    log(f"[26] card vs CPU, {HYB_ARCH}, full width, 2 layers, float32: "
+    phase(f"[26] card vs CPU, {HYB_ARCH}, full width, 2 layers, float32: "
         f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
     free_device()
     card_vs_cpu(1, 1, "flat", arch=HYB_ARCH)
     card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=HYB_ARCH)
+    free_device()
+    phase(f"[27] continuous batcher, llama3.2-1b full width and depth, bf16: "
+          f"tp=1 dense and paged, tp=8 ({PODS}x{FAST}, hier_rd) paged")
+    phase_serve()
+    phase("")
+    log("    decode tok/s, eager / graph (medians of 3, this run):")
+    for label, (e, g) in GRAPH_TPS.items():
+        log(f"      {label}: {e:.1f} / {g:.1f} ({g / e:.2f}x)")
     # launches: the count of the run of the path each kernel serves (the
     # tp=8 hier_rd path, the paged kernel's tp=1 paged path, the fused
     # kernel's tp=8 auto + overlap path, kernel 6's tp=8 hier_rd int8

@@ -8,8 +8,16 @@ batch starts.  The paged cache (``block_size > 0``) uses the identity
 block table, as the JAX engine's local path does.
 
 Two modes, as in the reference: local (tp=1, no mesh) and mesh (tensor
-parallel over a :class:`~repro_torch.core.mesh.VirtualMesh` on one card,
-through the step builders of :mod:`repro_torch.parallel.steps`).
+parallel over a :class:`~repro_torch.core.mesh.VirtualMesh` on one card),
+both through the step builders of :mod:`repro_torch.parallel.steps`.  On
+the card the decode loop is a CUDA graph: the first step of a batch size
+runs eagerly, the second is captured and every later one (in this and
+later ``generate`` calls at that batch size) replays it, over a cache and
+static token, position and output tensors the engine keeps for that batch
+size (``cuda_graph=False`` keeps every step eager); a prefill that grows
+an exchange buffer the graph took (a longer prompt under overlap) has
+the step captured anew (``parallel.steps.CapturedStep``).  On the CPU the
+loop is eager.
 """
 from __future__ import annotations
 
@@ -22,10 +30,9 @@ import torch
 
 from ..core.pcontext import LOCAL, ParallelCtx
 from ..models import layers as L
-from ..models.transformer import (ArchPlan, DenseLM, check_layout,
-                                  decode_step, forward_lm, init_cache,
-                                  seed_cache)
-from ..parallel.steps import ARTable, build_decode_step, build_prefill
+from ..models.transformer import ArchPlan, DenseLM, check_layout
+from ..parallel.steps import (ARTable, CapturedStep, build_cache_init,
+                              build_decode_step, build_prefill)
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -45,11 +52,28 @@ class GenerationResult:
     prefill_s: float
     decode_s: float
     steps: int
+    graph_replays: int = 0       # decode steps replayed from a CUDA graph
+    graph_recaptures: int = 0    # captures anew after a buffer moved
 
     @property
     def decode_tokens_per_s(self) -> float:
         n = self.new_tokens.size
         return n / self.decode_s if self.decode_s > 0 else float("inf")
+
+
+@dataclasses.dataclass
+class _DecodeLoop:
+    """The decode loop of one batch size: its cache and the static tensors
+    a captured step reads and writes in place (the current tokens, their
+    positions, each row's chain key and token index, and the output, token
+    t of row b at [b, t])."""
+    cache: dict
+    cur: torch.Tensor
+    positions: torch.Tensor
+    keys: torch.Tensor
+    idx: torch.Tensor
+    out: torch.Tensor
+    step: Optional[CapturedStep] = None
 
 
 class InferenceEngine:
@@ -59,35 +83,31 @@ class InferenceEngine:
                  ctx: ParallelCtx = LOCAL, mesh=None, s_max: int = 4096,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  block_size: int = 0, ar_table: ARTable = None,
-                 device: Optional[str | torch.device] = None):
+                 device: Optional[str | torch.device] = None,
+                 cuda_graph: bool = True):
         """``block_size > 0`` selects the paged KV layout (identity block
-        table).  ``temperature > 0`` samples (optionally top-k) from a
-        ``torch.Generator`` seeded with ``seed``.  ``device=None`` runs on
-        the card and raises if there is none; the model is moved there.
+        table; on a mesh each rank's pool is folded into one, as
+        ``transformer.init_cache`` lays it out).  ``temperature > 0``
+        samples (optionally top-k), row b from its own stateless chain
+        ``layers.sampling_key(seed, b)``, token t at index t, the prefill's
+        first token included; on a mesh the vocab shards are gathered
+        first.  ``device=None`` runs on the card and raises if there is
+        none; the model is moved there.
 
         With a ``mesh`` (and the ctx that wires it) the engine runs the
-        tensor-parallel path: dense cache only, as the reference's engine
-        (a paged cache raises), and greedy sampling over the vocab shards,
-        as the reference's mesh steps; ``temperature > 0`` raises rather
-        than quietly going greedy.  ``ar_table`` (a persisted autotune
-        table's path, or an ``AutoTuner``) is what the mesh steps resolve
+        tensor-parallel path.  ``ar_table`` (a persisted autotune table's
+        path, or an ``AutoTuner``) is what the steps resolve
         ``ar_strategy="auto"`` against (default: ``REPRO_AR_TABLE``, else
         the analytic tuner); ``ctx.overlap_matmul`` overlaps the
-        row-parallel projections with their all-reduces."""
+        row-parallel projections with their all-reduces.  ``cuda_graph``
+        (on a CUDA device) replays the decode step from a CUDA graph;
+        False runs every step eagerly, as the CPU does (the attribute may
+        be switched between ``generate`` calls)."""
         self.ap = ap
         self.cfg = ap.cfg
         self.ctx = ctx
         self.mesh = mesh
         check_layout(ap, ctx, mesh)
-        if mesh is not None:
-            if block_size:
-                raise NotImplementedError(
-                    "the paged engine cache is local-path only; mesh-path "
-                    "paged serving arrives with ROADMAP item 6")
-            if temperature > 0:
-                raise ValueError(
-                    "the mesh path samples greedily over the vocab shards "
-                    "(greedy_sample); temperature > 0 needs tp=1")
         self.device = resolve_device(device)
         if mesh is not None and mesh.device.type != self.device.type:
             raise ValueError(f"mesh on {mesh.device}, engine on "
@@ -96,70 +116,89 @@ class InferenceEngine:
         self.s_max = s_max
         self.temperature = temperature
         self.top_k = top_k
+        self.seed = seed
         self.block_size = block_size
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
-        if mesh is not None:
-            self._mesh_prefill = build_prefill(ap, ctx, mesh, s_max=s_max,
-                                               ar_table=ar_table)
-            self._mesh_decode = build_decode_step(ap, ctx, mesh,
-                                                  ar_table=ar_table)
+        self._cuda = self.device.type == "cuda"
+        self.cuda_graph = cuda_graph
+        kw = dict(temperature=temperature, top_k=top_k, ar_table=ar_table)
+        self._prefill = build_prefill(ap, ctx, mesh, s_max=s_max,
+                                      block_size=block_size, **kw)
+        self._decode = build_decode_step(ap, ctx, mesh, **kw)
+        self._loop: Optional[_DecodeLoop] = None
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
-    def _prefill(self, tokens: torch.Tensor):
-        if self.mesh is not None:
-            return self._mesh_prefill(self.model, tokens)
-        B = tokens.shape[0]
-        logits, states = forward_lm(self.model, tokens, self.ap,
-                                    collect_state=True)
-        cache = init_cache(self.ap, B, self.s_max,
-                           block_size=self.block_size, device=self.device)
-        seed_cache(cache, states)
-        nxt = torch.argmax(logits[:, -1, :self.cfg.vocab_size].float(),
-                           dim=-1).to(torch.int32)
-        return nxt, cache
+    def _decode_loop(self, B: int) -> _DecodeLoop:
+        """The loop of batch size B, made at its first use (a new B, or
+        ``cuda_graph`` switched since, replaces the last one's: one cache
+        is held at a time)."""
+        lp = self._loop
+        if lp is not None and lp.cur.shape[0] == B \
+                and lp.step.graph == (self.cuda_graph and self._cuda):
+            return lp
+        self._loop = None
+        dev = self.device
+        keys = torch.tensor([L.sampling_key(self.seed, b) for b in range(B)],
+                            dtype=torch.int64, device=dev)
+        lp = _DecodeLoop(
+            cache=build_cache_init(self.ap, self.ctx, self.mesh, slots=B,
+                                   s_max=self.s_max,
+                                   block_size=self.block_size,
+                                   device=dev)(),
+            cur=torch.zeros(B, dtype=torch.int32, device=dev),
+            positions=torch.zeros(B, dtype=torch.int32, device=dev),
+            keys=keys, idx=torch.zeros(B, dtype=torch.int32, device=dev),
+            out=torch.zeros((B, self.s_max), dtype=torch.int32, device=dev))
 
-    @torch.inference_mode()
-    def _decode(self, cache, tokens: torch.Tensor, positions: torch.Tensor):
-        if self.mesh is not None:
-            return self._mesh_decode(self.model, cache, tokens, positions)[0]
-        logits, cache = decode_step(self.model, cache, tokens, positions,
-                                    self.ap)
-        return L.sample_token(logits, self._gen,
-                              temperature=self.temperature, top_k=self.top_k,
-                              vocab_real=self.cfg.vocab_size)
+        @torch.inference_mode()
+        def body():
+            nxt, _ = self._decode(self.model, lp.cache, lp.cur, lp.positions,
+                                  lp.keys, lp.idx)
+            lp.out.scatter_(1, lp.idx[:, None].long(), nxt[:, None])
+            lp.cur.copy_(nxt)
+            lp.positions.add_(1)
+            lp.idx.add_(1)
+
+        lp.step = CapturedStep(body, self.cuda_graph and self._cuda,
+                               workspace=getattr(self.mesh, "workspace",
+                                                 None))
+        self._loop = lp
+        return lp
 
     def generate(self, prompts: np.ndarray,
                  max_new_tokens: int) -> GenerationResult:
         """prompts: (B, S) int (uniform length).  Greedy unless the engine
-        was built with ``temperature > 0`` (tp=1)."""
+        was built with ``temperature > 0``."""
         prompts = np.asarray(prompts, np.int64)
         B, S = prompts.shape
         if S + max_new_tokens > self.s_max:
             raise ValueError(f"prompt {S} + {max_new_tokens} new tokens "
                              f"exceed s_max={self.s_max}")
         tokens = torch.as_tensor(prompts, device=self.device)
+        lp = self._decode_loop(B)
         self._sync()
         t0 = time.perf_counter()
-        cur, cache = self._prefill(tokens)
+        with torch.inference_mode():
+            nxt, _ = self._prefill(self.model, tokens, lp.keys,
+                                   cache=lp.cache)
+            lp.cur.copy_(nxt)
+            lp.out[:, 0] = nxt
+        lp.positions.fill_(S)
+        lp.idx.fill_(1)
         self._sync()
         t1 = time.perf_counter()
-        out = [cur]
-        positions = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        replays, recaptures = lp.step.replays, lp.step.recaptures
         for _ in range(max_new_tokens - 1):
-            cur = self._decode(cache, cur, positions)
-            positions = positions + 1
-            out.append(cur)
-        new = torch.stack(out, dim=1).cpu().numpy()   # waits for the device
+            lp.step()
+        new = lp.out[:, :max_new_tokens].cpu().numpy()  # waits for the device
         t2 = time.perf_counter()
         return GenerationResult(
             tokens=np.concatenate([prompts.astype(np.int32), new], axis=1),
             new_tokens=new, prefill_s=t1 - t0, decode_s=t2 - t1,
-            steps=max_new_tokens)
+            steps=max_new_tokens, graph_replays=lp.step.replays - replays,
+            graph_recaptures=lp.step.recaptures - recaptures)
 
 
 __all__ = ["InferenceEngine", "GenerationResult", "resolve_device"]

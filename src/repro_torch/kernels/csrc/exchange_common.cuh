@@ -1,8 +1,8 @@
 // Device helpers shared by the two exchange kernels of the port
 // (rd_allreduce.cu, fused_matmul_rd.cu): f32 <-> operand conversions,
 // packed L2-only loads and stores for buffers other SMs write, the
-// release/acquire flag protocol with a bounded spin, and (rd_allreduce.cu)
-// the LL packets and the epoch kept in device memory.
+// release/acquire flag protocol with a bounded spin, the LL packets and
+// the epoch kept in device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -154,7 +154,9 @@ __device__ __forceinline__ unsigned wait_packet(const unsigned long long* p,
 // back before the put's fence, which would wait for it); epoch_value
 // reads the result, and the CTA that made the word's count whole stores
 // its next epoch with the ticket reset.  A CUDA graph that replays the
-// launch reads the current epochs.
+// launch reads the current epochs.  A kernel whose CTAs exchange with CTAs
+// of any index (the fused GEMM's tiles) counts its whole grid on word 0
+// instead: grid_epoch_ticket / grid_epoch_value.
 constexpr int kEpochWords = 8;    // EPOCH_WORDS in rd_allreduce/ops.py
 constexpr int kEpochStride = 32;  // uint32s between words
 
@@ -162,13 +164,31 @@ __device__ __forceinline__ unsigned* epoch_word(unsigned* ctl) {
   return ctl + (blockIdx.x % kEpochWords) * kEpochStride;
 }
 
-__device__ __forceinline__ unsigned long long epoch_ticket(unsigned* ctl) {
+__device__ __forceinline__ unsigned long long take_ticket(unsigned* word) {
   unsigned long long old;
   asm volatile("atom.relaxed.gpu.global.add.u64 %0, [%1], 1;"
                : "=l"(old)
-               : "l"(epoch_word(ctl))
+               : "l"(word)
                : "memory");
   return old;
+}
+
+// The epoch a ticket read; the n-th of n tickets moves the word on.
+__device__ __forceinline__ unsigned read_epoch(unsigned* word,
+                                               unsigned long long old,
+                                               unsigned n) {
+  const unsigned epoch = static_cast<unsigned>(old >> 32);
+  if (static_cast<unsigned>(old) == n - 1) {
+    const unsigned next = epoch + 1 == (1u << 29) ? 1 : epoch + 1;
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(word),
+                 "l"(static_cast<unsigned long long>(next) << 32)
+                 : "memory");
+  }
+  return epoch;
+}
+
+__device__ __forceinline__ unsigned long long epoch_ticket(unsigned* ctl) {
+  return take_ticket(epoch_word(ctl));
 }
 
 // The call's flag value, (epoch << 3) | word: never 0, which fresh flags
@@ -179,14 +199,19 @@ __device__ __forceinline__ unsigned epoch_value(unsigned* ctl,
   const unsigned k = blockIdx.x % kEpochWords;
   const unsigned n = gridDim.y * gridDim.z *
                      ((gridDim.x - k + kEpochWords - 1) / kEpochWords);
-  const unsigned epoch = static_cast<unsigned>(old >> 32);
-  if (static_cast<unsigned>(old) == n - 1) {
-    const unsigned next = epoch + 1 == (1u << 29) ? 1 : epoch + 1;
-    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(epoch_word(ctl)),
-                 "l"(static_cast<unsigned long long>(next) << 32)
-                 : "memory");
-  }
-  return epoch << 3 | k;
+  return read_epoch(epoch_word(ctl), old, n) << 3 | k;
+}
+
+__device__ __forceinline__ unsigned long long grid_epoch_ticket(
+    unsigned* ctl) {
+  return take_ticket(ctl);
+}
+
+// The call's flag value when every CTA of the grid counts on word 0:
+// epoch << 3, the same on every CTA of a launch, never 0.
+__device__ __forceinline__ unsigned grid_epoch_value(unsigned* ctl,
+                                                     unsigned long long old) {
+  return read_epoch(ctl, old, gridDim.x * gridDim.y * gridDim.z) << 3;
 }
 
 // Bring a line another SM will write and this one will poll into L2, so

@@ -47,15 +47,20 @@
 // Pass 0: for each of its tiles it computes the GEMM, rounds, writes the
 // partial to out, puts the same values into the step-0 receive buffer of
 // its peer (p ^ 1, f), fences and publishes that tile's step-0 flag with
-// the call's sequence number, and goes on to its next tile (chunk c+1)
+// the call's flag value, and goes on to its next tile (chunk c+1)
 // while the stores drain.  Pass s + 1: for each tile it waits (acquire)
 // for its own step-s flag, adds the received tile to its partial and puts
 // the sum to its step-(s+1) peer.  Every CTA issues all its puts of a step
 // before it waits on any flag of that step, so no CTA waits on a tile
 // queued behind a waiting CTA: by induction over the steps every wait is
-// met.  Per-step buffers and flags, the sequence numbers and the ~1 s
-// trap on a wait are kernel 4's protocol (rd_allreduce.cu).  Each thread
-// adds, in every pass, exactly the elements it wrote in pass 0.
+// met.  Per-step buffers and flags and the ~1 s trap on a wait are
+// kernel 4's protocol (rd_allreduce.cu).  The flag value is an epoch in
+// device memory, as kernel 4's (exchange_common.cuh): thread 0 of every
+// CTA takes a ticket on word 0 of this kernel's own epoch words at the
+// start and reads the epoch at its first publish, and the CTA that
+// completes the grid's count moves the epoch on, so no number comes from
+// the host and a captured CUDA graph replays the launch correctly.  Each
+// thread adds, in every pass, exactly the elements it wrote in pass 0.
 //
 // What bounds it on an H100.  In decode (M = 8 rows a rank) bytes: the
 // weights, R K N elements, read once, which the bf16 form streams with
@@ -95,7 +100,7 @@ struct Args {
   int R, fast, M, K, N, chunk_w, steps;
   int row_tiles, tiles_per_chunk, tiles_per_rank;
   long long n_tiles;
-  unsigned seq;
+  unsigned* ctl;  // this kernel's epoch words
 };
 
 template <class C>
@@ -257,6 +262,10 @@ fused_matmul_rd_kernel(const Args a) {
   const long long MN = static_cast<long long>(a.M) * a.N;
   const int tx = threadIdx.x % (C::BN / C::TN);
   const int ty = threadIdx.x / (C::BN / C::TN);
+  // thread 0 alone publishes and waits, so it alone holds the flag value
+  unsigned long long ticket = 0;
+  unsigned seq = 0;
+  if (a.steps && threadIdx.x == 0) ticket = grid_epoch_ticket(a.ctl);
 
   // Pass 0: the GEMM of every tile in chunk order, each put to its step-0
   // peer as soon as it is computed.
@@ -282,7 +291,10 @@ fused_matmul_rd_kernel(const Args a) {
                        recv + static_cast<long long>(peer) * MN + o), v);
       }
     }
-    if (a.steps) publish(flag_of(a, 0, peer, t.t_loc), a.seq);
+    if (a.steps) {
+      if (threadIdx.x == 0 && !seq) seq = grid_epoch_value(a.ctl, ticket);
+      publish(flag_of(a, 0, peer, t.t_loc), seq);
+    }
   }
 
   // Passes 1..steps: add the step-s tile from the peer, put the sum on.
@@ -293,7 +305,7 @@ fused_matmul_rd_kernel(const Args a) {
       const Tile t = tile_of<C>(a, tau);
       const int next = more ? peer_of(t.r, a.fast, s + 1) : 0;
       T* to_next = recv + (static_cast<long long>(s + 1) * a.R + next) * MN;
-      cta_wait(flag_of(a, s, t.r, t.t_loc), a.seq);
+      cta_wait(flag_of(a, s, t.r, t.t_loc), seq);
       // each thread adds the elements it wrote, so out is only ever read
       // by the thread that wrote it
 #pragma unroll
@@ -311,7 +323,7 @@ fused_matmul_rd_kernel(const Args a) {
           if (more) store_cg(reinterpret_cast<P*>(to_next + o), v);
         }
       }
-      if (more) publish(flag_of(a, s + 1, next, t.t_loc), a.seq);
+      if (more) publish(flag_of(a, s + 1, next, t.t_loc), seq);
     }
   }
 }
@@ -524,6 +536,9 @@ fused_matmul_rd_tc_kernel(const Args a) {
   bf16* out = static_cast<bf16*>(a.out);
   bf16* recv = static_cast<bf16*>(a.recv);
   const long long MN = static_cast<long long>(a.M) * a.N;
+  unsigned long long ticket = 0;  // thread 0's, as in the f32 kernel
+  unsigned seq = 0;
+  if (a.steps && threadIdx.x == 0) ticket = grid_epoch_ticket(a.ctl);
 
   for (long long tau = blockIdx.x; tau < a.n_tiles; tau += gridDim.x) {
     const Tile t = tile_of<C>(a, tau);
@@ -541,7 +556,10 @@ fused_matmul_rd_tc_kernel(const Args a) {
       store_cg(reinterpret_cast<P*>(dst + static_cast<long long>(m) * a.N + n),
                v);
     }
-    if (a.steps) publish(flag_of(a, 0, peer, t.t_loc), a.seq);
+    if (a.steps) {
+      if (threadIdx.x == 0 && !seq) seq = grid_epoch_value(a.ctl, ticket);
+      publish(flag_of(a, 0, peer, t.t_loc), seq);
+    }
   }
 
   // Pass s + 1: this rank's partial is the one it put to its step-s peer
@@ -558,7 +576,7 @@ fused_matmul_rd_tc_kernel(const Args a) {
       bf16* dst = more ? recv + (static_cast<long long>(s + 1) * a.R + next)
                                     * MN
                        : out + t.r * MN;
-      cta_wait(flag_of(a, s, t.r, t.t_loc), a.seq);
+      cta_wait(flag_of(a, s, t.r, t.t_loc), seq);
       for (int i = threadIdx.x; i < PIECES; i += C::THREADS) {
         const int m = t.row0 + i / CPR, n = t.col0 + (i % CPR) * 8;
         if (m >= a.M || n >= t.col_end) continue;
@@ -567,7 +585,7 @@ fused_matmul_rd_tc_kernel(const Args a) {
                         load_cg(reinterpret_cast<const P*>(theirs + o)));
         store_cg(reinterpret_cast<P*>(dst + o), v);
       }
-      if (more) publish(flag_of(a, s + 1, next, t.t_loc), a.seq);
+      if (more) publish(flag_of(a, s + 1, next, t.t_loc), seq);
     }
   }
 }
@@ -589,8 +607,8 @@ bool plan(int M, int N, int n_chunks, int* tiles_per_rank) {
 // multiples of (1: no constraint).
 template <class C>
 bool make_args(Args& a, const void* x, const void* w, void* out, void* recv,
-               void* flags, long long n_flags, int R, int pods, int M, int K,
-               int N, int n_chunks, int grid, unsigned seq, int vec) {
+               void* flags, void* ctl, long long n_flags, int R, int pods,
+               int M, int K, int N, int n_chunks, int grid, int vec) {
   int tiles = 0;
   if (R <= 0 || pods <= 0 || R % pods || (pods & (pods - 1)) || K <= 0 ||
       !plan<C>(M, N, n_chunks, &tiles))
@@ -612,7 +630,7 @@ bool make_args(Args& a, const void* x, const void* w, void* out, void* recv,
   a.tiles_per_chunk = tiles_per_chunk<C>(a.chunk_w);
   a.tiles_per_rank = tiles;
   a.n_tiles = static_cast<long long>(R) * tiles;
-  a.seq = seq;
+  a.ctl = static_cast<unsigned*>(ctl);
   return !((vec > 1 && (K % vec || a.chunk_w % vec)) || grid <= 0 ||
            grid > a.n_tiles ||
            static_cast<long long>(a.steps) * R * tiles > n_flags);
@@ -620,11 +638,11 @@ bool make_args(Args& a, const void* x, const void* w, void* out, void* recv,
 
 template <typename T, class C, int VEC>
 int launch(const void* x, const void* w, void* out, void* recv, void* flags,
-           long long n_flags, int R, int pods, int M, int K, int N,
-           int n_chunks, int grid, unsigned seq, void* stream) {
+           void* ctl, long long n_flags, int R, int pods, int M, int K, int N,
+           int n_chunks, int grid, void* stream) {
   Args a;
-  if (!make_args<C>(a, x, w, out, recv, flags, n_flags, R, pods, M, K, N,
-                    n_chunks, grid, seq, VEC))
+  if (!make_args<C>(a, x, w, out, recv, flags, ctl, n_flags, R, pods, M, K,
+                    N, n_chunks, grid, VEC))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(
@@ -648,11 +666,11 @@ cudaError_t tc_configure() {
 
 template <class C>
 int launch_tc(const void* x, const void* w, void* out, void* recv,
-              void* flags, long long n_flags, int R, int pods, int M, int K,
-              int N, int n_chunks, int grid, unsigned seq, void* stream) {
+              void* flags, void* ctl, long long n_flags, int R, int pods,
+              int M, int K, int N, int n_chunks, int grid, void* stream) {
   Args a;
-  if (!make_args<C>(a, x, w, out, recv, flags, n_flags, R, pods, M, K, N,
-                    n_chunks, grid, seq, 8))
+  if (!make_args<C>(a, x, w, out, recv, flags, ctl, n_flags, R, pods, M, K,
+                    N, n_chunks, grid, 8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = tc_configure<C>();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -716,20 +734,19 @@ int dispatch(int is_bf16, int vec, int M, F& f) {
 
 struct Launch {
   const void *x, *w;
-  void *out, *recv, *flags;
+  void *out, *recv, *flags, *ctl;
   long long n_flags;
   int R, pods, M, K, N, n_chunks, grid;
-  unsigned seq;
   void* stream;
   template <typename T, class C, int VEC>
   int go() {
-    return launch<T, C, VEC>(x, w, out, recv, flags, n_flags, R, pods, M, K,
-                             N, n_chunks, grid, seq, stream);
+    return launch<T, C, VEC>(x, w, out, recv, flags, ctl, n_flags, R, pods,
+                             M, K, N, n_chunks, grid, stream);
   }
   template <class C>
   int go_tc() {
-    return launch_tc<C>(x, w, out, recv, flags, n_flags, R, pods, M, K, N,
-                        n_chunks, grid, seq, stream);
+    return launch_tc<C>(x, w, out, recv, flags, ctl, n_flags, R, pods, M, K,
+                        N, n_chunks, grid, stream);
   }
 };
 
@@ -759,16 +776,18 @@ struct Tiles {
 // is_bf16); vec: K, N and N / n_chunks are multiples of 16 bytes' worth of
 // elements and the pointers 16-byte aligned (bf16 requires it).  recv:
 // (steps, R, M, N) of the same type; flags: n_flags uint32 >= steps * R *
-// tiles_per_rank, zero at first use.  `grid` CTAs (at most the resident
-// count and the tile count), launched cooperatively on `stream`.
+// tiles_per_rank, zero at first use; ctl: this kernel's epoch words
+// (uint32 [8][32], word 0's epoch starting at 1).  `grid` CTAs (at most
+// the resident count and the tile count), launched cooperatively on
+// `stream`.
 extern "C" int fused_matmul_rd_launch(const void* x, const void* w, void* out,
-                                      void* recv, void* flags,
+                                      void* recv, void* flags, void* ctl,
                                       long long n_flags, int R, int pods,
                                       int M, int K, int N, int n_chunks,
-                                      int grid, unsigned seq, int is_bf16,
-                                      int vec, void* stream) {
-  Launch l{x, w, out, recv, flags, n_flags, R, pods, M, K, N, n_chunks,
-           grid, seq, stream};
+                                      int grid, int is_bf16, int vec,
+                                      void* stream) {
+  Launch l{x, w, out, recv, flags, ctl, n_flags, R, pods, M, K, N, n_chunks,
+           grid, stream};
   const int err = dispatch(is_bf16, vec, M, l);
   return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;
 }

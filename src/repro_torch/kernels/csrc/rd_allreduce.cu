@@ -51,8 +51,8 @@
 // reads its word's epoch and takes the CTA's ticket in one atomic add, and
 // the CTA that completes a word's count stores its next epoch, so no
 // sequence number comes from the host and a captured CUDA graph replays
-// the launch correctly.  The fused GEMM + RD kernel keeps a host counter for its own
-// flags, which are separate arrays.
+// the launch correctly.  The fused GEMM + RD kernel takes its flag value
+// the same way from its own epoch words, beside its own flags.
 //
 // Co-residency.  CTAs spin on each other, so all must be resident at once:
 // the wrapper never asks for more CTAs than the card holds at the kernel's

@@ -10,7 +10,9 @@ sum is the caller's (``core/overlap.py``), as in the TPU kernel.  A CUDA
 tensor launches the kernel (or the wrapper raises) and a CPU tensor takes
 the plain version in ``ref.py``.  The kernel's receive buffers and flags
 live in the mesh's :class:`~repro_torch.kernels.rd_allreduce.RDWorkspace`,
-beside kernel 4's, and take their sequence numbers from the same counter.
+beside kernel 4's, and its flag value comes from its own epoch words there
+(``RDWorkspace.control(device, kernel="fused_matmul_rd")``), kept in device
+memory as kernel 4's, so a captured CUDA graph replays a call correctly.
 """
 from __future__ import annotations
 
@@ -26,8 +28,7 @@ from ..rd_allreduce.ref import is_pow2
 from .ref import collective_matmul_rd_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 5 + (ctypes.c_longlong,) + (_I,) * 7 + (ctypes.c_uint,) \
-    + (_I, _I, _P)
+_ARGTYPES = (_P,) * 6 + (ctypes.c_longlong,) + (_I,) * 9 + (_P,)
 SOURCE = "fused_matmul_rd"
 
 _plans: Dict[Tuple, Tuple[int, int]] = {}
@@ -134,10 +135,11 @@ def collective_matmul_rd(x: torch.Tensor, w: torch.Tensor, pods: int, *,
     n_flags = max(1, steps * R * tiles)
     recv, flags = workspace.buffers(x.device, max(1, steps * R * M * N * esz),
                                     n_flags, kernel=SOURCE)
+    ctl = workspace.control(x.device, kernel=SOURCE)
     fn = _build.c_function(SOURCE, "fused_matmul_rd_launch", _ARGTYPES)
     err = fn(xc.data_ptr(), wc.data_ptr(), out.data_ptr(), recv.data_ptr(),
-             flags.data_ptr(), n_flags, R, pods, M, K, N, n_chunks,
-             min(R * tiles, max_ctas), workspace.next_seq(), is_bf16, vec,
+             flags.data_ptr(), ctl.data_ptr(), n_flags, R, pods, M, K, N,
+             n_chunks, min(R * tiles, max_ctas), is_bf16, vec,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(SOURCE, "collective_matmul_rd", err)
     collective_matmul_rd.launches += 1

@@ -54,7 +54,6 @@ LL_MAX_BYTES = 128 * 2**10
 PROTOCOL = None
 # Epoch words a device (kEpochWords in csrc/exchange_common.cuh).
 EPOCH_WORDS = 8
-_SEQ_WRAP = 2**31 - 1
 
 
 def rd_pieces(m_units: int, n_ranks: int, n_chunks: int,
@@ -113,68 +112,98 @@ def ll_plan(n_packets: int, n_ranks: int, max_ctas: int) -> Tuple[int, int]:
 
 
 class RDWorkspace:
-    """Receive buffers and flags of the exchange kernels, per device and
-    per kernel (``kernel`` names it: "rd" for this kernel's (steps, R, m)
-    buffers and (steps, R, stride) flags, "fused_matmul_rd" for the fused
-    kernel's), this kernel's LL packet buffers, and two counters.
+    """Receive buffers, flags and epoch words of the exchange kernels, per
+    device and per kernel (``kernel`` names it: "rd" for this kernel's
+    (steps, R, m) buffers and (steps, R, stride) flags, "fused_matmul_rd"
+    for the fused kernel's), and this kernel's LL packet buffers.
 
-    This kernel takes its flag value from epochs in device memory
+    Both kernels take their flag value from epochs in device memory
     (:meth:`control`: ``EPOCH_WORDS`` 64-bit words a device, 128 bytes
-    apart, each int32 [ticket, epoch], one for the CTAs of every
-    ``EPOCH_WORDS``-th piece): each CTA reads its word's epoch and counts
-    itself in one atomic add and the CTA that completes the word's count
-    moves it on, so a captured CUDA graph replays correctly.  The fused
-    kernel still takes a host counter (:meth:`next_seq`) as a launch
-    argument.  The two kernels' flags are separate arrays, so the two
-    counters never satisfy each other's waits.  Each counter only grows
+    apart, each int32 [ticket, epoch]): each CTA reads its word's epoch and
+    counts itself in one atomic add and the CTA that completes the word's
+    count moves it on, so a captured CUDA graph replays correctly.  This
+    kernel gives the CTAs of every ``EPOCH_WORDS``-th piece one word; the
+    fused kernel counts its whole grid on word 0 of its own words.  The
+    two kernels' flags and epoch words are separate arrays, so their
+    numbers never satisfy each other's waits.  An epoch only grows
     (skipping 0), flags and packets start at zero and only ever hold a
     call's number, so they are never reset; a buffer grows (zeroed anew)
-    when a call needs more, and is never shrunk or reallocated per
-    call."""
+    when a call needs more, and is never shrunk or reallocated per call.
+
+    A captured CUDA graph keeps the addresses of the buffers its calls
+    took.  So no buffer grows while a graph is captured (the capture
+    raises: warm up at the captured shapes first), and a buffer that a
+    capture took and a later eager call (a longer prompt's prefill) grows
+    moves :attr:`generation` on: :class:`~repro_torch.parallel.steps.
+    CapturedStep` captures its step anew before it would replay a graph
+    of an older generation."""
 
     def __init__(self):
         self._recv: Dict[Tuple[str, torch.device], torch.Tensor] = {}
         self._flags: Dict[Tuple[str, torch.device], torch.Tensor] = {}
-        self._ctl: Dict[torch.device, torch.Tensor] = {}
-        self._seq = 0
+        self._ctl: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+        # (store, key) of the buffers a capture took since the last move
+        self._held: set = set()
+        self.generation = 0
+
+    @staticmethod
+    def _capturing(device: torch.device, refuse: str = "") -> bool:
+        """Whether a CUDA graph is being captured on ``device``'s stream;
+        with ``refuse`` (what would be allocated), raise if so."""
+        capturing = device.type == "cuda" \
+            and torch.cuda.is_current_stream_capturing()
+        if capturing and refuse:
+            raise RuntimeError(
+                f"RDWorkspace: {refuse} would be allocated while a CUDA "
+                "graph is captured; run the captured step once first")
+        return capturing
+
+    def _get(self, store: str, key: Tuple[str, torch.device], n: int,
+             make, what: str) -> torch.Tensor:
+        """The buffer ``key`` of ``store`` with at least ``n`` elements,
+        made by ``make(n)`` if it is missing or smaller."""
+        d = getattr(self, store)
+        t = d.get(key)
+        if t is None or t.numel() < n:
+            self._capturing(key[1], refuse=what)
+            if (store, key) in self._held:
+                self._held.clear()
+                self.generation += 1
+            t = d[key] = make(n)
+        elif self._capturing(key[1]):
+            self._held.add((store, key))
+        return t
 
     def buffers(self, device: torch.device, recv_bytes: int, n_flags: int,
                 kernel: str = "rd") -> Tuple[torch.Tensor, torch.Tensor]:
         key = (kernel, device)
-        recv = self._recv.get(key)
-        if recv is None or recv.numel() < recv_bytes:
-            recv = torch.empty(recv_bytes, dtype=torch.uint8, device=device)
-            self._recv[key] = recv
-        flags = self._flags.get(key)
-        if flags is None or flags.numel() < n_flags:
-            flags = torch.zeros(n_flags, dtype=torch.int32, device=device)
-            self._flags[key] = flags
+        recv = self._get("_recv", key, recv_bytes, lambda n: torch.empty(
+            n, dtype=torch.uint8, device=device), f"{kernel}'s receive buffer")
+        flags = self._get("_flags", key, n_flags, lambda n: torch.zeros(
+            n, dtype=torch.int32, device=device), f"{kernel}'s flags")
         return recv, flags
 
     def ll_buffer(self, device: torch.device, nbytes: int) -> torch.Tensor:
         """This kernel's LL packets, zero at first use (no epoch is 0)."""
-        key = ("rd_ll", device)
-        buf = self._recv.get(key)
-        if buf is None or buf.numel() < nbytes:
-            buf = torch.zeros(nbytes, dtype=torch.uint8, device=device)
-            self._recv[key] = buf
-        return buf
+        return self._get("_recv", ("rd_ll", device), nbytes,
+                         lambda n: torch.zeros(n, dtype=torch.uint8,
+                                               device=device),
+                         "the LL buffer")
 
-    def control(self, device: torch.device) -> torch.Tensor:
-        """This kernel's epoch words on ``device``: int32 (EPOCH_WORDS,
+    def control(self, device: torch.device, kernel: str = "rd"
+                ) -> torch.Tensor:
+        """``kernel``'s epoch words on ``device``: int32 (EPOCH_WORDS,
         32), row k's [ticket, epoch] read by the kernel as the 64-bit word
         (epoch << 32) | ticket, each epoch starting at 1."""
-        ctl = self._ctl.get(device)
+        key = (kernel, device)
+        ctl = self._ctl.get(key)
         if ctl is None:
+            self._capturing(device, refuse=f"{kernel}'s epoch words")
             ctl = torch.zeros((EPOCH_WORDS, 32), dtype=torch.int32,
                               device=device)
             ctl[:, 1] = 1
-            self._ctl[device] = ctl
+            self._ctl[key] = ctl
         return ctl
-
-    def next_seq(self) -> int:
-        self._seq = self._seq % _SEQ_WRAP + 1
-        return self._seq
 
     @property
     def nbytes(self) -> int:

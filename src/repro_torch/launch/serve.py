@@ -1,5 +1,5 @@
-"""Serving driver of the port: batched generation (the counterpart of
-``repro.launch.serve --mode batch``).
+"""Serving entry point of the port: batched generation and trace replay (the
+counterparts of ``repro.launch.serve --mode batch`` and ``--mode trace``).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch --full
     python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
@@ -24,6 +24,12 @@
         --tp 8 --pods 4 --ar-strategy hier_rd             # hybrid, TP
     python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu \
         --block-size 16                   # hybrid smoke config on the CPU
+    python -m repro_torch.launch.serve --mode trace --device cpu \
+        --block-size 8                    # continuous batching, smoke
+    python -m repro_torch.launch.serve --arch llama3.2-1b --mode trace \
+        --full --slots 8 --s-max 1024 --n-requests 32 --mean-in 256 \
+        --mean-out 64 --rate 0.5 --block-size 16 [--tp 8 --pods 4 \
+        --ar-strategy hier_rd]            # continuous batching on the card
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -48,12 +54,24 @@ prefill and decode, through the selective-scan kernel; its cache is the
 K/V (paged under ``--block-size``) beside the mamba state.  ``--layers
 N`` cuts the config's depth to N layers (widths kept), and the
 ``[serve]`` line then shows the depth.
+
+``--mode trace`` replays a BurstGPT-style trace (``make_trace``:
+``--n-requests`` requests, lognormal prompt and output lengths around
+``--mean-in`` / ``--mean-out``, gamma arrivals at ``--rate`` a step)
+through the continuous batcher: ``--slots`` slots of ``--s-max``
+positions, full-prefill admission, dense or paged (``--block-size``, a
+pool of ``--n-blocks`` a rank) with preemption when the pool runs dry,
+greedy or sampled (``--temperature``, ``--top-k``, each request's own
+chain under ``--seed``), at tp=1 or on the virtual mesh; it prints
+throughput, TTFT and TPOT and writes the metrics to ``--json-out``.  On
+the card the decode steps of both modes replay a CUDA graph.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional, Sequence
+import json
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -62,18 +80,21 @@ from ..core.mesh import mesh_and_ctx
 from ..core.pcontext import AR_STRATEGIES
 from ..inference.engine import GenerationResult, InferenceEngine, \
     resolve_device
+from ..inference.scheduler import ContinuousBatcher, ServeMetrics, \
+    make_trace
 from ..models.transformer import init_params, make_plan
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Batched generation with the PyTorch/CUDA port.")
+        description="Batched generation and trace serving with the "
+                    "PyTorch/CUDA port.")
     p.add_argument("--arch", default="llama3.2-1b")
-    p.add_argument("--mode", choices=("batch",), default="batch",
+    p.add_argument("--mode", choices=("batch", "trace"), default="batch",
                    help="batch: one batch of prompts prefilled and decoded "
-                        "to completion (trace serving arrives with ROADMAP "
-                        "item 6)")
+                        "to completion; trace: a synthetic request trace "
+                        "through the continuous batcher")
     p.add_argument("--full", action="store_true",
                    help="full-size config (default: the smoke config)")
     p.add_argument("--layers", type=int, default=0,
@@ -85,6 +106,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-size", type=int, default=0,
                    help="> 0: paged KV cache with this many positions per "
                         "block")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="> 0 samples (each request or row from its own "
+                        "chain under --seed)")
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--slots", type=int, default=4,
+                   help="trace: batch slots of the continuous batcher")
+    p.add_argument("--s-max", type=int, default=128,
+                   help="trace: positions a slot holds")
+    p.add_argument("--n-blocks", type=int, default=None,
+                   help="trace: paged pool blocks a rank (default: every "
+                        "slot at full length plus the trash block)")
+    p.add_argument("--n-requests", "--requests", dest="n_requests",
+                   type=int, default=12, help="trace: requests")
+    p.add_argument("--mean-in", type=int, default=12,
+                   help="trace: mean prompt length")
+    p.add_argument("--mean-out", type=int, default=10,
+                   help="trace: mean new tokens a request")
+    p.add_argument("--rate", type=float, default=2.0,
+                   help="trace: mean arrivals a step")
+    p.add_argument("--json-out", "--json", dest="json_out", default=None,
+                   help="trace: write the metrics as JSON here")
     p.add_argument("--ar-strategy", choices=list(AR_STRATEGIES),
                    default="flat",
                    help="TP all-reduce strategy (hier_rd: the recursive-"
@@ -115,7 +157,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def run_batch(args: argparse.Namespace) -> GenerationResult:
+def _setup(args: argparse.Namespace):
+    """(device, cfg, depth note, mesh, ctx, plan, seeded model) of the
+    arguments."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
     depth = ""
@@ -129,16 +173,11 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
                       ar_quant="none" if args.ar_quant == "off"
                       else args.ar_quant)
     ap = make_plan(cfg, max(args.tp, 1))
-    s_max = args.prompt_len + args.max_new + 8
-    if args.block_size:
-        s_max = -(-s_max // args.block_size) * args.block_size
     model = init_params(ap, seed=args.seed, device=device, mesh=mesh)
-    eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
-                          block_size=args.block_size, ar_table=args.ar_table,
-                          device=device)
-    rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
-    res = eng.generate(prompts, args.max_new)
+    return device, cfg, depth, mesh, ctx, ap, model
+
+
+def _layout(args: argparse.Namespace, cfg, mesh, ctx) -> str:
     layout = f"paged(bs={args.block_size})" if args.block_size \
         else "recurrent" if cfg.attn_free else "dense"
     if cfg.family == "hybrid":
@@ -150,6 +189,26 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
             layout += f"/q={ctx.ar_quant}"
         if args.overlap:
             layout += f" overlap({args.overlap_chunks})"
+    if args.temperature > 0:
+        layout += f" T={args.temperature:g}"
+        if args.top_k:
+            layout += f"/top{args.top_k}"
+    return layout
+
+
+def run_batch(args: argparse.Namespace) -> GenerationResult:
+    device, cfg, depth, mesh, ctx, ap, model = _setup(args)
+    s_max = args.prompt_len + args.max_new + 8
+    if args.block_size:
+        s_max = -(-s_max // args.block_size) * args.block_size
+    eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
+                          block_size=args.block_size, ar_table=args.ar_table,
+                          temperature=args.temperature, top_k=args.top_k,
+                          seed=args.seed, device=device)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    res = eng.generate(prompts, args.max_new)
+    layout = _layout(args, cfg, mesh, ctx)
     print(f"[serve] {cfg.name}{depth} on {device}: batch {args.batch} prompt "
           f"{args.prompt_len} new {args.max_new} {layout} "
           f"| prefill {res.prefill_s * 1e3:.1f}ms "
@@ -158,8 +217,47 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
     return res
 
 
-def main(argv: Optional[Sequence[str]] = None) -> GenerationResult:
-    return run_batch(build_parser().parse_args(argv))
+def run_trace(args: argparse.Namespace) -> Tuple[list, ServeMetrics]:
+    """One trace through one continuous batcher; returns (requests,
+    metrics)."""
+    device, cfg, depth, mesh, ctx, ap, model = _setup(args)
+    sched = ContinuousBatcher(ap, model, slots=args.slots, s_max=args.s_max,
+                              ctx=ctx, mesh=mesh, block_size=args.block_size,
+                              n_blocks=args.n_blocks,
+                              ar_table=args.ar_table,
+                              temperature=args.temperature,
+                              top_k=args.top_k, seed=args.seed,
+                              device=device)
+    reqs = make_trace(args.n_requests, mean_in=args.mean_in,
+                      mean_out=args.mean_out, rate=args.rate,
+                      vocab=cfg.vocab_size, seed=args.seed)
+    done = sched.run(reqs)
+    m = sched.metrics(done)
+    print(f"[serve] trace {cfg.name}{depth} on {device} "
+          f"[{_layout(args, cfg, mesh, ctx)}]: {m.completed}/{m.requests} "
+          f"reqs, {m.total_new_tokens} tokens in {m.wall_s:.2f}s "
+          f"({m.throughput_tok_s:.0f} tok/s, slots={args.slots}, "
+          f"{m.steps} steps, {sched.graph_replays} replayed)")
+    print(f"[serve]   TTFT p50/p99: {m.ttft_steps_p50:.1f}/"
+          f"{m.ttft_steps_p99:.1f} steps = {m.ttft_s_p50 * 1e3:.1f}/"
+          f"{m.ttft_s_p99 * 1e3:.1f} ms | TPOT p50/p99: "
+          f"{m.tpot_steps_p50:.2f}/{m.tpot_steps_p99:.2f} steps = "
+          f"{m.tpot_s_p50 * 1e3:.2f}/{m.tpot_s_p99 * 1e3:.2f} ms")
+    print(f"[serve]   KV peak {m.peak_kv_tokens} tokens of "
+          f"{m.kv_capacity_tokens} reserved (util "
+          f"{m.cache_utilization:.2f}), {m.preemptions} preemptions")
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(m.to_dict(), f, indent=2, default=float)
+        print(f"[serve]   metrics -> {args.json_out}")
+    return done, m
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """The batch mode's GenerationResult, or the trace mode's (requests,
+    metrics)."""
+    args = build_parser().parse_args(argv)
+    return run_trace(args) if args.mode == "trace" else run_batch(args)
 
 
 if __name__ == "__main__":

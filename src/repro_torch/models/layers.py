@@ -165,10 +165,11 @@ def attention_decode(p: Params, h: torch.Tensor,
     h: (R, B, 1, D); positions: (B,) int32 index where the new token is
     written; ``kv_positions`` (R*B,) int32 the same tiled over the ranks.
     Dense: cache['k']/cache['v'] (R*B, S_max, U, hd), rank-major rows.
-    Paged (``block_tbl`` (B, max_blocks) int32, R = 1): the physical pool
-    (n_blocks, bs, U, hd); the new K/V go to block ``block_tbl[b, pos //
-    bs]`` at offset ``pos % bs``, and rows of inactive slots point at the
-    trash block 0.
+    Paged (``block_tbl`` (R*B, max_blocks) int32, the table folded over
+    the ranks by ``transformer.fold_table``): the physical pool
+    (R*n_blocks, bs, U, hd); the new K/V go to block ``block_tbl[b, pos //
+    bs]`` at offset ``pos % bs``, and rows of inactive slots point at
+    their rank's trash block.
 
     Unlike the JAX layer, which returns a rebuilt cache, the new K/V are
     written into ``cache`` in place and only the masked heads
@@ -256,13 +257,55 @@ def greedy_sample(logits_loc: torch.Tensor, ctx: ParallelCtx, mesh,
     return cand.min(dim=0).values.to(torch.int32)
 
 
-def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
-                 *, temperature: float = 1.0, top_k: int = 0,
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer mix (xorshift-multiply), on Python ints or int64
+    tensors holding 32-bit values: each product stays below 2**63, so it
+    is exact and the same on every device."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def sampling_key(seed: int, rid: int) -> Tuple[int, int]:
+    """The base key (two 32-bit words) of request ``rid``'s sampling chain
+    under ``seed``: the port's analogue of the reference's
+    ``fold_in(PRNGKey(seed), rid)`` (not its numbers)."""
+    k0 = _mix32(_mix32(seed & _M32) ^ _mix32((seed >> 32) & _M32)
+                ^ (rid & _M32))
+    return k0, _mix32(k0 ^ _mix32(((rid >> 32) + 0x6A09E667) & _M32))
+
+
+def _uniforms(keys: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) f32 uniforms in (0, 1) of row b's chain at token ``idx[b]``:
+    a counter-based hash of (keys[b], idx[b], vocab index), computed with
+    tensor ops on the device, so a row's stream depends on nothing but its
+    key and index (no generator state, which a CUDA graph could not
+    replay)."""
+    k = keys.long()
+    row = _mix32(k[:, 0] ^ _mix32(k[:, 1] ^ (idx.long() & _M32)))
+    col = _mix32(torch.arange(n, dtype=torch.int64, device=keys.device)
+                 + 0x9E3779B9 & _M32)
+    h = _mix32(row[:, None] ^ col[None, :])
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_token(logits: torch.Tensor, keys: Optional[torch.Tensor] = None,
+                 idx: Optional[torch.Tensor] = None, *,
+                 temperature: float = 1.0, top_k: int = 0,
                  vocab_real: Optional[int] = None) -> torch.Tensor:
     """Temperature / top-k sampling over full logits (B, V) -> (B,) int32.
-    temperature <= 0 is greedy (``generator`` unused); vocab padding slots
-    are masked.  Sampled tokens come from ``generator``, so a stream is
-    reproducible from its seed (not equal to the JAX package's stream)."""
+    temperature <= 0 is greedy (``keys``/``idx`` unused); vocab padding
+    slots are masked.  Row b draws token ``idx[b]`` of its own stateless
+    chain ``keys[b]`` ((B, 2) int64, :func:`sampling_key`) by Gumbel-max:
+    the argmax of logits / T plus Gumbel noise from :func:`_uniforms`,
+    which samples softmax(logits / T) over the top-k.  A stream is
+    reproducible from its seed on one device (not equal to the JAX
+    package's stream)."""
     lf = logits.float()
     if vocab_real is not None and vocab_real < lf.shape[-1]:
         keep = torch.arange(lf.shape[-1], device=lf.device) < vocab_real
@@ -275,12 +318,12 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
         kth = torch.topk(lf, top_k, dim=-1).values[:, -1:]
         lf = torch.where(lf >= kth, lf,
                          torch.full((), NEG_INF, device=lf.device))
-    probs = torch.softmax(lf, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0] \
+    u = _uniforms(keys, idx, lf.shape[-1])
+    return torch.argmax(lf - torch.log(-torch.log(u)), dim=-1) \
         .to(torch.int32)
 
 
 __all__ = ["rms_norm", "apply_norm", "rope_tables", "apply_rope",
            "rank_matmul", "attention_prefill", "attention_decode",
            "mlp_hidden", "mlp_down_w", "embed_lookup", "lm_logits",
-           "greedy_sample", "sample_token", "NEG_INF"]
+           "greedy_sample", "sample_token", "sampling_key", "NEG_INF"]

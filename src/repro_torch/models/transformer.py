@@ -38,6 +38,7 @@ prefill takes the one-shot rounding.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -143,7 +144,10 @@ def check_layout(ap: ArchPlan, ctx: ParallelCtx, mesh) -> int:
     return mesh.size
 
 
-def _q_mask(ap: ArchPlan, device) -> Optional[torch.Tensor]:
+@functools.lru_cache(maxsize=64)
+def _q_mask(ap: ArchPlan, device: torch.device) -> Optional[torch.Tensor]:
+    """The plan's live-slot mask on ``device``, made once (a host-to-device
+    copy, which a captured decode step must not contain)."""
     tbl = ap.q_mask_tbl
     return None if tbl is None else torch.as_tensor(tbl, device=device)
 
@@ -432,7 +436,20 @@ def ef_sites_for(ctx: ParallelCtx, cfg: ModelConfig) -> int:
     return 2
 
 
+def fold_table(tbl: torch.Tensor, R: int, n_blocks: int) -> torch.Tensor:
+    """A block table (B, max_blocks) folded over R ranks: (R*B,
+    max_blocks), rank r's rows the table offset by ``r * n_blocks``, so
+    rank r reads its own pool of ``n_blocks`` blocks (its block 0 its
+    trash block) and one paged-decode launch serves every rank."""
+    if R == 1:
+        return tbl
+    off = torch.arange(R, dtype=tbl.dtype, device=tbl.device) * n_blocks
+    return (tbl[None] + off[:, None, None]).reshape(R * tbl.shape[0],
+                                                   tbl.shape[1])
+
+
 def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
+               n_blocks: Optional[int] = None,
                device: torch.device | str, mesh=None,
                ef_sites: int = 0) -> Cache:
     """Decode cache, leading layer axis, per-rank (local) head counts as
@@ -440,12 +457,16 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
     slots), the R ranks folded into the batch, rank-major.
 
     ``block_size=0``: dense K/V (L, R*batch, s_max, U, hd).
-    ``block_size>0`` (tp=1 only): paged K/V, a pool of physical blocks
-    (L, n_blocks, block_size, U, hd) with n_blocks = batch *
-    s_max/block_size + 1, plus ``block_tbl`` (batch, s_max/block_size)
-    int32.  Block 0 is the trash block; the table starts as the identity
-    mapping from 1, which makes the paged cache hold the dense cache's
-    contents block by block.
+    ``block_size>0``: paged K/V, a pool of ``n_blocks`` physical blocks a
+    rank, (L, R*n_blocks, block_size, U, hd), plus ``block_tbl``
+    (R*batch, s_max/block_size) int32, the batch's table folded over the
+    ranks (:func:`fold_table`).  Block 0 of each rank's pool is its trash
+    block.  ``n_blocks=None`` holds every slot at full length plus the
+    trash block (batch * s_max/block_size + 1), and the table starts as
+    the identity mapping from 1, which makes the paged cache hold the
+    dense cache's contents block by block; a smaller pool starts all-trash
+    and is managed by a :class:`~repro_torch.inference.kv_cache.
+    BlockAllocator`, as in the reference.
 
     ``ef_sites > 0`` adds the error-feedback leaf ``ef`` (L, ef_sites, R,
     batch, d_model) f32, the reference's global layout with the ranks on
@@ -475,21 +496,22 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
                 for n, t in st.items()}
     u, hd, Ld = ap.gqa.u, cfg.head_dim, cfg.n_layers
     if block_size > 0:
-        if R > 1:
-            raise NotImplementedError(
-                "a paged cache on the virtual mesh arrives with ROADMAP "
-                "item 6 (serving stack); the mesh path takes the dense cache")
         if s_max % block_size:
             raise ValueError(f"s_max={s_max} is not a multiple of "
                              f"block_size={block_size}")
         max_blocks = s_max // block_size
-        n_blocks = batch * max_blocks + 1
-        shape = (Ld, n_blocks, block_size, u, hd)
-        tbl = 1 + torch.arange(batch * max_blocks, dtype=torch.int32,
-                               device=device).reshape(batch, max_blocks)
+        full = batch * max_blocks + 1
+        n_blocks = full if n_blocks is None else n_blocks
+        shape = (Ld, R * n_blocks, block_size, u, hd)
+        if n_blocks >= full:
+            tbl = 1 + torch.arange(batch * max_blocks, dtype=torch.int32,
+                                   device=device).reshape(batch, max_blocks)
+        else:
+            tbl = torch.zeros((batch, max_blocks), dtype=torch.int32,
+                              device=device)
         cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                  "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                 "block_tbl": tbl}
+                 "block_tbl": fold_table(tbl, R, n_blocks)}
     else:
         shape = (Ld, R * batch, s_max, u, hd)
         cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -520,27 +542,50 @@ def _paged_splice(phys: torch.Tensor, states: torch.Tensor,
     phys[:, block_tbl[:, :nb].long()] = upd.reshape(Ld, B, nb, bs, u, hd)
 
 
-def seed_cache(cache: Cache, states: Cache) -> Cache:
+def _cache_rows(cache: Cache) -> int:
+    """R * batch: the folded batch of the cache's per-sequence leaves."""
+    for n in ("block_tbl", "k") + RECURRENT_LEAVES:
+        if n in cache:
+            return cache[n].shape[0 if n == "block_tbl" else 1]
+    raise ValueError("a cache with no per-sequence leaf")
+
+
+def seed_cache(cache: Cache, states: Cache, slot: Optional[int] = None
+               ) -> Cache:
     """Splice prefill-collected layer states into a decode cache at
-    position 0, batch-wide, in place; returns ``cache``.  A paged cache
-    (``block_tbl`` present) routes K/V through the block table; the
-    recurrent leaves (``RECURRENT_LEAVES``: the ssm family's, the hybrid
-    family's ``conv``/``ssm``) are copied whole.  An ``ef`` leaf is
-    zeroed: a fresh batch starts with no rounding residue."""
-    if "ef" in cache:
-        cache["ef"].zero_()
+    position 0, in place; returns ``cache``.
+
+    ``slot=None``: batch-wide (the states' folded batch is the cache's).
+    ``slot``: one request (states of batch 1 on each of the R ranks, folded
+    (L, R, ...)) into row ``slot`` of every rank.  A paged cache
+    (``block_tbl`` present) routes K/V through the slot's rows of the
+    folded block table; the recurrent leaves (``RECURRENT_LEAVES``: the ssm
+    family's, the hybrid family's ``conv``/``ssm``) are copied into the
+    slot's rows.  An ``ef`` leaf is zeroed (the slot's, or all of it): a
+    fresh request starts with no rounding residue of the slot's last
+    occupant."""
+    some = next(t for n, t in states.items() if n in cache)
+    if slot is None:
+        rows = slice(None)
+    else:
+        R = some.shape[1]
+        rows = torch.arange(R, device=some.device) * (_cache_rows(cache)
+                                                      // R) + slot
+    if "ef" in cache:      # (L, sites, R, batch, D)
+        cache["ef"][:, :, :, slice(None) if slot is None else slot].zero_()
     for n in RECURRENT_LEAVES:
         if n in cache:
-            cache[n].copy_(states[n])
+            cache[n][:, rows] = states[n].to(cache[n].dtype)
     if "k" not in cache:
         return cache
     if "block_tbl" in cache:
-        _paged_splice(cache["k"], states["k"], cache["block_tbl"])
-        _paged_splice(cache["v"], states["v"], cache["block_tbl"])
+        tbl = cache["block_tbl"][rows]
+        _paged_splice(cache["k"], states["k"], tbl)
+        _paged_splice(cache["v"], states["v"], tbl)
     else:
         S = states["k"].shape[2]
-        cache["k"][:, :, :S] = states["k"].to(cache["k"].dtype)
-        cache["v"][:, :, :S] = states["v"].to(cache["v"].dtype)
+        cache["k"][:, rows, :S] = states["k"].to(cache["k"].dtype)
+        cache["v"][:, rows, :S] = states["v"].to(cache["v"].dtype)
     return cache
 
 
@@ -646,5 +691,6 @@ def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
 
 __all__ = ["ArchPlan", "make_plan", "check_layout", "Block", "DenseLM",
            "from_global", "init_params", "block_forward", "forward_lm",
-           "ef_sites_for", "init_cache", "seed_cache", "block_decode",
+           "ef_sites_for", "fold_table", "init_cache", "seed_cache",
+           "block_decode",
            "decode_step", "RECURRENT_LEAVES"]

@@ -195,7 +195,7 @@ def test_workspace_holds_the_epoch():
     bytes apart, each int32 [ticket, epoch] read as one 64-bit word
     (epoch << 32) | ticket, the epoch starting at 1 (flags and packets
     start at 0); the LL buffer starts zeroed and only grows; the fused
-    kernel keeps its host counter."""
+    kernel has epoch words of its own, apart from kernel 4's."""
     ws = rdk.RDWorkspace()
     dev = torch.device("cpu")
     ctl = ws.control(dev)
@@ -210,7 +210,53 @@ def test_workspace_holds_the_epoch():
     assert ws.ll_buffer(dev, 1024) is buf
     assert ws.ll_buffer(dev, 8192).numel() == 8192
     assert ws.nbytes == 8 * 128 + 8192
-    assert (ws.next_seq(), ws.next_seq()) == (1, 2)
+    fused = ws.control(dev, kernel="fused_matmul_rd")
+    assert fused is not ctl and torch.equal(fused, ctl)
+    assert ws.control(dev, kernel="fused_matmul_rd") is fused
+    assert ws.nbytes == 2 * 8 * 128 + 8192
+    assert not hasattr(ws, "next_seq")
+
+
+def test_workspace_generation_moves_when_a_captured_buffer_grows(
+        monkeypatch):
+    """A buffer a CUDA-graph capture took and a later eager call grows
+    moves ``generation`` on (once for all buffers grown before the next
+    capture), so a captured step is captured anew; growing a buffer no
+    capture took leaves it, and growing one during a capture raises.  The
+    capture is simulated on CPU tensors through ``_capturing``."""
+    ws = rdk.RDWorkspace()
+    dev = torch.device("cpu")
+    capturing = [False]
+
+    def fake(device, refuse=""):
+        if capturing[0] and refuse:
+            raise RuntimeError(f"RDWorkspace: {refuse} would be allocated "
+                               "while a CUDA graph is captured")
+        return capturing[0]
+
+    monkeypatch.setattr(rdk.RDWorkspace, "_capturing", staticmethod(fake))
+    recv, flags = ws.buffers(dev, 1024, 16, kernel="fused_matmul_rd")
+    ll = ws.ll_buffer(dev, 512)
+    capturing[0] = True                       # the capture takes both
+    assert ws.buffers(dev, 512, 8, kernel="fused_matmul_rd") == (recv,
+                                                                 flags)
+    assert ws.ll_buffer(dev, 256) is ll
+    with pytest.raises(RuntimeError, match="captured"):
+        ws.buffers(dev, 2048, 16, kernel="fused_matmul_rd")
+    capturing[0] = False
+    assert ws.generation == 0
+    ws.buffers(dev, 4096, 64)                  # kernel 4's: not taken
+    ws.buffers(dev, 8192, 64)
+    assert ws.generation == 0
+    recv2, flags2 = ws.buffers(dev, 2048, 16, kernel="fused_matmul_rd")
+    assert recv2 is not recv and recv2.numel() == 2048 and flags2 is flags
+    assert ws.generation == 1
+    assert ws.ll_buffer(dev, 1024) is not ll   # same capture: no second move
+    assert ws.generation == 1
+    capturing[0] = True                        # captured anew
+    ll = ws.ll_buffer(dev, 1024)
+    capturing[0] = False
+    assert ws.ll_buffer(dev, 4096) is not ll and ws.generation == 2
 
 
 @pytest.mark.parametrize("knob,item", [

@@ -251,13 +251,27 @@ def test_mesh_engine_tokens_match_tp1_and_jax_local():
     assert tp8.new_tokens.dtype == np.int32 and tp8.steps == 4
 
 
-def test_mesh_engine_refuses_paged_cache_and_sampling():
+def test_mesh_engine_runs_paged_cache_and_sampling():
+    """The mesh engine pages its cache (one pool a rank, folded) with the
+    dense cache's tokens, and samples over the gathered vocab from each
+    row's seeded chain; chunked admission is what still refuses."""
     case = TPCase(2, 2, "hier_rd")
     kw = dict(ctx=case.ctx, mesh=case.mesh, s_max=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        InferenceEngine(case.tap, case.model, block_size=8, **kw)
-    with pytest.raises(ValueError, match="greedily"):
-        InferenceEngine(case.tap, case.model, temperature=1.0, **kw)
+    prompts = _prompts(case.tcfg.vocab_size, seed=4)
+
+    def gen(**k):
+        return InferenceEngine(case.tap, case.model, **kw, **k) \
+            .generate(prompts, 4).tokens
+
+    np.testing.assert_array_equal(gen(block_size=8), gen())
+    sampled = gen(temperature=1.0, top_k=8, seed=3)
+    np.testing.assert_array_equal(gen(temperature=1.0, top_k=8, seed=3,
+                                      block_size=8), sampled)
+    assert sampled[:, -4:].max() < case.tcfg.vocab_size
+    assert not np.array_equal(gen(temperature=1.0, top_k=8, seed=4), sampled)
+    from repro_torch.inference.scheduler import ContinuousBatcher
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6b"):
+        ContinuousBatcher(case.tap, case.model, admit_mode="chunked", **kw)
     with pytest.raises(ValueError, match="VirtualMesh"):
         InferenceEngine(case.tap, case.model, s_max=32, device="cpu")
 
