@@ -221,8 +221,37 @@ phase's seconds are printed after it):
      kernel 5's buffers after the capture: captured anew at least once,
      tokens bitwise its eager steps'; and in f32 at 2 layers, tp=8 paged
      against tp=1 dense by provable_gate, which must check at least three
-     quarters of the steps.  Then both forms' decode tok/s of every path,
-     side by side.
+     quarters of the steps;
+ 28. kernel 3's chunk form (per-sequence query offsets over the decode
+     cache) against its plain version within TOL and bitwise against the
+     full form on the rows they share, C 5 / 64 / 128 x offsets 0 / 1 /
+     63 / 448, dense rows and the paged table, bf16 and f32, two windowed
+     cases, NaN past the chunk's last query never read; 200 replays of a
+     captured call with fresh offsets, each bitwise a direct call; kernel,
+     plain version and SDPA (over the keys that exist, the same boolean
+     mask) timed at C 128, offset 384; then phase 27's trace admitted by
+     chunks of 128 (ContinuousBatcher(admit_mode="chunked")): exact
+     launches of the eager form (the chunk form once a layer a chunk, the
+     full form never), tp=1 dense and paged (medians of 3), chunked dense
+     == paged == eager bitwise, chunked against full admission by
+     provable_gate (both teacher-forced, the chunked one through
+     prefill_chunk) with the teacher-forced logits within (TF_MAX,
+     TF_MEAN); speculative decoding (k = 4, greedy) with the replay drafter
+     (phase 27's streams), the ngram drafter, the replay of the ngram
+     run's streams and the draft model on the paged cache (graph and eager
+     steps bitwise), each against plain decode by the same gate (the
+     verify path teacher-forced k + 1 tokens at a time), all of them the
+     same tokens, acceptance and steps; make_prefix_trace (256 shared
+     tokens in 3/4 of 32 requests): the prefix cache on == off bitwise,
+     both chunked, hits and tokens saved; tp=8 hier_rd paged chunked
+     against tp=8 full admission by the same gate, the prefix trace at
+     tp=8 with the cache on == off bitwise, and spec ngram with the cache
+     on (graph == eager bitwise on the first 8 requests) against plain by
+     the gate; TTFT and
+     throughput beside phase 27's; in f32 at 2 layers, chunked and spec
+     (replay) against plain at tp=1 (paged) and tp=8 (dense), each by
+     provable_gate checking at least three quarters of the steps.  Then
+     both forms' decode tok/s of every path, side by side.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -252,7 +281,8 @@ from repro_torch.core import autotune, hierarchical, overlap  # noqa: E402
 from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
 from repro_torch.inference.scheduler import (  # noqa: E402
-    ContinuousBatcher, Request, make_trace)
+    ContinuousBatcher, Request, make_prefix_trace, make_trace)
+from repro_torch.inference.speculative import ReplayDrafter  # noqa: E402
 from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
                                  decode_attention, flash_attention,
                                  kernel_wrappers, moe_expert_ffn,
@@ -269,6 +299,8 @@ from repro_torch.kernels.decode_attention.ops import \
     SPLIT_KEYS  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref, visible_keys)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_chunk, flash_attention_chunk_ref)
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import (  # noqa: E402
@@ -340,6 +372,8 @@ TF_MAX, TF_MEAN = 0.5, 0.02
 REPLACES = {
     "flash_attention":
         "src/repro/kernels/flash_attention/kernel.py:26",
+    "flash_attention_chunk":
+        "src/repro/kernels/flash_attention/kernel.py:26",
     "decode_attention":
         "src/repro/kernels/decode_attention/kernel.py:27",
     "paged_decode_attention":
@@ -356,6 +390,7 @@ REPLACES = {
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:26",
 }
 MAIN_PATH = {"flash_attention": "tp8_hier_rd",
+             "flash_attention_chunk": "serve_chunked_tp1_paged",
              "decode_attention": "tp8_hier_rd",
              "paged_decode_attention": "tp1_paged",
              "rd_all_reduce": "tp8_hier_rd",
@@ -368,6 +403,8 @@ MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "ssm_scan": "hymba_tp1"}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_chunk":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "paged_decode_attention":
         "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3410,6 +3447,7 @@ def phase_hybrid_tp() -> dict:
 SERVE_SLOTS, SERVE_REQS, SERVE_RATE = 8, 32, 0.5
 SERVE_MEAN_IN, SERVE_MEAN_OUT = 256, 64
 SERVE_STATS: dict = {}
+SERVE_OUTS: dict = {}     # phase 27's tokens, the references of phase 28
 
 
 def fresh(reqs):
@@ -3427,13 +3465,14 @@ def same_outputs(a: dict, b: dict) -> bool:
                                         for k in a)
 
 
-def serve_timed(label: str, b: ContinuousBatcher, reqs) -> tuple:
+def serve_timed(label: str, b: ContinuousBatcher, reqs,
+                reps: int = 3) -> tuple:
     """A warm-up replay (it captures the step and meets every prompt
-    length once), then three timed ones, each with the same tokens;
-    throughput, TTFT and TPOT as medians of the three."""
+    length once), then ``reps`` timed ones, each with the same tokens;
+    throughput, TTFT and TPOT as medians of them."""
     first, _ = serve_run(b, reqs)
     ms = []
-    for _ in range(3):
+    for _ in range(reps):
         outs, m = serve_run(b, reqs)
         if not same_outputs(outs, first):
             raise AssertionError(f"{label}: a replay changed the tokens")
@@ -3443,7 +3482,7 @@ def serve_timed(label: str, b: ContinuousBatcher, reqs) -> tuple:
         return float(np.median([getattr(m, f) for m in ms]))
 
     st = {f: med(f) for f in ("throughput_tok_s", "ttft_s_p50", "ttft_s_p99",
-                              "tpot_s_p50", "tpot_s_p99", "wall_s")}
+                              "tpot_s_p50", "tpot_s_p99", "wall_s", "steps")}
     SERVE_STATS[label] = st
     m = ms[-1]
     log(f"  {label}: {m.completed}/{m.requests} requests, "
@@ -3452,7 +3491,7 @@ def serve_timed(label: str, b: ContinuousBatcher, reqs) -> tuple:
         f"throughput {st['throughput_tok_s']:.1f} tok/s, TTFT p50/p99 "
         f"{st['ttft_s_p50'] * 1e3:.2f}/{st['ttft_s_p99'] * 1e3:.2f} ms, TPOT "
         f"p50/p99 {st['tpot_s_p50'] * 1e3:.3f}/{st['tpot_s_p99'] * 1e3:.3f} "
-        f"ms (medians of 3; throughput "
+        f"ms (medians of {reps}; throughput "
         + "/".join(f"{x.throughput_tok_s:.1f}" for x in ms) + ")")
     if m.completed != m.requests:
         raise AssertionError(f"{label}: requests left unserved")
@@ -3468,8 +3507,16 @@ class ForcedDecode:
     of the path being checked (the batcher's slots, or 1 for a batch-1
     generate) each row's logits are that path's, row for row."""
 
-    def __init__(self, model, ap, rows: int, ctx=None, mesh=None):
+    def __init__(self, model, ap, rows: int, ctx=None, mesh=None, *,
+                 chunk: int = 0, verify_k: int = 0):
+        """``chunk`` > 0: each prompt admitted through chunks of that many
+        tokens (``prefill_chunk`` into its row, the batcher's chunked
+        admission) instead of one full prefill.  ``verify_k`` > 0: the
+        tokens fed as the verify step feeds them, k + 1 at a time through
+        ``prefill_chunk`` over all rows (the drafts all accepted), instead
+        of one decode step a token."""
         self.model, self.ap, self.rows, self.mesh = model, ap, rows, mesh
+        self.chunk, self.verify_k = chunk, verify_k
         self.kw = {} if mesh is None else {"ctx": ctx, "mesh": mesh}
         self.cache = init_cache(ap, rows, S_MAX, device="cuda", mesh=mesh)
         self.tok = torch.zeros(rows, dtype=torch.int32, device="cuda")
@@ -3498,11 +3545,10 @@ class ForcedDecode:
             per = []
             with torch.inference_mode():
                 for i, (p, _) in enumerate(group):
-                    lg, st = forward_lm(self.model, torch.as_tensor(
-                        p[None], device="cuda").long(), self.ap,
-                        collect_state=True, **self.kw)
-                    seed_cache(self.cache, st, slot=i)
-                    per.append([self.full(lg[..., -1, :])[0]])
+                    per.append([self.admit(p, i)])
+            if self.verify_k:
+                res += self.verify_logits(group, per)
+                continue
             tok = np.zeros(self.rows, np.int32)
             pos = np.zeros(self.rows, np.int32)
             for t in range(1, max(len(o) for _, o in group)):
@@ -3518,17 +3564,73 @@ class ForcedDecode:
             res += [torch.stack(x) for x in per]
         return res
 
+    def admit(self, p: np.ndarray, i: int) -> torch.Tensor:
+        """Prefill prompt ``p`` into row i (one full prefill, or chunk by
+        chunk); the logits of its last position, (V,)."""
+        if not self.chunk:
+            lg, st = forward_lm(self.model, torch.as_tensor(
+                p[None], device="cuda").long(), self.ap,
+                collect_state=True, **self.kw)
+            seed_cache(self.cache, st, slot=i)
+            return self.full(lg[..., -1, :])[0]
+        C, S = self.chunk, len(p)
+        padded = np.zeros(-(-S // C) * C, np.int64)
+        padded[:S] = p
+        slot = torch.tensor([i], device="cuda")
+        for c0 in range(0, len(padded), C):
+            lg, _ = transformer.prefill_chunk(
+                self.model, self.cache, torch.as_tensor(
+                    padded[None, c0:c0 + C], device="cuda"),
+                torch.arange(c0, c0 + C, dtype=torch.int32,
+                             device="cuda")[None], self.ap, slot=slot,
+                return_logits=c0 + C >= S, **self.kw)
+        return self.full(lg[..., (S - 1) % C, :])[0]
+
+    def verify_logits(self, group, per) -> list:
+        """Each row's own tokens fed k + 1 at a time over all rows (rows
+        past their sequence repeat their last token, past the cache at its
+        last position): row i's logits at output positions 1, 2, ..."""
+        C = self.verify_k + 1
+        T = max(len(o) for _, o in group)
+        tok = np.zeros((self.rows, C), np.int64)
+        pos = np.zeros((self.rows, C), np.int32)
+        for t in range(1, T, C):
+            for i, (p, o) in enumerate(group):
+                for j in range(C):
+                    tok[i, j] = o[min(t - 1 + j, len(o) - 1)]
+                    pos[i, j] = min(len(p) + t - 1 + j, S_MAX - 1)
+            with torch.inference_mode():
+                lg, _ = transformer.prefill_chunk(
+                    self.model, self.cache, torch.as_tensor(tok,
+                                                            device="cuda"),
+                    torch.as_tensor(pos, device="cuda"), self.ap, **self.kw)
+            full = self.full(lg)
+            for i, (_, o) in enumerate(group):
+                for j in range(C):
+                    if t + j < len(o):
+                        per[i].append(full[i, j].clone())
+        return [torch.stack(x) for x in per]
+
 
 def serve_gate(label: str, reqs, outs: dict, ref: dict, lg: list,
-               ref_lg: list) -> int:
+               ref_lg: list, *, limits: tuple = (), floor: float = 0.0
+               ) -> int:
     """provable_gate over a served trace: each request's tokens equal the
     reference's at every step until the first at which the reference
     path's top-1/top-2 gap is not above twice the two paths' largest logit
-    difference (both teacher-forced on the reference's tokens)."""
-    checked = 0
+    difference (both teacher-forced on the reference's tokens).  The two
+    paths' teacher-forced logits' max and mean |diff| are printed and,
+    with ``limits`` (max, mean), held to them: a path that computes
+    another function (a position or a key offset wrong) breaks those where
+    rounding does not.  With ``floor`` the gate must check at least that
+    share of the steps."""
+    checked, mx, tot, cnt = 0, 0.0, 0.0, 0
     for r, a, b in zip(reqs, lg, ref_lg):
         gap = top2_gap(b)
-        diff = (a - b).abs().amax(-1).cpu().numpy()
+        d = (a - b).abs()
+        diff = d.amax(-1).cpu().numpy()
+        mx, tot, cnt = max(mx, float(diff.max())), tot + float(d.sum()), \
+            cnt + d.numel()
         want, got = ref[r.rid], outs[r.rid]
         for t in range(len(want)):
             if gap[t] <= 2 * diff[t]:
@@ -3539,8 +3641,19 @@ def serve_gate(label: str, reqs, outs: dict, ref: dict, lg: list,
                                      f"above twice {diff[t]:.4g}")
             checked += 1
     n = sum(len(ref[r.rid]) for r in reqs)
+    mean = tot / cnt
     log(f"  {label}: tokens equal on {checked}/{n} steps that provable_gate "
-        "checks (gap above twice the paths' logit difference)")
+        "checks (gap above twice the paths' logit difference); "
+        f"teacher-forced logits max|diff| {mx:.4f}, mean {mean:.3e}"
+        + (f" (limits {limits[0]:g}, {limits[1]:g})" if limits else "")
+        + (f", at least {floor:g} of the steps checked" if floor else ""))
+    if limits and (mx > limits[0] or mean > limits[1]):
+        raise AssertionError(f"{label}: teacher-forced logits differ by "
+                             f"{mx:.4g} (max) / {mean:.4g} (mean), limits "
+                             f"{limits}")
+    if checked < floor * n:
+        raise AssertionError(f"{label}: provable_gate checked only "
+                             f"{checked}/{n} steps")
     return checked
 
 
@@ -3562,6 +3675,7 @@ def phase_serve() -> None:
                                  device="cuda", **kw)
 
     dense, _ = serve_timed("tp=1 dense", batcher(), reqs)
+    SERVE_OUTS["tp=1 dense"] = dense
     paged, m_paged = serve_timed(f"tp=1 paged (block {BLOCK})",
                                  batcher(block_size=BLOCK), reqs)
     if not same_outputs(paged, dense):
@@ -3620,6 +3734,7 @@ def phase_serve() -> None:
 
     tp8, _ = serve_timed(f"tp=8 ({PODS}x{FAST}) hier_rd paged", batcher8(),
                          reqs)
+    SERVE_OUTS["tp=8 paged"] = tp8
     tp8_dense, _ = serve_run(batcher8(block_size=0), reqs)
     if not same_outputs(tp8, tp8_dense):
         raise AssertionError("serve: tp=8 paged tokens differ from tp=8 "
@@ -3678,16 +3793,455 @@ def serve_f32(reqs) -> None:
         ap8, model8, slots=SERVE_SLOTS, s_max=S_MAX, ctx=ctx, mesh=mesh,
         block_size=BLOCK, device="cuda"), reqs)
     seqs = [(r.prompt, one[r.rid]) for r in reqs]
-    checked = serve_gate(
+    serve_gate(
         "f32, 2 layers: tp=8 paged against tp=1 dense", reqs, eight, one,
         ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh).logits(seqs),
-        ForcedDecode(model, ap, SERVE_SLOTS).logits(seqs))
-    n = sum(len(one[r.rid]) for r in reqs)
-    if 4 * checked < 3 * n:
-        raise AssertionError(f"serve f32: provable_gate checked only "
-                             f"{checked}/{n} steps")
+        ForcedDecode(model, ap, SERVE_SLOTS).logits(seqs), floor=0.75)
     del model, model8
     free_device()
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the chunk form of kernel 3 and the serving features riding it
+# ---------------------------------------------------------------------------
+
+# The sweep of kernel 3's chunk form: chunk lengths (5: a speculative
+# verify chunk of k = 4; 64; 128: the chunked admission's), query offsets
+# (0, off a tile edge by 1 and 63, and 448), llama3.2-1b's heads at batch 8.
+CHUNK_LENS = (5, 64, 128)
+CHUNK_OFFSETS = (0, 1, 63, 448)
+CHUNK_TIMED = (128, 384)          # (C, offset) timed
+CHUNK_REPLAYS = 200
+
+
+def chunk_operands(gen, dtype, C: int, off: int, window: int = 0):
+    """A batch-8 prompt of off + C tokens at llama3.2-1b's heads, its full
+    form's output, and the same keys in the decode cache: a dense cache of
+    B + 3 rows (the sequences on shuffled rows) and a shuffled paged pool
+    (BLOCK positions a block), every key position past the prompt and
+    every unmapped block holding 999 / -999.  Returns (q of the chunk,
+    full-form rows of the chunk, q_offset, dense (k, v, rows), paged (k, v,
+    table))."""
+    S = off + C
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = rnd(B, S, HQ, HD), rnd(B, S, HKV, HD), rnd(B, S, HKV, HD)
+    full = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=True, window=window)
+    rows = (torch.randperm(B + 3, generator=gen, device="cuda")[:B]
+            ).to(torch.int32)
+    dense = []
+    for x, fill in ((k, 999.0), (v, -999.0)):
+        c = torch.full((B + 3, S_MAX, HKV, HD), fill, dtype=dtype,
+                       device="cuda")
+        c[rows.long(), :S] = x
+        dense.append(c)
+    padded = [torch.cat([x, torch.full((B, S_MAX - S, HKV, HD), 999.0,
+                                       dtype=dtype, device="cuda")], 1)
+              for x in (k, v)]
+    tbl, kp, vp = scatter_blocks(gen, *padded, BLOCK)
+    offs = torch.full((B,), off, dtype=torch.int32, device="cuda")
+    return (q[:, off:].transpose(1, 2), full[:, :, off:], offs,
+            (dense[0], dense[1], rows), (kp, vp, tbl))
+
+
+def chunk_call(q, offs, form, layout, window=0):
+    k, v, idx = form
+    kw = {"rows": idx} if layout == "dense" else {"block_tbl": idx}
+    return (flash_attention_chunk(q, k, v, offs, window=window, **kw),
+            flash_attention_chunk_ref(q, k, v, offs, window=window, **kw))
+
+
+def chunk_bound(C: int, off: int, dtype) -> tuple:
+    """Bytes: q and o of the chunk, each visible key's k and v once;
+    operations: QK^T and PV over the (query, key) pairs the causal mask
+    keeps."""
+    keys = off + C
+    pairs = sum(off + i + 1 for i in range(C))
+    esz = torch.finfo(dtype).bits // 8
+    return bound_ms(esz * B * HD * (2 * HQ * C + 2 * HKV * keys),
+                    4.0 * B * HQ * HD * pairs, dtype)
+
+
+def phase_chunk_kernel() -> dict:
+    """Kernel 3's chunk form against its plain version (within TOL) and
+    bitwise against the full form on the rows they share, over CHUNK_LENS
+    x CHUNK_OFFSETS, dense rows and the paged table, bf16 and f32, plus a
+    windowed case; the keys past the chunk's last query poisoned with NaN
+    change no bit; CHUNK_REPLAYS replays of one captured call with fresh
+    offsets and queries each bitwise a direct call; kernel, plain version
+    and SDPA with the same boolean mask timed at CHUNK_TIMED."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 28)
+    worst = {}
+    cases = [(dt, C, off, 0) for dt in (torch.bfloat16, torch.float32)
+             for C in CHUNK_LENS for off in CHUNK_OFFSETS]
+    cases += [(torch.bfloat16, 128, 448, 300), (torch.float32, 64, 63, 100)]
+    for dtype, C, off, win in cases:
+        q, full, offs, dense, paged = chunk_operands(gen, dtype, C, off, win)
+        outs = {}
+        for layout, form in (("dense", dense), ("paged", paged)):
+            out, ref = chunk_call(q, offs, form, layout, win)
+            err = max_err(out, ref)
+            tol = TOL[dtype]
+            if not torch.allclose(out.float(), ref.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(f"chunk C={C} off={off} {layout} "
+                                     f"{dtype}: kernel != plain ({err:.3e})")
+            if not torch.equal(out, full):
+                raise AssertionError(f"chunk C={C} off={off} {layout} "
+                                     f"{dtype}: not bitwise the full form")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            outs[layout] = out
+        # NaN past the chunk's last query (the dense rows) changes nothing
+        k, v, rows = dense
+        k2, v2 = k.clone(), v.clone()
+        k2[:, off + C:], v2[:, off + C:] = float("nan"), float("nan")
+        if not torch.equal(flash_attention_chunk(q, k2, v2, offs, rows=rows,
+                                                 window=win), outs["dense"]):
+            raise AssertionError(f"chunk C={C} off={off}: a key past the "
+                                 "chunk's last query reached the output")
+        del q, full, dense, paged, k2, v2
+    log(f"  chunk form: {len(cases)} cases x dense rows and paged table "
+        f"(C {CHUNK_LENS}, offsets {CHUNK_OFFSETS}, two windowed): within "
+        f"TOL of the plain version (max |kernel-plain| bf16 "
+        f"{worst[torch.bfloat16]:.3e}, f32 {worst[torch.float32]:.3e}), "
+        "bitwise the full form's rows, NaN past the last query unread")
+    # replays of a captured call, fresh offsets and queries each
+    C, off = CHUNK_TIMED
+    q, full, offs, dense, paged = chunk_operands(gen, torch.bfloat16, C, off)
+    kp, vp, tbl = paged
+    qs = q.clone()
+    out = flash_attention_chunk(qs, kp, vp, offs, block_tbl=tbl)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = flash_attention_chunk(qs, kp, vp, offs, block_tbl=tbl)
+    for i in range(CHUNK_REPLAYS):
+        offs.copy_(torch.randint(0, S_MAX - C + 1, (B,), generator=gen,
+                                 device="cuda", dtype=torch.int32))
+        qs.copy_(torch.randn(qs.shape, generator=gen, device="cuda"))
+        g.replay()
+        if not torch.equal(out, flash_attention_chunk(qs, kp, vp, offs,
+                                                      block_tbl=tbl)):
+            raise AssertionError(f"chunk replay {i}: differs from a direct "
+                                 "call")
+    log(f"  {CHUNK_REPLAYS} replays of one captured paged call (C {C}), "
+        "fresh offsets and queries each: bitwise a direct call")
+    offs.fill_(off)
+    # SDPA over the off + C keys that exist (the gathered rows cut there),
+    # under the same causal boolean mask: the same function as the kernel's
+    k, v, rows = dense
+    kd = k[rows.long(), :off + C].transpose(1, 2).contiguous()
+    vd = v[rows.long(), :off + C].transpose(1, 2).contiguous()
+    qpos = off + torch.arange(C, device="cuda")
+    mask = (torch.arange(off + C, device="cuda")[None, :]
+            <= qpos[:, None])[None, None]
+    qc = q.contiguous()
+    t = {}
+    for layout, form in (("dense", dense), ("paged", paged)):
+        kw = {"rows": form[2]} if layout == "dense" \
+            else {"block_tbl": form[2]}
+        t[layout] = (time_ms(lambda: flash_attention_chunk(
+                         q, form[0], form[1], offs, **kw)),
+                     time_ms(lambda: flash_attention_chunk_ref(
+                         q, form[0], form[1], offs, **kw)))
+    t_sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kd, vd, attn_mask=mask, enable_gqa=True))
+    bnd = chunk_bound(C, off, torch.bfloat16)
+    for layout in t:
+        log(f"  flash_attention_chunk {layout} C={C} offset={off} (B {B}, "
+            f"{HQ}/{HKV} heads, hd {HD}) [bfloat16]: kernel_ms="
+            f"{t[layout][0]:.4f} plain_ms={t[layout][1]:.4f} library_ms="
+            f"{t_sdpa:.4f} (SDPA over the {off + C} keys, boolean mask) "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+    del q, full, dense, paged, kd, vd
+    free_device()
+    return {"max_abs_err": worst[torch.bfloat16], "ms": t["dense"][0],
+            "plain_ms": t["dense"][1], "library_ms": t_sdpa,
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "paged_ms": t["paged"][0], "paged_plain_ms": t["paged"][1],
+            "shape": {"B": B, "Hq": HQ, "Hkv": HKV, "hd": HD, "C": C,
+                      "offset": off}}
+
+
+ADMIT_CHUNK, SPEC_K = 128, 4
+PREFIX_LEN, PREFIX_FRAC = 256, 0.75
+
+
+def chunk_launches(reqs, L: int) -> int:
+    """Kernel 3's chunk-form launches of a chunked admission of ``reqs``:
+    one a layer a chunk."""
+    return L * sum(-(-len(r.prompt) // ADMIT_CHUNK) for r in reqs)
+
+
+def spec_log(name: str, b: ContinuousBatcher, m) -> None:
+    log(f"    spec {name}: {m.accepted_tokens}/{m.drafted_tokens} drafts "
+        f"accepted ({m.acceptance_rate:.3f}, {m.accepted_tokens_per_step:.2f}"
+        f" a step), {m.steps} steps, {m.throughput_tok_s:.1f} tok/s, "
+        f"{b.graph_replays} replays")
+
+
+def streams_of(reqs, outs: dict) -> dict:
+    """A ReplayDrafter's streams: each request's tokens in ``outs``."""
+    return {tuple(int(t) for t in r.prompt): list(outs[r.rid]) for r in reqs}
+
+
+def phase_serve_chunked() -> dict:
+    """Phase 27's trace admitted by chunks of ADMIT_CHUNK (tp=1 dense and
+    paged, tp=8 hier_rd paged): exact launches of the eager form (kernel
+    3's chunk form once a layer a chunk, its full form never), chunked
+    dense == chunked paged == eager bitwise, chunked against full
+    admission by provable_gate with the teacher-forced logits within
+    (TF_MAX, TF_MEAN); speculative decoding (k = SPEC_K, greedy) with the
+    replay drafter (phase 27's streams), the ngram drafter, the replay of
+    the ngram run's streams and, on the paged cache, the draft model
+    (graph and eager steps), each against plain decode by the same gate,
+    and all of them the same tokens (a verify row's value depends only on
+    its position and the tokens before it, not on the drafts); the prefix
+    trace with the cache on == off bitwise at tp=1; at tp=8 the prefix
+    trace plain with the cache on == off bitwise and spec ngram with the
+    cache on (graph == eager bitwise) against plain by the gate; then the
+    f32 runs of serve_chunked_f32.  Returns the launch counts of the eager
+    chunked run."""
+    cfg = get_config("llama3.2-1b")
+    L = cfg.n_layers
+    tf = (TF_MAX, TF_MEAN)
+    reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
+                      mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
+                      vocab=cfg.vocab_size, seed=SEED)
+    preqs = make_prefix_trace(SERVE_REQS, prefix_len=PREFIX_LEN,
+                              shared_frac=PREFIX_FRAC,
+                              mean_in=SERVE_MEAN_IN,
+                              mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
+                              vocab=cfg.vocab_size, seed=SEED,
+                              clip_len=S_MAX - 1)
+    ap = make_plan(cfg, 1)
+    model = init_params(ap, seed=SEED, device="cuda")
+    chunked = dict(admit_mode="chunked", admit_chunk=ADMIT_CHUNK)
+    spec = dict(spec_k=SPEC_K)
+
+    def batcher(**kw):
+        return ContinuousBatcher(ap, model, slots=SERVE_SLOTS, s_max=S_MAX,
+                                 device="cuda", **kw)
+
+    # (b) chunked admission
+    reset_counts()
+    few = reqs[:SERVE_SLOTS]
+    eager, _ = serve_run(batcher(block_size=BLOCK, cuda_graph=False,
+                                 **chunked), few)
+    launches = counts()
+    want = chunk_launches(few, L)
+    log(f"  chunked eager run ({len(few)} requests): flash_attention_chunk "
+        f"{launches['flash_attention_chunk']} (expected {want}: {L} layers "
+        f"x {want // L} chunks), flash_attention "
+        f"{launches['flash_attention']}, paged_decode_attention "
+        f"{launches['paged_decode_attention']}")
+    if launches["flash_attention_chunk"] != want \
+            or launches["flash_attention"]:
+        raise AssertionError("chunked admission: launch counts differ")
+    c_dense, _ = serve_timed(f"tp=1 dense, chunked({ADMIT_CHUNK})",
+                             batcher(**chunked), reqs)
+    c_paged, _ = serve_timed(f"tp=1 paged, chunked({ADMIT_CHUNK})",
+                             batcher(block_size=BLOCK, **chunked), reqs)
+    if not (same_outputs(c_dense, c_paged) and same_outputs(
+            eager, {r.rid: c_paged[r.rid] for r in few})):
+        raise AssertionError("chunked: dense, paged and eager tokens differ")
+    log("  chunked dense == chunked paged == its eager steps, bitwise")
+    full = SERVE_OUTS["tp=1 dense"]
+    seqs = [(r.prompt, full[r.rid]) for r in reqs]
+    fd_full = ForcedDecode(model, ap, SERVE_SLOTS).logits(seqs)
+    serve_gate("tp=1 chunked against full admission", reqs, c_dense, full,
+               ForcedDecode(model, ap, SERVE_SLOTS,
+                            chunk=ADMIT_CHUNK).logits(seqs), fd_full,
+               limits=tf)
+    # (d) speculative decoding against plain decode (full admission)
+    fd_verify = ForcedDecode(model, ap, SERVE_SLOTS,
+                             verify_k=SPEC_K).logits(seqs)
+    runs = (("replay", "replay", streams_of(reqs, full)),
+            ("ngram", "ngram", None),
+            ("replay of the ngram run's streams", "replay", "ngram"))
+    spec_outs = {}
+    for name, mode, src in runs:
+        kw = {}
+        if mode == "replay":
+            if isinstance(src, str):        # the streams of an earlier run
+                src = streams_of(reqs, spec_outs[src])
+            kw["drafter"] = ReplayDrafter(src)
+        b = batcher(spec_mode=mode, **spec, **kw)
+        outs, m = serve_timed(f"tp=1 dense, spec {name} k={SPEC_K}", b,
+                              reqs, reps=1)
+        spec_outs[name] = outs
+        spec_log(f"{name} (plain decode "
+                 f"{SERVE_STATS['tp=1 dense']['steps']:.0f} steps)", b, m)
+        serve_gate(f"tp=1 spec {name} against plain decode", reqs, outs,
+                   full, fd_verify, fd_full, limits=tf)
+    # the draft model on the paged cache, the trace's first SERVE_SLOTS
+    # requests (it runs a forward a drafted token), graph and eager steps
+    drafted = {}
+    for graph in (True, False):
+        b = batcher(block_size=BLOCK, spec_mode="draft", cuda_graph=graph,
+                    **spec)
+        drafted[graph], m = serve_run(b, few)
+        spec_log(f"draft, paged, {len(few)} requests, "
+                 f"{'graph' if graph else 'eager'} steps", b, m)
+    if not same_outputs(drafted[True], drafted[False]):
+        raise AssertionError("spec draft paged: graph tokens differ from "
+                             "eager")
+    log("  spec draft paged: graph tokens == eager tokens, bitwise")
+    serve_gate("tp=1 paged spec draft against plain decode", few,
+               drafted[True], full, fd_verify[:len(few)],
+               fd_full[:len(few)], limits=tf)
+    ref = spec_outs["ngram"]
+    if not (all(same_outputs(o, ref) for o in spec_outs.values())
+            and same_outputs(drafted[True], {r.rid: ref[r.rid]
+                                             for r in few})):
+        raise AssertionError("spec: the tokens depend on the drafter or on "
+                             "the cache layout")
+    log("  spec tokens do not depend on the drafter or the layout: replay, "
+        "ngram, the replay of the ngram run's streams and the paged draft "
+        "model's run equal, bitwise")
+    del fd_full, fd_verify
+    # (c) the prefix cache, on against off, both chunked and paged
+    lens = [len(r.prompt) for r in preqs]
+    heads = [tuple(r.prompt[:PREFIX_LEN]) for r in preqs]
+    n_shared = max(heads.count(h) for h in heads)
+    log(f"  prefix trace: {len(preqs)} requests, prompts {min(lens)}-"
+        f"{max(lens)}, {n_shared} open with the same {PREFIX_LEN} tokens")
+    off, _ = serve_timed("tp=1 paged chunked, prefix cache off",
+                         batcher(block_size=BLOCK, **chunked), preqs, reps=1)
+    b = batcher(block_size=BLOCK, prefix_cache="on", **chunked)
+    on, m = serve_timed("tp=1 paged chunked, prefix cache on", b, preqs,
+                        reps=1)
+    if not same_outputs(on, off):
+        raise AssertionError("prefix cache on != off")
+    log(f"  prefix on == off bitwise; the timed run: {m.prefix_hits}/"
+        f"{m.prefix_lookups} admissions hit, {m.prefix_tokens_saved} "
+        f"prompt tokens not prefilled (of {sum(lens)})")
+    if not m.prefix_hits:
+        raise AssertionError("prefix cache: no hit")
+    del model, b
+    free_device()
+    # tp=8 hier_rd paged: chunked against its full admission; the prefix
+    # trace with the cache on, plain and speculative
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    ap8 = make_plan(cfg, PODS * FAST)
+    model8 = init_params(ap8, seed=SEED, device="cuda", mesh=mesh)
+
+    def batcher8(**kw):
+        return ContinuousBatcher(ap8, model8, slots=SERVE_SLOTS, s_max=S_MAX,
+                                 ctx=ctx, mesh=mesh, block_size=BLOCK,
+                                 device="cuda", **kw)
+
+    c8, _ = serve_timed(f"tp=8 ({PODS}x{FAST}) hier_rd paged, chunked("
+                        f"{ADMIT_CHUNK})", batcher8(**chunked), reqs, reps=1)
+    full8 = SERVE_OUTS["tp=8 paged"]
+    seqs = [(r.prompt, full8[r.rid]) for r in reqs]
+    serve_gate("tp=8 chunked against tp=8 full admission", reqs, c8, full8,
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh,
+                            chunk=ADMIT_CHUNK).logits(seqs),
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh)
+               .logits(seqs), limits=tf)
+    p_off, _ = serve_run(batcher8(**chunked), preqs)
+    b = batcher8(prefix_cache="on", **chunked)
+    p_on, m = serve_run(b, preqs)
+    log(f"  tp=8 prefix trace, chunked: cache on {m.prefix_hits}/"
+        f"{m.prefix_lookups} admissions hit, {m.prefix_tokens_saved} prompt "
+        "tokens not prefilled")
+    if not m.prefix_hits or not same_outputs(p_on, p_off):
+        raise AssertionError("tp=8 prefix cache: no hit, or on != off")
+    log("  tp=8 prefix on == off bitwise")
+    # the eager steps serve the trace's first SERVE_SLOTS requests (an
+    # eager tp=8 verify step takes about 65 ms): a request's tokens do not
+    # depend on the others in the batch, nor on the prefix hits
+    p_spec = {}
+    for graph, rs in ((True, preqs), (False, preqs[:SERVE_SLOTS])):
+        b = batcher8(prefix_cache="on", spec_mode="ngram", cuda_graph=graph,
+                     **chunked, **spec)
+        p_spec[graph], m = serve_run(b, rs)
+        spec_log(f"ngram, tp=8 paged, prefix cache on, {len(rs)} requests "
+                 f"({m.prefix_hits} hits), {'graph' if graph else 'eager'} "
+                 "steps", b, m)
+    if not same_outputs(p_spec[False], {r.rid: p_spec[True][r.rid]
+                                        for r in preqs[:SERVE_SLOTS]}):
+        raise AssertionError("tp=8 spec: graph tokens differ from eager")
+    log("  tp=8 spec + prefix cache: graph tokens == eager tokens, bitwise")
+    pseqs = [(r.prompt, p_off[r.rid]) for r in preqs]
+    serve_gate("tp=8 spec ngram + prefix cache against plain (chunked, "
+               "cache off)", preqs, p_spec[True], p_off,
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh,
+                            chunk=ADMIT_CHUNK, verify_k=SPEC_K).logits(pseqs),
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh,
+                            chunk=ADMIT_CHUNK).logits(pseqs), limits=tf)
+    del model8, b
+    free_device()
+    log("    TTFT p50 and throughput, full admission (phase 27) against "
+        "chunked (this phase):")
+    for a, c in (("tp=1 dense", f"tp=1 dense, chunked({ADMIT_CHUNK})"),
+                 (f"tp=1 paged (block {BLOCK})",
+                  f"tp=1 paged, chunked({ADMIT_CHUNK})"),
+                 (f"tp=8 ({PODS}x{FAST}) hier_rd paged",
+                  f"tp=8 ({PODS}x{FAST}) hier_rd paged, chunked("
+                  f"{ADMIT_CHUNK})")):
+        fa, ch = SERVE_STATS[a], SERVE_STATS[c]
+        log(f"      {a}: TTFT p50 {fa['ttft_s_p50'] * 1e3:.2f} -> "
+            f"{ch['ttft_s_p50'] * 1e3:.2f} ms, throughput "
+            f"{fa['throughput_tok_s']:.1f} -> {ch['throughput_tok_s']:.1f} "
+            "tok/s")
+    serve_chunked_f32(reqs)
+    return {"serve_chunked_tp1_paged": launches}
+
+
+def serve_chunked_f32(reqs) -> None:
+    """In f32 at full width and 2 layers, where two paths' logits differ
+    by about 1e-5 and provable_gate checks most steps: chunked admission
+    and speculative decoding (k = SPEC_K, the replay drafter over the plain
+    run's streams) against plain full admission on the dense cache, at
+    tp=1 (chunked and spec on the paged cache) and tp=8 (4x2 hier_rd,
+    dense), each by provable_gate with a floor of three quarters of the
+    steps and the logits within (TF_MAX, TF_MEAN).  The replay's
+    acceptance is printed: near 1 unless the verify pass picks other
+    tokens than plain decode."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+                              dtype=torch.float32)
+    chunked = dict(admit_mode="chunked", admit_chunk=ADMIT_CHUNK)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    for name, R, bs in (("tp=1, paged", 1, BLOCK),
+                        (f"tp=8 ({PODS}x{FAST}) hier_rd, dense", PODS * FAST,
+                         0)):
+        ap = make_plan(cfg, R)
+        kw = {} if R == 1 else {"ctx": ctx, "mesh": mesh}
+        model = init_params(ap, seed=SEED, device="cuda",
+                            mesh=kw.get("mesh"))
+
+        def run(**extra):
+            b = ContinuousBatcher(ap, model, slots=SERVE_SLOTS, s_max=S_MAX,
+                                  device="cuda", **kw, **extra)
+            return (*serve_run(b, reqs), b)
+
+        def fd(**f):
+            return ForcedDecode(model, ap, SERVE_SLOTS, kw.get("ctx"),
+                                kw.get("mesh"), **f).logits(seqs)
+
+        plain = run()[0]
+        seqs = [(r.prompt, plain[r.rid]) for r in reqs]
+        ref = fd()
+        serve_gate(f"f32, 2 layers, {name}: chunked against full admission",
+                   reqs, run(block_size=bs, **chunked)[0], plain,
+                   fd(chunk=ADMIT_CHUNK), ref, limits=(TF_MAX, TF_MEAN),
+                   floor=0.75)
+        outs, m, b = run(block_size=bs, spec_mode="replay", spec_k=SPEC_K,
+                         drafter=ReplayDrafter(streams_of(reqs, plain)))
+        spec_log(f"replay of plain's streams, f32, 2 layers, {name}", b, m)
+        serve_gate(f"f32, 2 layers, {name}: spec replay k={SPEC_K} against "
+                   "plain decode", reqs, outs, plain, fd(verify_k=SPEC_K),
+                   ref, limits=(TF_MAX, TF_MEAN), floor=0.75)
+        del model, ref, b
+        free_device()
 
 
 def ptxas_report() -> None:
@@ -3834,6 +4388,11 @@ def main() -> int:
     phase(f"[27] continuous batcher, llama3.2-1b full width and depth, bf16: "
           f"tp=1 dense and paged, tp=8 ({PODS}x{FAST}, hier_rd) paged")
     phase_serve()
+    phase("[28] kernel 3's chunk form; phase 27's trace admitted by chunks "
+          f"of {ADMIT_CHUNK}, the prefix cache, speculative decoding "
+          f"(k = {SPEC_K})")
+    rec["flash_attention_chunk"] = phase_chunk_kernel()
+    launches.update(phase_serve_chunked())
     phase("")
     log("    decode tok/s, eager / graph (medians of 3, this run):")
     for label, (e, g) in GRAPH_TPS.items():

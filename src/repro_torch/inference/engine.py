@@ -1,6 +1,6 @@
 """YALIS-style batched inference engine (the paper's research vehicle), in
-PyTorch: the port of the local, non-speculative path of
-``repro/inference/engine.py``.
+PyTorch: the port of ``repro/inference/engine.py``, speculative
+``generate`` included (dense family).
 
 ``generate`` runs the paper's *batched inference* workload: one batch of
 prompts runs to completion (prefill + N decode steps) before the next
@@ -17,7 +17,10 @@ static token, position and output tensors the engine keeps for that batch
 size (``cuda_graph=False`` keeps every step eager); a prefill that grows
 an exchange buffer the graph took (a longer prompt under overlap) has
 the step captured anew (``parallel.steps.CapturedStep``).  On the CPU the
-loop is eager.
+loop is eager.  With ``spec_mode`` each step instead verifies ``spec_k``
+drafted tokens of every row in one pass (``build_spec_verify_step``, kept
+and captured beside the decode loop), each row advancing by its own
+accepted length; greedy output equals plain greedy ``generate``.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ from ..core.pcontext import LOCAL, ParallelCtx
 from ..models import layers as L
 from ..models.transformer import ArchPlan, DenseLM, check_layout
 from ..parallel.steps import (ARTable, CapturedStep, build_cache_init,
-                              build_decode_step, build_prefill)
+                              build_decode_step, build_prefill,
+                              build_spec_verify_step)
+from .speculative import make_drafter
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -74,6 +79,7 @@ class _DecodeLoop:
     idx: torch.Tensor
     out: torch.Tensor
     step: Optional[CapturedStep] = None
+    spec: Optional[tuple] = None     # the verify step: (step, drafts, out)
 
 
 class InferenceEngine:
@@ -83,6 +89,8 @@ class InferenceEngine:
                  ctx: ParallelCtx = LOCAL, mesh=None, s_max: int = 4096,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  block_size: int = 0, ar_table: ARTable = None,
+                 spec_mode: Optional[str] = None, spec_k: int = 4,
+                 draft_arch: str = "llama3.2-1b", drafter=None,
                  device: Optional[str | torch.device] = None,
                  cuda_graph: bool = True):
         """``block_size > 0`` selects the paged KV layout (identity block
@@ -102,7 +110,12 @@ class InferenceEngine:
         row-parallel projections with their all-reduces.  ``cuda_graph``
         (on a CUDA device) replays the decode step from a CUDA graph;
         False runs every step eagerly, as the CPU does (the attribute may
-        be switched between ``generate`` calls)."""
+        be switched between ``generate`` calls).
+
+        ``spec_mode`` ("ngram", "draft" with ``draft_arch``, "replay", or
+        an injected ``drafter``) makes ``generate`` speculative: each step
+        verifies ``spec_k`` drafted tokens of every row in one pass.
+        Dense family only."""
         self.ap = ap
         self.cfg = ap.cfg
         self.ctx = ctx
@@ -124,7 +137,17 @@ class InferenceEngine:
         self._prefill = build_prefill(ap, ctx, mesh, s_max=s_max,
                                       block_size=block_size, **kw)
         self._decode = build_decode_step(ap, ctx, mesh, **kw)
+        self._kw = kw
         self._loop: Optional[_DecodeLoop] = None
+        if drafter is not None and not spec_mode:
+            raise ValueError("an injected drafter needs spec_mode set")
+        if spec_mode and self.cfg.family != "dense":
+            raise ValueError("speculative generate supports dense families "
+                             f"only, not {self.cfg.family!r}")
+        self.spec_mode = spec_mode
+        self.spec_k = spec_k
+        self._draft_arch = draft_arch
+        self._drafter = drafter
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -178,15 +201,11 @@ class InferenceEngine:
                              f"exceed s_max={self.s_max}")
         tokens = torch.as_tensor(prompts, device=self.device)
         lp = self._decode_loop(B)
+        if self.spec_mode:
+            return self._generate_spec(lp, prompts, tokens, max_new_tokens)
         self._sync()
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            nxt, _ = self._prefill(self.model, tokens, lp.keys,
-                                   cache=lp.cache)
-            lp.cur.copy_(nxt)
-            lp.out[:, 0] = nxt
-        lp.positions.fill_(S)
-        lp.idx.fill_(1)
+        self._prefill_into(lp, tokens)
         self._sync()
         t1 = time.perf_counter()
         replays, recaptures = lp.step.replays, lp.step.recaptures
@@ -199,6 +218,90 @@ class InferenceEngine:
             new_tokens=new, prefill_s=t1 - t0, decode_s=t2 - t1,
             steps=max_new_tokens, graph_replays=lp.step.replays - replays,
             graph_recaptures=lp.step.recaptures - recaptures)
+
+
+    def _prefill_into(self, lp: _DecodeLoop, tokens: torch.Tensor) -> None:
+        """The batch's prefill into the loop's cache; its first tokens in
+        ``lp.cur`` and ``lp.out[:, 0]``, positions and indices set."""
+        with torch.inference_mode():
+            nxt, _ = self._prefill(self.model, tokens, lp.keys,
+                                   cache=lp.cache)
+            lp.cur.copy_(nxt)
+            lp.out[:, 0] = nxt
+        lp.positions.fill_(tokens.shape[1])
+        lp.idx.fill_(1)
+
+    def _generate_spec(self, lp: _DecodeLoop, prompts: np.ndarray,
+                       tokens: torch.Tensor,
+                       max_new_tokens: int) -> GenerationResult:
+        """Speculative batched generation (the reference's
+        ``_generate_spec``): every row shares each verify pass but advances
+        by its own accepted length; rows that reach ``max_new_tokens`` go
+        inactive and verify into their own rows harmlessly until the batch
+        drains.  ``steps`` counts the prefill and the verify passes."""
+        B, S = prompts.shape
+        k = self.spec_k
+        if lp.spec is None:
+            lp.spec = build_spec_verify_step(
+                self.ap, self.ctx, self.mesh, model=self.model,
+                cache=lp.cache, state={"tokens": lp.cur,
+                                       "positions": lp.positions,
+                                       "rng": lp.keys, "sample_idx": lp.idx},
+                k=k, cuda_graph=self.cuda_graph and self._cuda, **self._kw)
+        step, drafts_dev, out = lp.spec
+        if self._drafter is None:
+            self._drafter = make_drafter(self.spec_mode,
+                                         draft_arch=self._draft_arch,
+                                         seed=self.seed, device=self.device)
+        drafter = self._drafter
+        self._sync()
+        t0 = time.perf_counter()
+        self._prefill_into(lp, tokens)
+        cur = lp.cur.cpu().numpy().copy()
+        t1 = time.perf_counter()
+        outputs = [[int(t)] for t in cur]
+        for b in range(B):
+            drafter.reset(b, list(prompts[b]) + [int(cur[b])])
+        positions = np.full((B,), S, np.int32)
+        idx = np.ones((B,), np.int32)
+        remaining = np.full((B,), max_new_tokens - 1, np.int32)
+        active = remaining > 0
+        replays, recaptures = step.replays, step.recaptures
+        steps = 1
+        while active.any():
+            drafts = np.zeros((B, k), np.int32)
+            for b in range(B):
+                if active[b]:
+                    drafts[b] = np.clip(drafter.draft(b, k), 0,
+                                        self.cfg.vocab_size - 1)
+            for dev_t, host in ((lp.cur, cur), (lp.positions, positions),
+                                (lp.idx, idx), (drafts_dev, drafts)):
+                dev_t.copy_(torch.from_numpy(host))
+            step()
+            res = out.cpu().numpy()
+            if not res[active, k + 2].all():
+                raise RuntimeError("non-finite verify logits in a batched "
+                                   "generate")
+            steps += 1
+            for b in np.flatnonzero(active):
+                take = min(int(res[b, k + 1]) + 1, int(remaining[b]),
+                           self.s_max - 1 - int(positions[b]))
+                toks = [int(t) for t in res[b, :take]]
+                outputs[b].extend(toks)
+                drafter.observe(b, toks)
+                cur[b] = toks[-1]
+                positions[b] += take
+                idx[b] += take
+                remaining[b] -= take
+                if remaining[b] <= 0 or positions[b] >= self.s_max - 1:
+                    active[b] = False
+        t2 = time.perf_counter()
+        new = np.asarray([o[:max_new_tokens] for o in outputs], np.int32)
+        return GenerationResult(
+            tokens=np.concatenate([prompts.astype(np.int32), new], axis=1),
+            new_tokens=new, prefill_s=t1 - t0, decode_s=t2 - t1,
+            steps=steps, graph_replays=step.replays - replays,
+            graph_recaptures=step.recaptures - recaptures)
 
 
 __all__ = ["InferenceEngine", "GenerationResult", "resolve_device"]

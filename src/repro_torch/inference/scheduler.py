@@ -20,7 +20,18 @@ ragged batches, the mechanism of the paper's trace evaluation
   tokens, done flags, finite flags.
 * Admission is a full prefill of the prompt spliced into the slot's row
   (``build_admit_step``), eager, as the reference compiles one executable
-  a prompt length; it serves every family.
+  a prompt length; it serves every family.  ``admit_mode="chunked"``
+  (dense family) feeds the prompt through fixed chunks of ``admit_chunk``
+  tokens instead (``build_admit_chunk_step``, kernel 3's chunk form over
+  the slot's cache): one captured step for every prompt length.
+* ``prefix_cache="on"`` (paged, dense) keeps the blocks of prefilled
+  prompts in a :class:`~repro_torch.inference.prefix_cache.PrefixCache`
+  trie: an admission splices the longest resident prefix (whole chunks)
+  into its table and chunk-prefills only the suffix.
+* ``spec_mode`` (dense) turns each step into draft + verify
+  (``build_spec_verify_step``, one captured step a speculation length):
+  every slot emits 1..k+1 tokens a step, the rejected tail's blocks go
+  back through ``BlockAllocator.truncate``.
 * With ``block_size > 0`` the K/V are paged: a host-side
   :class:`~repro_torch.inference.kv_cache.BlockAllocator` grows each
   slot's block list on demand and preempts (evicts and requeues) the
@@ -31,10 +42,9 @@ ragged batches, the mechanism of the paper's trace evaluation
 
 Scheduling time is a logical step clock (1.0 an engine step), so traces
 replay deterministically; wall-clock times are recorded beside it for TTFT
-and TPOT.  Left to later slices, each refused with its ROADMAP item:
-chunked admission (item 6b), speculative decoding, the prefix cache,
-fault injection and deadlines (item 7), handoff admission (item 8) and
-the int8 KV cache (item 9).
+and TPOT.  Left to later slices, each refused with its ROADMAP item: fault
+injection, deadlines and the quarantine of a non-finite slot (item 7),
+handoff admission (item 8) and the int8 KV cache (item 9).
 """
 from __future__ import annotations
 
@@ -48,10 +58,13 @@ import torch
 from ..core.pcontext import LOCAL, ParallelCtx
 from ..models import layers as L
 from ..models.transformer import ArchPlan, DenseLM, fold_table
-from ..parallel.steps import (ARTable, build_admit_step, build_cache_init,
-                              build_serve_step)
+from ..parallel.steps import (ARTable, build_admit_chunk_step,
+                              build_admit_step, build_cache_init,
+                              build_serve_step, build_spec_verify_step)
 from .engine import resolve_device
 from .kv_cache import BlockAllocator, paged_geometry
+from .prefix_cache import PrefixCache
+from .speculative import AdaptiveK, Drafter, make_drafter
 
 
 @dataclasses.dataclass
@@ -82,6 +95,39 @@ def request_sampling_key(seed: int, rid: int) -> Tuple[int, int]:
     return L.sampling_key(seed, rid)
 
 
+def run_chunked_prefill(prompt: np.ndarray, slot: int, chunk: int,
+                        mid: Any, final: Any, inputs: Dict[str, torch.Tensor],
+                        key: Tuple[int, int], start_chunk: int = 0) -> int:
+    """Drive a prompt through the chunked-prefill steps into cache row
+    ``slot`` (the port of ``run_chunked_prefill``): the intermediate
+    chunks through ``mid`` (no logits), the final one through ``final``,
+    which samples the first token, token 0 of the chain ``key``, at
+    in-chunk index ``(S-1) % chunk``; pads past the prompt's end are
+    token 0.  The steps' ``inputs`` (``build_admit_chunk_step``) are
+    filled in place before each call, so one captured step serves every
+    length.  ``start_chunk`` skips the leading chunks whose K/V the slot's
+    table already maps (a prefix-cache hit): chunk i writes the same values
+    at the same positions wherever the loop starts.  Returns the first
+    token."""
+    S = int(prompt.shape[0])
+    n_chunks = -(-S // chunk)
+    if not 0 <= start_chunk < n_chunks:
+        raise ValueError(f"start_chunk {start_chunk} of {n_chunks} chunks")
+    padded = np.zeros((n_chunks * chunk,), np.int64)
+    padded[:S] = prompt
+    x = inputs
+    x["slot"].fill_(slot)
+    x["last"].fill_((S - 1) % chunk)
+    x["key"].copy_(torch.tensor([key], dtype=torch.int64))
+    for i in range(start_chunk, n_chunks):
+        x["tokens"].copy_(torch.from_numpy(padded[None, i * chunk:
+                                                  (i + 1) * chunk]))
+        x["positions"].copy_(torch.arange(i * chunk, (i + 1) * chunk,
+                                          dtype=torch.int32)[None])
+        (mid if i < n_chunks - 1 else final)()
+    return int(x["out"][0])
+
+
 @dataclasses.dataclass
 class ServeMetrics:
     """Trace-replay metrics.  TTFT (time to first token) and TPOT (time per
@@ -89,7 +135,19 @@ class ServeMetrics:
     prefill's step for TTFT) and converted to seconds by the measured mean
     step time; ``throughput_tok_s`` is new tokens over the run's wall
     time.  ``wasted_tokens`` counts tokens decoded and then discarded by a
-    preemption."""
+    preemption.
+
+    Speculative decoding (zeros when ``spec_mode`` is off): ``spec_steps``
+    verify passes; ``drafted_tokens`` / ``accepted_tokens`` and their
+    ratio ``acceptance_rate``; ``accepted_tokens_per_step``, the mean
+    verified drafts a verify pass over all slots (the per-step all-reduce
+    amortization); ``drafter_hit_rate``, the share of drafts with a real
+    candidate; ``spec_k_mean``, the mean speculation length;
+    ``spec_autodisables``, slots degraded to plain decode.  Prefix cache
+    (zeros when off): ``prefix_lookups`` admissions that consulted the
+    trie, ``prefix_hits`` those that spliced at least one chunk,
+    ``prefix_tokens_saved`` prompt tokens never prefilled, and
+    ``prefix_hit_rate``."""
     requests: int
     completed: int
     total_new_tokens: int
@@ -110,6 +168,18 @@ class ServeMetrics:
     cache_utilization: float     # occupied / reserved at peak usage
     cache_stats: Optional[Dict[str, Any]] = None
     wasted_tokens: int = 0
+    spec_steps: int = 0
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
+    acceptance_rate: float = 0.0
+    accepted_tokens_per_step: float = 0.0
+    drafter_hit_rate: float = 0.0
+    spec_k_mean: float = 0.0
+    spec_autodisables: int = 0
+    prefix_lookups: int = 0
+    prefix_hits: int = 0
+    prefix_tokens_saved: int = 0
+    prefix_hit_rate: float = 0.0
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -123,8 +193,14 @@ class ContinuousBatcher:
                  block_size: int = 0, n_blocks: Optional[int] = None,
                  kv_quant: bool = False, ar_table: ARTable = None,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-                 admit_mode: str = "full", spec_mode: Optional[str] = None,
-                 prefix_cache: str = "off", injector=None,
+                 admit_mode: str = "full", admit_chunk: int = 32,
+                 spec_mode: Optional[str] = None, spec_k: int = 4,
+                 spec_adaptive: bool = False,
+                 draft_arch: str = "llama3.2-1b",
+                 drafter: Optional[Drafter] = None,
+                 spec_autodisable_after: int = 0,
+                 prefix_cache: str = "off",
+                 prefix_capacity: Optional[int] = None, injector=None,
                  deadline_s: Optional[float] = None,
                  device: Optional[str | torch.device] = None,
                  cuda_graph: bool = True):
@@ -132,25 +208,62 @@ class ContinuousBatcher:
         by default every slot at full length plus the trash block);
         ``temperature > 0`` samples from each request's chain under
         ``seed``; ``device=None`` runs on the card and raises if there is
-        none.  ``cuda_graph=False`` keeps the card's serve step eager."""
-        if admit_mode == "chunked":
-            raise NotImplementedError(
-                "chunked admission arrives with ROADMAP item 6b (kernel 3 "
-                "needs a query offset); use admit_mode='full'")
-        if admit_mode != "full":
-            raise ValueError(f"unknown admit_mode {admit_mode!r}")
-        if spec_mode:
-            raise NotImplementedError(
-                "speculative decoding arrives with ROADMAP item 7")
-        if prefix_cache != "off":
-            raise NotImplementedError(
-                "the prefix cache arrives with ROADMAP item 7")
-        if injector is not None or deadline_s is not None:
-            raise NotImplementedError(
-                "fault injection and deadlines arrive with ROADMAP item 7")
+        none.  ``cuda_graph=False`` keeps the card's steps eager.
+
+        ``admit_mode="chunked"`` admits through chunks of ``admit_chunk``
+        tokens (dense family; ``s_max`` a multiple of it).
+        ``prefix_cache="on"`` (paged, dense; ``admit_chunk`` a multiple of
+        ``block_size``) splices resident prompt prefixes (at most
+        ``prefix_capacity`` held blocks) and chunk-prefills the suffix.
+        ``spec_mode`` ("ngram", "draft" with ``draft_arch``, "replay", or
+        an injected ``drafter``) drafts ``spec_k`` tokens a slot a step and
+        verifies them in one pass (dense family); ``spec_adaptive`` walks k
+        along {2, 4, 8} within [1, spec_k] by acceptance;
+        ``spec_autodisable_after`` > 0 degrades a slot to plain decode
+        after that many consecutive zero-accept passes."""
         if kv_quant:
             raise NotImplementedError(
                 "the int8 KV cache arrives with ROADMAP item 9")
+        if injector is not None or deadline_s is not None:
+            raise NotImplementedError(
+                "fault injection and deadlines arrive with ROADMAP item 7")
+        family = ap.cfg.family
+        if admit_mode not in ("full", "chunked"):
+            raise ValueError(f"unknown admit_mode {admit_mode!r}")
+        if admit_mode == "chunked" and family != "dense":
+            raise ValueError("chunked admission needs an attention-only "
+                             f"dense family, not {family!r}")
+        if admit_mode == "chunked" and s_max % admit_chunk:
+            raise ValueError(f"s_max={s_max} must be a multiple of "
+                             f"admit_chunk={admit_chunk}")
+        if prefix_cache not in ("off", "on"):
+            raise ValueError(f"unknown prefix_cache {prefix_cache!r}")
+        if prefix_cache == "on":
+            if block_size <= 0 or ap.cfg.attn_free:
+                raise ValueError("prefix_cache needs the paged KV layout "
+                                 "(block_size > 0, attention family): "
+                                 "sharing is per physical block")
+            if family != "dense":
+                raise ValueError("prefix_cache rides the chunked suffix "
+                                 f"prefill: dense families only, not "
+                                 f"{family!r}")
+            if admit_chunk < 1 or admit_chunk % block_size:
+                raise ValueError(f"admit_chunk={admit_chunk} must be a "
+                                 f"positive multiple of block_size="
+                                 f"{block_size} for prefix_cache")
+            if s_max % admit_chunk:
+                raise ValueError(f"s_max={s_max} must be a multiple of "
+                                 f"admit_chunk={admit_chunk} for "
+                                 "prefix_cache")
+        if drafter is not None and not spec_mode:
+            raise ValueError("an injected drafter needs spec_mode set")
+        if spec_mode:
+            if family != "dense":
+                raise ValueError("speculative decoding rides the chunked-"
+                                 "prefill verify path: dense families "
+                                 f"only, not {family!r}")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         self.ap, self.cfg = ap, ap.cfg
         self.slots = slots
         self.s_max = s_max
@@ -198,10 +311,49 @@ class ContinuousBatcher:
             "sample_idx": torch.zeros(slots, dtype=torch.int32,
                                       device=dev)}
         kw = dict(temperature=temperature, top_k=top_k, ar_table=ar_table)
+        self._kw = dict(kw, cuda_graph=cuda_graph)
         self._serve, self._serve_out = build_serve_step(
             ap, ctx, mesh, model=self.model, cache=self.cache,
             state=self._state, s_max=s_max, cuda_graph=cuda_graph, **kw)
         self._admit_step = build_admit_step(ap, ctx, mesh, **kw)
+        self.admit_mode = admit_mode
+        self.admit_chunk = admit_chunk
+        self.prefix: Optional[PrefixCache] = None
+        self._chunk_steps: Tuple = ()
+        if admit_mode == "chunked" or prefix_cache == "on":
+            # the final chunk samples the first token, the others feed the
+            # cache only; a prefix hit prefills its suffix through these
+            # under admit_mode="full" too
+            mid, self._chunk_in = build_admit_chunk_step(
+                ap, ctx, mesh, model=self.model, cache=self.cache,
+                chunk=admit_chunk, sample=False, **self._kw)
+            final, _ = build_admit_chunk_step(
+                ap, ctx, mesh, model=self.model, cache=self.cache,
+                chunk=admit_chunk, inputs=self._chunk_in, **self._kw)
+            self._chunk_steps = (mid, final)
+        if prefix_cache == "on":
+            self.prefix = PrefixCache(self.alloc, capacity=prefix_capacity)
+        self._prefix_lookups = self._prefix_hits = 0
+        self._prefix_tokens_saved = 0
+        # speculative decoding
+        self.spec_mode = spec_mode
+        self.spec_k = spec_k
+        self.spec_autodisable_after = spec_autodisable_after
+        self.drafter: Optional[Drafter] = None
+        self._speck: Optional[AdaptiveK] = None
+        self._spec_fns: Dict[int, Tuple] = {}  # k -> (step, drafts, out)
+        if spec_mode:
+            self.drafter = drafter if drafter is not None else make_drafter(
+                spec_mode, draft_arch=draft_arch, seed=seed,
+                device=self.device)
+            if spec_adaptive:
+                self._speck = AdaptiveK(ks=tuple(sorted(
+                    {k2 for k2 in (2, 4, 8) if k2 <= spec_k} | {spec_k})))
+        self._spec_steps = self._spec_drafted = 0
+        self._spec_accepted = self._spec_k_sum = 0
+        self._spec_autodisables = 0
+        self._spec_deny: set = set()        # rids degraded to plain decode
+        self._spec_zero_acc = np.zeros((slots,), np.int64)
         self._table_version = -1
         if self.paged:
             self._sync_table()
@@ -218,16 +370,22 @@ class ContinuousBatcher:
         self._preemptions = 0
         self._wasted_tokens = 0
 
+    def _captured(self) -> list:
+        """Every captured step: serve, chunked admission, verify."""
+        return [self._serve, *self._chunk_steps,
+                *(f[0] for f in self._spec_fns.values())]
+
     @property
     def graph_replays(self) -> int:
-        """Serve steps replayed from the CUDA graph so far."""
-        return self._serve.replays
+        """Steps (serve, chunked admission, verify) replayed from their
+        CUDA graphs so far."""
+        return sum(c.replays for c in self._captured())
 
     @property
     def graph_recaptures(self) -> int:
-        """Times the serve step was captured anew after an admission grew
-        an exchange buffer its graph held."""
-        return self._serve.recaptures
+        """Times a step was captured anew after an eager call grew an
+        exchange buffer its graph held."""
+        return sum(c.recaptures for c in self._captured())
 
     # -- state / device sync -------------------------------------------------
 
@@ -250,24 +408,73 @@ class ContinuousBatcher:
 
     # -- admission -----------------------------------------------------------
 
+    def _prefix_match(self, prompt: np.ndarray) -> List[int]:
+        """The longest resident prefix of ``prompt`` the suffix prefill can
+        skip: whole ``admit_chunk`` multiples, at most S - 1 tokens (the
+        final chunk always runs: it samples the first token).  Returns the
+        physical blocks to splice."""
+        S = int(prompt.shape[0])
+        self._prefix_lookups += 1
+        blocks = self.prefix.match(prompt)
+        cap = ((S - 1) // self.admit_chunk) * self.admit_chunk
+        shared = min(len(blocks) * self.block_size, cap)
+        shared = (shared // self.admit_chunk) * self.admit_chunk
+        return blocks[:shared // self.block_size]
+
     def _admit(self, slot: int, req: Request, now: float) -> bool:
         """Prefill one request into ``slot``.  Returns False when the paged
-        pool cannot hold the prompt right now."""
+        pool cannot hold the prompt right now.
+
+        With the prefix cache on, the longest resident prompt prefix is
+        spliced first (``share``: references, no copy) and only the suffix
+        is chunk-prefilled; then every block the prompt covers fully is
+        published to the trie.  The share comes before any reclaim, so
+        allocation pressure never evicts the blocks just matched."""
         S = int(req.prompt.shape[0])
         if S + 1 > self.s_max:
             raise ValueError(f"prompt len {S} + 1 exceeds s_max={self.s_max}")
+        shared: List[int] = []
+        if self.prefix is not None:
+            shared = self._prefix_match(req.prompt)
+            if shared:
+                self.alloc.share(slot, shared)
         if self.alloc is not None:
             # +1: the first decode write lands at position S
+            if self.prefix is not None \
+                    and not self.alloc.can_allocate(slot, S + 1):
+                need = self.alloc.blocks_for(S + 1) \
+                    - len(self.alloc.owned(slot))
+                self.prefix.reclaim(need - self.alloc.free_blocks)
             if not self.alloc.ensure(slot, S + 1):
+                if shared:
+                    self.alloc.free(slot)   # drop the references just taken
                 return False
             self._sync_table()
         key = request_sampling_key(self.seed, req.rid)
-        tok = self._admit_step(
-            self.model, self.cache,
-            torch.as_tensor(req.prompt[None], dtype=torch.int64,
-                            device=self.device), slot,
-            torch.tensor([key], dtype=torch.int64, device=self.device))
-        self._activate(slot, req, int(tok[0]), S, now, key)
+        if shared or self.admit_mode == "chunked":
+            n_shared = len(shared) * self.block_size
+            if shared:
+                self._prefix_hits += 1
+                self._prefix_tokens_saved += n_shared
+            tok = run_chunked_prefill(
+                req.prompt, slot, self.admit_chunk, *self._chunk_steps,
+                self._chunk_in, key, start_chunk=n_shared // self.admit_chunk)
+        else:
+            tok = int(self._admit_step(
+                self.model, self.cache,
+                torch.as_tensor(req.prompt[None], dtype=torch.int64,
+                                device=self.device), slot,
+                torch.tensor([key], dtype=torch.int64,
+                             device=self.device))[0])
+        if self.prefix is not None:
+            # publish before activation (max_new == 1 releases the slot
+            # there): blocks whose positions are all prompt; decode writes
+            # land at >= S, never in them
+            n_pub = S // self.block_size
+            if n_pub:
+                self.prefix.insert(req.prompt,
+                                   self.alloc.owned(slot)[:n_pub])
+        self._activate(slot, req, tok, S, now, key)
         return True
 
     def _activate(self, slot: int, req: Request, nxt: int, S: int,
@@ -281,6 +488,9 @@ class ContinuousBatcher:
         self.remaining[slot] = req.max_new - 1
         self.tokens[slot] = nxt
         self.active_mask[slot] = True
+        if self.drafter is not None:
+            self.drafter.reset(slot, list(req.prompt) + [nxt])
+        self._spec_zero_acc[slot] = 0   # the collapse streak is per occupant
         self._admit_seq[slot] = self._seq
         self._seq += 1
         self.outputs[req.rid] = [nxt]
@@ -335,12 +545,21 @@ class ContinuousBatcher:
         self._evict(max(live, key=lambda s: self._admit_seq[s]))
         return True
 
-    def _ensure_growth(self, slot: int) -> None:
-        """Blocks cover the slot's next write position; on a dry pool,
-        preempt youngest-first until the growth fits (the growing slot
-        itself may be the victim)."""
-        n_tokens = int(self.positions[slot]) + 1
+    def _ensure_growth(self, slot: int,
+                       n_tokens: Optional[int] = None) -> None:
+        """Blocks cover the slot's next write position (or ``n_tokens``
+        positions: a verify chunk's whole write range); on a dry pool,
+        cold trie blocks are reclaimed first, then requests preempted
+        youngest-first until the growth fits (the growing slot itself may
+        be the victim)."""
+        if n_tokens is None:
+            n_tokens = int(self.positions[slot]) + 1
         while not self.alloc.ensure(slot, n_tokens):
+            if self.prefix is not None:
+                need = self.alloc.blocks_for(n_tokens) \
+                    - len(self.alloc.owned(slot))
+                if self.prefix.reclaim(need - self.alloc.free_blocks) > 0:
+                    continue
             victim_ok = self._preempt_youngest()
             if not self.active_mask[slot]:
                 return  # we evicted ourselves
@@ -353,7 +572,13 @@ class ContinuousBatcher:
     # -- one engine step -----------------------------------------------------
 
     def step(self, now: float):
-        """One decode step over all slots (no-op when none is active)."""
+        """One engine step over all slots (no-op when none is active): a
+        draft + verify step under ``spec_mode``, else a decode step."""
+        if self.spec_mode:
+            return self._spec_step(now)
+        return self._plain_step(now)
+
+    def _plain_step(self, now: float):
         if not self.active_mask.any():
             return
         if self.alloc is not None:
@@ -365,9 +590,7 @@ class ContinuousBatcher:
                     self._ensure_growth(s)
             if not self.active_mask.any():
                 return
-        occ = int(self.positions[self.active_mask].sum()) + \
-            int(self.active_mask.sum())
-        self._peak_occupied = max(self._peak_occupied, occ)
+        self._note_occupancy()
         if self._dirty:
             self._push_state()
         was_active = self.active_mask.copy()
@@ -377,10 +600,7 @@ class ContinuousBatcher:
         for s in range(self.slots):
             if not was_active[s]:
                 continue
-            if not finite[s]:
-                raise RuntimeError(
-                    f"slot {s}: non-finite logits (quarantine and recompute "
-                    "arrive with ROADMAP item 7)")
+            self._check_finite(s, finite[s])
             self.outputs[self.active[s].rid].append(int(emitted[s]))
             self.tokens[s] = emitted[s]
             self.positions[s] += 1
@@ -390,6 +610,123 @@ class ContinuousBatcher:
                 self.alloc.note_usage(s, int(self.positions[s]))
             if done[s]:
                 self._release(s, now)
+
+    def _note_occupancy(self) -> None:
+        occ = int(self.positions[self.active_mask].sum()) + \
+            int(self.active_mask.sum())
+        self._peak_occupied = max(self._peak_occupied, occ)
+
+    @staticmethod
+    def _check_finite(slot: int, finite) -> None:
+        if not finite:
+            raise RuntimeError(
+                f"slot {slot}: non-finite logits (quarantine and recompute "
+                "arrive with ROADMAP item 7)")
+
+    # -- speculative decoding ------------------------------------------------
+
+    def _spec_fn(self, k: int) -> Tuple:
+        """(step, drafts, out) of the verify step of length k, built and
+        captured at its first use."""
+        fn = self._spec_fns.get(k)
+        if fn is None:
+            fn = build_spec_verify_step(
+                self.ap, self.ctx, self.mesh, model=self.model,
+                cache=self.cache, state=self._state, k=k, **self._kw)
+            self._spec_fns[k] = fn
+        return fn
+
+    def _spec_step(self, now: float):
+        """One draft + verify step over all slots, the port of the
+        reference's ``_spec_step``: each active slot drafts k tokens, the
+        C = k + 1 chunk [token, drafts] of every slot is scored in one
+        pass, the slot takes its verified prefix plus one correction or
+        bonus token (capped by its budget and the cache), and the
+        rejected tail's blocks go back to the pool.  The host slot state
+        is authoritative (each slot advances by its own count) and is
+        pushed every step.  A slot in ``_spec_deny`` (degraded by
+        ``spec_autodisable_after``) drafts nothing and takes only the
+        correction token; when every active slot is denied the step is a
+        plain decode step."""
+        if not self.active_mask.any():
+            return
+        denied = np.array([self.active_mask[s]
+                           and self.active[s].rid in self._spec_deny
+                           for s in range(self.slots)])
+        if denied[self.active_mask].all():
+            return self._plain_step(now)
+        k = self._speck.k if self._speck is not None else self.spec_k
+        C = k + 1
+        drafts = np.zeros((self.slots, k), np.int32)
+        for s in range(self.slots):
+            if self.active_mask[s] and not denied[s]:
+                # a cross-vocabulary drafter must still propose valid ids
+                drafts[s] = np.clip(self.drafter.draft(s, k), 0,
+                                    self.cfg.vocab_size - 1)
+        if self.alloc is not None:
+            for s in range(self.slots):
+                # the verify chunk writes [p, p + C): cover it up front
+                # (positions past s_max go to the trash block)
+                if self.active_mask[s]:
+                    self._ensure_growth(s, min(int(self.positions[s]) + C,
+                                               self.s_max))
+            if not self.active_mask.any():
+                return
+        self._note_occupancy()
+        if self._dirty:
+            self._push_state()
+        was_active = self.active_mask.copy()
+        step, drafts_dev, out = self._spec_fn(k)
+        drafts_dev.copy_(torch.from_numpy(drafts))
+        step()
+        res = out.cpu().numpy()
+        emitted, accepted, finite = res[:, :C], res[:, C], res[:, C + 1]
+        self.steps_run += 1
+        self._spec_steps += 1
+        self._spec_k_sum += k
+        n_active = acc_sum = 0
+        for s in range(self.slots):
+            if not was_active[s]:
+                continue
+            self._check_finite(s, finite[s])
+            a = int(accepted[s])
+            # where sequential decode would have stopped emitting; a slot
+            # admitted at s_max - 1 still decodes once
+            take = min(a + 1, int(self.remaining[s]),
+                       max(self.s_max - 1 - int(self.positions[s]), 1))
+            if denied[s]:
+                take = min(take, 1)
+            toks = [int(t) for t in emitted[s, :take]]
+            self.outputs[self.active[s].rid].extend(toks)
+            self.tokens[s] = toks[-1]
+            self.positions[s] += take
+            self.remaining[s] -= take
+            self.sample_idx[s] += take
+            if not denied[s]:
+                self.drafter.observe(s, toks)
+                n_active += 1
+                acc_sum += a
+                self._spec_drafted += k
+                self._spec_accepted += a
+                if self.spec_autodisable_after > 0:
+                    self._spec_zero_acc[s] = 0 if a \
+                        else self._spec_zero_acc[s] + 1
+                    if self._spec_zero_acc[s] \
+                            >= self.spec_autodisable_after:
+                        self._spec_deny.add(self.active[s].rid)
+                        self._spec_autodisables += 1
+            if self.alloc is not None:
+                # blocks holding only rejected drafts go back to the pool
+                self.alloc.truncate(s, int(self.positions[s]))
+                self.alloc.note_usage(s, int(self.positions[s]))
+            if self.remaining[s] <= 0 \
+                    or self.positions[s] >= self.s_max - 1:
+                self._release(s, now)
+        if self.alloc is not None:
+            self._sync_table()
+        self._dirty = True
+        if self._speck is not None and n_active:
+            self._speck.update(acc_sum / n_active, k)
 
     # -- trace replay --------------------------------------------------------
 
@@ -401,6 +738,16 @@ class ContinuousBatcher:
         self.outputs = {}
         self._wasted_tokens = 0
         self._preemptions = 0
+        self._spec_steps = self._spec_drafted = 0
+        self._spec_accepted = self._spec_k_sum = 0
+        self._spec_autodisables = 0
+        self._spec_deny = set()
+        self._spec_zero_acc[:] = 0
+        # the trie itself persists across runs (warm reuse is the feature)
+        self._prefix_lookups = self._prefix_hits = 0
+        self._prefix_tokens_saved = 0
+        if self.drafter is not None:
+            self.drafter.calls = self.drafter.hits = 0
         if self.alloc is not None:
             self.alloc.reset_stats()
         self._wall0 = time.perf_counter()
@@ -506,7 +853,24 @@ class ContinuousBatcher:
             tpot_s_p99=_percentile(tpot, 99) * step_s,
             preemptions=self._preemptions, peak_kv_tokens=int(peak_tok),
             kv_capacity_tokens=int(cap), cache_utilization=float(util),
-            cache_stats=cache_stats, wasted_tokens=self._wasted_tokens)
+            cache_stats=cache_stats, wasted_tokens=self._wasted_tokens,
+            spec_steps=self._spec_steps,
+            drafted_tokens=self._spec_drafted,
+            accepted_tokens=self._spec_accepted,
+            acceptance_rate=self._spec_accepted / self._spec_drafted
+            if self._spec_drafted else 0.0,
+            accepted_tokens_per_step=self._spec_accepted / self._spec_steps
+            if self._spec_steps else 0.0,
+            drafter_hit_rate=self.drafter.hit_rate
+            if self.drafter is not None else 0.0,
+            spec_k_mean=self._spec_k_sum / self._spec_steps
+            if self._spec_steps else 0.0,
+            spec_autodisables=self._spec_autodisables,
+            prefix_lookups=self._prefix_lookups,
+            prefix_hits=self._prefix_hits,
+            prefix_tokens_saved=self._prefix_tokens_saved,
+            prefix_hit_rate=self._prefix_hits / self._prefix_lookups
+            if self._prefix_lookups else 0.0)
 
 
 def make_trace(n_requests: int, *, mean_in: int, mean_out: int,
@@ -528,5 +892,31 @@ def make_trace(n_requests: int, *, mean_in: int, mean_out: int,
     return reqs
 
 
+def make_prefix_trace(n_requests: int, *, prefix_len: int,
+                      shared_frac: float, mean_in: int, mean_out: int,
+                      rate: float, burstiness: float = 2.0, vocab: int = 97,
+                      seed: int = 0,
+                      clip_len: Optional[int] = None) -> List[Request]:
+    """A :func:`make_trace` trace whose ``shared_frac`` share of requests
+    open with one common ``prefix_len``-token system prompt, the workload
+    the prefix cache serves.  Which requests share is a fixed-seed uniform
+    draw against the threshold, so a larger ``shared_frac`` only adds
+    shared requests; ``clip_len`` cuts prompts (their unique tail) to fit
+    ``s_max - 1``."""
+    rng = np.random.default_rng(seed + 0x5afe)
+    shared = rng.integers(0, vocab, prefix_len).astype(np.int32)
+    u = rng.random(n_requests)
+    reqs = make_trace(n_requests, mean_in=mean_in, mean_out=mean_out,
+                      rate=rate, burstiness=burstiness, vocab=vocab,
+                      seed=seed)
+    for i, r in enumerate(reqs):
+        if u[i] < shared_frac:
+            r.prompt = np.concatenate([shared, r.prompt]).astype(np.int32)
+        if clip_len is not None and r.prompt.shape[0] > clip_len:
+            r.prompt = r.prompt[:clip_len]
+    return reqs
+
+
 __all__ = ["ContinuousBatcher", "Request", "ServeMetrics", "make_trace",
+           "make_prefix_trace", "run_chunked_prefill",
            "request_sampling_key"]

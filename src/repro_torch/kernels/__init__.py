@@ -13,7 +13,7 @@ first use.  Unlike the JAX package, whose layers never call their Pallas
 kernels, the port's layers call these wrappers on the executed path.
 """
 from .decode_attention import decode_attention, paged_decode_attention
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_chunk
 from .fused_matmul_rd import collective_matmul_rd
 from .moe_gemm import moe_expert_ffn
 from .quant_pack import quantize_pack, unpack_dequant
@@ -25,13 +25,14 @@ from .ssm_scan import ssm_scan
 
 def kernel_wrappers():
     """Every kernel wrapper, for launch accounting."""
-    return (flash_attention, decode_attention, paged_decode_attention,
+    return (flash_attention, flash_attention_chunk, decode_attention,
+            paged_decode_attention,
             rd_all_reduce, collective_matmul_rd, quantize_pack,
             unpack_dequant, quant_rd_all_reduce, moe_expert_ffn, rwkv6_scan,
             ssm_scan)
 
 
-__all__ = ["flash_attention", "decode_attention", "paged_decode_attention",
+__all__ = ["flash_attention", "flash_attention_chunk", "decode_attention", "paged_decode_attention",
            "rd_all_reduce", "collective_matmul_rd", "quantize_pack",
            "unpack_dequant", "quant_rd_all_reduce", "moe_expert_ffn",
            "rwkv6_scan", "ssm_scan", "kernel_wrappers"]

@@ -35,6 +35,22 @@
 // Operands may be strided (the model passes (B, S, H, hd) views transposed
 // to (B, H, S, hd)); only the last dimension must be contiguous, and the
 // wrapper checks that rows start on 16-byte boundaries.
+//
+// The chunk form (flash_attention_chunk_launch; chunked admission, the
+// prefix cache's suffix prefill and the speculative verify step): sequence
+// n's C queries sit at absolute positions q_offset[n] + [0, C), and its
+// keys are read from the decode cache itself, the dense cache's row
+// rows[n] (kRows) or the paged pool through the block table row tbl[n]
+// (kPaged), each key row gathered on its own (a 16-row block is a quarter
+// of a 64-key tile).  The offset and the table are read from device memory
+// inside the kernel, so the grid depends on (N, Hq, C) only and a CUDA
+// graph replays it for any offset.  Key tiles stay at absolute multiples of
+// kBK, so a chunk's row p takes the tiles the full form's row p takes plus
+// tiles wholly masked for it, which add exact zeros and rescale by exactly
+// 1 (or, ahead of its window, are wiped by a rescale of exactly 0): row p
+// is bitwise the full form's row p.  Key rows past the chunk's last query
+// (q_offset[n] + C - 1) are zero-filled, never loaded: a stale or
+// unallocated row could hold NaN, and a masked P of 0 times NaN is NaN.
 
 #include <cmath>
 #include <type_traits>
@@ -52,12 +68,53 @@ struct Strides {
   long long b, h, s;
 };
 
-template <typename T, int HD>
+// Where a sequence's keys live.  kFull: k/v (B, Hkv, Skv, hd) of the
+// prompt itself, queries from position 0.  kRows / kPaged (the chunk
+// form): the decode cache, per-sequence query offsets.
+enum KvForm { kFull = 0, kRows = 1, kPaged = 2 };
+
+struct ChunkIdx {
+  const int* q_offset;  // (N,) absolute position of each sequence's query 0
+  const int* rows;      // kRows: (N,) the dense cache row of each sequence
+  const int* tbl;       // kPaged: (N, max_blocks) logical -> physical block
+  int max_blocks, bs;   // kPaged: the table's width and the block size
+};
+
+// Key/value row `kpos` (absolute) of sequence b, kv head kh.  kFull and
+// kRows: strides (sequence or cache row, head, position); kPaged: (block,
+// head, position within the block) of the pool.
+template <int KV, typename T>
+__device__ __forceinline__ const T* kv_row(const T* base, const Strides& s,
+                                           const ChunkIdx& ix, int b, int kh,
+                                           int kpos) {
+  if constexpr (KV == kPaged) {
+    const long long blk =
+        ix.tbl[static_cast<long long>(b) * ix.max_blocks + kpos / ix.bs];
+    return base + blk * s.b + kh * s.h + (kpos % ix.bs) * s.s;
+  } else {
+    const long long row = KV == kRows ? ix.rows[b] : b;
+    return base + row * s.b + kh * s.h + kpos * s.s;
+  }
+}
+
+// The query offset of sequence b and the keys that exist for it: Skv in
+// the full form; in the chunk form none past its last query (nor past the
+// cache's Skv positions).
+template <int KV>
+__device__ __forceinline__ void chunk_extent(const ChunkIdx& ix, int b,
+                                             int Sq, int Skv, int& off,
+                                             int& n_keys) {
+  off = KV == kFull ? 0 : ix.q_offset[b];
+  n_keys = KV == kFull ? Skv : min(off + Sq, Skv);
+}
+
+template <typename T, int HD, int KV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        Strides sq, Strides sk, Strides sv, Strides so, int g,
-                       int Sq, int Skv, int causal, int window, float scale) {
+                       int Sq, int Skv, int causal, int window, float scale,
+                       ChunkIdx ix) {
   constexpr int QS = HD + 1, KS = HD + 1, PS = kBK + 1;  // padded strides
   constexpr int DJ = HD / 16;
   constexpr int V = attn::Vec16<T>::n;
@@ -73,8 +130,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + (h / g) * sk.h;
-  const T* vb = v + b * sv.b + (h / g) * sv.h;
+  int off, n_keys;
+  chunk_extent<KV>(ix, b, Sq, Skv, off, n_keys);
 
   for (int c = tid; c < kBQ * CH; c += kThreads) {
     const int r = c / CH, d0 = (c % CH) * V;
@@ -98,10 +155,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
-  // K tiles that hold at least one key some row of this q tile may see.
-  int kt_end = (Skv + kBK - 1) / kBK;
-  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
-  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  // K tiles (at absolute multiples of kBK) that hold at least one key
+  // some row of this q tile may see.
+  int kt_end = (n_keys + kBK - 1) / kBK;
+  const int q_hi = KV == kFull ? q0 + kBQ - 1 : off + min(q0 + kBQ, Sq) - 1;
+  if (causal) kt_end = min(kt_end, q_hi / kBK + 1);
+  const int kt_begin =
+      window > 0 ? max(0, off + q0 - window + 1) / kBK : 0;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
@@ -109,9 +169,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = tid; c < kBK * CH; c += kThreads) {
       const int r = c / CH, d0 = (c % CH) * V;
       float kx[V], vx[V];
-      if (k0 + r < Skv) {
-        attn::load16(kb + (k0 + r) * sk.s + d0, kx);
-        attn::load16(vb + (k0 + r) * sv.s + d0, vx);
+      if (k0 + r < n_keys) {
+        attn::load16(kv_row<KV>(k, sk, ix, b, h / g, k0 + r) + d0, kx);
+        attn::load16(kv_row<KV>(v, sv, ix, b, h / g, k0 + r) + d0, vx);
       } else {
 #pragma unroll
         for (int e = 0; e < V; ++e) kx[e] = vx[e] = 0.f;
@@ -144,12 +204,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+      const int qpos = off + q0 + ty + 16 * i;
       float mx = attn::kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < Skv;
+        bool ok = kpos < n_keys;
         if (causal) ok = ok && kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
         s[i][j] = ok ? s[i][j] * scale : attn::kNegInf;
@@ -228,14 +288,31 @@ __device__ __forceinline__ void tc_copy_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int HD>
+// The 16-byte copies of one kBK-row K or V tile from key position k0 on,
+// each row through kv_row (a table lookup a row in the paged form); rows
+// at or past `valid` are zeros, never loaded.
+template <int HD, int KV>
+__device__ __forceinline__ void tc_copy_keys(bf16* dst, const bf16* base,
+                                             const Strides& s,
+                                             const ChunkIdx& ix, int b,
+                                             int kh, int k0, int valid) {
+  constexpr int CH = HD / 8;
+  for (int c = threadIdx.x; c < kBK * CH; c += kTcThreads) {
+    const int r = c / CH, d0 = (c % CH) * 8;
+    const bool ok = k0 + r < valid;
+    const bf16* src = ok ? kv_row<KV>(base, s, ix, b, kh, k0 + r) + d0 : base;
+    tc::cp_async16(dst + r * TcSmem<HD>::S + d0, src, ok ? 16 : 0);
+  }
+}
+
+template <int HD, int KV>
 __global__ void __launch_bounds__(kTcThreads)
 flash_attention_tc_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           Strides sq, Strides sk, Strides sv, Strides so,
                           int g, int Sq, int Skv, int causal, int window,
-                          float scale) {
+                          float scale, ChunkIdx ix) {
   using L = TcSmem<HD>;
   constexpr int S = L::S;
   constexpr int DK = HD / 16;   // k16 steps of Q K^T
@@ -250,20 +327,23 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
-  const bf16* kb = k + b * sk.b + (h / g) * sk.h;
-  const bf16* vb = v + b * sv.b + (h / g) * sv.h;
+  const int kh = h / g;
+  int off, n_keys;
+  chunk_extent<KV>(ix, b, Sq, Skv, off, n_keys);
 
-  int kt_end = (Skv + kBK - 1) / kBK;
-  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
-  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  int kt_end = (n_keys + kBK - 1) / kBK;
+  const int q_hi = KV == kFull ? q0 + kBQ - 1 : off + min(q0 + kBQ, Sq) - 1;
+  if (causal) kt_end = min(kt_end, q_hi / kBK + 1);
+  const int kt_begin =
+      window > 0 ? max(0, off + q0 - window + 1) / kBK : 0;
 
   tc_copy_rows<HD>(Qs, q + b * sq.b + h * sq.h + q0 * sq.s, sq.s, kBQ,
                    Sq - q0);
   auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * kBK;
     bf16* Ks = KVs + buf * 2 * L::TILE;
-    tc_copy_rows<HD>(Ks, kb + k0 * sk.s, sk.s, kBK, Skv - k0);
-    tc_copy_rows<HD>(Ks + L::TILE, vb + k0 * sv.s, sv.s, kBK, Skv - k0);
+    tc_copy_keys<HD, KV>(Ks, k, sk, ix, b, kh, k0, n_keys);
+    tc_copy_keys<HD, KV>(Ks + L::TILE, v, sv, ix, b, kh, k0, n_keys);
   };
   if (kt_begin < kt_end) load_kv(kt_begin, 0);
   tc::cp_async_commit();
@@ -275,7 +355,8 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
     tc::ldmatrix_x4(qf[d], Qs + (warp * 16 + (lane & 15)) * S + d * 16 +
                                (lane >> 4) * 8);
 
-  // this warp's query rows: r_lo = q0 + 16 warp + gq and r_lo + 8
+  // this warp's query rows: r_lo = q0 + 16 warp + gq and r_lo + 8 (their
+  // absolute positions off + r_lo and off + r_lo + 8)
   const int r_lo = q0 + warp * 16 + gq;
   const float sl2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
   float m_r[2] = {attn::kNegInf, attn::kNegInf}, l_r[2] = {0.f, 0.f};
@@ -313,8 +394,9 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
       }
 
     // the mask, only where this warp's 16 rows meet an edge of the tile
-    const int w_lo = q0 + warp * 16, w_hi = w_lo + 15;
-    const bool edge = k0 + kBK > Skv || (causal && k0 + kBK - 1 > w_lo) ||
+    const int w_lo = off + q0 + warp * 16, w_hi = w_lo + 15;
+    const bool edge = k0 + kBK > n_keys ||
+                      (causal && k0 + kBK - 1 > w_lo) ||
                       (window > 0 && k0 <= w_hi - window);
     float mx[2] = {attn::kNegInf, attn::kNegInf};
 #pragma unroll
@@ -324,8 +406,8 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
         float x = s[n][e] * sl2;
         if (edge) {
           const int kpos = k0 + n * 8 + 2 * tq + (e & 1);
-          const int qpos = r_lo + (e >> 1) * 8;
-          bool ok = kpos < Skv;
+          const int qpos = off + r_lo + (e >> 1) * 8;
+          bool ok = kpos < n_keys;
           if (causal) ok = ok && kpos <= qpos;
           if (window > 0) ok = ok && kpos > qpos - window;
           x = ok ? x : attn::kNegInf;
@@ -393,12 +475,12 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, int KV>
 int launch_tc_hd(const void* q, const void* k, const void* v, void* o,
                  const Strides* st, int B, int Hq, int g, int Sq, int Skv,
-                 int causal, int window, void* stream) {
+                 int causal, int window, const ChunkIdx& ix, void* stream) {
   constexpr int smem = TcSmem<HD>::BYTES;
-  auto kern = flash_attention_tc_kernel<HD>;
+  auto kern = flash_attention_tc_kernel<HD, KV>;
   static bool configured = false;  // per template instance
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -411,17 +493,17 @@ int launch_tc_hd(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), st[0], st[1],
-      st[2], st[3], g, Sq, Skv, causal, window, scale);
+      st[2], st[3], g, Sq, Skv, causal, window, scale, ix);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int KV>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
               const Strides* st, int B, int Hq, int g, int Sq, int Skv,
-              int causal, int window, void* stream) {
+              int causal, int window, const ChunkIdx& ix, void* stream) {
   constexpr size_t smem = sizeof(float) * (kBQ * (HD + 1) + kBK * (HD + 1) +
                                            kBK * HD + kBQ * (kBK + 1));
-  auto kern = flash_attention_kernel<T, HD>;
+  auto kern = flash_attention_kernel<T, HD, KV>;
   static bool configured = false;  // per template instance
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -435,25 +517,25 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
-      st[3], g, Sq, Skv, causal, window, scale);
+      st[3], g, Sq, Skv, causal, window, scale, ix);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 takes the tensor-core kernel, f32 the CUDA-core one.
-template <typename T>
+template <typename T, int KV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Strides* st, int B, int Hq, int g, int Sq, int Skv, int hd,
-           int causal, int window, void* stream) {
+           int causal, int window, const ChunkIdx& ix, void* stream) {
   constexpr bool kTc = std::is_same<T, bf16>::value;
   switch (hd) {
 #define FLASH_HD(HD)                                                        \
   case HD:                                                                  \
     if constexpr (kTc)                                                      \
-      return launch_tc_hd<HD>(q, k, v, o, st, B, Hq, g, Sq, Skv, causal,    \
-                              window, stream);                              \
+      return launch_tc_hd<HD, KV>(q, k, v, o, st, B, Hq, g, Sq, Skv,        \
+                                  causal, window, ix, stream);              \
     else                                                                    \
-      return launch_hd<T, HD>(q, k, v, o, st, B, Hq, g, Sq, Skv, causal,    \
-                              window, stream);
+      return launch_hd<T, HD, KV>(q, k, v, o, st, B, Hq, g, Sq, Skv,        \
+                                  causal, window, ix, stream);
     FLASH_HD(16)
     FLASH_HD(32)
     FLASH_HD(64)
@@ -481,9 +563,46 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const int g = Hq / Hkv;
+  const ChunkIdx ix{nullptr, nullptr, nullptr, 0, 0};
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, st, B, Hq, g, Sq, Skv, hd,
-                                 causal, window, stream);
-  return launch<float>(q, k, v, o, st, B, Hq, g, Sq, Skv, hd, causal, window,
-                       stream);
+    return launch<__nv_bfloat16, kFull>(q, k, v, o, st, B, Hq, g, Sq, Skv,
+                                        hd, causal, window, ix, stream);
+  return launch<float, kFull>(q, k, v, o, st, B, Hq, g, Sq, Skv, hd, causal,
+                              window, ix, stream);
+}
+
+// The chunk form, causal: q (N, Hq, C, hd), sequence n's queries at
+// absolute positions q_offset[n] + [0, C); o (N, Hq, C, hd).  Dense
+// (tbl == NULL): k/v are the layer's cache (rows, S_max, Hkv, hd) and
+// sequence n reads row rows[n]; n_keys = S_max.  Paged: k/v are the pool
+// (n_blocks, bs, Hkv, hd) and sequence n reads block tbl[n * max_blocks +
+// p / bs] at offset p % bs for key p; n_keys = bs * max_blocks.  `strides`
+// holds 12 element strides as above, k's and v's (row or block, head,
+// position).  q_offset, rows and tbl are int32 device arrays.
+extern "C" int flash_attention_chunk_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* strides, const int* q_offset, const int* rows,
+    const int* tbl, int N, int Hq, int Hkv, int C, int n_keys, int hd,
+    int bs, int max_blocks, int window, int is_bf16, void* stream) {
+  const bool paged = tbl != nullptr;
+  if (N <= 0 || Hkv <= 0 || Hq % Hkv || C <= 0 || n_keys <= 0 || !q_offset ||
+      (paged ? (bs <= 0 || max_blocks <= 0 || n_keys != bs * max_blocks)
+             : !rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const int g = Hq / Hkv;
+  const ChunkIdx ix{q_offset, rows, tbl, max_blocks, bs};
+  if (is_bf16)
+    return paged ? launch<__nv_bfloat16, kPaged>(q, k, v, o, st, N, Hq, g, C,
+                                                 n_keys, hd, 1, window, ix,
+                                                 stream)
+                 : launch<__nv_bfloat16, kRows>(q, k, v, o, st, N, Hq, g, C,
+                                                n_keys, hd, 1, window, ix,
+                                                stream);
+  return paged ? launch<float, kPaged>(q, k, v, o, st, N, Hq, g, C, n_keys,
+                                       hd, 1, window, ix, stream)
+               : launch<float, kRows>(q, k, v, o, st, N, Hq, g, C, n_keys,
+                                      hd, 1, window, ix, stream);
 }

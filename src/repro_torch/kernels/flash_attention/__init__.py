@@ -1,4 +1,5 @@
-from .ops import flash_attention
-from .ref import flash_attention_ref
+from .ops import flash_attention, flash_attention_chunk
+from .ref import flash_attention_chunk_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_ref", "flash_attention_chunk",
+           "flash_attention_chunk_ref"]

@@ -30,6 +30,10 @@ counterparts of ``repro.launch.serve --mode batch`` and ``--mode trace``).
         --full --slots 8 --s-max 1024 --n-requests 32 --mean-in 256 \
         --mean-out 64 --rate 0.5 --block-size 16 [--tp 8 --pods 4 \
         --ar-strategy hier_rd]            # continuous batching on the card
+    python -m repro_torch.launch.serve --mode trace --device cpu \
+        --block-size 8 --admit-mode chunked --admit-chunk 16 \
+        [--prefix-cache on --shared-frac 0.75 --prefix-len 32] \
+        [--spec-mode ngram --spec-k 4]    # chunked, prefix cache, spec
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -65,6 +69,14 @@ greedy or sampled (``--temperature``, ``--top-k``, each request's own
 chain under ``--seed``), at tp=1 or on the virtual mesh; it prints
 throughput, TTFT and TPOT and writes the metrics to ``--json-out``.  On
 the card the decode steps of both modes replay a CUDA graph.
+``--admit-mode chunked`` admits prompts through fixed chunks of
+``--admit-chunk`` tokens (dense family); ``--prefix-cache on`` (paged)
+splices resident prompt prefixes and prefills only the suffix, on a trace
+whose ``--shared-frac`` share of requests open with one
+``--prefix-len``-token prompt; ``--spec-mode ngram|draft`` (both modes)
+drafts ``--spec-k`` tokens a step and verifies them in one pass
+(``--spec-adaptive`` moves k by acceptance; ``draft`` runs the seeded
+smoke model of ``--draft-arch``).
 """
 from __future__ import annotations
 
@@ -81,7 +93,7 @@ from ..core.pcontext import AR_STRATEGIES
 from ..inference.engine import GenerationResult, InferenceEngine, \
     resolve_device
 from ..inference.scheduler import ContinuousBatcher, ServeMetrics, \
-    make_trace
+    make_prefix_trace, make_trace
 from ..models.transformer import init_params, make_plan
 
 
@@ -127,6 +139,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trace: mean arrivals a step")
     p.add_argument("--json-out", "--json", dest="json_out", default=None,
                    help="trace: write the metrics as JSON here")
+    p.add_argument("--admit-mode", choices=("full", "chunked"),
+                   default="full",
+                   help="trace: admit by one full prefill, or by fixed "
+                        "chunks of --admit-chunk tokens (dense family)")
+    p.add_argument("--admit-chunk", type=int, default=32,
+                   help="trace: tokens a chunk (--s-max a multiple of it)")
+    p.add_argument("--prefix-cache", choices=("off", "on"), default="off",
+                   help="trace: splice resident prompt prefixes (paged)")
+    p.add_argument("--prefix-capacity", type=int, default=None,
+                   help="trace: blocks the prefix cache may hold")
+    p.add_argument("--shared-frac", type=float, default=None,
+                   help="trace: share of requests opening with one shared "
+                        "prompt (default 0.75 with --prefix-cache on)")
+    p.add_argument("--prefix-len", type=int, default=32,
+                   help="trace: tokens of the shared prompt")
+    p.add_argument("--spec-mode", choices=("ngram", "draft"), default=None,
+                   help="speculative decoding with this drafter (dense)")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="drafted tokens a step")
+    p.add_argument("--spec-adaptive", action="store_true",
+                   help="trace: move k along {2, 4, 8} by acceptance")
+    p.add_argument("--draft-arch", default="llama3.2-1b",
+                   help="the draft model's arch (its smoke config)")
     p.add_argument("--ar-strategy", choices=list(AR_STRATEGIES),
                    default="flat",
                    help="TP all-reduce strategy (hier_rd: the recursive-"
@@ -193,6 +228,12 @@ def _layout(args: argparse.Namespace, cfg, mesh, ctx) -> str:
         layout += f" T={args.temperature:g}"
         if args.top_k:
             layout += f"/top{args.top_k}"
+    if args.mode == "trace" and args.admit_mode == "chunked":
+        layout += f" chunked({args.admit_chunk})"
+    if args.mode == "trace" and args.prefix_cache == "on":
+        layout += "+prefix"
+    if args.spec_mode:
+        layout += f" spec={args.spec_mode}(k={args.spec_k})"
     return layout
 
 
@@ -204,7 +245,9 @@ def run_batch(args: argparse.Namespace) -> GenerationResult:
     eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
                           block_size=args.block_size, ar_table=args.ar_table,
                           temperature=args.temperature, top_k=args.top_k,
-                          seed=args.seed, device=device)
+                          seed=args.seed, spec_mode=args.spec_mode,
+                          spec_k=args.spec_k, draft_arch=args.draft_arch,
+                          device=device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     res = eng.generate(prompts, args.max_new)
@@ -227,10 +270,21 @@ def run_trace(args: argparse.Namespace) -> Tuple[list, ServeMetrics]:
                               ar_table=args.ar_table,
                               temperature=args.temperature,
                               top_k=args.top_k, seed=args.seed,
-                              device=device)
-    reqs = make_trace(args.n_requests, mean_in=args.mean_in,
-                      mean_out=args.mean_out, rate=args.rate,
-                      vocab=cfg.vocab_size, seed=args.seed)
+                              admit_mode=args.admit_mode,
+                              admit_chunk=args.admit_chunk,
+                              prefix_cache=args.prefix_cache,
+                              prefix_capacity=args.prefix_capacity,
+                              spec_mode=args.spec_mode, spec_k=args.spec_k,
+                              spec_adaptive=args.spec_adaptive,
+                              draft_arch=args.draft_arch, device=device)
+    shared = args.shared_frac if args.shared_frac is not None \
+        else 0.75 if args.prefix_cache == "on" else 0.0
+    kw = dict(mean_in=args.mean_in, mean_out=args.mean_out, rate=args.rate,
+              vocab=cfg.vocab_size, seed=args.seed)
+    reqs = make_prefix_trace(args.n_requests, prefix_len=args.prefix_len,
+                             shared_frac=shared, clip_len=args.s_max - 1,
+                             **kw) if shared > 0 \
+        else make_trace(args.n_requests, **kw)
     done = sched.run(reqs)
     m = sched.metrics(done)
     print(f"[serve] trace {cfg.name}{depth} on {device} "
@@ -246,6 +300,17 @@ def run_trace(args: argparse.Namespace) -> Tuple[list, ServeMetrics]:
     print(f"[serve]   KV peak {m.peak_kv_tokens} tokens of "
           f"{m.kv_capacity_tokens} reserved (util "
           f"{m.cache_utilization:.2f}), {m.preemptions} preemptions")
+    if args.prefix_cache == "on":
+        print(f"[serve]   prefix cache: {m.prefix_hits}/{m.prefix_lookups} "
+              f"admissions hit (rate {m.prefix_hit_rate:.2f}), "
+              f"{m.prefix_tokens_saved} prompt tokens spliced")
+    if args.spec_mode:
+        print(f"[serve]   spec[{args.spec_mode} k_mean={m.spec_k_mean:.1f}"
+              f"{' adaptive' if args.spec_adaptive else ''}]: "
+              f"{m.accepted_tokens}/{m.drafted_tokens} drafts accepted "
+              f"(rate {m.acceptance_rate:.2f}, "
+              f"{m.accepted_tokens_per_step:.2f}/step), {m.spec_steps} "
+              f"verify steps, drafter hit rate {m.drafter_hit_rate:.2f}")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(m.to_dict(), f, indent=2, default=float)

@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from ..core import hierarchical as hier
 from ..core.pcontext import ParallelCtx
-from ..kernels import decode_attention, flash_attention, paged_decode_attention
+from ..kernels import (decode_attention, flash_attention,
+                       flash_attention_chunk, paged_decode_attention)
 from .common import ModelConfig
 
 Params = Mapping[str, torch.Tensor]
@@ -198,6 +199,60 @@ def attention_decode(p: Params, h: torch.Tensor,
     return _masked_heads(o.reshape(q.shape), q_mask)
 
 
+def attention_chunk_step(p: Params, h: torch.Tensor,
+                         cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+                         positions: torch.Tensor, rows: torch.Tensor,
+                         q_mask: Optional[torch.Tensor] = None,
+                         block_tbl: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Chunked-prefill attention, the port of ``attention_chunk_step``: C
+    tokens of each of N sequences write their K/V into the decode cache,
+    then attend causally over everything written so far.
+
+    h: (R, N, C, D); positions: (N, C) int32 write positions, contiguous
+    in each row; ``rows`` (R*N,) int32, each folded sequence's row of the
+    cache (rank-major, as ``prefill_chunk`` computes them).  Dense:
+    cache['k']/['v'] (R*B, S_max, U, hd); a position at or past S_max
+    writes the row's last in-range value again at S_max - 1 (the reference
+    drops such writes; a duplicate of one value keeps the write
+    deterministic).  Paged (``block_tbl`` (R*B, max_blocks), the folded
+    table): the pool (R*n_blocks, bs, U, hd); positions at or past S_max
+    go to the rank's trash block, never into the row's last live block,
+    as the reference routes them.  Pads past a prompt's end are safe by
+    the write-ordering invariant.  Then one launch of kernel 3's chunk
+    form serves every rank and sequence, its query offsets the rows'
+    first positions, read on the device.  Written in place; returns the
+    masked heads (R, N, C, Q, hd) for the caller to project."""
+    q, k_new, v_new = _rotated_qkv(p, h, cfg, positions)
+    k, v = cache["k"], cache["v"]
+    R = h.shape[0]
+    pos = positions.repeat(R, 1).long()                      # (R*N, C)
+    kf, vf = _fold(k_new).to(k.dtype), _fold(v_new).to(v.dtype)
+    if block_tbl is None:
+        s_max = k.shape[1]
+        pw = pos.clamp(max=s_max - 1)
+        src = (pw - pos[:, :1]).clamp(min=0)
+        idx = src[:, :, None, None].expand(-1, -1, *kf.shape[2:])
+        dst = (rows.long()[:, None], pw)
+        k[dst] = kf.gather(1, idx)
+        v[dst] = vf.gather(1, idx)
+        kw = {"rows": rows}
+    else:
+        bs, mb = k.shape[1], block_tbl.shape[1]
+        tbl = block_tbl[rows.long()]
+        trash = (torch.arange(pos.shape[0], device=h.device)
+                 // (pos.shape[0] // R)) * (k.shape[0] // R)
+        blk = tbl.gather(1, (pos // bs).clamp(max=mb - 1)).long()
+        blk = torch.where(pos < mb * bs, blk, trash[:, None])
+        k[(blk, pos % bs)] = kf
+        v[(blk, pos % bs)] = vf
+        kw = {"block_tbl": tbl}
+    o = flash_attention_chunk(_fold(q).transpose(1, 2), k, v,
+                              pos[:, 0].to(torch.int32), window=cfg
+                              .sliding_window, **kw).transpose(1, 2)
+    return _masked_heads(o.reshape(q.shape), q_mask)
+
+
 def mlp_hidden(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Up-projection + activation: the (R, B, S, F_local) input of the
     row-parallel down-projection."""
@@ -325,5 +380,6 @@ def sample_token(logits: torch.Tensor, keys: Optional[torch.Tensor] = None,
 
 __all__ = ["rms_norm", "apply_norm", "rope_tables", "apply_rope",
            "rank_matmul", "attention_prefill", "attention_decode",
+           "attention_chunk_step",
            "mlp_hidden", "mlp_down_w", "embed_lookup", "lm_logits",
            "greedy_sample", "sample_token", "sampling_key", "NEG_INF"]

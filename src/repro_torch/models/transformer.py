@@ -689,8 +689,82 @@ def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
     return _unranked(L.lm_logits(model.embed, x)[:, :, 0], mesh), cache
 
 
+# ---------------------------------------------------------------------------
+# Chunked prefill
+# ---------------------------------------------------------------------------
+
+
+def prefill_chunk(model: DenseLM, cache: Cache, tokens: torch.Tensor,
+                  positions: torch.Tensor, ap: ArchPlan,
+                  ctx: ParallelCtx = LOCAL, mesh=None, *,
+                  slot: Optional[torch.Tensor] = None,
+                  return_logits: bool = True
+                  ) -> Tuple[Optional[torch.Tensor], Cache]:
+    """Chunked prefill, the port of ``prefill_chunk``: C tokens of each
+    sequence written into the decode cache at ``positions`` and attended
+    causally over everything written so far (``attention_chunk_step``),
+    the cache updated in place.
+
+    tokens: (N, C) int; positions: (N, C) int32, contiguous in each row.
+    ``slot=None``: batch-wide, N the cache's batch (the speculative verify
+    step).  ``slot``: a (1,) int tensor on the device, N = 1, the chunk
+    spliced into that row of every rank (the continuous batcher's
+    admission); read on the device, so one captured step serves any slot.
+    Returns (logits, cache): vocab-sharded logits (R, N, C, V_local) on a
+    mesh, (N, C, V_pad) without one; None with ``return_logits=False``
+    (intermediate chunks only feed the cache: no final norm, no head).
+    The row-parallel projections go through ``_residual_proj`` (overlapped
+    under ``ctx.overlap_matmul``, kernel 5 under ``hier_rd``).  An ``ef``
+    leaf is zeroed, the slot's or all of it, as in the reference: prefill
+    reductions over (N, C, D) chunks take the one-shot rounding, and a
+    slot's decode error feedback restarts from zero.  Dense family only:
+    recurrent states cannot skip pads and MoE capacity is
+    load-dependent."""
+    cfg = ap.cfg
+    if cfg.family != "dense":
+        raise ValueError("chunked prefill supports attention-only dense "
+                         f"families, not {cfg.family!r}")
+    if "k_scale" in cache:
+        raise ValueError("chunked prefill with kv_quant (ROADMAP item 9)")
+    R = check_layout(ap, ctx, mesh)
+    N = tokens.shape[0]
+    batch = _cache_rows(cache) // R
+    if slot is None:
+        if N != batch:
+            raise ValueError(f"a batch-wide chunk of {N} rows over a cache "
+                             f"of {batch}")
+        local = torch.arange(N, device=tokens.device)
+    else:
+        if N != 1:
+            raise ValueError(f"slot admission is per request, got N={N}")
+        local = slot.long()
+    rows = (torch.arange(R, device=tokens.device)[:, None] * batch
+            + local[None]).reshape(-1).to(torch.int32)
+    if "ef" in cache:      # (L, sites, R, batch, D)
+        if slot is None:
+            cache["ef"].zero_()
+        else:
+            cache["ef"].index_fill_(3, local, 0.0)
+    block_tbl = cache.get("block_tbl")
+    q_mask = _q_mask(ap, tokens.device)
+    x = L.embed_lookup(model.embed, tokens, ctx, mesh, ap.vocab_pad)
+    for i, bp in enumerate(model.blocks):
+        cache_l = {"k": cache["k"][i], "v": cache["v"][i]}
+        heads = L.attention_chunk_step(
+            bp.attn, L.apply_norm(x, bp.ln1, cfg), cache_l, cfg,
+            positions=positions, rows=rows, q_mask=q_mask,
+            block_tbl=block_tbl)
+        x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
+        x, _ = _residual_proj(x, L.mlp_hidden(bp.mlp, L.apply_norm(
+            x, bp.ln2, cfg), cfg), L.mlp_down_w(bp.mlp, cfg), ctx, mesh)
+    if not return_logits:
+        return None, cache
+    x = L.apply_norm(x, model.final_norm, cfg)
+    return _unranked(L.lm_logits(model.embed, x), mesh), cache
+
+
 __all__ = ["ArchPlan", "make_plan", "check_layout", "Block", "DenseLM",
            "from_global", "init_params", "block_forward", "forward_lm",
            "ef_sites_for", "fold_table", "init_cache", "seed_cache",
-           "block_decode",
-           "decode_step", "RECURRENT_LEAVES"]
+           "block_decode", "decode_step", "prefill_chunk",
+           "RECURRENT_LEAVES"]

@@ -1,17 +1,18 @@
 """Serve-step builders, at tp=1 (``mesh=None``) and over the virtual mesh:
 the port of ``repro/parallel/steps.py::build_prefill``,
-``build_decode_step``, ``build_cache_init``, ``build_serve_step`` and
-``build_admit_step`` (``fsdp_serve``, ``weight_quant``, ``kv_quant`` and
-``window_cache`` are not ported; the chunked admission step is ROADMAP
-item 6b, the speculative verify step item 7, the prefill-only and KV
-splice steps item 8).
+``build_decode_step``, ``build_cache_init``, ``build_serve_step``,
+``build_admit_step``, ``build_admit_chunk_step`` and
+``build_spec_verify_step`` (``fsdp_serve``, ``weight_quant``,
+``kv_quant`` and ``window_cache`` are not ported; the prefill-only and KV
+splice steps are ROADMAP item 8).
 
 JAX wrapped these in ``shard_map`` and compiled them once with ``jit``;
 here they are closures over (ap, ctx, mesh), and the compiled step's
 counterpart on the card is a CUDA graph (:class:`CapturedStep`): a
 fixed-shape step (the decode step of ``InferenceEngine.generate``, the
-batcher's serve step) runs eagerly once, is captured on its second call
-and replayed after.  ``ar_table`` (a path, an
+batcher's serve step, its chunked admission steps, the speculative verify
+step of each k) runs eagerly once, is captured on its second call and
+replayed after.  ``ar_table`` (a path, an
 :class:`~repro_torch.core.autotune.AutoTuner` or None) is resolved at
 build time and every call of the step runs under that tuner, so each
 ``ar_strategy="auto"`` call site of THIS step resolves against THIS table:
@@ -25,7 +26,8 @@ temperature 0; else the vocab shards are gathered and each row draws from
 its own stateless chain (``layers.sample_token``: base key, token index),
 the counterpart of the reference's ``fold_in(keys[s], idx[s])``, so a
 request's stream depends on neither the schedule nor the other slots, and
-a graph replays it with no generator state.
+a graph replays it with no generator state.  The speculative verify step
+draws its acceptance uniforms and its corrections from the same chains.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from ..core.pcontext import ParallelCtx
 from ..models import layers as L
 from ..models.transformer import (ArchPlan, Cache, DenseLM, check_layout,
                                   decode_step, ef_sites_for, forward_lm,
-                                  init_cache, seed_cache)
+                                  init_cache, prefill_chunk, seed_cache)
 
 
 ARTable = Optional[Union[str, autotune.AutoTuner]]
@@ -120,10 +122,11 @@ def _sample_next(logits: torch.Tensor, ctx: ParallelCtx, mesh, cfg,
 
 
 def _finite_slots(logits: torch.Tensor, mesh) -> torch.Tensor:
-    """(B,) bool: every logit of the row finite on every rank's shard (the
-    device half of the reference's quarantine guard)."""
+    """(B,) bool: every logit of the row (of each of its positions) finite
+    on every rank's shard (the device half of the reference's quarantine
+    guard)."""
     bad = ~torch.isfinite(_ranked(logits, mesh).float())
-    return bad.sum(dim=(0, 2)) == 0
+    return bad.flatten(2).sum(dim=(0, 2)) == 0
 
 
 def build_cache_init(ap: ArchPlan, ctx: ParallelCtx, mesh, *, slots: int,
@@ -279,5 +282,164 @@ def build_admit_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
     return admit
 
 
+def build_admit_chunk_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
+                           model: DenseLM, cache: Cache, chunk: int,
+                           inputs: Optional[State] = None,
+                           sample: bool = True, temperature: float = 0.0,
+                           top_k: int = 0, ar_table: ARTable = None,
+                           cuda_graph: bool = True
+                           ) -> Tuple[CapturedStep, State]:
+    """Chunked-prefill admission over ``model`` and ``cache``: one step
+    feeds ``chunk`` prompt tokens into one slot's rows of every rank
+    (``transformer.prefill_chunk`` with ``slot``), whatever the prompt's
+    length.  Returns (step, inputs): ``inputs`` = {tokens (1, chunk)
+    int64, positions (1, chunk) int32, slot (1,) int32, last (1,) int64,
+    key (1, 2) int64, out (1,) int32} are device tensors the caller fills
+    in place before each call (pass one step's ``inputs`` to the other
+    form's builder to share them).  ``sample=True`` (the final chunk):
+    ``out`` gets the first token, token 0 of the request's chain ``key``,
+    sampled from the logits at in-chunk index ``last``; ``sample=False``
+    (the intermediate chunks) skips the final norm, the head and the
+    sampling.  With ``cuda_graph`` a step on CUDA tensors is captured on
+    its second call and replayed after, captured anew when a later eager
+    call grew a workspace buffer the graph holds."""
+    check_layout(ap, ctx, mesh)
+    tuner = autotune.tuner_for(ar_table)
+    if inputs is None:
+        dev = cache["k"].device
+        inputs = {
+            "tokens": torch.zeros((1, chunk), dtype=torch.int64, device=dev),
+            "positions": torch.zeros((1, chunk), dtype=torch.int32,
+                                     device=dev),
+            "slot": torch.zeros(1, dtype=torch.int32, device=dev),
+            "last": torch.zeros(1, dtype=torch.int64, device=dev),
+            "key": torch.zeros((1, 2), dtype=torch.int64, device=dev),
+            "out": torch.zeros(1, dtype=torch.int32, device=dev)}
+    x = inputs
+
+    def body():
+        with torch.inference_mode(), autotune.using(tuner):
+            logits, _ = prefill_chunk(model, cache, x["tokens"],
+                                      x["positions"], ap, ctx, mesh,
+                                      slot=x["slot"], return_logits=sample)
+            if not sample:
+                return
+            last = _ranked(logits, mesh).index_select(2, x["last"])[:, :, 0]
+            x["out"].copy_(_sample_next(
+                last if mesh is not None else last[0], ctx, mesh, ap.cfg,
+                x["key"], torch.zeros_like(x["slot"]), temperature, top_k))
+
+    step = CapturedStep(body, cuda_graph and x["out"].is_cuda,
+                        workspace=getattr(mesh, "workspace", None))
+    return step, inputs
+
+
+def _spec_targets(logits: torch.Tensor, drafts: torch.Tensor, ctx, mesh,
+                  cfg, keys: torch.Tensor, idx: torch.Tensor,
+                  temperature: float, top_k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The verify pass's target tokens and accept mask, the port of
+    ``_spec_targets``.  logits: the C = k + 1 chunk positions' vocab-
+    sharded scores ((B, C, V_pad) at tp=1, (R, B, C, V_local) on a mesh);
+    drafts (B, k).  Returns (tgt (B, C) int32, match (B, k) bool):
+    ``tgt[:, j]`` is the target token emitted at position j if j is the
+    first rejection (or the bonus position j == k), ``match[:, j]``
+    accepts draft j.
+
+    Greedy: the sharded argmax, a draft matching iff it equals it, so the
+    emitted stream is the plain greedy stream.  Sampled, the reference's
+    exact rejection rule for deterministic drafts: accept draft d with
+    probability p(d), else draw from p with d removed; the bonus draws
+    from p.  Position j of slot b draws from token ``idx[b] + j`` of its
+    own chain ``keys[b]``: the Gumbel noise of ``layers.sample_token`` over
+    the vocabulary, and the acceptance uniform from the same hash row's
+    next column."""
+    lr = _ranked(logits, mesh)
+    R, B, C = lr.shape[:3]
+    k = C - 1
+    if temperature <= 0.0:
+        tgt = L.greedy_sample(lr.reshape(R, B * C, -1), ctx, mesh,
+                              cfg.vocab_size).reshape(B, C)
+        return tgt, drafts == tgt[:, :k]
+    lf = lr.permute(1, 2, 0, 3).reshape(B, C, -1).float()
+    V = lf.shape[-1]
+    lf = torch.where(torch.arange(V, device=lf.device) < cfg.vocab_size, lf,
+                     torch.full((), L.NEG_INF, device=lf.device))
+    lf = lf / temperature
+    if 0 < top_k < V:
+        kth = torch.topk(lf, top_k, dim=-1).values[..., -1:]
+        lf = torch.where(lf >= kth, lf,
+                         torch.full((), L.NEG_INF, device=lf.device))
+    p = torch.softmax(lf, dim=-1)
+    tok_idx = idx[:, None] + torch.arange(C, dtype=idx.dtype,
+                                          device=idx.device)
+    u = L._uniforms(keys.repeat_interleave(C, 0), tok_idx.reshape(-1),
+                    V + 1).reshape(B, C, V + 1)
+    gumbel = -torch.log(-torch.log(u[..., :V]))
+    d = drafts.long()
+    match = u[:, :k, V] < p[:, :k].gather(-1, d[..., None])[..., 0]
+    resid = lf[:, :k].scatter(-1, d[..., None], L.NEG_INF)
+    corr = torch.argmax(resid + gumbel[:, :k], dim=-1)
+    bonus = torch.argmax(lf[:, k] + gumbel[:, k], dim=-1)
+    return torch.cat([corr, bonus[:, None]], 1).to(torch.int32), match
+
+
+def build_spec_verify_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
+                           model: DenseLM, cache: Cache, state: State,
+                           k: int, temperature: float = 0.0, top_k: int = 0,
+                           ar_table: ARTable = None, cuda_graph: bool = True
+                           ) -> Tuple[CapturedStep, torch.Tensor,
+                                      torch.Tensor]:
+    """The speculative verify step of length ``k`` over ``model``,
+    ``cache`` and ``state`` = {tokens, positions, rng, sample_idx} (the
+    batcher's serve state, or the engine's decode loop): (step, drafts,
+    out).  The caller fills ``drafts`` (B, k) int32 in place; ``step()``
+    runs the C = k + 1 chunk ``[tokens, drafts]`` of every row at
+    ``positions + [0..k]`` through ``prefill_chunk`` (one launch of
+    kernel 3's chunk form a layer for all rows) and writes the int32
+    (B, C + 2) ``out``: ``out[:, :C]`` the emitted tokens (the verified
+    drafts, then the correction or bonus token: take ``accepted + 1``),
+    ``out[:, C]`` accepted (0..k), ``out[:, C + 1]`` whether the row's
+    logits were all finite.  The state is not advanced: the caller takes
+    a variable number of tokens a row and rolls the rejected tail back.
+    Dense family only (``prefill_chunk``); the K/V writes past a row's
+    accepted prefix are stale and are overwritten before anything reads
+    them (paged: ``BlockAllocator.truncate`` returns their blocks)."""
+    if ap.cfg.family != "dense":
+        raise ValueError("speculative verify rides the chunked-prefill "
+                         f"path: dense families only, not {ap.cfg.family!r}")
+    if k < 1:
+        raise ValueError(f"spec k must be >= 1, got {k}")
+    check_layout(ap, ctx, mesh)
+    tuner = autotune.tuner_for(ar_table)
+    C = k + 1
+    st = state
+    B, dev = st["tokens"].shape[0], st["tokens"].device
+    drafts = torch.zeros((B, k), dtype=torch.int32, device=dev)
+    out = torch.zeros((B, C + 2), dtype=torch.int32, device=dev)
+    steps = torch.arange(C, dtype=torch.int32, device=dev)
+
+    def body():
+        with torch.inference_mode(), autotune.using(tuner):
+            x = torch.cat([st["tokens"][:, None], drafts], 1)
+            pos = st["positions"][:, None] + steps
+            logits, _ = prefill_chunk(model, cache, x, pos, ap, ctx, mesh)
+            tgt, match = _spec_targets(logits, drafts, ctx, mesh, ap.cfg,
+                                       st["rng"], st["sample_idx"],
+                                       temperature, top_k)
+            accepted = torch.cumprod(match.to(torch.int32), 1).sum(1)
+            emitted = torch.where(steps[None] < accepted[:, None],
+                                  torch.nn.functional.pad(drafts, (0, 1)),
+                                  tgt)
+            out[:, :C].copy_(emitted)
+            out[:, C].copy_(accepted)
+            out[:, C + 1].copy_(_finite_slots(logits, mesh))
+
+    step = CapturedStep(body, cuda_graph and out.is_cuda,
+                        workspace=getattr(mesh, "workspace", None))
+    return step, drafts, out
+
+
 __all__ = ["CapturedStep", "build_cache_init", "build_prefill",
-           "build_decode_step", "build_serve_step", "build_admit_step"]
+           "build_decode_step", "build_serve_step", "build_admit_step",
+           "build_admit_chunk_step", "build_spec_verify_step"]

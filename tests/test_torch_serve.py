@@ -340,13 +340,25 @@ def test_serve_cli_trace_on_cpu(capsys, tmp_path, extra):
     assert '"total_new_tokens"' in out.read_text()
 
 
-@pytest.mark.parametrize("knob,item", [
-    (dict(admit_mode="chunked"), "item 6b"),
-    (dict(spec_mode="ngram"), "item 7"),
-    (dict(prefix_cache="on"), "item 7"),
-    (dict(deadline_s=4.0), "item 7"),
-    (dict(kv_quant=True), "item 9"),
-], ids=["chunked", "spec", "prefix", "deadline", "kv_quant"])
-def test_batcher_knobs_left_for_later_raise(llama, knob, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ContinuousBatcher(llama["tap"], llama["model"], device="cpu", **knob)
+@pytest.mark.parametrize("knob,arch,exc,match", [
+    (dict(admit_mode="chunked", admit_chunk=24), None, ValueError,
+     "multiple of admit_chunk"),
+    (dict(admit_mode="chunked"), "rwkv6-7b", ValueError, "dense family"),
+    (dict(spec_mode="ngram"), "hymba-1.5b", ValueError, "dense families"),
+    (dict(prefix_cache="on"), None, ValueError, "paged KV layout"),
+    (dict(deadline_s=4.0), None, NotImplementedError, "ROADMAP item 7"),
+    (dict(kv_quant=True), None, NotImplementedError, "ROADMAP item 9"),
+], ids=["chunked", "chunked_family", "spec", "prefix", "deadline",
+        "kv_quant"])
+def test_batcher_knobs_left_for_later_raise(llama, knob, arch, exc, match):
+    """Deadlines and the int8 KV cache still wait for their ROADMAP items;
+    chunked admission, speculative decoding and the prefix cache now run
+    and keep the reference's own refusals (s_max not a multiple of the
+    chunk, a family other than dense, the prefix cache without paging)."""
+    ap, model = llama["tap"], llama["model"]
+    if arch is not None:
+        cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32)
+        ap = TT.make_plan(cfg, 1)
+        model = TT.init_params(ap, seed=0, device="cpu")
+    with pytest.raises(exc, match=match):
+        ContinuousBatcher(ap, model, device="cpu", **knob)

@@ -254,7 +254,9 @@ def test_mesh_engine_tokens_match_tp1_and_jax_local():
 def test_mesh_engine_runs_paged_cache_and_sampling():
     """The mesh engine pages its cache (one pool a rank, folded) with the
     dense cache's tokens, and samples over the gathered vocab from each
-    row's seeded chain; chunked admission is what still refuses."""
+    row's seeded chain; chunked admission on the mesh keeps the
+    reference's refusal of an s_max that is not a multiple of the
+    chunk."""
     case = TPCase(2, 2, "hier_rd")
     kw = dict(ctx=case.ctx, mesh=case.mesh, s_max=32, device="cpu")
     prompts = _prompts(case.tcfg.vocab_size, seed=4)
@@ -270,8 +272,9 @@ def test_mesh_engine_runs_paged_cache_and_sampling():
     assert sampled[:, -4:].max() < case.tcfg.vocab_size
     assert not np.array_equal(gen(temperature=1.0, top_k=8, seed=4), sampled)
     from repro_torch.inference.scheduler import ContinuousBatcher
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6b"):
-        ContinuousBatcher(case.tap, case.model, admit_mode="chunked", **kw)
+    with pytest.raises(ValueError, match="multiple of admit_chunk"):
+        ContinuousBatcher(case.tap, case.model, admit_mode="chunked",
+                          admit_chunk=24, **kw)
     with pytest.raises(ValueError, match="VirtualMesh"):
         InferenceEngine(case.tap, case.model, s_max=32, device="cpu")
 
