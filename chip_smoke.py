@@ -250,8 +250,27 @@ phase's seconds are printed after it):
      the gate; TTFT and
      throughput beside phase 27's; in f32 at 2 layers, chunked and spec
      (replay) against plain at tp=1 (paged) and tp=8 (dense), each by
-     provable_gate checking at least three quarters of the steps.  Then
-     both forms' decode tok/s of every path, side by side.
+     provable_gate checking at least three quarters of the steps;
+ 29. (a) kernels 1, 2 and 3's chunk form with NaN planted in every K and V
+     row past the visible range, bitwise the same call with zeros there
+     (bf16 and f32, dense and paged, at phase 27's serve shapes); then on
+     phase 27's trace, llama3.2-1b full width and depth, bf16, graphs on:
+     (b) the batcher under injected faults (NaN poked into live K, OOM
+     bursts, stragglers) and a TTFT deadline at tp=1 paged, and NaN at
+     tp=8 paged: every survivor bitwise phase 27's tokens, one quarantine
+     a poke, no NaN left in the cache, shed requests reported; (c)
+     disaggregated serving through the checksummed KV handoff, both pools
+     tp=1 (full admission) bitwise colocated paged, under dropped and
+     corrupted handoffs every survivor bitwise with retries and
+     re-prefills counted, and a tp=1 prefill pool in front of a tp=8
+     (4x2 hier_rd) decode pool against colocated tp=8 by provable_gate
+     with the teacher-forced logits within (TF_MAX, TF_MEAN), in bf16 and
+     in f32 at 2 layers (floor three quarters); (d) two tp=1 replicas
+     behind the router under round_robin bitwise two single replicas,
+     least_queue and ttft_aware through the trace at 8x the rate, all
+     bitwise phase 27's; each run's tokens/s, TTFT and TPOT p50, fault
+     counters, handoff bytes and graph captures printed.  Then both forms'
+     decode tok/s of every path, side by side.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -280,8 +299,13 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import autotune, hierarchical, overlap  # noqa: E402
 from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
+from repro_torch.inference.kv_cache import (  # noqa: E402
+    bundle_states, states_bundle)
+from repro_torch.inference.router import (  # noqa: E402
+    Router, prefill_cost_model)
 from repro_torch.inference.scheduler import (  # noqa: E402
     ContinuousBatcher, Request, make_prefix_trace, make_trace)
+from repro_torch.inference.spec import ReplicaSpec, build_replica  # noqa
 from repro_torch.inference.speculative import ReplayDrafter  # noqa: E402
 from repro_torch.kernels import (_build, collective_matmul_rd,  # noqa: E402
                                  decode_attention, flash_attention,
@@ -3508,15 +3532,19 @@ class ForcedDecode:
     generate) each row's logits are that path's, row for row."""
 
     def __init__(self, model, ap, rows: int, ctx=None, mesh=None, *,
-                 chunk: int = 0, verify_k: int = 0):
+                 chunk: int = 0, verify_k: int = 0, prefill_with=None):
         """``chunk`` > 0: each prompt admitted through chunks of that many
         tokens (``prefill_chunk`` into its row, the batcher's chunked
         admission) instead of one full prefill.  ``verify_k`` > 0: the
         tokens fed as the verify step feeds them, k + 1 at a time through
         ``prefill_chunk`` over all rows (the drafts all accepted), instead
-        of one decode step a token."""
+        of one decode step a token.  ``prefill_with`` = (model, ap) at
+        tp=1: each prompt prefilled there and its K/V handed over as a
+        disaggregated prefill pool hands it (a bundle spliced into the
+        row), the first token's logits that pool's."""
         self.model, self.ap, self.rows, self.mesh = model, ap, rows, mesh
         self.chunk, self.verify_k = chunk, verify_k
+        self.prefill_with = prefill_with
         self.kw = {} if mesh is None else {"ctx": ctx, "mesh": mesh}
         self.cache = init_cache(ap, rows, S_MAX, device="cuda", mesh=mesh)
         self.tok = torch.zeros(rows, dtype=torch.int32, device="cuda")
@@ -3567,6 +3595,15 @@ class ForcedDecode:
     def admit(self, p: np.ndarray, i: int) -> torch.Tensor:
         """Prefill prompt ``p`` into row i (one full prefill, or chunk by
         chunk); the logits of its last position, (V,)."""
+        if self.prefill_with is not None:
+            pm, pap = self.prefill_with
+            lg, st = forward_lm(pm, torch.as_tensor(p[None], device="cuda")
+                                .long(), pap, collect_state=True)
+            bundle = states_bundle(st["k"], st["v"], pap.gqa.kv_map)
+            k, v = bundle_states(bundle, self.ap.gqa.kv_map, self.ap.gqa.u,
+                                 "cuda")
+            seed_cache(self.cache, {"k": k, "v": v}, slot=i)
+            return lg[0, -1, :self.ap.cfg.vocab_size].float()
         if not self.chunk:
             lg, st = forward_lm(self.model, torch.as_tensor(
                 p[None], device="cuda").long(), self.ap,
@@ -4244,6 +4281,340 @@ def serve_chunked_f32(reqs) -> None:
         free_device()
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: faults and quarantine, disaggregated pools, the router
+# ---------------------------------------------------------------------------
+
+# (b) phase 27's trace under injected faults: a NaN poked into a request's
+# live K at about one (request, tokens emitted) key in 250 (some 8 of the
+# trace's 2108), an OOM burst on one step in 20, a 2 ms straggler on one
+# step in 10, and a TTFT deadline of 100 steps (8 slots free a request
+# about every 8 steps while one arrives every 2, so the queue's tail waits
+# past it); at tp=8 NaN alone.
+FAULT_PLAN = ("seed=29,nan_logits=0.004,oom=0.05,straggler=0.1,"
+              "straggler_s=0.002")
+FAULT_DEADLINE = 100.0
+FAULT_PLAN8 = "seed=29,nan_logits=0.004"
+# (c) the handoff's faults: one transfer attempt in 5 lost (retried with
+# backoff), one prefill's bundle in 5 damaged (re-prefilled; shed after
+# two re-prefills)
+HANDOFF_PLAN = "seed=29,handoff_drop=0.2,handoff_corrupt=0.2"
+# (d) the placement policies' bursty trace: phase 27's requests (the same
+# draws; only the gaps scale with the rate) arriving 8 times as fast
+BURST_RATE = 4.0
+P29 = dict(arch="llama3.2-1b", smoke=False, slots=SERVE_SLOTS, s_max=S_MAX,
+           block_size=BLOCK)
+
+
+def nan_masking_check() -> None:
+    """(a) Kernels 1, 2 and 3's chunk form never read a K or V row past
+    the visible range: with NaN planted in every such row, each call is
+    bitwise the same call with zeros there (bf16 and f32, phase 27's serve
+    shapes: 8 rows of 1024 positions, 32 / 8 heads of 64; the chunk form
+    at C 128 over offsets 0-700, dense rows and the paged table).  The
+    batcher's scrub is needed only by the plain versions, which sum p @ v
+    over every row (tests/test_torch_faults.py)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 29)
+    b, s, C = SERVE_SLOTS, S_MAX, ADMIT_CHUNK
+    kpos = torch.arange(s, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        k, v = rnd(b, s, HKV, HD), rnd(b, s, HKV, HD)
+
+        def planted(last):
+            """(zeros, NaN) copies of k and v past each row's ``last``."""
+            past = (kpos[None] > last.long()[:, None])[:, :, None, None]
+            return [[torch.where(past, torch.full((), f, dtype=dtype,
+                                                  device="cuda"), x)
+                     for x in (k, v)] for f in (0.0, float("nan"))]
+
+        def pages(kv):
+            g = torch.Generator(device="cuda")
+            g.manual_seed(SEED)
+            return scatter_blocks(g, *kv, BLOCK)
+
+        pos = torch.tensor([0, 1, 127, 128, 300, 511, 777, s - 1],
+                           dtype=torch.int32, device="cuda")
+        q = rnd(b, HQ, HD)
+        zero, nan = planted(pos)
+        (tz, kz, vz), (tn, kn, vn) = pages(zero), pages(nan)
+        outs = [decode_attention(q, *zero, pos),
+                decode_attention(q, *nan, pos),
+                paged_decode_attention(q, kz, vz, tz, pos),
+                paged_decode_attention(q, kn, vn, tn, pos)]
+        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+            raise AssertionError(f"decode attention [{dtype}]: NaN past "
+                                 "the visible keys reached the output")
+        offs = torch.tensor([0, 1, 63, 128, 200, 384, 500, 700],
+                            dtype=torch.int32, device="cuda")
+        rows = torch.arange(b, dtype=torch.int32, device="cuda")
+        qc = rnd(b, HQ, C, HD)
+        zero, nan = planted(offs + C - 1)
+        (tz, kz, vz), (tn, kn, vn) = pages(zero), pages(nan)
+        outs = [flash_attention_chunk(qc, *zero, offs, rows=rows),
+                flash_attention_chunk(qc, *nan, offs, rows=rows),
+                flash_attention_chunk(qc, kz, vz, offs, block_tbl=tz),
+                flash_attention_chunk(qc, kn, vn, offs, block_tbl=tn)]
+        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+            raise AssertionError(f"flash_attention_chunk [{dtype}]: NaN "
+                                 "past the chunk's last query reached the "
+                                 "output")
+        log(f"  [{str(dtype)[6:]}] decode_attention, paged_decode_attention "
+            "(8 rows, positions 0-1023) and flash_attention_chunk (C "
+            f"{C}, offsets 0-700, dense rows and the paged table): NaN in "
+            "every K/V row past the visible range == zeros there, bitwise "
+            "(and dense == paged)")
+        del k, v, q, qc, zero, nan, kz, vz, kn, vn
+
+
+def p29_line(label: str, m, extra: str = "") -> None:
+    """A run's throughput, and TTFT / TPOT p50 in steps and in ms at the
+    run's mean step time."""
+    step_ms = m.wall_s / m.steps * 1e3 if m.steps else 0.0
+    log(f"  {label}: {m.completed}/{m.requests} requests, "
+        f"{m.total_new_tokens} tokens in {m.steps} steps, {m.wall_s:.2f} s: "
+        f"{m.throughput_tok_s:.1f} tok/s, TTFT p50 {m.ttft_steps_p50:.1f} "
+        f"steps = {m.ttft_steps_p50 * step_ms:.2f} ms, TPOT p50 "
+        f"{m.tpot_steps_p50:.2f} steps = {m.tpot_steps_p50 * step_ms:.3f} "
+        f"ms{extra}")
+
+
+def survivors(label: str, done, ref: dict, reasons=()) -> int:
+    """Every request completed with the reference's tokens, bitwise, or was
+    shed with one of ``reasons``; returns the shed count."""
+    shed = 0
+    for r in done:
+        if r.output is None:
+            if r.shed_reason not in reasons or r.shed_step < 0:
+                raise AssertionError(f"{label}: request {r.rid} left "
+                                     f"unserved (reason {r.shed_reason})")
+            shed += 1
+        elif not np.array_equal(r.output, ref[r.rid]):
+            raise AssertionError(f"{label}: request {r.rid}'s tokens differ "
+                                 "from the fault-free run's")
+    return shed
+
+
+def launched(label: str, c: dict, names) -> None:
+    idle = [n for n in names if not c[n]]
+    if idle:
+        raise AssertionError(f"{label}: {idle} never launched")
+
+
+def batcher_faults(label: str, b, m, shed: int) -> None:
+    log(f"    faults fired {b.injector.stats()}; quarantines "
+        f"{m.quarantines}, injected OOM {m.injected_oom}, straggler steps "
+        f"{m.straggler_steps}, shed {shed} (deadline), preemptions "
+        f"{m.preemptions}, {m.wasted_tokens} tokens recomputed; graphs "
+        f"captured {b.graph_captures} ({b.graph_recaptures} anew), "
+        f"{b.graph_replays} replays")
+    if m.quarantines < 1 or m.quarantines != b.injector.counts["nan_logits"]:
+        raise AssertionError(f"{label}: {m.quarantines} quarantines for "
+                             f"{b.injector.counts['nan_logits']} NaN pokes")
+    if not (torch.isfinite(b.cache["k"]).all()
+            and torch.isfinite(b.cache["v"]).all()):
+        raise AssertionError(f"{label}: NaN left in the cache")
+
+
+def disagg_line(label: str, m) -> None:
+    p29_line(label, m)
+    log(f"    handoff: {m.handoffs} bundles, {m.transfer_bytes} bytes "
+        f"({m.transfer_bytes / max(m.handoffs, 1) / 2**20:.2f} MiB a "
+        f"bundle), ready / pending peaks {m.peak_ready_depth} / "
+        f"{m.peak_pending_depth}; prefill wall {m.prefill_pool['wall_s']:.2f}"
+        f" s over {m.prefill_pool['prefills']} prefills; AR buckets prefill "
+        f"2^{m.prefill_ar_bucket}, decode 2^{m.decode_ar_bucket}; graphs "
+        f"captured prefill {m.prefill_pool['graph_captures']} / decode "
+        f"{m.decode_pool['graph_captures']} ("
+        f"{m.prefill_pool['graph_recaptures']} / "
+        f"{m.decode_pool['graph_recaptures']} anew); drops "
+        f"{m.handoff_drops}, retries {m.handoff_retries}, corrupt "
+        f"{m.handoff_corrupt}, re-prefills {m.handoff_reprefills}, shed "
+        f"{m.shed_requests}")
+
+
+def phase_p29() -> dict:
+    """(b)-(d) on phase 27's trace at full width and depth, bf16, graphs
+    on; the references are phase 27's fault-free tokens (tp=1 dense ==
+    paged, tp=8 paged).  Returns the launch counts of each new path (the
+    graph form: a captured step counts at its capture)."""
+    cfg = get_config("llama3.2-1b")
+    reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
+                      mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
+                      vocab=cfg.vocab_size, seed=SEED)
+    ref1, ref8 = SERVE_OUTS["tp=1 dense"], SERVE_OUTS["tp=8 paged"]
+    spec = ReplicaSpec(**P29)
+    ap = make_plan(cfg, 1)
+    model = init_params(ap, seed=SEED, device="cuda")
+    mesh8, ctx8 = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                               device="cuda")
+    ap8 = make_plan(cfg, PODS * FAST)
+    model8 = init_params(ap8, seed=SEED, device="cuda", mesh=mesh8)
+    tp8 = dict(tp=PODS * FAST, pods=PODS, ar_strategy="hier_rd")
+    launches = {}
+
+    def run(rep, trace, path):
+        reset_counts()
+        done = rep.run(fresh(trace))
+        launches[path] = counts()
+        return done, rep.metrics(done)
+
+    # (b) the batcher under faults and a deadline, tp=1 paged
+    b = build_replica(spec.replace(fault_plan=FAULT_PLAN,
+                                   deadline_ms=FAULT_DEADLINE),
+                      ap=ap, model=model, device="cuda")
+    done, m = run(b, reqs, "fault_tp1_paged")
+    shed = survivors("faults tp=1", done, ref1, reasons=("deadline",))
+    p29_line(f"tp=1 paged, plan {FAULT_PLAN}, deadline "
+             f"{FAULT_DEADLINE:g} steps", m,
+             f"; every survivor bitwise phase 27's")
+    batcher_faults("faults tp=1", b, m, shed)
+    if m.injected_oom < 1 or shed != m.shed_requests:
+        raise AssertionError("faults tp=1: no injected OOM, or the shed "
+                             "count is not the metrics'")
+    launched("faults tp=1", launches["fault_tp1_paged"],
+             ("flash_attention", "paged_decode_attention"))
+    del b
+    b = build_replica(spec.replace(fault_plan=FAULT_PLAN8, **tp8), ap=ap8,
+                      model=model8, device="cuda")
+    done, m = run(b, reqs, "fault_tp8_paged")
+    survivors("faults tp=8", done, ref8)
+    p29_line(f"tp=8 ({PODS}x{FAST}) hier_rd paged, plan {FAULT_PLAN8}", m,
+             "; every request bitwise phase 27's tp=8 run")
+    batcher_faults("faults tp=8", b, m, 0)
+    launched("faults tp=8", launches["fault_tp8_paged"],
+             ("flash_attention", "paged_decode_attention", "rd_all_reduce"))
+    del b
+    free_device()
+    # (c) disaggregated: both pools tp=1, the prefill pool full admission
+    dspec = spec.replace(disagg=True, prefill_block_size=0)
+    d = build_replica(dspec, ap=ap, model=model, device="cuda")
+    done, m = run(d, reqs, "disagg_tp1")
+    survivors("disagg tp=1", done, ref1)
+    disagg_line("disagg, prefill tp=1 (full) -> decode tp=1 paged", m)
+    log("    every request bitwise colocated paged serving (phase 27)")
+    launched("disagg tp=1", launches["disagg_tp1"],
+             ("flash_attention", "paged_decode_attention"))
+    d = build_replica(dspec.replace(fault_plan=HANDOFF_PLAN), ap=ap,
+                      model=model, device="cuda")
+    done, m = run(d, reqs, "disagg_tp1_handoff_faults")
+    shed = survivors("disagg handoff faults", done, ref1,
+                     reasons=("handoff_corrupt", "handoff_failed"))
+    disagg_line(f"disagg tp=1, plan {HANDOFF_PLAN}", m)
+    log(f"    faults fired {d.injector.stats()}; every survivor bitwise the "
+        f"fault-free run, {shed} shed with their reasons")
+    if min(m.handoff_drops, m.handoff_retries, m.handoff_corrupt,
+           m.handoff_reprefills) < 1 or shed != m.shed_requests:
+        raise AssertionError("disagg handoff faults: a counter did not "
+                             "move, or the shed count is not the metrics'")
+    d8 = build_replica(dspec.replace(decode_tp=PODS * FAST,
+                                     decode_pods=PODS,
+                                     ar_strategy="hier_rd"),
+                       prefill_ap=ap, prefill_model=model, decode_ap=ap8,
+                       decode_model=model8, device="cuda")
+    done, m = run(d8, reqs, "disagg_tp1_tp8")
+    outs = {r.rid: r.output for r in done}
+    if any(v is None for v in outs.values()):
+        raise AssertionError("disagg tp=1 -> tp=8: requests unserved")
+    disagg_line(f"disagg, prefill tp=1 (full) -> decode tp=8 ({PODS}x{FAST})"
+                " hier_rd paged", m)
+    log(f"    {sum(np.array_equal(outs[k], ref8[k]) for k in ref8)}/"
+        f"{len(ref8)} requests bitwise colocated tp=8")
+    launched("disagg tp=1 -> tp=8", launches["disagg_tp1_tp8"],
+             ("flash_attention", "paged_decode_attention", "rd_all_reduce"))
+    seqs = [(r.prompt, ref8[r.rid]) for r in reqs]
+    serve_gate("disagg prefill tp=1 -> decode tp=8 against colocated tp=8",
+               reqs, outs, ref8,
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx8, mesh8,
+                            prefill_with=(model, ap)).logits(seqs),
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx8,
+                            mesh8).logits(seqs), limits=(TF_MAX, TF_MEAN))
+    del d, d8
+    free_device()
+    disagg_f32(reqs, spec)
+    # (d) the router: two tp=1 replicas under round_robin == two singles
+    reps = [build_replica(spec, ap=ap, model=model, replica_id=i,
+                          device="cuda") for i in range(2)]
+    fleet = Router(reps, policy="round_robin")
+    done, rm = run(fleet, reqs, "router_rr")
+    launched("router", launches["router_rr"],
+             ("flash_attention", "paged_decode_attention"))
+    by_arrival = sorted(reqs, key=lambda r: r.arrival_s)
+    for i in range(2):
+        solo = build_replica(spec, ap=ap, model=model, replica_id=i,
+                             device="cuda")
+        sd = {r.rid: r.output for r in solo.run(fresh(
+            [r for k, r in enumerate(by_arrival) if k % 2 == i]))}
+        survivors(f"router replica {i}", [r for r in done if r.rid in sd],
+                  sd)
+        del solo
+    survivors("router", done, ref1)
+    p29_line("router, 2 replicas tp=1 paged, round_robin", rm.fleet,
+             f"; placements {rm.placements}; each replica bitwise its "
+             "single run, and both phase 27's")
+    burst = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
+                       mean_out=SERVE_MEAN_OUT, rate=BURST_RATE,
+                       vocab=cfg.vocab_size, seed=SEED)
+    for policy in ("least_queue", "ttft_aware"):
+        fleet = Router(reps, policy=policy,
+                       cost_fn=prefill_cost_model(spec))
+        done = fleet.run(fresh(burst))
+        rm = fleet.metrics(done)
+        survivors(f"router {policy}", done, ref1)
+        if min(rm.placements) < 1:
+            raise AssertionError(f"router {policy}: a replica got nothing")
+        p29_line(f"router, 2 replicas, {policy}, the trace at "
+                 f"{BURST_RATE:g} arrivals a step", rm.fleet,
+                 f"; placements {rm.placements}, all bitwise phase 27's")
+    log(f"    router replicas' graphs captured "
+        f"{[r.graph_captures for r in reps]} "
+        f"({[r.graph_recaptures for r in reps]} anew)")
+    del model, model8, reps, fleet
+    free_device()
+    return launches
+
+
+def disagg_f32(reqs, spec) -> None:
+    """In f32 at full width and 2 layers: disaggregated prefill tp=1 ->
+    decode tp=8 against colocated tp=8 by provable_gate, which must check
+    at least three quarters of the steps, with the teacher-forced logits
+    within (TF_MAX, TF_MEAN)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+                              dtype=torch.float32)
+    ap = make_plan(cfg, 1)
+    model = init_params(ap, seed=SEED, device="cuda")
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    ap8 = make_plan(cfg, PODS * FAST)
+    model8 = init_params(ap8, seed=SEED, device="cuda", mesh=mesh)
+    tp8 = dict(tp=PODS * FAST, pods=PODS, ar_strategy="hier_rd")
+    col = build_replica(spec.replace(**tp8), ap=ap8, model=model8,
+                        device="cuda")
+    ref = {r.rid: r.output for r in col.run(fresh(reqs))}
+    d8 = build_replica(spec.replace(disagg=True, prefill_block_size=0,
+                                    decode_tp=PODS * FAST, decode_pods=PODS,
+                                    ar_strategy="hier_rd"),
+                       prefill_ap=ap, prefill_model=model, decode_ap=ap8,
+                       decode_model=model8, device="cuda")
+    outs = {r.rid: r.output for r in d8.run(fresh(reqs))}
+    log(f"  f32, 2 layers: {sum(np.array_equal(outs[k], ref[k]) for k in ref)}"
+        f"/{len(ref)} requests of disagg tp=1 -> tp=8 bitwise colocated "
+        "tp=8")
+    seqs = [(r.prompt, ref[r.rid]) for r in reqs]
+    serve_gate("f32, 2 layers: disagg prefill tp=1 -> decode tp=8 against "
+               "colocated tp=8", reqs, outs, ref,
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh,
+                            prefill_with=(model, ap)).logits(seqs),
+               ForcedDecode(model8, ap8, SERVE_SLOTS, ctx, mesh).logits(seqs),
+               limits=(TF_MAX, TF_MEAN), floor=0.75)
+    del model, model8, col, d8
+    free_device()
+
+
 def ptxas_report() -> None:
     """ptxas's -v report of this build's libraries, a line a kernel: its
     registers, static shared memory and spills (the bf16 tensor-core
@@ -4393,6 +4764,11 @@ def main() -> int:
           f"(k = {SPEC_K})")
     rec["flash_attention_chunk"] = phase_chunk_kernel()
     launches.update(phase_serve_chunked())
+    phase("[29] faults, quarantine and deadlines in the batcher; "
+          "disaggregated prefill / decode with the checksummed KV handoff; "
+          "the router: llama3.2-1b full width and depth, bf16")
+    nan_masking_check()
+    launches.update(phase_p29())
     phase("")
     log("    decode tok/s, eager / graph (medians of 3, this run):")
     for label, (e, g) in GRAPH_TPS.items():

@@ -266,6 +266,12 @@ class AutoTuner:
             self.measurements.setdefault(key, []).append(
                 _Measurement(strategy, seconds, quant))
 
+    def lookup_buckets(self) -> List[int]:
+        """Sorted message-size bucket exponents this tuner has dispatched
+        on (one a distinct key :meth:`choose` has seen)."""
+        with self._lock:
+            return sorted({int(k.split("/")[0][1:]) for k in self.lookups})
+
     def refine(self) -> int:
         """Overwrite table entries with measured winners; returns the number
         of entries changed.  An unquantized hier_rd winner chunks on the

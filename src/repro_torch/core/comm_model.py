@@ -11,16 +11,17 @@ by either package names a network the other knows.
 
 All times are in seconds; message sizes in bytes; bandwidths in
 bytes/second.  The quantized-wire terms (``quant_wire_factor``,
-``t_quant_hier_allreduce``) score the ``ar_quant`` levels.  Not copied
-(nothing in the port calls them yet): the tree model, Eq. 4's
-halving-free form, the NVRAR totals and speedup tables, and the
-sequence-parallel terms.
+``t_quant_hier_allreduce``) score the ``ar_quant`` levels; the tree model
+and ``nccl_model_best`` price the router's prefill all-reduces
+(``inference.router.prefill_cost_model``).  Not copied (nothing in the
+port calls them yet): Eq. 4's halving-free form, the NVRAR totals and
+speedup tables, and the sequence-parallel terms.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +85,29 @@ def t_ring_allreduce(msg_bytes: float, n_nodes: int, gpus_per_node: int,
         return 0.0
     return 2.0 * (ng - 1) * net.alpha_inter + \
         2.0 * (ng - 1) / ng * (msg_bytes / net.beta_inter)
+
+
+def t_tree_allreduce(msg_bytes: float, n_nodes: int, gpus_per_node: int,
+                     net: NetworkSpec) -> float:
+    """Eq. (2): NCCL Tree all-reduce (double binary tree + intra chain).
+
+    T ~= 2(G-1) a_intra + 2 log2(N) a_inter + 2 (N-1)/N * |M| / b_inter
+    """
+    if n_nodes * gpus_per_node <= 1:
+        return 0.0
+    t = 2.0 * (gpus_per_node - 1) * net.alpha_intra
+    if n_nodes > 1:
+        t += 2.0 * math.log2(n_nodes) * net.alpha_inter
+        t += 2.0 * (n_nodes - 1) / n_nodes * (msg_bytes / net.beta_inter)
+    return t
+
+
+def nccl_model_best(msg_bytes: float, n_nodes: int, gpus_per_node: int,
+                    net: NetworkSpec) -> Tuple[str, float]:
+    """NCCL's algorithm choice under the model: min(Ring, Tree)."""
+    ring = t_ring_allreduce(msg_bytes, n_nodes, gpus_per_node, net)
+    tree = t_tree_allreduce(msg_bytes, n_nodes, gpus_per_node, net)
+    return ("ring", ring) if ring <= tree else ("tree", tree)
 
 
 def t_reduce_scatter_intra(msg_bytes: float, gpus_per_node: int,
@@ -171,7 +195,8 @@ def t_quant_hier_allreduce(msg_bytes: float, n_nodes: int,
 
 __all__ = [
     "NetworkSpec", "PERLMUTTER", "VISTA", "TPU_V5E", "NETWORKS",
-    "t_ring_allreduce", "t_reduce_scatter_intra", "t_allgather_intra",
+    "t_ring_allreduce", "t_tree_allreduce", "nccl_model_best",
+    "t_reduce_scatter_intra", "t_allgather_intra",
     "t_rd_inter_full_exchange", "t_rd_halving_inter", "QUANT_GROUPS",
     "QUANT_PACK_OVERHEAD", "quant_wire_factor", "t_quant_hier_allreduce",
 ]

@@ -1,7 +1,9 @@
-"""Paged KV cache, the host side: the port's own copy of
-``repro/inference/kv_cache.py``'s :class:`BlockAllocator`, with
-:class:`CacheStats` and :func:`paged_geometry` (pure numpy, never on the
-device; the KV handoff format of that module arrives with ROADMAP item 8).
+"""Paged KV cache, the host side, and the KV handoff format: the port's
+own copy of ``repro/inference/kv_cache.py``'s :class:`BlockAllocator`,
+with :class:`CacheStats` and :func:`paged_geometry` (pure numpy, never on
+the device), and of its :class:`KVBundle`, :func:`slots_to_heads`,
+:func:`heads_to_slots` and :func:`export_slot`, which read the port's
+rank-folded caches.
 
 The decode cache is carved into blocks of ``block_size`` positions, and
 each slot's logical positions map to physical blocks through a per-slot
@@ -25,15 +27,17 @@ Invariants the serving stack relies on:
   shared prompt prefix) or be held from outside; it returns to the free
   list only when its slot references and holds both reach zero.  A slot
   writes only blocks it owns alone (:meth:`BlockAllocator.fork_for_write`
-  first).  The port's batcher uses neither yet (prefix cache: ROADMAP
-  item 7).
+  first).  The prefix cache shares blocks and holds them; a fault's
+  poke forks a shared block before it writes.
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 TRASH_BLOCK = 0
 
@@ -439,4 +443,203 @@ def paged_geometry(s_max: int, block_size: int) -> int:
     return s_max // block_size
 
 
-__all__ = ["BlockAllocator", "CacheStats", "paged_geometry", "TRASH_BLOCK"]
+# ---------------------------------------------------------------------------
+# KV handoff bundles (disaggregated prefill / decode)
+# ---------------------------------------------------------------------------
+
+
+class BundleIntegrityError(RuntimeError):
+    """A sealed :class:`KVBundle` whose payload no longer matches its
+    checksum: damaged in flight.  Raised at splice time, before any state
+    changes; the coordinator re-prefills the request."""
+
+
+# numpy has no 16-bit float of torch's brain format: such payloads travel as
+# their raw bits
+_BITS = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
+
+
+def to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A tensor's values on the host as (array, dtype name): bf16 / f16 as
+    a uint16 array of their bits, anything else as its numpy array."""
+    t = t.detach().contiguous().cpu()
+    if t.dtype in _BITS:
+        return t.view(torch.int16).numpy().view(np.uint16), _BITS[t.dtype]
+    return t.numpy(), str(t.numpy().dtype)
+
+
+def to_device(a: np.ndarray, dtype: str, device) -> torch.Tensor:
+    """Inverse of :func:`to_host`: the array's bits as a tensor of
+    ``dtype`` on ``device``, no value converted."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype in ("bfloat16", "float16"):
+        t = t.view(torch.int16).view(getattr(torch, dtype))
+    return t.to(device)
+
+
+@dataclasses.dataclass
+class KVBundle:
+    """One request's K/V in the canonical, layout-neutral form: ``k`` /
+    ``v`` (L, T, n_kv, hd) on the host, positions [0, T), one entry a real
+    kv head (GQA slot padding and replication removed,
+    :func:`slots_to_heads`), so the pools' TP degrees, block sizes and
+    slots are independent.  ``dtype`` names the cache dtype; a bf16 or f16
+    payload is held as its uint16 bits (:func:`to_host`), nothing is
+    converted, and a round trip is bitwise.
+
+    ``rng``: the request's sampling-chain key ((2,) int64,
+    ``scheduler.request_sampling_key``); the decode pool continues the
+    chain the prefill pool drew the first token from, so sampled
+    disaggregated streams equal colocated ones.  ``checksum``: crc32 over
+    (shape, dtype) and the K/V bytes, stamped by :meth:`seal` and checked
+    by :meth:`verify` at splice time (``ContinuousBatcher.admit_prefilled``);
+    ``None`` means unsealed, and verify is then a no-op.  The digest hashes
+    the reference's ``repr((shape, dtype))`` and the same bytes, so a
+    bundle of the same contents has the reference's checksum."""
+    k: np.ndarray
+    v: np.ndarray
+    rng: Optional[np.ndarray] = None
+    checksum: Optional[int] = None
+    dtype: str = ""
+
+    def __post_init__(self):
+        assert self.k.shape == self.v.shape and self.k.ndim == 4, \
+            (self.k.shape, self.v.shape)
+        if not self.dtype:
+            self.dtype = str(self.k.dtype)
+
+    @property
+    def n_tokens(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        """Transfer size of the payload (K/V; the key rides the control
+        plane)."""
+        return int(self.k.nbytes + self.v.nbytes)
+
+    def _digest(self) -> int:
+        h = zlib.crc32(repr((self.k.shape, self.dtype)).encode())
+        h = zlib.crc32(np.ascontiguousarray(self.k).tobytes(), h)
+        h = zlib.crc32(np.ascontiguousarray(self.v).tobytes(), h)
+        return h
+
+    def seal(self) -> "KVBundle":
+        """Stamp the checksum (producer side); returns self."""
+        self.checksum = self._digest()
+        return self
+
+    def verify(self) -> None:
+        """Raise :class:`BundleIntegrityError` when the payload does not
+        match the sealed checksum."""
+        if self.checksum is not None and self._digest() != self.checksum:
+            raise BundleIntegrityError(
+                f"KV bundle payload corrupt ({self.n_tokens} tokens, "
+                f"{self.nbytes} bytes): checksum mismatch")
+
+
+def slots_to_heads(arr: np.ndarray, kv_map) -> np.ndarray:
+    """(L, T, kv_slots, hd) in a GQA slot layout (``GQAPlan.kv_map``, the
+    global layout: slot r * u + j is rank r's j-th) -> (L, T, n_kv, hd),
+    each head from its first owning slot (replicas hold the same values,
+    dead slots are dropped)."""
+    kv_map = np.asarray(kv_map)
+    n_kv = int(kv_map.max()) + 1
+    first = np.full((n_kv,), -1, np.int64)
+    for s, h in enumerate(kv_map):
+        if h >= 0 and first[h] < 0:
+            first[h] = s
+    assert (first >= 0).all(), f"kv_map covers only {first} of {n_kv} heads"
+    return np.ascontiguousarray(arr[:, :, first])
+
+
+def heads_to_slots(arr: np.ndarray, kv_map) -> np.ndarray:
+    """Inverse of :func:`slots_to_heads` for the target pool's kv_map:
+    replicated heads copied into every slot that owns them, dead slots
+    zero, as a prefill under that layout writes them (dead slots' weights
+    are zero)."""
+    kv_map = np.asarray(kv_map)
+    out = np.array(arr[:, :, np.maximum(kv_map, 0)])
+    out[:, :, kv_map < 0] = 0
+    return out
+
+
+def export_slot(cache, slot: int, n_tokens: int, kv_map,
+                table_row=None) -> KVBundle:
+    """One slot's live K/V out of a port cache into an (unsealed) bundle.
+
+    The cache is rank-folded (``transformer.init_cache``): dense K/V (L,
+    R*B, S, u, hd), rank r's copy of slot s in row r * B + s; paged (L,
+    R*n_blocks, bs, u, hd), rank r's pool from r * n_blocks, read through
+    ``table_row`` (the slot's unfolded block row, ``BlockAllocator.table``
+    [slot], or the identity row of an allocator-free pool; required iff
+    paged).  R = len(kv_map) / u.  Each rank's u slots are gathered back
+    into the global slot layout (L, T, R*u, hd) on the device, copied to
+    the host once, and packed to real heads.  Only the slot's own rows or
+    blocks are read: the trash block and other slots never leak in."""
+    T = int(n_tokens)
+    kc = cache["k"]
+    Ld, rows_all, _, u, hd = kc.shape
+    R = len(kv_map) // u
+    dev = kc.device
+    ranks = torch.arange(R, device=dev)
+    if "block_tbl" in cache:
+        assert table_row is not None, "paged export needs the slot's row"
+        bs = kc.shape[2]
+        nb = -(-T // bs)
+        row = np.asarray(table_row[:nb], np.int64)
+        assert TRASH_BLOCK not in row, "exporting an unowned (trash) block"
+        n_blocks = rows_all // R
+        phys = (ranks[:, None] * n_blocks
+                + torch.as_tensor(row, device=dev)[None]).reshape(-1)
+
+        def pull(t):           # (L, R*nb, bs, u, hd) -> (L, R, T, u, hd)
+            return t[:, phys].reshape(Ld, R, nb * bs, u, hd)[:, :, :T]
+    else:
+        rows = ranks * (rows_all // R) + int(slot)
+
+        def pull(t):
+            return t[:, rows, :T]
+    out = []
+    for n in ("k", "v"):
+        g = pull(cache[n]).permute(0, 2, 1, 3, 4).reshape(Ld, T, R * u, hd)
+        a, dtype = to_host(g)
+        out.append(slots_to_heads(a, kv_map))
+    return KVBundle(k=out[0], v=out[1], dtype=dtype)
+
+
+def states_bundle(k: torch.Tensor, v: torch.Tensor, kv_map) -> KVBundle:
+    """An (unsealed) bundle from one prompt's prefill states in a pool's
+    folded per-rank layout, (L, R, S, u, hd) each (``forward_lm``'s
+    ``collect_state`` at batch 1): each rank's u slots put back into the
+    global slot layout on the device, copied to the host once, packed to
+    real heads."""
+    out = []
+    for t in (k, v):
+        Ld, R, S, u, hd = t.shape
+        a, dtype = to_host(t.permute(0, 2, 1, 3, 4).reshape(Ld, S, R * u, hd))
+        out.append(slots_to_heads(a, kv_map))
+    return KVBundle(k=out[0], v=out[1], dtype=dtype)
+
+
+def bundle_states(bundle: KVBundle, kv_map, u: int, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A bundle's K/V in a pool's folded per-rank layout, (L, R, T, u, hd)
+    each on ``device`` (R = len(kv_map) / u): the real heads expanded into
+    the pool's slots (:func:`heads_to_slots`), each rank's u slots cut out.
+    The states a prefill of the same prompt collects there, ready for
+    ``transformer.seed_cache``."""
+    out = []
+    for a in (bundle.k, bundle.v):
+        s = heads_to_slots(a, kv_map)
+        Ld, T, slots, hd = s.shape
+        t = to_device(s, bundle.dtype, device)
+        out.append(t.view(Ld, T, slots // u, u, hd).permute(0, 2, 1, 3, 4))
+    return out[0], out[1]
+
+
+__all__ = ["BlockAllocator", "BundleIntegrityError", "CacheStats",
+           "KVBundle", "paged_geometry", "export_slot", "slots_to_heads",
+           "heads_to_slots", "bundle_states", "states_bundle", "to_host",
+           "to_device",
+           "TRASH_BLOCK"]

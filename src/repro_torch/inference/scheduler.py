@@ -39,12 +39,23 @@ ragged batches, the mechanism of the paper's trace evaluation
   recomputed from scratch with its own sampling chain, so its tokens are
   those of an undisturbed run.  On a mesh every rank has its own pool of
   ``n_blocks``, read through one folded table (``transformer.fold_table``).
+* Robustness: an ``injector``
+  (:class:`~repro_torch.inference.faults.FaultInjector`) is consulted
+  before each step (a NaN poked into a slot's live K, an OOM burst, a
+  straggler's delay); a slot whose logits come back non-finite is
+  quarantined (its K/V storage scrubbed, the request evicted and recomputed
+  through the preemption path), and a request still waiting for its first
+  admission past its deadline (``deadline_s``, ``Request.deadline_s``) is
+  shed and reported.  Every write into the cache (the poke, a shared
+  block's copy before the poke, the scrub, a handoff's splice) goes into
+  the cache's own tensors, which the captured steps hold.
+* :meth:`ContinuousBatcher.admit_prefilled` admits a context prefilled by
+  another pool (``inference.disagg``): a checksummed
+  :class:`~repro_torch.inference.kv_cache.KVBundle` spliced into a slot.
 
 Scheduling time is a logical step clock (1.0 an engine step), so traces
 replay deterministically; wall-clock times are recorded beside it for TTFT
-and TPOT.  Left to later slices, each refused with its ROADMAP item: fault
-injection, deadlines and the quarantine of a non-finite slot (item 7),
-handoff admission (item 8) and the int8 KV cache (item 9).
+and TPOT.  Left to a later slice: the int8 KV cache (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -60,9 +71,11 @@ from ..models import layers as L
 from ..models.transformer import ArchPlan, DenseLM, fold_table
 from ..parallel.steps import (ARTable, build_admit_chunk_step,
                               build_admit_step, build_cache_init,
-                              build_serve_step, build_spec_verify_step)
+                              build_kv_splice_step, build_serve_step,
+                              build_spec_verify_step)
 from .engine import resolve_device
-from .kv_cache import BlockAllocator, paged_geometry
+from .faults import FaultInjector
+from .kv_cache import BlockAllocator, KVBundle, bundle_states, paged_geometry
 from .prefix_cache import PrefixCache
 from .speculative import AdaptiveK, Drafter, make_drafter
 
@@ -73,6 +86,9 @@ class Request:
     prompt: np.ndarray           # (S,)
     max_new: int
     arrival_s: float = 0.0       # logical (step-clock) arrival
+    # TTFT deadline in logical steps from arrival (inf: none); a request
+    # still waiting for its first admission past it is shed
+    deadline_s: float = float("inf")
     # filled by the scheduler:
     first_token_s: float = -1.0  # wall-clock, relative to run() start
     done_s: float = -1.0         # wall-clock, relative to run() start
@@ -80,11 +96,30 @@ class Request:
     done_step: int = -1
     preempted: int = 0           # times evicted and recomputed
     output: Optional[np.ndarray] = None
+    # a shed request keeps output None and is reported with its reason
+    shed_step: int = -1
+    shed_reason: Optional[str] = None
 
 
 def _percentile(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q)) if len(xs) \
         else float("nan")
+
+
+def shed_request(shed: List[Request], req: Request, now: float,
+                 reason: str) -> None:
+    """Drop a never-admitted request and report it (``shed_reason``, the
+    metrics' count): load control, never a silent loss."""
+    req.shed_step = int(now)
+    req.shed_reason = reason
+    shed.append(req)
+
+
+def ttft_deadline(req: Request, default: Optional[float]) -> float:
+    """The request's TTFT deadline in logical steps: the tighter of its own
+    and the server's ``default``."""
+    return req.deadline_s if default is None else min(req.deadline_s,
+                                                      default)
 
 
 def request_sampling_key(seed: int, rid: int) -> Tuple[int, int]:
@@ -134,8 +169,15 @@ class ServeMetrics:
     output token) are counted in logical steps (admission wait plus the
     prefill's step for TTFT) and converted to seconds by the measured mean
     step time; ``throughput_tok_s`` is new tokens over the run's wall
-    time.  ``wasted_tokens`` counts tokens decoded and then discarded by a
-    preemption.
+    time.  ``wasted_tokens`` counts tokens decoded and then discarded by an
+    eviction (preemption, injected OOM, quarantine).
+
+    Robustness (zeros on a fault-free run): ``quarantines`` slots evicted
+    on non-finite logits and recomputed; ``injected_oom`` growths denied by
+    an injected burst (the growing slot evicted); ``shed_requests``
+    requests shed on their deadline before admission (reported, with
+    ``Request.shed_reason``); ``straggler_steps`` steps carrying an
+    injected delay.
 
     Speculative decoding (zeros when ``spec_mode`` is off): ``spec_steps``
     verify passes; ``drafted_tokens`` / ``accepted_tokens`` and their
@@ -147,7 +189,8 @@ class ServeMetrics:
     (zeros when off): ``prefix_lookups`` admissions that consulted the
     trie, ``prefix_hits`` those that spliced at least one chunk,
     ``prefix_tokens_saved`` prompt tokens never prefilled, and
-    ``prefix_hit_rate``."""
+    ``prefix_hit_rate``.  The per-request TTFT and TPOT samples (steps)
+    are kept for :meth:`merge` and left out of :meth:`to_dict`."""
     requests: int
     completed: int
     total_new_tokens: int
@@ -176,13 +219,89 @@ class ServeMetrics:
     drafter_hit_rate: float = 0.0
     spec_k_mean: float = 0.0
     spec_autodisables: int = 0
+    quarantines: int = 0
+    injected_oom: int = 0
+    shed_requests: int = 0
+    straggler_steps: int = 0
     prefix_lookups: int = 0
     prefix_hits: int = 0
     prefix_tokens_saved: int = 0
     prefix_hit_rate: float = 0.0
+    ttft_steps_samples: List[float] = dataclasses.field(
+        default_factory=list, repr=False)
+    tpot_steps_samples: List[float] = dataclasses.field(
+        default_factory=list, repr=False)
+
+    SAMPLE_FIELDS = ("ttft_steps_samples", "tpot_steps_samples")
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        for k in self.SAMPLE_FIELDS:
+            d.pop(k, None)
+        return d
+
+    @classmethod
+    def merge(cls, parts: List["ServeMetrics"]) -> "ServeMetrics":
+        """A fleet's metrics from its replicas', losslessly: counters and
+        totals summed, percentiles recomputed from the kept samples (never
+        an average of p99s), ``steps`` and ``wall_s`` the max (one logical
+        clock), footprints summed, ratios from summed numerators and
+        denominators, ``cache_stats`` dropped."""
+        if not parts:
+            raise ValueError("merge() needs at least one ServeMetrics")
+        def add(f):
+            return sum(getattr(m, f) for m in parts)
+
+        def wsum(f):
+            return sum(getattr(m, f) * m.spec_steps for m in parts)
+
+        ttft = [x for m in parts for x in m.ttft_steps_samples]
+        tpot = [x for m in parts for x in m.tpot_steps_samples]
+        steps = max(m.steps for m in parts)
+        wall = max(m.wall_s for m in parts)
+        step_s = wall / steps if steps else 0.0
+        total_new, drafted, accepted, spec_steps, peak, lookups, hits = (
+            add(f) for f in ("total_new_tokens", "drafted_tokens",
+                             "accepted_tokens", "spec_steps",
+                             "peak_kv_tokens", "prefix_lookups",
+                             "prefix_hits"))
+        occupied = sum(m.cache_utilization * m.peak_kv_tokens
+                       for m in parts)
+
+        return cls(
+            requests=add("requests"), completed=add("completed"),
+            total_new_tokens=total_new, steps=steps, wall_s=wall,
+            throughput_tok_s=total_new / wall if wall > 0 else 0.0,
+            ttft_steps_p50=_percentile(ttft, 50),
+            ttft_steps_p99=_percentile(ttft, 99),
+            tpot_steps_p50=_percentile(tpot, 50),
+            tpot_steps_p99=_percentile(tpot, 99),
+            ttft_s_p50=_percentile(ttft, 50) * step_s,
+            ttft_s_p99=_percentile(ttft, 99) * step_s,
+            tpot_s_p50=_percentile(tpot, 50) * step_s,
+            tpot_s_p99=_percentile(tpot, 99) * step_s,
+            preemptions=add("preemptions"), peak_kv_tokens=peak,
+            kv_capacity_tokens=add("kv_capacity_tokens"),
+            cache_utilization=occupied / peak if peak else 0.0,
+            cache_stats=None, wasted_tokens=add("wasted_tokens"),
+            spec_steps=spec_steps, drafted_tokens=drafted,
+            accepted_tokens=accepted,
+            acceptance_rate=accepted / drafted if drafted else 0.0,
+            accepted_tokens_per_step=accepted / spec_steps
+            if spec_steps else 0.0,
+            drafter_hit_rate=wsum("drafter_hit_rate") / spec_steps
+            if spec_steps else 0.0,
+            spec_k_mean=wsum("spec_k_mean") / spec_steps
+            if spec_steps else 0.0,
+            spec_autodisables=add("spec_autodisables"),
+            quarantines=add("quarantines"),
+            injected_oom=add("injected_oom"),
+            shed_requests=add("shed_requests"),
+            straggler_steps=add("straggler_steps"),
+            prefix_lookups=lookups, prefix_hits=hits,
+            prefix_tokens_saved=add("prefix_tokens_saved"),
+            prefix_hit_rate=hits / lookups if lookups else 0.0,
+            ttft_steps_samples=ttft, tpot_steps_samples=tpot)
 
 
 class ContinuousBatcher:
@@ -200,7 +319,8 @@ class ContinuousBatcher:
                  drafter: Optional[Drafter] = None,
                  spec_autodisable_after: int = 0,
                  prefix_cache: str = "off",
-                 prefix_capacity: Optional[int] = None, injector=None,
+                 prefix_capacity: Optional[int] = None,
+                 injector: Optional[FaultInjector] = None,
                  deadline_s: Optional[float] = None,
                  device: Optional[str | torch.device] = None,
                  cuda_graph: bool = True):
@@ -220,13 +340,18 @@ class ContinuousBatcher:
         verifies them in one pass (dense family); ``spec_adaptive`` walks k
         along {2, 4, 8} within [1, spec_k] by acceptance;
         ``spec_autodisable_after`` > 0 degrades a slot to plain decode
-        after that many consecutive zero-accept passes."""
+        after that many consecutive zero-accept passes; a quarantined
+        slot's request is degraded too.
+
+        ``injector`` (a :class:`~repro_torch.inference.faults.
+        FaultInjector`) is consulted before each step: NaN poked into a
+        slot's live K, an OOM burst, a straggler's delay.  ``deadline_s``
+        is the default TTFT deadline in logical steps (a request's own
+        ``deadline_s`` tightens it); a request still waiting for its first
+        admission past it is shed and reported."""
         if kv_quant:
             raise NotImplementedError(
                 "the int8 KV cache arrives with ROADMAP item 9")
-        if injector is not None or deadline_s is not None:
-            raise NotImplementedError(
-                "fault injection and deadlines arrive with ROADMAP item 7")
         family = ap.cfg.family
         if admit_mode not in ("full", "chunked"):
             raise ValueError(f"unknown admit_mode {admit_mode!r}")
@@ -369,6 +494,15 @@ class ContinuousBatcher:
         self._requeue: List[Request] = []   # preempted, awaiting admission
         self._preemptions = 0
         self._wasted_tokens = 0
+        self._splice = build_kv_splice_step(ap, ctx, mesh)
+        # robustness
+        self.injector = injector
+        self.deadline_s = deadline_s
+        self._quarantines = self._injected_oom = 0
+        self._straggler_steps = 0
+        self._shed: List[Request] = []      # shed this run (reported)
+        self._oom_now = False               # injected burst, this step only
+        self._tainted: set = set()          # slots holding injected NaN
 
     def _captured(self) -> list:
         """Every captured step: serve, chunked admission, verify."""
@@ -386,6 +520,11 @@ class ContinuousBatcher:
         """Times a step was captured anew after an eager call grew an
         exchange buffer its graph held."""
         return sum(c.recaptures for c in self._captured())
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured so far (first captures and recaptures)."""
+        return sum(c.captures for c in self._captured())
 
     # -- state / device sync -------------------------------------------------
 
@@ -500,6 +639,35 @@ class ContinuousBatcher:
         if self.remaining[slot] == 0:   # max_new == 1: prefill token only
             self._release(slot, now)
 
+    def admit_prefilled(self, slot: int, req: Request, bundle: KVBundle,
+                        first_token: int, now: float) -> bool:
+        """Handoff admission (disaggregated serving): splice a bundle
+        prefilled by another pool (canonical real-head layout) into
+        ``slot`` and activate the request with its first token, sampled
+        there.  Returns False, changing nothing, when the paged pool cannot
+        hold the context now (the coordinator keeps it queued).  Raises
+        :class:`~repro_torch.inference.kv_cache.BundleIntegrityError`,
+        before any change, when a sealed bundle fails its checksum."""
+        bundle.verify()
+        S = bundle.n_tokens
+        if S + 1 > self.s_max:
+            raise ValueError(f"handoff len {S} + 1 exceeds s_max="
+                             f"{self.s_max}")
+        if self.alloc is not None:
+            # +1: the first decode write lands at position S
+            if not self.alloc.ensure(slot, S + 1):
+                return False
+            self._sync_table()
+        k, v = bundle_states(bundle, self.ap.gqa.kv_map, self.ap.gqa.u,
+                             self.device)
+        self._splice(self.cache, k, v, slot)
+        # continue the prefill pool's chain (bundle.rng); a producer that
+        # never samples leaves it None and the chain is recomputed
+        key = request_sampling_key(self.seed, req.rid) if bundle.rng is None \
+            else tuple(int(x) for x in bundle.rng)
+        self._activate(slot, req, int(first_token), S, now, key)
+        return True
+
     def _release(self, slot: int, now: float):
         req = self.active[slot]
         req.done_s = time.perf_counter() - self._wall0
@@ -519,8 +687,12 @@ class ContinuousBatcher:
 
     def _evict(self, slot: int) -> None:
         """Evict ``slot``'s request and requeue it for recompute from
-        scratch; the recompute replays the request's own sampling chain,
-        so its tokens are those of an undisturbed run."""
+        scratch (capacity preemption, an injected OOM burst, quarantine);
+        the recompute replays the request's own sampling chain, so its
+        tokens are those of an undisturbed run.  A slot holding injected
+        NaN is scrubbed first."""
+        if slot in self._tainted:
+            self._scrub_slot(slot)
         req = self.active[slot]
         req.preempted += 1
         self._preemptions += 1
@@ -545,15 +717,99 @@ class ContinuousBatcher:
         self._evict(max(live, key=lambda s: self._admit_seq[s]))
         return True
 
+    def _quarantine(self, slot: int) -> None:
+        """Non-finite logits in ``slot``: its token of this step is
+        dropped, the slot is evicted and the request recomputed exactly
+        through the preemption path; under spec decoding its speculation
+        is switched off for good (a drafter fed on poisoned history is not
+        trusted again)."""
+        self._quarantines += 1
+        if self.spec_mode:
+            rid = self.active[slot].rid
+            if rid not in self._spec_deny:
+                self._spec_deny.add(rid)
+                self._spec_autodisables += 1
+        self._evict(slot)
+
+    def _folded(self, index: int, per_rank: int) -> torch.Tensor:
+        """The R rows of the rank-folded cache that hold slot (dense,
+        ``per_rank`` = slots) or physical block (paged, ``per_rank`` =
+        n_blocks) ``index``, one a rank."""
+        return torch.arange(self.R, device=self.device) * per_rank + index
+
+    def _poison_slot(self, slot: int) -> None:
+        """Injected fault: NaN into the slot's most recently written K
+        position, every layer, every rank's copy, so the device step itself
+        produces non-finite logits and the finite flag must catch them.  A
+        shared or trie-held block is first forked (``fork_for_write``, the
+        block copied into a fresh one on every rank), so the poke hits
+        only its victim; with no block to fork into, the injection is
+        skipped.  Written in place: the captured steps read this storage."""
+        p = max(int(self.positions[slot]) - 1, 0)
+        if "k" not in self.cache:
+            # the ssm family keeps no K/V: its live state is the recurrence,
+            # which the recompute's admission overwrites whole
+            self.cache["wkv"][:, self._folded(slot, self.slots)] = \
+                float("nan")
+            return
+        if self.paged:
+            bidx = p // self.block_size
+            if not self.alloc.is_exclusive(slot, bidx):
+                if not self.alloc.free_blocks and self.prefix is not None:
+                    self.prefix.reclaim(1)
+                if not self.alloc.free_blocks:
+                    return
+                old, new = self.alloc.fork_for_write(slot, bidx)
+                src = self._folded(old, self.n_blocks)
+                dst = self._folded(new, self.n_blocks)
+                for n in ("k", "v"):
+                    self.cache[n][:, dst] = self.cache[n][:, src]
+                self._sync_table()
+            rows = self._folded(int(self.alloc.table[slot, bidx]),
+                                self.n_blocks)
+            off = p % self.block_size
+        else:
+            rows, off = self._folded(slot, self.slots), p
+        self.cache["k"][:, rows, off] = float("nan")
+        self._tainted.add(slot)
+
+    def _scrub_slot(self, slot: int) -> None:
+        """Zero a tainted slot's K/V storage before it is freed.  The
+        poisoned step writes NaN K and V at its position in every layer
+        past the first, and a plain attention version (the CPU's) sums
+        ``0 * NaN`` over masked rows, so a freed block would poison its
+        next occupant past that occupant's write frontier; zeros are safe
+        on both sides of the mask.  Paged: only the slot's exclusive
+        blocks (it never writes a shared one: the poke forks first, and a
+        shared block holds its sharers' live prompt K/V).  In place, on
+        every rank's copy."""
+        if self.paged:
+            rows = [self._folded(b, self.n_blocks)
+                    for i, b in enumerate(self.alloc.owned(slot))
+                    if self.alloc.is_exclusive(slot, i)]
+        else:
+            rows = [self._folded(slot, self.slots)]
+        if rows:
+            rows = torch.cat(rows)
+            for n in ("k", "v"):
+                self.cache[n].index_fill_(1, rows, 0)
+        self._tainted.discard(slot)
+
     def _ensure_growth(self, slot: int,
                        n_tokens: Optional[int] = None) -> None:
         """Blocks cover the slot's next write position (or ``n_tokens``
         positions: a verify chunk's whole write range); on a dry pool,
         cold trie blocks are reclaimed first, then requests preempted
         youngest-first until the growth fits (the growing slot itself may
-        be the victim)."""
+        be the victim).  Under an injected OOM burst a growth that needs a
+        new block is denied instead: the growing slot alone is evicted and
+        recomputed once the burst has passed."""
         if n_tokens is None:
             n_tokens = int(self.positions[slot]) + 1
+        if self._oom_now and self.alloc.needs_growth(slot, n_tokens):
+            self._injected_oom += 1
+            self._evict(slot)
+            return
         while not self.alloc.ensure(slot, n_tokens):
             if self.prefix is not None:
                 need = self.alloc.blocks_for(n_tokens) \
@@ -578,9 +834,36 @@ class ContinuousBatcher:
             return self._spec_step(now)
         return self._plain_step(now)
 
-    def _plain_step(self, now: float):
+    def _pre_step_faults(self, now: float) -> None:
+        """The injector's hooks for this step: arm the OOM burst (read by
+        ``_ensure_growth``), poison the live slots it picks, apply the
+        straggler's wall-clock delay (the logical clock is untouched)."""
+        inj = self.injector
+        self._oom_now = False
+        if inj is None:
+            return
+        self._oom_now = inj.oom_burst(now)
+        for s in range(self.slots):
+            if not self.active_mask[s]:
+                continue
+            req = self.active[s]
+            if inj.poison_slot(req.rid, len(self.outputs[req.rid])):
+                self._poison_slot(s)
+        d = inj.straggle(now)
+        if d >= 0.0:
+            self._straggler_steps += 1
+            if d > 0.0:
+                time.sleep(d)
+
+    def _plain_step(self, now: float, faults_done: bool = False):
+        """One decode step (``faults_done``: the spec step ran this step's
+        fault hooks before falling back here)."""
         if not self.active_mask.any():
             return
+        if not faults_done:
+            self._pre_step_faults(now)
+            if not self.active_mask.any():
+                return
         if self.alloc is not None:
             for s in range(self.slots):
                 # growth only at block boundaries: the next write position
@@ -600,7 +883,10 @@ class ContinuousBatcher:
         for s in range(self.slots):
             if not was_active[s]:
                 continue
-            self._check_finite(s, finite[s])
+            if not finite[s]:
+                # this step's token is garbage: recompute the request
+                self._quarantine(s)
+                continue
             self.outputs[self.active[s].rid].append(int(emitted[s]))
             self.tokens[s] = emitted[s]
             self.positions[s] += 1
@@ -615,13 +901,6 @@ class ContinuousBatcher:
         occ = int(self.positions[self.active_mask].sum()) + \
             int(self.active_mask.sum())
         self._peak_occupied = max(self._peak_occupied, occ)
-
-    @staticmethod
-    def _check_finite(slot: int, finite) -> None:
-        if not finite:
-            raise RuntimeError(
-                f"slot {slot}: non-finite logits (quarantine and recompute "
-                "arrive with ROADMAP item 7)")
 
     # -- speculative decoding ------------------------------------------------
 
@@ -647,14 +926,18 @@ class ContinuousBatcher:
         pushed every step.  A slot in ``_spec_deny`` (degraded by
         ``spec_autodisable_after``) drafts nothing and takes only the
         correction token; when every active slot is denied the step is a
-        plain decode step."""
+        plain decode step.  A verify step with non-finite logits
+        quarantines the slot and switches its speculation off."""
+        if not self.active_mask.any():
+            return
+        self._pre_step_faults(now)
         if not self.active_mask.any():
             return
         denied = np.array([self.active_mask[s]
                            and self.active[s].rid in self._spec_deny
                            for s in range(self.slots)])
         if denied[self.active_mask].all():
-            return self._plain_step(now)
+            return self._plain_step(now, faults_done=True)
         k = self._speck.k if self._speck is not None else self.spec_k
         C = k + 1
         drafts = np.zeros((self.slots, k), np.int32)
@@ -688,7 +971,9 @@ class ContinuousBatcher:
         for s in range(self.slots):
             if not was_active[s]:
                 continue
-            self._check_finite(s, finite[s])
+            if not finite[s]:
+                self._quarantine(s)
+                continue
             a = int(accepted[s])
             # where sequential decode would have stopped emitting; a slot
             # admitted at s_max - 1 still decodes once
@@ -743,6 +1028,12 @@ class ContinuousBatcher:
         self._spec_autodisables = 0
         self._spec_deny = set()
         self._spec_zero_acc[:] = 0
+        self._quarantines = self._injected_oom = 0
+        self._straggler_steps = 0
+        self._shed = []
+        self._tainted = set()
+        if self.injector is not None:
+            self.injector.reset_stats()
         # the trie itself persists across runs (warm reuse is the feature)
         self._prefix_lookups = self._prefix_hits = 0
         self._prefix_tokens_saved = 0
@@ -753,9 +1044,15 @@ class ContinuousBatcher:
         self._wall0 = time.perf_counter()
 
     def tick(self, arrived: List[Request], now: float) -> None:
-        """One logical tick over a queue of due arrivals (mutated in place):
-        admit (preempted requests first, then arrivals, FCFS), then run one
-        engine step."""
+        """One logical tick over a queue of due arrivals (mutated in place,
+        also by a router that owns it): shed the arrivals past their
+        deadline, admit (preempted requests first, then arrivals, FCFS),
+        then run one engine step.  A preempted request is never shed: its
+        first token was already given."""
+        for r in [r for r in arrived
+                  if now - r.arrival_s > ttft_deadline(r, self.deadline_s)]:
+            shed_request(self._shed, r, now, "deadline")
+            arrived.remove(r)
         for s in range(self.slots):
             if self.active[s] is not None:
                 continue
@@ -866,11 +1163,16 @@ class ContinuousBatcher:
             spec_k_mean=self._spec_k_sum / self._spec_steps
             if self._spec_steps else 0.0,
             spec_autodisables=self._spec_autodisables,
+            quarantines=self._quarantines,
+            injected_oom=self._injected_oom,
+            shed_requests=len(self._shed),
+            straggler_steps=self._straggler_steps,
             prefix_lookups=self._prefix_lookups,
             prefix_hits=self._prefix_hits,
             prefix_tokens_saved=self._prefix_tokens_saved,
             prefix_hit_rate=self._prefix_hits / self._prefix_lookups
-            if self._prefix_lookups else 0.0)
+            if self._prefix_lookups else 0.0,
+            ttft_steps_samples=ttft, tpot_steps_samples=tpot)
 
 
 def make_trace(n_requests: int, *, mean_in: int, mean_out: int,

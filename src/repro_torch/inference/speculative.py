@@ -26,8 +26,8 @@ Drafters (:func:`make_drafter`):
 All drafters are deterministic (a delta proposal), which is what makes the
 sampled-mode rejection rule of ``steps._spec_targets`` exact.  The batcher
 may degrade a slot to plain decode (``spec_autodisable_after``
-consecutive zero-accept passes); the verify-path faults that also feed
-that are ROADMAP item 7.
+consecutive zero-accept passes, or a quarantine of its request after a
+non-finite verify step).
 """
 from __future__ import annotations
 

@@ -34,6 +34,14 @@ counterparts of ``repro.launch.serve --mode batch`` and ``--mode trace``).
         --block-size 8 --admit-mode chunked --admit-chunk 16 \
         [--prefix-cache on --shared-frac 0.75 --prefix-len 32] \
         [--spec-mode ngram --spec-k 4]    # chunked, prefix cache, spec
+    python -m repro_torch.launch.serve --mode trace --device cpu \
+        --block-size 8 --fault-plan seed=7,nan_logits=0.05,oom=0.1 \
+        --deadline-ms 500                 # injected faults, deadlines
+    python -m repro_torch.launch.serve --mode trace --device cpu \
+        --block-size 8 --disagg --prefill-tp 2 --decode-tp 4 \
+        --decode-pods 2 --ar-strategy hier_rd   # disaggregated pools
+    python -m repro_torch.launch.serve --mode trace --device cpu \
+        --replicas 2 --router-policy least_queue     # a routed fleet
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -76,25 +84,37 @@ whose ``--shared-frac`` share of requests open with one
 ``--prefix-len``-token prompt; ``--spec-mode ngram|draft`` (both modes)
 drafts ``--spec-k`` tokens a step and verifies them in one pass
 (``--spec-adaptive`` moves k by acceptance; ``draft`` runs the seeded
-smoke model of ``--draft-arch``).
+smoke model of ``--draft-arch``).  ``--fault-plan`` (a ``key=rate,...``
+string or a JSON file: ``faults.FaultPlan``) injects faults and
+``--deadline-ms`` sheds requests past a TTFT deadline (one logical step a
+millisecond); ``--disagg`` serves through a prefill pool and a decode pool,
+each its own virtual mesh (``--prefill-tp/--prefill-pods``,
+``--decode-tp/--decode-pods``) and autotune table
+(``--prefill-ar-table/--decode-ar-table``), joined by a checksummed KV
+handoff; ``--replicas N`` places the trace over N replicas on the card by
+``--router-policy``.  These are trace-mode only.
+
+Every run is described by a :class:`~repro_torch.inference.spec.ServeSpec`
+(``ServeSpec.from_args``), validated in one place and built by the
+factories of :mod:`repro_torch.inference.spec`; a refused combination exits
+with the field-naming message.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..configs import get_config, get_smoke
-from ..core.mesh import mesh_and_ctx
 from ..core.pcontext import AR_STRATEGIES
-from ..inference.engine import GenerationResult, InferenceEngine, \
-    resolve_device
-from ..inference.scheduler import ContinuousBatcher, ServeMetrics, \
-    make_prefix_trace, make_trace
-from ..models.transformer import init_params, make_plan
+from ..inference.engine import GenerationResult
+from ..inference.router import Router, RouterMetrics
+from ..inference.scheduler import ServeMetrics, make_prefix_trace, \
+    make_trace
+from ..inference.spec import (ROUTER_POLICIES, ServeSpec, SpecError,
+                              build_engine, build_replica, spec_config)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -189,27 +209,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda, an error without a "
                         "card)")
+    # -- robustness (trace mode) --------------------------------------------
+    p.add_argument("--fault-plan", default=None,
+                   help="trace: deterministic fault plan, a 'key=rate,...' "
+                        "string or a JSON file, e.g. "
+                        "'seed=7,nan_logits=0.05,oom=0.1'")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="trace: TTFT deadline (1 logical step = 1 ms); "
+                        "requests still unadmitted past it are shed and "
+                        "reported")
+    # -- disaggregated prefill / decode pools (trace mode) ------------------
+    p.add_argument("--disagg", action="store_true",
+                   help="trace: a prefill pool and a decode pool, each its "
+                        "own mesh and autotune table, joined by a KV "
+                        "handoff")
+    p.add_argument("--prefill-tp", type=int, default=1,
+                   help="prefill pool's tensor-parallel ways (--disagg)")
+    p.add_argument("--prefill-pods", type=int, default=1,
+                   help="prefill pool's pod split of --prefill-tp")
+    p.add_argument("--decode-tp", type=int, default=1,
+                   help="decode pool's tensor-parallel ways (--disagg)")
+    p.add_argument("--decode-pods", type=int, default=1,
+                   help="decode pool's pod split of --decode-tp")
+    p.add_argument("--prefill-ar-table", default=None,
+                   help="persisted autotune table of the prefill pool")
+    p.add_argument("--decode-ar-table", default=None,
+                   help="persisted autotune table of the decode pool")
+    p.add_argument("--prefill-per-step", type=int, default=1,
+                   help="prompts the prefill pool takes a logical step")
+    # -- multi-replica router (trace mode) ----------------------------------
+    p.add_argument("--replicas", type=int, default=1,
+                   help="trace: > 1 places the trace over this many "
+                        "replicas, each its own virtual mesh on the card")
+    p.add_argument("--router-policy", choices=list(ROUTER_POLICIES),
+                   default="round_robin",
+                   help="placement for --replicas > 1: round_robin, "
+                        "least_queue (fewest in flight), ttft_aware "
+                        "(smallest estimated wait)")
     return p
 
 
-def _setup(args: argparse.Namespace):
-    """(device, cfg, depth note, mesh, ctx, plan, seeded model) of the
-    arguments."""
-    device = resolve_device(args.device)
-    cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
-    depth = ""
-    if 0 < args.layers < cfg.n_layers:
-        depth = f" ({args.layers} of {cfg.n_layers} layers)"
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    mesh, ctx = mesh_and_ctx(args.tp, args.pods,
-                             ar_strategy=args.ar_strategy, device=device)
-    ctx = ctx.replace(overlap_matmul=args.overlap,
-                      overlap_chunks=args.overlap_chunks,
-                      ar_quant="none" if args.ar_quant == "off"
-                      else args.ar_quant)
-    ap = make_plan(cfg, max(args.tp, 1))
-    model = init_params(ap, seed=args.seed, device=device, mesh=mesh)
-    return device, cfg, depth, mesh, ctx, ap, model
+def _depth(spec: ServeSpec) -> str:
+    """The ``[serve]`` line's depth note under ``--layers``."""
+    r = spec.replica
+    full = (get_smoke(r.arch) if r.smoke else get_config(r.arch)).n_layers
+    return f" ({r.layers} of {full} layers)" if 0 < r.layers < full else ""
 
 
 def _layout(args: argparse.Namespace, cfg, mesh, ctx) -> str:
@@ -237,92 +281,229 @@ def _layout(args: argparse.Namespace, cfg, mesh, ctx) -> str:
     return layout
 
 
-def run_batch(args: argparse.Namespace) -> GenerationResult:
-    device, cfg, depth, mesh, ctx, ap, model = _setup(args)
+def run_batch(args: argparse.Namespace, spec: ServeSpec
+              ) -> GenerationResult:
+    """One batch of prompts through :func:`build_engine`."""
+    r = spec.replica
+    cfg = spec_config(r)
     s_max = args.prompt_len + args.max_new + 8
-    if args.block_size:
-        s_max = -(-s_max // args.block_size) * args.block_size
-    eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
-                          block_size=args.block_size, ar_table=args.ar_table,
-                          temperature=args.temperature, top_k=args.top_k,
-                          seed=args.seed, spec_mode=args.spec_mode,
-                          spec_k=args.spec_k, draft_arch=args.draft_arch,
-                          device=device)
-    rng = np.random.default_rng(args.seed)
+    if r.block_size:
+        s_max = -(-s_max // r.block_size) * r.block_size
+    eng = build_engine(r.replace(s_max=s_max), device=args.device)
+    rng = np.random.default_rng(r.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     res = eng.generate(prompts, args.max_new)
-    layout = _layout(args, cfg, mesh, ctx)
-    print(f"[serve] {cfg.name}{depth} on {device}: batch {args.batch} prompt "
-          f"{args.prompt_len} new {args.max_new} {layout} "
-          f"| prefill {res.prefill_s * 1e3:.1f}ms "
+    layout = _layout(args, cfg, eng.mesh, eng.ctx)
+    print(f"[serve] {cfg.name}{_depth(spec)} on {eng.device}: batch "
+          f"{args.batch} prompt {args.prompt_len} new {args.max_new} "
+          f"{layout} | prefill {res.prefill_s * 1e3:.1f}ms "
           f"decode {res.decode_s * 1e3:.1f}ms "
           f"({res.decode_tokens_per_s:.0f} tok/s, {res.steps} steps)")
     return res
 
 
-def run_trace(args: argparse.Namespace) -> Tuple[list, ServeMetrics]:
-    """One trace through one continuous batcher; returns (requests,
-    metrics)."""
-    device, cfg, depth, mesh, ctx, ap, model = _setup(args)
-    sched = ContinuousBatcher(ap, model, slots=args.slots, s_max=args.s_max,
-                              ctx=ctx, mesh=mesh, block_size=args.block_size,
-                              n_blocks=args.n_blocks,
-                              ar_table=args.ar_table,
-                              temperature=args.temperature,
-                              top_k=args.top_k, seed=args.seed,
-                              admit_mode=args.admit_mode,
-                              admit_chunk=args.admit_chunk,
-                              prefix_cache=args.prefix_cache,
-                              prefix_capacity=args.prefix_capacity,
-                              spec_mode=args.spec_mode, spec_k=args.spec_k,
-                              spec_adaptive=args.spec_adaptive,
-                              draft_arch=args.draft_arch, device=device)
+def _make_reqs(args: argparse.Namespace, spec: ServeSpec) -> list:
+    """The trace every trace-mode deployment replays: ``make_trace``, or
+    ``make_prefix_trace`` when a share of requests opens with one prompt
+    (``--shared-frac``, 0.75 by default under ``--prefix-cache on``)."""
+    r = spec.replica
     shared = args.shared_frac if args.shared_frac is not None \
-        else 0.75 if args.prefix_cache == "on" else 0.0
+        else 0.75 if r.prefix_cache == "on" else 0.0
     kw = dict(mean_in=args.mean_in, mean_out=args.mean_out, rate=args.rate,
-              vocab=cfg.vocab_size, seed=args.seed)
-    reqs = make_prefix_trace(args.n_requests, prefix_len=args.prefix_len,
-                             shared_frac=shared, clip_len=args.s_max - 1,
-                             **kw) if shared > 0 \
-        else make_trace(args.n_requests, **kw)
-    done = sched.run(reqs)
-    m = sched.metrics(done)
-    print(f"[serve] trace {cfg.name}{depth} on {device} "
-          f"[{_layout(args, cfg, mesh, ctx)}]: {m.completed}/{m.requests} "
-          f"reqs, {m.total_new_tokens} tokens in {m.wall_s:.2f}s "
-          f"({m.throughput_tok_s:.0f} tok/s, slots={args.slots}, "
-          f"{m.steps} steps, {sched.graph_replays} replayed)")
+              vocab=spec_config(r).vocab_size, seed=r.seed)
+    if shared > 0:
+        return make_prefix_trace(args.n_requests, prefix_len=args.prefix_len,
+                                 shared_frac=shared, clip_len=r.s_max - 1,
+                                 **kw)
+    return make_trace(args.n_requests, **kw)
+
+
+def _check_outcomes(done: list, armed: bool) -> None:
+    """Never silently dropped: without faults or a deadline every request
+    completes; with them each either completes or is shed with a
+    reason."""
+    if not armed:
+        lost = [r.rid for r in done if r.output is None]
+    else:
+        lost = [r.rid for r in done
+                if r.output is None and r.shed_reason is None]
+    if lost:
+        raise RuntimeError(f"requests silently dropped: {lost}")
+
+
+def _print_faults(injector, shed: list) -> None:
+    """The faults that fired and the shed requests by reason."""
+    if injector is not None:
+        fired = {k: v for k, v in injector.stats().items() if v}
+        print(f"[serve]   faults injected: {fired or 'none'}")
+    if shed:
+        reasons: dict = {}
+        for r in shed:
+            reasons[r.shed_reason] = reasons.get(r.shed_reason, 0) + 1
+        print(f"[serve]   shed {len(shed)} request(s): {reasons}")
+
+
+def _write_json(m, json_out: Optional[str]) -> None:
+    if json_out:
+        with open(json_out, "w") as f:
+            json.dump(m.to_dict(), f, indent=2, default=float)
+        print(f"[serve]   metrics -> {json_out}")
+
+
+def _print_latency(m) -> None:
     print(f"[serve]   TTFT p50/p99: {m.ttft_steps_p50:.1f}/"
           f"{m.ttft_steps_p99:.1f} steps = {m.ttft_s_p50 * 1e3:.1f}/"
           f"{m.ttft_s_p99 * 1e3:.1f} ms | TPOT p50/p99: "
           f"{m.tpot_steps_p50:.2f}/{m.tpot_steps_p99:.2f} steps = "
           f"{m.tpot_s_p50 * 1e3:.2f}/{m.tpot_s_p99 * 1e3:.2f} ms")
+
+
+def run_trace(args: argparse.Namespace, spec: ServeSpec
+              ) -> Tuple[list, ServeMetrics]:
+    """One trace through one colocated :func:`build_replica` batcher;
+    returns (requests, metrics)."""
+    r = spec.replica
+    sched = build_replica(r, device=args.device)
+    cfg = sched.cfg
+    done = sched.run(_make_reqs(args, spec))
+    _check_outcomes(done, sched.injector is not None
+                    or r.deadline_ms is not None)
+    m = sched.metrics(done)
+    print(f"[serve] trace {cfg.name}{_depth(spec)} on {sched.device} "
+          f"[{_layout(args, cfg, sched.mesh, sched.ctx)}]: {m.completed}/"
+          f"{m.requests} reqs, {m.total_new_tokens} tokens in "
+          f"{m.wall_s:.2f}s ({m.throughput_tok_s:.0f} tok/s, "
+          f"slots={r.slots}, {m.steps} steps, {sched.graph_replays} "
+          "replayed)")
+    _print_latency(m)
     print(f"[serve]   KV peak {m.peak_kv_tokens} tokens of "
           f"{m.kv_capacity_tokens} reserved (util "
           f"{m.cache_utilization:.2f}), {m.preemptions} preemptions")
-    if args.prefix_cache == "on":
+    if r.prefix_cache == "on":
         print(f"[serve]   prefix cache: {m.prefix_hits}/{m.prefix_lookups} "
               f"admissions hit (rate {m.prefix_hit_rate:.2f}), "
               f"{m.prefix_tokens_saved} prompt tokens spliced")
-    if args.spec_mode:
-        print(f"[serve]   spec[{args.spec_mode} k_mean={m.spec_k_mean:.1f}"
-              f"{' adaptive' if args.spec_adaptive else ''}]: "
+    if r.spec_mode:
+        print(f"[serve]   spec[{r.spec_mode} k_mean={m.spec_k_mean:.1f}"
+              f"{' adaptive' if r.spec_adaptive else ''}]: "
               f"{m.accepted_tokens}/{m.drafted_tokens} drafts accepted "
               f"(rate {m.acceptance_rate:.2f}, "
               f"{m.accepted_tokens_per_step:.2f}/step), {m.spec_steps} "
               f"verify steps, drafter hit rate {m.drafter_hit_rate:.2f}")
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(m.to_dict(), f, indent=2, default=float)
-        print(f"[serve]   metrics -> {args.json_out}")
+    if sched.injector is not None or m.shed_requests:
+        print(f"[serve]   robustness: {m.quarantines} quarantines, "
+              f"{m.injected_oom} injected OOM, {m.straggler_steps} "
+              f"straggler steps, {m.spec_autodisables} spec autodisables, "
+              f"{m.wasted_tokens} tokens recomputed")
+        _print_faults(sched.injector, sched._shed)
+    _write_json(m, args.json_out)
     return done, m
 
 
+def run_disagg(args: argparse.Namespace, spec: ServeSpec):
+    """Disaggregated trace serving: one :func:`build_replica` coordinator
+    over a prefill pool and a decode pool, each its own mesh and autotune
+    table (``ar_table`` seeds both where a pool's own is not given);
+    returns (requests, metrics)."""
+    r = spec.replica
+    coord = build_replica(r, device=args.device)
+    decode, injector = coord.decode, coord.injector
+    done = coord.run(_make_reqs(args, spec))
+    _check_outcomes(done, injector is not None or r.deadline_ms is not None)
+    m = coord.metrics(done)
+    layout = f"paged(bs={r.block_size})" if decode.paged else "dense"
+    sp = f" spec={r.spec_mode}(k={r.spec_k})" if r.spec_mode else ""
+    print(f"[serve] disagg {decode.cfg.name}{_depth(spec)} on "
+          f"{decode.device} [{layout} ar={r.ar_strategy} prefill "
+          f"tp={r.prefill_tp}x{r.prefill_pods} {r.admit_mode} decode "
+          f"tp={r.decode_tp}x{r.decode_pods}{sp}]: {m.completed}/"
+          f"{m.requests} reqs, {m.total_new_tokens} tokens in "
+          f"{m.wall_s:.2f}s ({m.throughput_tok_s:.0f} tok/s, {m.steps} "
+          "decode steps)")
+    print(f"[serve]   TTFT p50/p99: {m.ttft_steps_p50:.1f}/"
+          f"{m.ttft_steps_p99:.1f} steps (prefill {m.prefill_steps_p50:.1f}"
+          f" + transfer {m.transfer_steps_p50:.1f} at p50) | TPOT p50/p99: "
+          f"{m.tpot_steps_p50:.2f}/{m.tpot_steps_p99:.2f} steps "
+          "[decode pool]")
+    print(f"[serve]   handoff: {m.handoffs} bundles, "
+          f"{m.transfer_bytes / 1024:.0f} KiB, ready/pending queue peaks "
+          f"{m.peak_ready_depth}/{m.peak_pending_depth}, "
+          f"{m.preemptions} decode-pool preemptions")
+    print(f"[serve]   AR buckets: prefill pool 2^{m.prefill_ar_bucket} vs "
+          f"decode pool 2^{m.decode_ar_bucket} (prefill "
+          f"{m.prefill_pool['ar_buckets_analytic']} analytic, "
+          f"{m.prefill_pool['ar_buckets_dispatched']} dispatched); graph "
+          f"captures prefill {m.prefill_pool['graph_captures']} / decode "
+          f"{m.decode_pool['graph_captures']} ("
+          f"{m.prefill_pool['graph_recaptures']} / "
+          f"{m.decode_pool['graph_recaptures']} anew)")
+    if injector is not None or m.shed_requests:
+        print(f"[serve]   robustness: {m.handoff_drops} drops / "
+              f"{m.handoff_retries} retries / {m.handoff_corrupt} corrupt "
+              f"/ {m.handoff_reprefills} re-prefills, "
+              f"{m.backpressure_steps} backpressure steps (ready cap "
+              f"{m.ready_cap}), stalls prefill={m.prefill_stall_steps} "
+              f"decode={m.decode_stall_steps}")
+        _print_faults(injector, coord._shed + decode._shed)
+    _write_json(m, args.json_out)
+    return done, m
+
+
+def run_router(args: argparse.Namespace, spec: ServeSpec
+               ) -> Tuple[list, RouterMetrics]:
+    """Multi-replica trace serving: ``spec.replicas`` replicas placed by
+    ``spec.router_policy``, reported per replica and as their lossless
+    merge; returns (requests, router metrics)."""
+    r = spec.replica
+    router = Router.from_spec(spec, device=args.device)
+    done = router.run(_make_reqs(args, spec))
+    injectors = [rep.injector for rep in router.replicas]
+    _check_outcomes(done, injectors[0] is not None
+                    or r.deadline_ms is not None)
+    rm = router.metrics(done)
+    m = rm.fleet
+    kind = "disagg" if r.disagg else f"tp={r.tp}" if r.tp > 1 else "local"
+    print(f"[serve] router {r.arch} [{spec.replicas}x {kind} "
+          f"policy={spec.router_policy}]: {m.completed}/{m.requests} reqs, "
+          f"{m.total_new_tokens} tokens in {m.wall_s:.2f}s "
+          f"({m.throughput_tok_s:.0f} tok/s, {m.steps} steps)")
+    print(f"[serve]   fleet TTFT p50/p99: {m.ttft_steps_p50:.1f}/"
+          f"{m.ttft_steps_p99:.1f} steps | TPOT p50/p99: "
+          f"{m.tpot_steps_p50:.2f}/{m.tpot_steps_p99:.2f} steps")
+    print(f"[serve]   placements {rm.placements} "
+          f"(imbalance {rm.load_imbalance:.2f}), preemptions "
+          f"{m.preemptions}, shed {m.shed_requests}")
+    for i, pm in enumerate(rm.per_replica):
+        print(f"[serve]   replica {i}: {pm.completed}/{pm.requests} reqs, "
+              f"TTFT p99 {pm.ttft_steps_p99:.1f}, "
+              f"{pm.total_new_tokens} tokens")
+    for i, inj in enumerate(injectors):
+        if inj is not None:
+            fired = {k: v for k, v in inj.stats().items() if v}
+            print(f"[serve]   replica {i} faults: {fired or 'none'}")
+    _write_json(rm, args.json_out)
+    return done, rm
+
+
 def main(argv: Optional[Sequence[str]] = None):
-    """The batch mode's GenerationResult, or the trace mode's (requests,
-    metrics)."""
+    """The batch mode's GenerationResult, or the trace modes' (requests,
+    metrics).  A combination ``ServeSpec.validate`` refuses exits with its
+    message."""
     args = build_parser().parse_args(argv)
-    return run_trace(args) if args.mode == "trace" else run_batch(args)
+    try:
+        spec = ServeSpec.from_args(args)
+    except SpecError as e:
+        raise SystemExit(str(e))
+    if ServeSpec.from_json(spec.to_json()) != spec:
+        raise RuntimeError("the serve spec does not survive its JSON round "
+                           "trip")
+    if spec.mode == "batch":
+        return run_batch(args, spec)
+    if spec.replicas > 1:
+        return run_router(args, spec)
+    if spec.replica.disagg:
+        return run_disagg(args, spec)
+    return run_trace(args, spec)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Serve-step builders, at tp=1 (``mesh=None``) and over the virtual mesh:
 the port of ``repro/parallel/steps.py::build_prefill``,
 ``build_decode_step``, ``build_cache_init``, ``build_serve_step``,
-``build_admit_step``, ``build_admit_chunk_step`` and
-``build_spec_verify_step`` (``fsdp_serve``, ``weight_quant``,
-``kv_quant`` and ``window_cache`` are not ported; the prefill-only and KV
-splice steps are ROADMAP item 8).
+``build_admit_step``, ``build_admit_chunk_step``,
+``build_spec_verify_step``, and the disaggregated pools'
+``build_prefill_only_step`` and ``build_kv_splice_step`` (``fsdp_serve``,
+``weight_quant``, ``kv_quant`` and ``window_cache`` are not ported).
 
 JAX wrapped these in ``shard_map`` and compiled them once with ``jit``;
 here they are closures over (ap, ctx, mesh), and the compiled step's
@@ -70,6 +70,7 @@ class CapturedStep:
         self.workspace = workspace
         self.calls = 0
         self.replays = 0
+        self.captures = 0
         self.recaptures = 0
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._generation = 0
@@ -88,6 +89,7 @@ class CapturedStep:
             with torch.cuda.graph(g):
                 self.body()
             self._graph, self._generation = g, gen
+            self.captures += 1
         self._graph.replay()
         self.replays += 1
 
@@ -282,6 +284,59 @@ def build_admit_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
     return admit
 
 
+def build_prefill_only_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
+                            temperature: float = 0.0, top_k: int = 0,
+                            ar_table: ARTable = None
+                            ) -> Callable[..., Tuple[torch.Tensor,
+                                                     torch.Tensor,
+                                                     torch.Tensor]]:
+    """The prefill pool's step of disaggregated serving, eager: (model,
+    prompt (1, S), key (1, 2)) -> (first token (1,) int32, k, v), the
+    prompt run through ``forward_lm`` under this pool's tuner, its first
+    token sampled as token 0 of the chain ``key`` (the same function as
+    ``build_admit_step``'s), and its per-layer K/V handed back in the
+    folded per-rank layout (L, R, S, u, hd) with no cache written: the raw
+    material of a :class:`~repro_torch.inference.kv_cache.KVBundle`.
+    Dense family only (recurrent states are not handed off)."""
+    if ap.cfg.family != "dense":
+        raise ValueError("disaggregated prefill is attention-only: dense "
+                         f"families only, not {ap.cfg.family!r}")
+    check_layout(ap, ctx, mesh)
+    tuner = autotune.tuner_for(ar_table)
+
+    def prefill_only(model: DenseLM, prompt: torch.Tensor,
+                     key: torch.Tensor):
+        with torch.inference_mode(), autotune.using(tuner):
+            logits, states = forward_lm(model, prompt, ap, ctx, mesh,
+                                        collect_state=True)
+            idx = torch.zeros(1, dtype=torch.int32, device=prompt.device)
+            nxt = _sample_next(logits[..., -1, :], ctx, mesh, ap.cfg, key,
+                               idx, temperature, top_k)
+        return nxt, states["k"], states["v"]
+
+    return prefill_only
+
+
+def build_kv_splice_step(ap: ArchPlan, ctx: ParallelCtx, mesh
+                         ) -> Callable[..., Cache]:
+    """The decode pool's import of a KV handoff: (cache, k, v, slot) ->
+    cache, the states (L, R, T, u, hd) in THIS pool's folded layout
+    (``kv_cache.bundle_states`` expands a bundle's real heads into its GQA
+    slots) written into row ``slot`` of every rank, dense or through the
+    folded block table (the caller has grown the slot's blocks to cover
+    [0, T + 1)), and the slot's EF zeroed: ``transformer.seed_cache``,
+    the colocated admission's splice.  The writes go into the cache's own
+    tensors, on the current stream, so a captured serve step reads them."""
+    check_layout(ap, ctx, mesh)
+
+    def splice(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+               slot: int) -> Cache:
+        with torch.inference_mode():
+            return seed_cache(cache, {"k": k, "v": v}, slot=slot)
+
+    return splice
+
+
 def build_admit_chunk_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
                            model: DenseLM, cache: Cache, chunk: int,
                            inputs: Optional[State] = None,
@@ -442,4 +497,5 @@ def build_spec_verify_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
 
 __all__ = ["CapturedStep", "build_cache_init", "build_prefill",
            "build_decode_step", "build_serve_step", "build_admit_step",
-           "build_admit_chunk_step", "build_spec_verify_step"]
+           "build_admit_chunk_step", "build_spec_verify_step",
+           "build_prefill_only_step", "build_kv_splice_step"]

@@ -315,6 +315,6 @@ def test_generate_and_serve_with_ar_quant_on_cpu(capsys):
                       "--batch", "2", "--prompt-len", "8", "--max-new", "3"])
     assert res.new_tokens.shape == (2, 3)
     assert "tp=8 (4x2) ar=hier_rd/q=int8" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="ar_quant='auto' requires"):
+    with pytest.raises(SystemExit, match="requires --ar-strategy auto"):
         serve.main(["--device", "cpu", "--tp", "8", "--pods", "4",
                     "--ar-strategy", "hier_rd", "--ar-quant", "auto"])

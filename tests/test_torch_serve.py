@@ -346,15 +346,17 @@ def test_serve_cli_trace_on_cpu(capsys, tmp_path, extra):
     (dict(admit_mode="chunked"), "rwkv6-7b", ValueError, "dense family"),
     (dict(spec_mode="ngram"), "hymba-1.5b", ValueError, "dense families"),
     (dict(prefix_cache="on"), None, ValueError, "paged KV layout"),
-    (dict(deadline_s=4.0), None, NotImplementedError, "ROADMAP item 7"),
+    (dict(spec_mode="ngram", spec_k=0), None, ValueError,
+     "spec_k must be >= 1"),
     (dict(kv_quant=True), None, NotImplementedError, "ROADMAP item 9"),
-], ids=["chunked", "chunked_family", "spec", "prefix", "deadline",
+], ids=["chunked", "chunked_family", "spec", "prefix", "spec_k",
         "kv_quant"])
 def test_batcher_knobs_left_for_later_raise(llama, knob, arch, exc, match):
-    """Deadlines and the int8 KV cache still wait for their ROADMAP items;
-    chunked admission, speculative decoding and the prefix cache now run
-    and keep the reference's own refusals (s_max not a multiple of the
-    chunk, a family other than dense, the prefix cache without paging)."""
+    """The int8 KV cache still waits for its ROADMAP item; chunked
+    admission, speculative decoding and the prefix cache now run and keep
+    the reference's own refusals (s_max not a multiple of the chunk, a
+    family other than dense, the prefix cache without paging, a draft
+    length below 1)."""
     ap, model = llama["tap"], llama["model"]
     if arch is not None:
         cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32)
