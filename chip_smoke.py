@@ -45,7 +45,8 @@ phase's seconds are printed after it):
      one captured, replays after) must give the eager tokens bitwise, its
      launches counted at the capture times the steps they stand for plus
      the prefill's must equal the eager counts, and both forms' decode
-     tok/s are printed (medians of 3);
+     tok/s are printed (the eager form's counted run, the graph form's
+     median of 3);
   5. the same seeded weights at full width, 2 layers, float32: the card
      (kernels) against the CPU (plain versions): prefill logits allclose,
      greedy tokens equal wherever the CPU's top-1/top-2 gap is clear;
@@ -135,8 +136,8 @@ phase's seconds are printed after it):
      each checked; kernel, plain version and a three-bmm chain
      (informative: no single PyTorch call computes the function) timed
      against the bound;
- 16. qwen3-moe-30b-a3b at full width and depth (48 layers, seeded bf16
-     weights): batch 8, prompt 128, 16 new tokens, dense and paged
+ 16. qwen3-moe-30b-a3b at full width and 12 of its 48 layers
+     (PATH_LAYERS, seeded bf16 weights): batch 8, prompt 128, 16 new tokens, dense and paged
      (block 16), exact launch counts (kernel 7 once a layer in prefill
      and once a layer a step), paged tokens == dense tokens, one profiled
      run with kernel 7's share of device time;
@@ -157,8 +158,8 @@ phase's seconds are printed after it):
      shapes; two chained calls bitwise equal to one, the in-place
      (aliased) state update bitwise equal to a separate one; kernel,
      plain version (fewer calls: a T-step loop) and bound timed;
- 20. rwkv6-7b at full width and depth (32 layers, 7.53 B parameters,
-     seeded bf16): batch 8, prompt 512, 64 new tokens, exact launch counts
+ 20. rwkv6-7b at full width and 8 of its 32 layers (PATH_LAYERS;
+     7.53 B parameters at full depth, seeded bf16): batch 8, prompt 512, 64 new tokens, exact launch counts
      (kernel 8 once a layer in prefill and once a layer a decode step),
      the decode path's teacher-forced logits against the full-sequence
      forward over the same tokens within RWKV_STEP_BF16 (the recurrence is
@@ -184,11 +185,12 @@ phase's seconds are printed after it):
      update bitwise equal to a separate one; kernel, plain version (fewer
      calls: a T-step loop) and bound (the special-function units'
      exponentials or the bytes) timed;
- 24. hymba-1.5b at full width and depth (32 layers, 1.80 B parameters,
-     seeded bf16): batch 8, prompt 1280 (past the 1024 window), 64 new
-     tokens, dense and paged (block 16), exact launch counts (kernel 9
-     once a layer in prefill and once a layer a decode step: 2048; flash
-     32; decode and paged decode 2016 each), paged tokens == dense tokens,
+ 24. hymba-1.5b at full width and 16 of its 32 layers (PATH_LAYERS;
+     1.80 B parameters at full depth, seeded bf16): batch 8, prompt 1280
+     (past the 1024 window), 64 new tokens, dense and paged (block 16),
+     exact launch counts (kernel 9 once a layer in prefill and once a
+     layer a decode step; flash once a layer; decode and paged decode
+     once a layer a step), paged tokens == dense tokens,
      one profiled run (16 new tokens) with kernel 9's share of device
      time, the decode path's teacher-forced logits against the full
      forward within HYB_STEP_BF16, which a planted fault (the mamba state
@@ -208,8 +210,8 @@ phase's seconds are printed after it):
      serving llama3.2-1b at full width and depth, bf16, seeded: 8 slots of
      1024 positions, a make_trace trace of 32 requests (prompts ~256,
      outputs ~64 tokens, 0.5 arrivals a step); tp=1 dense and paged (block
-     16) and tp=8 (4 x 2, hier_rd) paged, each a warm-up replay and three
-     timed ones (throughput, TTFT, TPOT: medians of 3); paged == dense and
+     16) and tp=8 (4 x 2, hier_rd) paged, each a warm-up replay and one
+     timed one (throughput, TTFT, TPOT); paged == dense and
      graph == eager (the serve step run eagerly) bitwise; each request
      against its own batch-1 generate and tp=8 against tp=1 by
      provable_gate over teacher-forced decode paths of the same row count;
@@ -232,7 +234,7 @@ phase's seconds are printed after it):
      mask) timed at C 128, offset 384; then phase 27's trace admitted by
      chunks of 128 (ContinuousBatcher(admit_mode="chunked")): exact
      launches of the eager form (the chunk form once a layer a chunk, the
-     full form never), tp=1 dense and paged (medians of 3), chunked dense
+     full form never), tp=1 dense and paged (one timed replay), chunked dense
      == paged == eager bitwise, chunked against full admission by
      provable_gate (both teacher-forced, the chunked one through
      prefill_chunk) with the teacher-forced logits within (TF_MAX,
@@ -269,8 +271,34 @@ phase's seconds are printed after it):
      behind the router under round_robin bitwise two single replicas,
      least_queue and ttft_aware through the trace at 8x the rate, all
      bitwise phase 27's; each run's tokens/s, TTFT and TPOT p50, fault
-     counters, handoff bytes and graph captures printed.  Then both forms'
-     decode tok/s of every path, side by side.
+     counters, handoff bytes and graph captures printed;
+ 30. (a) kernel 1's int8 form (int8 K/V and bf16 scales, the reference's
+     attn_core dequantization) within TOL of its plain version at
+     KV8_SHAPES (DECODE_SHAPES, g 1 at hd 128 and g 16 at hd 64; window
+     0 and 1024; positions on the 128-key split edges), bf16 and f32, a
+     second call bitwise; kernel, plain version, kernel 1's bf16 form on
+     the dequantized cache and SDPA timed beside the bound; the W8 GEMM
+     (w8_matmul: int8 weights dequantized in registers) within W8_TOL of
+     its plain version at llama3.2-1b's decode leaves (wq / wk / wv / wo,
+     wg / wu / wd) at tp=1 and the tp=8 fold, M 8 and 64, timed beside
+     one bmm on the bf16 weight and the bound; (b) phase 27's trace
+     through the batcher on the int8 cache, llama3.2-1b full width and
+     depth, bf16, at tp=1 and tp=8 (4x2 hier_rd): graph == eager bitwise
+     on its first 8 requests (eager launches counted), the int8 path's
+     teacher-forced logits on the bf16 cache's tokens with top-1
+     agreement of at least TOP1_FLOOR (the reference's bar), the cache's
+     bytes against the bf16 cache's; (c) llama3.2-1b full width and depth
+     with int8 block weights through build_decode_step(weight_quant=True)
+     captured, tp=1 and tp=8: graph == eager tokens (w8_matmul 7 a layer
+     a step), teacher-forced top-1 agreement with the bf16 weights' run at
+     least TOP1_FLOOR, decode tok/s beside the bf16 weights' (bf16, int8,
+     int8, bf16), and at tp=1 the first step's logits against the
+     dequant_layer model's; (d) hymba-1.5b full width and depth with the
+     ring-buffer window cache, a 64-token prompt decoded 1100 steps past
+     its 1024 window, against the full cache by provable_gate over
+     teacher-forced logits, then in f32 at 2 layers where the gate must
+     check three quarters of the steps.  Then both forms' decode tok/s of
+     every path, side by side.
 The last two lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -286,6 +314,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -338,8 +367,16 @@ from repro_torch.models import rwkv, ssm, transformer  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     decode_step, ef_sites_for, forward_lm, init_cache, init_params,
     make_plan, seed_cache)
+from repro_torch.core.pcontext import LOCAL  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_int8_ref, dequant_kv)
+from repro_torch.kernels.w8_matmul import (  # noqa: E402
+    dequant_weight, w8_matmul, w8_matmul_ref)
+from repro_torch.parallel.quant import (  # noqa: E402
+    LayerMap, dequant_layer, quantize_model)
 from repro_torch.parallel.sharding import shard_params  # noqa: E402
-from repro_torch.parallel.steps import CapturedStep  # noqa: E402
+from repro_torch.parallel.steps import (  # noqa: E402
+    CapturedStep, build_decode_step, build_prefill)
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -388,6 +425,11 @@ RD_PARENT_MS = (0.0124, 0.0134, 0.0204, 0.0596, 0.2478)
 # bf16 greedy tokens of two reduction orders may differ where the top-1/
 # top-2 logit gap is within a few bf16 roundings of O(1) logits.
 BF16_GAP = 0.1
+# The depth of the tp=1 paths of the families this script's later phases
+# do not extend (phases 16, 20, 24), cut from full depth (48, 32, 32
+# layers) so the whole script stays inside its time limit; widths are
+# full, and each phase's gates and planted faults are unchanged.
+PATH_LAYERS = {"qwen3-moe-30b-a3b": 12, "rwkv6-7b": 8, "hymba-1.5b": 16}
 # Teacher-forced bf16 logits of tp=8 hier_rd against flat and tp=1 over
 # the same sequence: bf16 roundings of O(1) logits in another reduction
 # order (max |diff|, mean |diff|).
@@ -412,6 +454,9 @@ REPLACES = {
     "moe_expert_ffn": "src/repro/kernels/moe_gemm/kernel.py:25",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:26",
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:26",
+    # no Pallas kernel: the reference's jnp code they carry to the card
+    "decode_attention_int8": "src/repro/models/layers.py:176",
+    "w8_matmul": "src/repro/parallel/quant.py:51",
 }
 MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "flash_attention_chunk": "serve_chunked_tp1_paged",
@@ -424,7 +469,9 @@ MAIN_PATH = {"flash_attention": "tp8_hier_rd",
              "quant_rd_all_reduce": "tp8_hier_rd_int8",
              "moe_expert_ffn": "moe_tp1_dense",
              "rwkv6_scan": "rwkv_tp1",
-             "ssm_scan": "hymba_tp1"}
+             "ssm_scan": "hymba_tp1",
+             "decode_attention_int8": f"serve_kv8_tp{PODS * FAST}",
+             "w8_matmul": "w8_tp1"}
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_chunk":
@@ -441,6 +488,9 @@ SOURCES = {
     "moe_expert_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu",
     "rwkv6_scan": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
     "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+    "decode_attention_int8":
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "w8_matmul": "src/repro_torch/kernels/csrc/w8_matmul.cu",
 }
 # Kernel 6 at the quantized path's shapes (rows, D) at tp=8 = 4 x 2,
 # batch 8, prompt 512: the decode reduce-scatter packs B x d_model / 2
@@ -937,9 +987,10 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
     form's, and for every kernel the launches counted at the capture
     times the steps it stands for (the replays and the eager warm-up step,
     which counts the same) plus the prefill's (a ``generate`` of one
-    token) equal to the eager count.  Decode tok/s of both forms, medians
-    of 3.  Returns (eager result, eager launches); the engine is left
-    eager."""
+    token) equal to the eager count.  Decode tok/s of the eager form's
+    counted run and the graph form's median of 3 (one eager run keeps the
+    script inside the call's limit).  Returns (eager result, eager launches); the engine is
+    left eager."""
     eng.cuda_graph = False
     eng.generate(prompts, 2)          # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
@@ -955,8 +1006,7 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
         f"{peak:.3f} GiB, launches {got}")
     if got != expect:
         raise AssertionError(f"{label}: launches {got}, expected {expect}")
-    eager_tps = [res.decode_tokens_per_s] + [
-        eng.generate(prompts, new).decode_tokens_per_s for _ in range(2)]
+    eager_tps = [res.decode_tokens_per_s]
     eng.cuda_graph = True
     reset_counts()
     g = eng.generate(prompts, new)
@@ -984,9 +1034,9 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
     log(f"    graph form: tokens == eager bitwise; launches at the capture "
         f"x {1 + g.graph_replays} steps + prefill's == eager; decode tok/s "
         f"eager {GRAPH_TPS[label][0]:.1f} graph {GRAPH_TPS[label][1]:.1f} "
-        f"(medians of 3; {eager_tps[0]:.1f}/{eager_tps[1]:.1f}/"
-        f"{eager_tps[2]:.1f}, {graph_tps[0]:.1f}/{graph_tps[1]:.1f}/"
-        f"{graph_tps[2]:.1f}); decode of the capturing generate "
+        f"(eager one run, graph median of 3: {graph_tps[0]:.1f}/"
+        f"{graph_tps[1]:.1f}/{graph_tps[2]:.1f}); decode of the capturing "
+        f"generate "
         f"{g.decode_s * 1e3:.2f} ms, of a replaying one {replay_ms:.2f} ms "
         "(median)")
     return res, got
@@ -1530,33 +1580,55 @@ def planted_fused_fault(kind: str):
 
 def teacher_forced_decode(model, tokens: np.ndarray, ap, ctx=None,
                           mesh=None, ef: bool = True, *, prompt: int = PROMPT,
-                          s_max: int = S_MAX,
-                          device: str = "cuda") -> torch.Tensor:
+                          s_max: int = S_MAX, device: str = "cuda",
+                          kv: Optional[dict] = None, layer_map=None,
+                          prefill_model=None) -> torch.Tensor:
     """Logits (b, new, V) of the decode path over a generated sequence
     (b, prompt + new): the prompt prefilled, then the sequence's own tokens
     fed one decode step at a time (vocab shards gathered on a mesh), the
     computation ``generate`` makes on that prefix; under a quantized wire
-    the cache carries the error-feedback leaf unless ``ef`` is False."""
+    the cache carries the error-feedback leaf unless ``ef`` is False.  On
+    the card the steps are one CUDA graph (``CapturedStep``: the first
+    step eager, the second captured, the rest replayed), whose logits are
+    the eager steps' bit for bit (every ``run_path`` checks graph ==
+    eager); a planted fault's patch is in force at the capture.  ``kv`` /
+    ``layer_map``: ``init_cache`` and ``decode_step`` options (the int8 or
+    ring cache, int8 weights); ``prefill_model`` prefills the prompt when
+    ``model`` is the int8-weight one (the reference's weight_quant is
+    decode-only)."""
     kw = {} if ctx is None else {"ctx": ctx, "mesh": mesh}
     ef_sites = ef_sites_for(ctx, ap.cfg) if ctx is not None and ef else 0
     b, new = tokens.shape[0], tokens.shape[1] - prompt
+    kv = kv or {}
 
     def full(lg):
         return lg if mesh is None else gather_vocab(lg)
 
     with torch.inference_mode():
         toks = torch.as_tensor(tokens, device=device).long()
-        lg, states = forward_lm(model, toks[:, :prompt], ap,
+        lg, states = forward_lm(model if prefill_model is None
+                                else prefill_model, toks[:, :prompt], ap,
                                 collect_state=True, **kw)
         cache = seed_cache(init_cache(ap, b, s_max, device=device, mesh=mesh,
-                                      ef_sites=ef_sites), states)
+                                      ef_sites=ef_sites, **kv), states)
         out = [full(lg)[:, -1]]
+        tok = torch.zeros(b, dtype=torch.long, device=device)
+        pos = torch.zeros(b, dtype=torch.int32, device=device)
+        held = {}
+
+        def body():
+            lg_t, _ = decode_step(model, cache, tok, pos, ap, **kw,
+                                  layer_map=layer_map,
+                                  kv_ring=kv.get("window_cache", False))
+            held["lg"] = full(lg_t)
+
+        step = CapturedStep(body, device != "cpu",
+                            workspace=getattr(mesh, "workspace", None))
         for t in range(new - 1):
-            pos = torch.full((b,), prompt + t, dtype=torch.int32,
-                             device=device)
-            lg, cache = decode_step(model, cache, toks[:, prompt + t], pos,
-                                    ap, **kw)
-            out.append(full(lg))
+            tok.copy_(toks[:, prompt + t])
+            pos.fill_(prompt + t)
+            step()
+            out.append(held["lg"].clone())
     return torch.stack(out, dim=1)
 
 
@@ -2619,16 +2691,19 @@ def moe_launches(L: int, new: int, strategy: str = "") -> dict:
 
 
 def phase_moe_path() -> dict:
-    """qwen3-moe-30b-a3b at tp=1, full width and depth, bf16: dense and
-    paged, exact launches, paged tokens == dense tokens, one profile."""
+    """qwen3-moe-30b-a3b at tp=1, full width, PATH_LAYERS deep, bf16:
+    dense and paged, exact launches, paged tokens == dense tokens, one
+    profile."""
     free_device()
-    cfg = get_config(MOE_ARCH)
+    full_depth = get_config(MOE_ARCH).n_layers
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=PATH_LAYERS[MOE_ARCH])
     ap = make_plan(cfg, 1)
     t0 = time.perf_counter()
     model = init_params(ap, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  {cfg.name}: {cfg.n_layers} layers (full depth), d_model "
+    log(f"  {cfg.name}: {cfg.n_layers} of {full_depth} layers, d_model "
         f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, "
         f"{n_params / 1e9:.3f} B parameters in {cfg.dtype} (router f32), "
         f"drawn in {time.perf_counter() - t0:.1f} s; "
@@ -2904,17 +2979,19 @@ def rwkv_launches(L: int, new: int, strategy: str = "") -> dict:
 
 
 def phase_rwkv_path() -> dict:
-    """rwkv6-7b at tp=1, full width and depth, bf16: exact launches, one
-    profile, the decode path's logits against the full forward's, and a
-    planted fault that gate must catch."""
+    """rwkv6-7b at tp=1, full width, PATH_LAYERS deep, bf16: exact
+    launches, one profile, the decode path's logits against the full
+    forward's, and a planted fault that gate must catch."""
     free_device()
-    cfg = get_config(RWKV_ARCH)
+    full_depth = get_config(RWKV_ARCH).n_layers
+    cfg = dataclasses.replace(get_config(RWKV_ARCH),
+                              n_layers=PATH_LAYERS[RWKV_ARCH])
     ap = make_plan(cfg, 1)
     t0 = time.perf_counter()
     model = init_params(ap, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  {cfg.name}: {cfg.n_layers} layers (full depth), d_model "
+    log(f"  {cfg.name}: {cfg.n_layers} of {full_depth} layers, d_model "
         f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
         f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
         f"{n_params / 1e9:.3f} B parameters in {cfg.dtype} (w0, u f32), "
@@ -3314,18 +3391,20 @@ def step_gate(label: str, dec: torch.Tensor, full: torch.Tensor,
 
 
 def phase_hybrid_path() -> dict:
-    """hymba-1.5b at tp=1, full width and depth, bf16: dense and paged with
-    exact launches, paged tokens == dense tokens, one profile (16 new
-    tokens), the decode path's logits against the full forward's within
-    HYB_STEP_BF16, and a planted fault that gate must catch."""
+    """hymba-1.5b at tp=1, full width, PATH_LAYERS deep, bf16: dense and
+    paged with exact launches, paged tokens == dense tokens, one profile
+    (16 new tokens), the decode path's logits against the full forward's
+    within HYB_STEP_BF16, and a planted fault that gate must catch."""
     free_device()
-    cfg = get_config(HYB_ARCH)
+    full_depth = get_config(HYB_ARCH).n_layers
+    cfg = dataclasses.replace(get_config(HYB_ARCH),
+                              n_layers=PATH_LAYERS[HYB_ARCH])
     ap = make_plan(cfg, 1)
     t0 = time.perf_counter()
     model = init_params(ap, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  {cfg.name}: {cfg.n_layers} layers (full depth), d_model "
+    log(f"  {cfg.name}: {cfg.n_layers} of {full_depth} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
         f"{cfg.head_dim}, window {cfg.sliding_window}, d_inner "
         f"{cfg.d_inner}, {cfg.ssm_state} states, d_ff {cfg.d_ff}, vocab "
@@ -3490,10 +3569,11 @@ def same_outputs(a: dict, b: dict) -> bool:
 
 
 def serve_timed(label: str, b: ContinuousBatcher, reqs,
-                reps: int = 3) -> tuple:
+                reps: int = 1) -> tuple:
     """A warm-up replay (it captures the step and meets every prompt
     length once), then ``reps`` timed ones, each with the same tokens;
-    throughput, TTFT and TPOT as medians of them."""
+    throughput, TTFT and TPOT as medians of them.  One timed replay by
+    default, which keeps the script inside the call's limit."""
     first, _ = serve_run(b, reqs)
     ms = []
     for _ in range(reps):
@@ -3515,7 +3595,7 @@ def serve_timed(label: str, b: ContinuousBatcher, reqs,
         f"throughput {st['throughput_tok_s']:.1f} tok/s, TTFT p50/p99 "
         f"{st['ttft_s_p50'] * 1e3:.2f}/{st['ttft_s_p99'] * 1e3:.2f} ms, TPOT "
         f"p50/p99 {st['tpot_s_p50'] * 1e3:.3f}/{st['tpot_s_p99'] * 1e3:.3f} "
-        f"ms (medians of {reps}; throughput "
+        f"ms ({reps} timed replay(s); throughput "
         + "/".join(f"{x.throughput_tok_s:.1f}" for x in ms) + ")")
     if m.completed != m.requests:
         raise AssertionError(f"{label}: requests left unserved")
@@ -3532,7 +3612,8 @@ class ForcedDecode:
     generate) each row's logits are that path's, row for row."""
 
     def __init__(self, model, ap, rows: int, ctx=None, mesh=None, *,
-                 chunk: int = 0, verify_k: int = 0, prefill_with=None):
+                 chunk: int = 0, verify_k: int = 0, prefill_with=None,
+                 kv_quant: bool = False):
         """``chunk`` > 0: each prompt admitted through chunks of that many
         tokens (``prefill_chunk`` into its row, the batcher's chunked
         admission) instead of one full prefill.  ``verify_k`` > 0: the
@@ -3541,12 +3622,14 @@ class ForcedDecode:
         of one decode step a token.  ``prefill_with`` = (model, ap) at
         tp=1: each prompt prefilled there and its K/V handed over as a
         disaggregated prefill pool hands it (a bundle spliced into the
-        row), the first token's logits that pool's."""
+        row), the first token's logits that pool's.  ``kv_quant``: the
+        rows live in the int8 cache."""
         self.model, self.ap, self.rows, self.mesh = model, ap, rows, mesh
         self.chunk, self.verify_k = chunk, verify_k
         self.prefill_with = prefill_with
         self.kw = {} if mesh is None else {"ctx": ctx, "mesh": mesh}
-        self.cache = init_cache(ap, rows, S_MAX, device="cuda", mesh=mesh)
+        self.cache = init_cache(ap, rows, S_MAX, device="cuda", mesh=mesh,
+                                kv_quant=kv_quant)
         self.tok = torch.zeros(rows, dtype=torch.int32, device="cuda")
         self.pos = torch.zeros(rows, dtype=torch.int32, device="cuda")
         self.out = torch.zeros((rows, ap.cfg.vocab_size), device="cuda")
@@ -4615,6 +4698,417 @@ def disagg_f32(reqs, spec) -> None:
     free_device()
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the int8 KV cache, int8 block weights and the ring window cache
+# ---------------------------------------------------------------------------
+
+# Kernel 1's int8 form at (B, Hq, Hkv, hd, S, window, positions lo..hi):
+# the decode paths' shapes (DECODE_SHAPES), and g = 1 at hd 128 and g = 16
+# at hd 64; rows whose range starts at 0 take the split edges first.
+KV8_SHAPES = {**DECODE_SHAPES,
+              "g1_hd128": (B, 8, 8, 128, 640, 0, (0, 639)),
+              "g16_hd64": (B, 16, 1, 64, S_MAX, 0, (0, S_MAX - 1))}
+KV8_EDGES = (0, 127, 128, 255, 256, 511, 512, 1023)
+# The W8 GEMM at llama3.2-1b's decode leaves, (K, N, P) with the column's
+# scale s[n % P] (P = hd for wq / wk / wv): tp=1, and the tp=8 fold (the
+# column-parallel leaves' N and the row-parallel leaves' K cut by 8).
+_TP8 = PODS * FAST
+W8_LEAVES = {
+    1: {"wq": (D_MODEL, HQ * HD, HD), "wk": (D_MODEL, HKV * HD, HD),
+        "wv": (D_MODEL, HKV * HD, HD), "wo": (HQ * HD, D_MODEL, D_MODEL),
+        "wg": (D_MODEL, D_FF, D_FF), "wu": (D_MODEL, D_FF, D_FF),
+        "wd": (D_FF, D_MODEL, D_MODEL)},
+    _TP8: {"wq": (D_MODEL, HQ * HD // _TP8, HD),
+           "wk": (D_MODEL, HKV * HD // _TP8, HD),
+           "wv": (D_MODEL, HKV * HD // _TP8, HD),
+           "wo": (HQ * HD // _TP8, D_MODEL, D_MODEL),
+           "wg": (D_MODEL, D_FF // _TP8, D_FF // _TP8),
+           "wu": (D_MODEL, D_FF // _TP8, D_FF // _TP8),
+           "wd": (D_FF // _TP8, D_MODEL, D_MODEL)}}
+# |kernel - plain| <= W8_TOL * max|plain|: both round one f32 sum of the
+# same bf16 products to bf16 (2^-8 relative), in another order.
+W8_TOL = 1e-2
+# The reference's bar for int8 KV and int8 weights: teacher-forced top-1
+# agreement with the bf16 run (tests/dist_cases/case_pp_and_perf.py:80,
+# :98).
+TOP1_FLOOR = 0.8
+# hymba-1.5b's ring: a 64-token prompt decoded 1100 steps, past its 1024
+# window.
+RING_PROMPT, RING_NEW = 64, 1100
+
+
+def kv8_case(gen, dtype, name: str) -> dict:
+    """Kernel 1's int8 form at one of KV8_SHAPES within TOL of its plain
+    version (the cache dequantized as the reference's attn_core, then the
+    plain version), a second call bitwise the first; kernel, plain
+    version, kernel 1's bf16 form and SDPA on the dequantized cache
+    timed beside the bound (the visible rows' int8 K/V and scales)."""
+    b, hq, hkv, hd, s, win, (lo, hi) = KV8_SHAPES[name]
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dtype)
+    k8, v8 = (torch.randint(-127, 128, (b, s, hkv, hd), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = ((torch.rand((b, s, hkv), generator=gen, device="cuda") * 0.05
+               + 1e-3).to(torch.bfloat16) for _ in range(2))
+    pos = torch.randint(lo, hi + 1, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    edges = [p for p in KV8_EDGES if lo <= p <= hi][:b]
+    pos[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device="cuda")
+
+    def kern():
+        return decode_attention(q, k8, v8, pos, window=win, k_scale=ks,
+                                v_scale=vs)
+
+    def plain():
+        return decode_attention_int8_ref(q, k8, v8, ks, vs, pos, window=win)
+
+    out = kern()
+    tag = f"decode_attention_int8 {name} {tuple(q.shape)} S={s} window={win}"
+    err = check_close(tag, out, plain(), dtype)
+    if not torch.equal(kern(), out):
+        raise AssertionError(f"{tag}: a second call differs from the first")
+    kd, vd = dequant_kv(k8, ks, dtype), dequant_kv(v8, vs, dtype)
+    kpos, last = torch.arange(s, device="cuda")[None, :], pos.long()[:, None]
+    mask = (kpos <= last) & (kpos > last - win) if win else kpos <= last
+    t_sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+        attn_mask=mask[:, None, None, :], enable_gqa=True))
+    t_bf = time_ms(lambda: decode_attention(q, kd, vd, pos, window=win))
+    t = (time_ms(kern), time_ms(plain))
+    n_keys = int(mask.sum())
+    io = q.element_size() * 2 * b * hq * hd + 2 * n_keys * hkv * (hd + 2) \
+        + 4 * b
+    bd = bound_ms(io, 4.0 * hq * hd * n_keys, dtype)
+    log(f"  decode_attention_int8 {name} [{str(dtype)[6:]}]: kernel_ms="
+        f"{t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t_sdpa:.4f} (SDPA on "
+        f"the dequantized cache) bf16_form_ms={t_bf:.4f} (kernel 1 on the "
+        f"dequantized cache) bound_ms={bd[0]:.4f} ({bd[1]})")
+    return {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+            "library_ms": t_sdpa, "bf16_form_ms": t_bf, "bound_ms": bd[0],
+            "bound_by": bd[1]}
+
+
+def w8_case(gen, R: int, M: int, leaf: str) -> dict:
+    """The W8 GEMM at one decode leaf: within W8_TOL of its plain version,
+    a second call bitwise the first; kernel, plain version (dequantize,
+    then bmm) and one torch.bmm on the bf16 weight timed beside the bound
+    (the int8 weight, its scales, x and the output once)."""
+    K, N, P = W8_LEAVES[R][leaf]
+    x = torch.randn((R, M, K), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    q = torch.randint(-127, 128, (R, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = (torch.rand((R, P), generator=gen, device="cuda") / (127 * K ** 0.5)
+         + 1e-5).to(torch.bfloat16)
+    out, ref = w8_matmul(x, q, s), w8_matmul_ref(x, q, s)
+    err, top = max_err(out, ref), float(ref.float().abs().max())
+    tag = f"w8_matmul {leaf} R={R} M={M} K={K} N={N} P={P}"
+    if err > W8_TOL * top or not torch.isfinite(out).all():
+        raise AssertionError(f"{tag}: max|kernel-plain| {err:.4g} above "
+                             f"{W8_TOL:g} x max|plain| {top:.4g}")
+    if not torch.equal(w8_matmul(x, q, s), out):
+        raise AssertionError(f"{tag}: a second call differs from the first")
+    wb = dequant_weight(q, s)
+    t = (time_ms(lambda: w8_matmul(x, q, s)),
+         time_ms(lambda: w8_matmul_ref(x, q, s)),
+         time_ms(lambda: torch.bmm(x, wb)))
+    bd = bound_ms(R * (K * N + 2 * P + 2 * M * K + 2 * M * N),
+                  2.0 * R * M * N * K, torch.bfloat16)
+    log(f"  {tag}: max|kernel-plain| {err:.3e} (max|plain| {top:.3g}); "
+        f"kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+        f"(one bmm on the bf16 weight; kernel / bmm {t[0] / t[2]:.2f}) "
+        f"bound_ms={bd[0]:.4f} ({bd[1]})")
+    return {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+            "library_ms": t[2], "bound_ms": bd[0], "bound_by": bd[1]}
+
+
+def phase_q8_kernels() -> dict:
+    """(a) Kernel 1's int8 form and the W8 GEMM against their plain
+    versions at the paths' shapes; the records' top level is llama3.2-1b's
+    tp=1 decode shape (bf16) and its MLP up-projection at M = 8."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 30)
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name in KV8_SHAPES:
+            r = kv8_case(gen, dtype, name)
+            if dtype == torch.bfloat16:
+                rec.setdefault("decode_attention_int8", {**r, "shapes": {}})[
+                    "shapes"][name] = r
+    shapes = {f"{leaf}_R{R}_M{M}": w8_case(gen, R, M, leaf)
+              for R in W8_LEAVES for M in (B, 64) for leaf in W8_LEAVES[R]}
+    rec["w8_matmul"] = {**shapes[f"wg_R1_M{B}"], "shapes": shapes}
+    free_device()
+    return rec
+
+
+def greedy_graph(model, ap, ctx, mesh, prompts: np.ndarray, new: int, *,
+                 s_max: int, decode_model=None, kv: Optional[dict] = None,
+                 graph: bool = True, **step_kw) -> tuple:
+    """Greedy decode through ``build_prefill`` (into a cache made with
+    ``kv``) and ``build_decode_step(**step_kw)``, the steps one captured
+    graph (or eager).  Returns (tokens (b, prompt + new), decode tok/s
+    over the replayed steps)."""
+    b, S = prompts.shape
+    kv = kv or {}
+    with torch.inference_mode():
+        cache = init_cache(ap, b, s_max, device="cuda", mesh=mesh,
+                           ef_sites=ef_sites_for(ctx, ap.cfg), **kv)
+        nxt, cache = build_prefill(ap, ctx, mesh, s_max=s_max)(
+            model, torch.as_tensor(prompts, device="cuda").long(),
+            cache=cache)
+        step = build_decode_step(ap, ctx, mesh, **step_kw)
+        dm = model if decode_model is None else decode_model
+        tok, pos = nxt.clone(), torch.full((b,), S, dtype=torch.int32,
+                                           device="cuda")
+        out = torch.zeros((new, b), dtype=torch.int32, device="cuda")
+        out[0] = tok
+
+        def body():
+            n, _ = step(dm, cache, tok, pos)
+            tok.copy_(n)
+            pos.add_(1)
+
+        cs = CapturedStep(body, graph,
+                          workspace=getattr(mesh, "workspace", None))
+        for i in range(1, new):
+            if i == 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            cs()
+            out[i] = tok
+        torch.cuda.synchronize()
+        tps = b * (new - 3) / (time.perf_counter() - t0)
+    return np.concatenate([prompts, out.T.cpu().numpy()], 1), tps
+
+
+def top1_agreement(logits: torch.Tensor, tokens: np.ndarray,
+                   prompt: int) -> float:
+    """Share of teacher-forced steps whose argmax is the reference's next
+    token (logits (b, new, V) over tokens (b, prompt + new))."""
+    want = torch.as_tensor(tokens[:, prompt:], device=logits.device)
+    return float((logits.argmax(-1) == want).float().mean())
+
+
+def phase_kv8_serve() -> dict:
+    """(b) Phase 27's trace through the batcher on the int8 cache (full
+    admission, dense), llama3.2-1b full width and depth, bf16, at tp=1 and
+    tp=8 (hier_rd): the trace timed as phase 27 times it (a warm-up
+    replay, then a timed one), graph == eager bitwise
+    on its first SERVE_SLOTS requests (the eager run's launches counted),
+    top-1 agreement of the int8 cache's teacher-forced logits with the
+    bf16 run's tokens at least TOP1_FLOOR, and the cache's bytes against
+    the bf16 cache's."""
+    cfg = get_config("llama3.2-1b")
+    reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
+                      mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
+                      vocab=cfg.vocab_size, seed=SEED)
+    launches = {}
+    for tp, ref_key in ((1, "tp=1 dense"), (PODS * FAST, "tp=8 paged")):
+        mesh, ctx = (None, LOCAL) if tp == 1 else mesh_and_ctx(
+            tp, PODS, ar_strategy="hier_rd", device="cuda")
+        ap = make_plan(cfg, tp)
+        model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+        label = f"tp={tp}" + (f" ({PODS}x{FAST} hier_rd)" if mesh else "")
+
+        def batcher(**kw):
+            return ContinuousBatcher(ap, model, slots=SERVE_SLOTS,
+                                     s_max=S_MAX, ctx=ctx, mesh=mesh,
+                                     kv_quant=True, device="cuda", **kw)
+
+        fp_tps = SERVE_STATS.get("tp=1 dense" if tp == 1 else
+                                 f"tp=8 ({PODS}x{FAST}) hier_rd paged",
+                                 {}).get("throughput_tok_s", float("nan"))
+        b = batcher()
+        outs, m = serve_timed(f"{label} int8 KV", b, reqs)
+        kv8 = sum(b.cache[n].numel() * b.cache[n].element_size()
+                  for n in transformer.KV_LEAVES if n in b.cache)
+        fp = init_cache(ap, SERVE_SLOTS, S_MAX, device="cuda", mesh=mesh)
+        fp_bytes = sum(fp[n].numel() * fp[n].element_size()
+                       for n in ("k", "v"))
+        del fp
+        log(f"  {label} int8 KV: throughput {m.throughput_tok_s:.1f} tok/s "
+            f"(the bf16 cache's in phase 27: {fp_tps:.1f}); cache "
+            f"{kv8 / 2**20:.1f} MiB "
+            f"(int8 K/V + bf16 scales) against the bf16 cache's "
+            f"{fp_bytes / 2**20:.1f} MiB: {kv8 / fp_bytes:.4f}x")
+        sub = reqs[:SERVE_SLOTS]
+        g_sub, _ = serve_run(batcher(), sub)
+        reset_counts()
+        e_sub, _ = serve_run(batcher(cuda_graph=False), sub)
+        key = f"serve_kv8_tp{tp}"
+        launches[key] = counts()
+        if not same_outputs(g_sub, e_sub) or any(
+                not np.array_equal(g_sub[r.rid], outs[r.rid]) for r in sub):
+            raise AssertionError(f"{label} int8 KV: graph tokens differ "
+                                 "from eager tokens")
+        if launches[key]["decode_attention_int8"] == 0 \
+                or launches[key]["decode_attention"]:
+            raise AssertionError(f"{label} int8 KV: launches "
+                                 f"{launches[key]}")
+        log(f"  {label} int8 KV, first {len(sub)} requests: graph tokens == "
+            f"eager tokens, bitwise; eager launches {launches[key]}")
+        ref = SERVE_OUTS[ref_key]
+        seqs = [(r.prompt, ref[r.rid]) for r in reqs]
+        lg8 = ForcedDecode(model, ap, SERVE_SLOTS, ctx, mesh,
+                           kv_quant=True).logits(seqs)
+        lgb = ForcedDecode(model, ap, SERVE_SLOTS, ctx, mesh).logits(seqs)
+        d = torch.cat([(a - c).abs().reshape(-1) for a, c in zip(lg8, lgb)])
+        agree = np.mean(np.concatenate([
+            (a.argmax(-1).cpu().numpy() == ref[r.rid])
+            for a, r in zip(lg8, reqs)]))
+        log(f"  {label} int8 KV teacher-forced on the bf16 cache's tokens: "
+            f"top-1 agreement {agree:.4f} (floor {TOP1_FLOOR:g}); logits "
+            f"against the bf16 cache's max|diff| {float(d.max()):.4f}, "
+            f"mean {float(d.mean()):.3e}")
+        if agree < TOP1_FLOOR:
+            raise AssertionError(f"{label} int8 KV: top-1 agreement "
+                                 f"{agree:.4f}")
+        del model, b, lg8, lgb, d
+        free_device()
+    return launches
+
+
+def dequantized_model(qmodel):
+    """The int8-weight model with every {q, s} leaf replaced by its
+    dequant_layer value, bf16: the reference's weight_quant decode."""
+    blocks = []
+    for bp in qmodel.blocks:
+        groups = {g: dequant_layer(dict(grp.items()))
+                  for g, grp in bp.named_children()}
+        groups.update(dict(bp.named_parameters(recurse=False)))
+        blocks.append(groups)
+    out = transformer.DenseLM({}, [], {})
+    out.embed, out.final_norm = qmodel.embed, qmodel.final_norm
+    out.blocks = torch.nn.ModuleList(transformer.Block(b) for b in blocks)
+    return out
+
+
+def phase_w8_decode() -> dict:
+    """(c) llama3.2-1b full width and depth with int8 block weights
+    (``build_decode_step(weight_quant=True)``; prefill on the bf16
+    weights, as the reference's weight_quant is decode-only), the steps
+    one captured graph, at tp=1 and tp=8 (hier_rd), NEW steps: graph ==
+    eager tokens (the eager run's launches counted), teacher-forced top-1
+    agreement with the bf16 run's tokens at least TOP1_FLOOR, decode tok/s
+    beside the bf16 weights' (bf16, int8, int8, bf16), and at tp=1 the
+    first step's logits against the dequant_layer model's."""
+    cfg = get_config("llama3.2-1b")
+    prompts = np.random.default_rng(SEED + 30).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    launches = {}
+    for tp in (1, PODS * FAST):
+        mesh, ctx = (None, LOCAL) if tp == 1 else mesh_and_ctx(
+            tp, PODS, ar_strategy="hier_rd", device="cuda")
+        ap = make_plan(cfg, tp)
+        model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+        qmodel = quantize_model(model)
+        label = f"tp={tp}" + (f" ({PODS}x{FAST} hier_rd)" if mesh else "")
+        kw = dict(s_max=S_MAX)
+        q8 = dict(decode_model=qmodel, weight_quant=True, **kw)
+        tps = {"bf16": [], "int8": []}
+        ref, t = greedy_graph(model, ap, ctx, mesh, prompts, NEW, **kw)
+        tps["bf16"].append(t)
+        toks, t = greedy_graph(model, ap, ctx, mesh, prompts, NEW, **q8)
+        tps["int8"].append(t)
+        tps["int8"].append(greedy_graph(model, ap, ctx, mesh, prompts, NEW,
+                                        **q8)[1])
+        tps["bf16"].append(greedy_graph(model, ap, ctx, mesh, prompts, NEW,
+                                        **kw)[1])
+        reset_counts()
+        eager, _ = greedy_graph(model, ap, ctx, mesh, prompts, NEW,
+                                graph=False, **q8)
+        key = f"w8_tp{tp}"
+        launches[key] = counts()
+        want = 7 * cfg.n_layers * (NEW - 1)
+        if not np.array_equal(eager, toks) \
+                or launches[key]["w8_matmul"] != want:
+            raise AssertionError(f"{label} int8 weights: graph tokens == "
+                                 f"eager {np.array_equal(eager, toks)}, "
+                                 f"launches {launches[key]} (w8_matmul "
+                                 f"{want} expected)")
+        lm = LayerMap(transformer.w8_keep(ctx), cfg.dtype)
+        tf8 = teacher_forced_decode(qmodel, ref, ap, ctx, mesh,
+                                    layer_map=lm, prefill_model=model)
+        tfb = teacher_forced_decode(model, ref, ap, ctx, mesh)
+        agree = top1_agreement(tf8[..., :cfg.vocab_size], ref, PROMPT)
+        d = (tf8.float() - tfb.float()).abs()
+        log(f"  {label} int8 weights: graph tokens == eager tokens "
+            f"(eager launches {launches[key]}); decode tok/s bf16 "
+            f"{' / '.join(f'{v:.1f}' for v in tps['bf16'])}, int8 "
+            f"{' / '.join(f'{v:.1f}' for v in tps['int8'])} (int8 / bf16 "
+            f"{np.mean(tps['int8']) / np.mean(tps['bf16']):.3f}); "
+            f"teacher-forced on the bf16 weights' tokens: top-1 agreement "
+            f"{agree:.4f} (floor {TOP1_FLOOR:g}), logits max|diff| "
+            f"{float(d.max()):.4f}, mean {float(d.mean()):.3e}")
+        if agree < TOP1_FLOOR:
+            raise AssertionError(f"{label} int8 weights: top-1 agreement "
+                                 f"{agree:.4f}")
+        if tp == 1:
+            dq = teacher_forced_decode(dequantized_model(qmodel),
+                                       ref[:, :PROMPT + 2], ap,
+                                       prefill_model=model)
+            e = (tf8[:, 1].float() - dq[:, 1].float()).abs()
+            log(f"  tp=1 first decode step, w8_matmul against the "
+                f"dequant_layer model in bf16: logits max|diff| "
+                f"{float(e.max()):.4f}, mean {float(e.mean()):.3e} (the "
+                f"kernel's rounding against bmm's)")
+        del model, qmodel, tf8, tfb, d, lm
+        free_device()
+    return launches
+
+
+def ring_pair(model, ap, prompts: np.ndarray, new: int, label: str,
+              floor: float = 0.0) -> None:
+    """Greedy decode on the ring and on the full cache, then both
+    teacher-forced on the full cache's tokens: provable_gate of the ring's
+    tokens against the full cache's (with ``floor``, on at least that
+    share of the steps)."""
+    S = prompts.shape[1]
+    full_s = S + new + 1
+    ring, _ = greedy_graph(model, ap, LOCAL, None, prompts, new, s_max=full_s,
+                           kv={"window_cache": True}, window_cache=True)
+    full, _ = greedy_graph(model, ap, LOCAL, None, prompts, new, s_max=full_s)
+    lr = teacher_forced_decode(model, full, ap, prompt=S, s_max=full_s,
+                               kv={"window_cache": True})
+    lf = teacher_forced_decode(model, full, ap, prompt=S, s_max=full_s)
+    n = provable_gate(ring, full, lr, lf, S)
+    d = (lr.float() - lf.float()).abs()
+    log(f"  {label}: ring ({ap.cfg.sliding_window} slots) tokens == full "
+        f"cache tokens on {n}/{lr.shape[0] * lr.shape[1]} steps that "
+        f"provable_gate checks (fully equal on "
+        f"{int((ring == full).all(1).sum())}/{ring.shape[0]} rows); "
+        f"teacher-forced logits max|diff| {float(d.max()):.4g}, mean "
+        f"{float(d.mean()):.3e}"
+        + (f", at least {floor:g} of the steps checked" if floor else ""))
+    if n < floor * lr.shape[0] * lr.shape[1]:
+        raise AssertionError(f"{label}: provable_gate checked only {n} "
+                             "steps")
+
+
+def phase_ring() -> None:
+    """(d) hymba-1.5b with the ring-buffer window cache, full width and
+    depth, bf16, a RING_PROMPT-token prompt decoded RING_NEW steps past its
+    window, against the full cache by provable_gate; then f32 at 2 layers,
+    where the gate must check at least three quarters of the steps."""
+    free_device()
+    cfg = get_config(HYB_ARCH)
+    prompts = np.random.default_rng(SEED + 31).integers(
+        0, cfg.vocab_size, (B, RING_PROMPT))
+    ap = make_plan(cfg, 1)
+    model = init_params(ap, seed=SEED, device="cuda")
+    ring_pair(model, ap, prompts, RING_NEW,
+              f"{HYB_ARCH} full depth, bf16, {RING_PROMPT} + {RING_NEW}")
+    del model
+    free_device()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    ap2 = make_plan(cfg2, 1)
+    ring_pair(init_params(ap2, seed=SEED, device="cuda"), ap2, prompts,
+              RING_NEW, f"{HYB_ARCH} 2 layers, f32, {RING_PROMPT} + "
+              f"{RING_NEW}", floor=0.75)
+    free_device()
+
+
 def ptxas_report() -> None:
     """ptxas's -v report of this build's libraries, a line a kernel: its
     registers, static shared memory and spills (the bf16 tensor-core
@@ -4719,7 +5213,8 @@ def main() -> int:
                 tol=QUANT_CPU_TOL)
     phase("[15] grouped expert FFN kernel (kernel 7)")
     rec["moe_expert_ffn"] = phase_moe_kernel()
-    phase(f"[16] {MOE_ARCH} tp=1, full width and depth, bf16")
+    phase(f"[16] {MOE_ARCH} tp=1, full width, {PATH_LAYERS[MOE_ARCH]} "
+          "layers, bf16")
     launches.update(phase_moe_path())
     phase(f"[17] {MOE_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
         "4 layers, float32")
@@ -4732,7 +5227,8 @@ def main() -> int:
     free_device()
     phase("[19] RWKV6 time-mix scan kernel (kernel 8)")
     rec["rwkv6_scan"] = phase_rwkv_kernel()
-    phase(f"[20] {RWKV_ARCH} tp=1, full width and depth, bf16")
+    phase(f"[20] {RWKV_ARCH} tp=1, full width, {PATH_LAYERS[RWKV_ARCH]} "
+          "layers, bf16")
     launches.update(phase_rwkv_path())
     phase(f"[21] {RWKV_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
         f"{RWKV_TP_LAYERS} layers, float32")
@@ -4745,7 +5241,8 @@ def main() -> int:
     free_device()
     phase("[23] Mamba selective-scan kernel (kernel 9)")
     rec["ssm_scan"] = phase_ssm_kernel()
-    phase(f"[24] {HYB_ARCH} tp=1, full width and depth, bf16")
+    phase(f"[24] {HYB_ARCH} tp=1, full width, {PATH_LAYERS[HYB_ARCH]} "
+          "layers, bf16")
     launches.update(phase_hybrid_path())
     phase(f"[25] {HYB_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
         f"{HYB_TP_LAYERS} layers, float32")
@@ -4769,8 +5266,17 @@ def main() -> int:
           "the router: llama3.2-1b full width and depth, bf16")
     nan_masking_check()
     launches.update(phase_p29())
+    phase("[30] the int8 KV cache (kernel 1's int8 form), int8 block "
+          "weights (the W8 GEMM) and the ring-buffer window cache")
+    t30 = time.perf_counter()
+    rec.update(phase_q8_kernels())
+    launches.update(phase_kv8_serve())
+    launches.update(phase_w8_decode())
+    phase_ring()
+    log(f"    phase 30 {time.perf_counter() - t30:.1f} s")
     phase("")
-    log("    decode tok/s, eager / graph (medians of 3, this run):")
+    log("    decode tok/s, eager (one run) / graph (median of 3), this "
+        "run:")
     for label, (e, g) in GRAPH_TPS.items():
         log(f"      {label}: {e:.1f} / {g:.1f} ({g / e:.2f}x)")
     # launches: the count of the run of the path each kernel serves (the

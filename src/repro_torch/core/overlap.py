@@ -55,13 +55,14 @@ untouched, so it is reduced without it and EF is returned as it came).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 
 from ..kernels import fused_matmul_rd as fmrd
 from ..kernels.quant_pack import GROUP_CAP
 from ..kernels.rd_allreduce.ref import is_pow2
+from ..kernels.w8_matmul import w8_matmul
 from . import autotune
 from . import hierarchical as hier
 from .mesh import VirtualMesh
@@ -70,13 +71,20 @@ from .pcontext import ParallelCtx
 BACKENDS = ("fused", "lax")
 
 
-def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(x: torch.Tensor, w) -> torch.Tensor:
     """Each rank's x (R, *lead, *c) times its w (R, *c, d): the contraction
-    over x's trailing dims c, one batched product -> (R, *lead, d)."""
-    R, d = w.shape[0], w.shape[-1]
-    kd = math.prod(w.shape[1:-1])
-    lead = x.shape[1:x.dim() - (w.dim() - 2)]
-    out = torch.bmm(x.reshape(R, -1, kd), w.reshape(R, kd, d))
+    over x's trailing dims c, one batched product -> (R, *lead, d).  A
+    quantized w ({q, s}, ``weight_quant``) goes through ``w8_matmul``."""
+    wt = w["q"] if isinstance(w, Mapping) else w
+    R, d = wt.shape[0], wt.shape[-1]
+    kd = math.prod(wt.shape[1:-1])
+    lead = x.shape[1:x.dim() - (wt.dim() - 2)]
+    x2 = x.reshape(R, -1, kd)
+    if isinstance(w, Mapping):
+        out = w8_matmul(x2.contiguous(), wt.reshape(R, kd, d),
+                        w["s"].reshape(R, -1))
+    else:
+        out = torch.bmm(x2, wt.reshape(R, kd, d))
     return out.reshape(R, *lead, d)
 
 

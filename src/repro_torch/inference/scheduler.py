@@ -55,7 +55,11 @@ ragged batches, the mechanism of the paper's trace evaluation
 
 Scheduling time is a logical step clock (1.0 an engine step), so traces
 replay deterministically; wall-clock times are recorded beside it for TTFT
-and TPOT.  Left to a later slice: the int8 KV cache (ROADMAP item 9).
+and TPOT.
+* ``kv_quant``: the int8 cache (int8 K/V, bf16 ``k_scale``/``v_scale``),
+  dense layout and full admission only, with the reference's refusals.
+  Every row operation moves the scale leaves with K/V
+  (``transformer.KV_LEAVES``); the NaN poke writes into ``k_scale``.
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ import torch
 
 from ..core.pcontext import LOCAL, ParallelCtx
 from ..models import layers as L
-from ..models.transformer import ArchPlan, DenseLM, fold_table
+from ..models.transformer import KV_LEAVES, ArchPlan, DenseLM, fold_table
 from ..parallel.steps import (ARTable, build_admit_chunk_step,
                               build_admit_step, build_cache_init,
                               build_kv_splice_step, build_serve_step,
@@ -349,9 +353,6 @@ class ContinuousBatcher:
         is the default TTFT deadline in logical steps (a request's own
         ``deadline_s`` tightens it); a request still waiting for its first
         admission past it is shed and reported."""
-        if kv_quant:
-            raise NotImplementedError(
-                "the int8 KV cache arrives with ROADMAP item 9")
         family = ap.cfg.family
         if admit_mode not in ("full", "chunked"):
             raise ValueError(f"unknown admit_mode {admit_mode!r}")
@@ -372,6 +373,10 @@ class ContinuousBatcher:
                 raise ValueError("prefix_cache rides the chunked suffix "
                                  f"prefill: dense families only, not "
                                  f"{family!r}")
+            if kv_quant:
+                raise ValueError("prefix_cache is incompatible with "
+                                 "kv_quant (int8 cache is dense-layout, "
+                                 "full-admission only)")
             if admit_chunk < 1 or admit_chunk % block_size:
                 raise ValueError(f"admit_chunk={admit_chunk} must be a "
                                  f"positive multiple of block_size="
@@ -380,6 +385,19 @@ class ContinuousBatcher:
                 raise ValueError(f"s_max={s_max} must be a multiple of "
                                  f"admit_chunk={admit_chunk} for "
                                  "prefix_cache")
+        if kv_quant:
+            # the reference's refusals (repro/inference/scheduler.py:417-431)
+            if admit_mode == "chunked":
+                raise ValueError("kv_quant needs full-prefill admission: "
+                                 "chunked prefill cannot re-read the int8 "
+                                 "cache mid-prompt")
+            if block_size > 0 and not ap.cfg.attn_free:
+                raise ValueError("kv_quant is incompatible with the paged "
+                                 "KV layout (block_size > 0)")
+            if spec_mode:
+                raise ValueError("kv_quant is incompatible with "
+                                 "speculative decoding (the verify pass "
+                                 "rides chunked prefill)")
         if drafter is not None and not spec_mode:
             raise ValueError("an injected drafter needs spec_mode set")
         if spec_mode:
@@ -414,10 +432,12 @@ class ContinuousBatcher:
             self.alloc = BlockAllocator(n_blocks, block_size, slots,
                                         max_blocks)
         self.n_blocks = n_blocks
+        self.kv_quant = kv_quant
         self.cache = build_cache_init(
             ap, ctx, mesh, slots=slots, s_max=s_max,
             block_size=self.block_size, n_blocks=n_blocks,
-            device=self.device)()
+            kv_quant=kv_quant, device=self.device)()
+        self._kv = [n for n in KV_LEAVES if n in self.cache]
         # host mirrors of the device-side slot state
         self.positions = np.zeros((slots,), np.int32)
         self.remaining = np.zeros((slots,), np.int32)
@@ -762,7 +782,7 @@ class ContinuousBatcher:
                 old, new = self.alloc.fork_for_write(slot, bidx)
                 src = self._folded(old, self.n_blocks)
                 dst = self._folded(new, self.n_blocks)
-                for n in ("k", "v"):
+                for n in self._kv:
                     self.cache[n][:, dst] = self.cache[n][:, src]
                 self._sync_table()
             rows = self._folded(int(self.alloc.table[slot, bidx]),
@@ -770,7 +790,10 @@ class ContinuousBatcher:
             off = p % self.block_size
         else:
             rows, off = self._folded(slot, self.slots), p
-        self.cache["k"][:, rows, off] = float("nan")
+        # the int8 cache holds no NaN: its scale does (the reference's
+        # jnp.asarray(nan, int8) raises; ROADMAP §3)
+        poked = "k_scale" if "k_scale" in self.cache else "k"
+        self.cache[poked][:, rows, off] = float("nan")
         self._tainted.add(slot)
 
     def _scrub_slot(self, slot: int) -> None:
@@ -791,7 +814,7 @@ class ContinuousBatcher:
             rows = [self._folded(slot, self.slots)]
         if rows:
             rows = torch.cat(rows)
-            for n in ("k", "v"):
+            for n in self._kv:
                 self.cache[n].index_fill_(1, rows, 0)
         self._tainted.discard(slot)
 
@@ -1106,7 +1129,7 @@ class ContinuousBatcher:
         p = torch.as_tensor(perm, dtype=torch.int64, device=self.device)
         p = (p[None] + self.n_blocks * torch.arange(
             self.R, device=self.device)[:, None]).reshape(-1)
-        for n in ("k", "v"):
+        for n in self._kv:
             self.cache[n].copy_(self.cache[n][:, p])
         self._sync_table()
 

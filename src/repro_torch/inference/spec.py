@@ -19,11 +19,13 @@ and the one construction path from it: the port of
   engine and a prefill pool.  Each builds its own virtual mesh(es) on the
   given device (``device=None``: the card).
 
-What the reference accepts and builds but the port has not ported is
-refused at build time: ``kv_quant`` and ``seq_parallel`` wait for ROADMAP
-item 9 (``NotImplementedError``), ``fsdp_serve`` for item 11;
-``scan_layers`` is a compile knob of the reference with nothing to choose
-here.
+``kv_quant`` (the int8 KV cache) builds where the reference builds it:
+trace mode, full admission, the dense layout, no speculation, no prefix
+cache, no disagg (``validate``, the reference's messages).  What the
+reference accepts and builds but the port has not ported is refused at
+build time: ``seq_parallel`` waits for ROADMAP item 9
+(``NotImplementedError``), ``fsdp_serve`` for item 11; ``scan_layers`` is
+a compile knob of the reference with nothing to choose here.
 """
 from __future__ import annotations
 
@@ -278,7 +280,7 @@ class ServeSpec:
             block_size=ns.block_size, n_blocks=ns.n_blocks,
             admit_mode=ns.admit_mode, admit_chunk=ns.admit_chunk,
             prefix_cache=ns.prefix_cache,
-            prefix_capacity=ns.prefix_capacity,
+            prefix_capacity=ns.prefix_capacity, kv_quant=ns.kv_quant,
             temperature=ns.temperature, top_k=ns.top_k, seed=ns.seed,
             spec_mode=spec_mode, spec_k=ns.spec_k,
             spec_adaptive=ns.spec_adaptive, draft_arch=ns.draft_arch,

@@ -50,6 +50,20 @@
 //    kMinDenom).  No atomics and no host counter: two calls are bitwise
 //    equal and a captured CUDA graph can replay the pair.  A row with no
 //    visible key (pos < 0) has no live split and gets zeros.
+//
+// The int8 form (dense only) reads the reference's int8 cache: int8 K/V
+// payloads with one bf16 scale per (row, position, kv head), as
+// repro/models/layers.py::attn_core dequantizes them (:176-195, the
+// k_scale / v_scale branch; the reference has no Pallas kernel for it).
+// What bounds it is the same KV read, now 1 byte an element plus 2 bytes
+// a (position, head) for the scale: at hd 64, 66 bytes against the bf16
+// cache's 128.  Its design: only the tile copy differs (Int8KV::tile).
+// Each lane reads 16 payload bytes with one 16-byte load and the row's
+// scale, forms T(float(q) * float(scale)) in registers (the reference's
+// operand: bf16-rounded in a bf16 model, exact in an f32 one) and stores
+// it into the warp's tile, which the plain form's code then reads; the
+// split, the scores and the merge are the plain form's, so the int8 form
+// equals the plain form on the dequantized cache.
 
 #include <cmath>
 #include <type_traits>
@@ -99,9 +113,14 @@ __host__ __device__ inline void live_splits(int pos, int n_keys, int window,
 
 struct DenseRows {
   int S;  // cache length
+  // (b, p, u) as an index of the (B, S, Hkv) scales
+  __device__ __forceinline__ long long head(int b, int p, int Hkv,
+                                            int u) const {
+    return (static_cast<long long>(b) * S + p) * Hkv + u;
+  }
   __device__ __forceinline__ long long row(int b, int p, int Hkv, int u,
                                            int hd) const {
-    return ((static_cast<long long>(b) * S + p) * Hkv + u) * hd;
+    return head(b, p, Hkv, u) * hd;
   }
 };
 
@@ -141,6 +160,84 @@ __device__ __forceinline__ void copy_tile(T* dst, int ld, const T* src,
                    ok ? 16 : 0);
   }
 }
+
+// Where a split kernel's K and V rows come from.  PlainKV: the cache in
+// the operands' own type, copied as it is by cp.async.
+template <typename T>
+struct PlainKV {
+  const T* k;
+  const T* v;
+  template <typename Rows>
+  __device__ __forceinline__ void tile(T* dst, int ld, bool is_v,
+                                       const Rows& rows, int b, int u,
+                                       int Hkv, int hd, int p0, int first,
+                                       int last, int lane) const {
+    copy_tile(dst, ld, is_v ? v : k, rows, b, u, Hkv, hd, p0, first, last,
+              lane);
+  }
+};
+
+// The int8 value q (-128..127) as f32 without an I2F: the bits of 2^23 +
+// 128 plus q are the float 2^23 + 128 + q, exactly.
+__device__ __forceinline__ float i8_to_f32(int q) {
+  return __int_as_float(0x4B000080 + q) - 8388736.f;
+}
+
+// 16 f32 into shared memory as T (16-byte aligned).
+__device__ __forceinline__ void store16x(float* d, const float* f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    reinterpret_cast<float4*>(d)[i] =
+        make_float4(f[4 * i], f[4 * i + 1], f[4 * i + 2], f[4 * i + 3]);
+}
+
+__device__ __forceinline__ void store16x(bf16* d, const float* f) {
+  unsigned w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = tc::pack_bf16(f[2 * i], f[2 * i + 1]);
+  reinterpret_cast<uint4*>(d)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(d)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Int8KV: int8 payloads (B, S, Hkv, hd) and bf16 scales (B, S, Hkv),
+// dense rows only.  A lane takes 16 payload bytes of one row a step (one
+// 16-byte load), scales them in f32 and stores them as T; rows outside
+// [first, last] are zeros and read nothing.
+struct Int8KV {
+  const signed char* k;
+  const signed char* v;
+  const bf16* ks;
+  const bf16* vs;
+  template <typename T>
+  __device__ __forceinline__ void tile(T* dst, int ld, bool is_v,
+                                       const DenseRows& rows, int b, int u,
+                                       int Hkv, int hd, int p0, int first,
+                                       int last, int lane) const {
+    const signed char* src = is_v ? v : k;
+    const bf16* sc = is_v ? vs : ks;
+    const int chunks = hd / 16;
+    for (int i = lane; i < kTile * chunks; i += 32) {
+      const int r = i / chunks, c = i - r * chunks, p = p0 + r;
+      float f[16];
+      if (p >= first && p <= last) {
+        const long long h = rows.head(b, p, Hkv, u);
+        const int4 x =
+            __ldg(reinterpret_cast<const int4*>(src + h * hd + c * 16));
+        const float s = __bfloat162float(sc[h]);
+        const int w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          f[e] = i8_to_f32(static_cast<int>(static_cast<unsigned>(w[e / 4])
+                                            << (24 - 8 * (e % 4))) >> 24) *
+                 s;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) f[e] = 0.f;
+      }
+      store16x(dst + r * ld + c * 16, f);
+    }
+  }
+};
 
 // The split's partial from its warps' states in shared memory (warp w:
 // m, l at mls[2 g w + {0, g} + h], acc at accs[g hd w + f]), merged in
@@ -223,10 +320,9 @@ __host__ __device__ inline CcSmem cc_smem(int g, int hd, int esz) {
 
 // One CTA per (split, kv head u, sequence b): the split's f32 partial of
 // every query head of u, into ws.
-template <typename T, typename Rows>
+template <typename T, typename KV, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_split_cc(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
+decode_attention_split_cc(const T* __restrict__ q, KV kv,
                           const int* __restrict__ pos, float* __restrict__ ws,
                           Rows rows, int n_keys, int Hkv, int g, int hd,
                           int window, float scale) {
@@ -254,9 +350,11 @@ decode_attention_split_cc(const T* __restrict__ q, const T* __restrict__ k,
   // this warp's keys p0 .. p0 + 31: K rows, then V rows, in flight
   const int p0 = s0 + warp * kTile;
   const bool live = p0 <= last && p0 + kTile > first;
-  if (live) copy_tile(ks, ld, k, rows, b, u, Hkv, hd, p0, first, last, lane);
+  if (live)
+    kv.tile(ks, ld, false, rows, b, u, Hkv, hd, p0, first, last, lane);
   tc::cp_async_commit();
-  if (live) copy_tile(vs, ld, v, rows, b, u, Hkv, hd, p0, first, last, lane);
+  if (live)
+    kv.tile(vs, ld, true, rows, b, u, Hkv, hd, p0, first, last, lane);
   tc::cp_async_commit();
   const T* qb = q + (static_cast<long long>(b) * Hkv + u) * gh;
   for (int i = threadIdx.x; i < gh; i += kThreads) qs[i] = attn::to_f32(qb[i]);
@@ -373,11 +471,9 @@ struct TcSmem {
   static int total(int g) { return ACC + kWarps * g * (HD + 2) * 4; }
 };
 
-template <int HD, typename Rows>
+template <int HD, typename KV, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_split_tc(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
+decode_attention_split_tc(const bf16* __restrict__ q, KV kv,
                           const int* __restrict__ pos, float* __restrict__ ws,
                           Rows rows, int n_keys, int Hkv, int g, int window,
                           float scale) {
@@ -413,9 +509,11 @@ decode_attention_split_tc(const bf16* __restrict__ q,
   tc::cp_async_commit();
   const int p0 = s0 + warp * kTile;
   const bool live = p0 <= last && p0 + kTile > first;
-  if (live) copy_tile(Ks, S, k, rows, b, u, Hkv, HD, p0, first, last, lane);
+  if (live)
+    kv.tile(Ks, S, false, rows, b, u, Hkv, HD, p0, first, last, lane);
   tc::cp_async_commit();
-  if (live) copy_tile(Vs, S, v, rows, b, u, Hkv, HD, p0, first, last, lane);
+  if (live)
+    kv.tile(Vs, S, true, rows, b, u, Hkv, HD, p0, first, last, lane);
   tc::cp_async_commit();
   tc::cp_async_wait<2>();
   __syncthreads();  // q
@@ -573,40 +671,40 @@ cudaError_t allow_smem(Kern kern, int bytes, int* configured) {
   return e;
 }
 
-template <typename T, typename Rows>
-cudaError_t launch_cc(const T* q, const T* k, const T* v, const int* pos,
+template <typename T, typename KV, typename Rows>
+cudaError_t launch_cc(const T* q, KV kv, const int* pos,
                       float* ws, Rows rows, int n_keys, int B, int Hkv,
                       int g, int hd, int window, float scale,
                       cudaStream_t st) {
-  auto kern = decode_attention_split_cc<T, Rows>;
+  auto kern = decode_attention_split_cc<T, KV, Rows>;
   static int configured = 48 * 1024;
   const int bytes = cc_smem(g, hd, sizeof(T)).total;
   const cudaError_t e = allow_smem(kern, bytes, &configured);
   if (e != cudaSuccess) return e;
   kern<<<dim3(n_splits(n_keys), Hkv, B), kThreads, bytes, st>>>(
-      q, k, v, pos, ws, rows, n_keys, Hkv, g, hd, window, scale);
+      q, kv, pos, ws, rows, n_keys, Hkv, g, hd, window, scale);
   return cudaGetLastError();
 }
 
-template <int HD, typename Rows>
-cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
+template <int HD, typename KV, typename Rows>
+cudaError_t launch_tc(const bf16* q, KV kv,
                       const int* pos, float* ws, Rows rows, int n_keys,
                       int B, int Hkv, int g, int window, float scale,
                       cudaStream_t st) {
-  auto kern = decode_attention_split_tc<HD, Rows>;
+  auto kern = decode_attention_split_tc<HD, KV, Rows>;
   static int configured = 48 * 1024;
   const int bytes = TcSmem<HD>::total(g);
   const cudaError_t e = allow_smem(kern, bytes, &configured);
   if (e != cudaSuccess) return e;
   kern<<<dim3(n_splits(n_keys), Hkv, B), kThreads, bytes, st>>>(
-      q, k, v, pos, ws, rows, n_keys, Hkv, g, window, scale);
+      q, kv, pos, ws, rows, n_keys, Hkv, g, window, scale);
   return cudaGetLastError();
 }
 
 // The split kernel: bf16 on the tensor cores where it takes the shape,
 // else on the CUDA cores.
-template <typename T, typename Rows>
-cudaError_t launch_split(const T* q, const T* k, const T* v, const int* pos,
+template <typename T, typename KV, typename Rows>
+cudaError_t launch_split(const T* q, KV kv, const int* pos,
                          float* ws, Rows rows, int n_keys, int B, int Hkv,
                          int g, int hd, int window, cudaStream_t st) {
   const float scale = static_cast<float>(1.0 / std::sqrt(double(hd)));
@@ -615,7 +713,7 @@ cudaError_t launch_split(const T* q, const T* k, const T* v, const int* pos,
       switch (hd) {
 #define DECODE_TC(HD)                                                       \
   case HD:                                                                  \
-    return launch_tc<HD>(q, k, v, pos, ws, rows, n_keys, B, Hkv, g, window, \
+    return launch_tc<HD>(q, kv, pos, ws, rows, n_keys, B, Hkv, g, window,   \
                          scale, st);
         DECODE_TC(16)
         DECODE_TC(32)
@@ -627,7 +725,7 @@ cudaError_t launch_split(const T* q, const T* k, const T* v, const int* pos,
       }
     }
   }
-  return launch_cc(q, k, v, pos, ws, rows, n_keys, B, Hkv, g, hd, window,
+  return launch_cc(q, kv, pos, ws, rows, n_keys, B, Hkv, g, hd, window,
                    scale, st);
 }
 
@@ -636,8 +734,8 @@ bool shape_ok(int g, int hd, int vec) {
          g > 0 && g * hd <= kMaxGroupWidth;
 }
 
-template <typename T, typename Rows>
-int launch(const void* q, const void* k, const void* v, const void* pos,
+template <typename T, typename KV, typename Rows>
+int launch(const void* q, KV kv, const void* pos,
            void* out, void* ws, Rows rows, int n_keys, int B, int Hq,
            int Hkv, int hd, int window, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || B <= 0 || n_keys <= 0 ||
@@ -647,10 +745,8 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   float* w = static_cast<float*>(ws);
-  cudaError_t e = launch_split(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), p, w, rows, n_keys, B, Hkv, g, hd, window,
-      st);
+  cudaError_t e = launch_split(static_cast<const T*>(q), kv, p, w, rows,
+                               n_keys, B, Hkv, g, hd, window, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((g * hd + kThreads - 1) / kThreads, Hkv, B);
@@ -667,6 +763,11 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
                          g, hd, window);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+PlainKV<T> plain_kv(const void* k, const void* v) {
+  return PlainKV<T>{static_cast<const T*>(k), static_cast<const T*>(v)};
 }
 
 }  // namespace
@@ -703,10 +804,30 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        int is_bf16, void* stream) {
   DenseRows rows{S};
   if (is_bf16)
-    return launch<bf16>(q, k, v, pos, out, ws, rows, S, B, Hq, Hkv, hd,
-                        window, stream);
-  return launch<float>(q, k, v, pos, out, ws, rows, S, B, Hq, Hkv, hd,
-                       window, stream);
+    return launch<bf16>(q, plain_kv<bf16>(k, v), pos, out, ws, rows, S, B,
+                        Hq, Hkv, hd, window, stream);
+  return launch<float>(q, plain_kv<float>(k, v), pos, out, ws, rows, S, B,
+                       Hq, Hkv, hd, window, stream);
+}
+
+// The int8 form: q (B, Hq, hd) f32 or bf16; k/v (B, S, Hkv, hd) int8;
+// k_scale/v_scale (B, S, Hkv) bf16; the rest as decode_attention_launch.
+// hd a multiple of 16 (one 16-byte payload load a lane and step).
+extern "C" int decode_attention_int8_launch(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* pos, void* out, void* ws, int B,
+    int Hq, int Hkv, int S, int hd, int window, int is_bf16, void* stream) {
+  if (hd % 16) return static_cast<int>(cudaErrorInvalidValue);
+  DenseRows rows{S};
+  const Int8KV kv{static_cast<const signed char*>(k),
+                  static_cast<const signed char*>(v),
+                  static_cast<const bf16*>(k_scale),
+                  static_cast<const bf16*>(v_scale)};
+  if (is_bf16)
+    return launch<bf16>(q, kv, pos, out, ws, rows, S, B, Hq, Hkv, hd, window,
+                        stream);
+  return launch<float>(q, kv, pos, out, ws, rows, S, B, Hq, Hkv, hd, window,
+                       stream);
 }
 
 // q (B, Hq, hd); k/v (n_blocks, bs, Hkv, hd); tbl (B, max_blocks) int32;
@@ -719,8 +840,8 @@ extern "C" int paged_decode_attention_launch(
   PagedRows rows{static_cast<const int*>(tbl), bs, max_blocks};
   const int n_keys = bs * max_blocks;
   if (is_bf16)
-    return launch<bf16>(q, k, v, pos, out, ws, rows, n_keys, B, Hq, Hkv, hd,
-                        window, stream);
-  return launch<float>(q, k, v, pos, out, ws, rows, n_keys, B, Hq, Hkv, hd,
-                       window, stream);
+    return launch<bf16>(q, plain_kv<bf16>(k, v), pos, out, ws, rows, n_keys,
+                        B, Hq, Hkv, hd, window, stream);
+  return launch<float>(q, plain_kv<float>(k, v), pos, out, ws, rows, n_keys,
+                       B, Hq, Hkv, hd, window, stream);
 }

@@ -16,22 +16,31 @@ once per shape.  A call is two CUDA launches and counts as one in
 ``.launches``.  bf16 at hd 16, 32, 64 or 128 with at most 16 query heads
 a kv head runs its products on the tensor cores; f32 and the other bf16
 shapes on the CUDA cores.
+
+The int8 form (:func:`decode_attention_int8`, dense only, reached through
+``decode_attention(..., k_scale=, v_scale=)``) reads the reference's int8
+cache: int8 K/V and one bf16 scale a (sequence, position, kv head).  It
+forms ``q.dtype(float(k8) * float(scale))`` as the reference's
+``attn_core`` dequantizes, then runs the same split and merge; its plain
+version dequantizes the same way and calls the plain version above.  Its
+launches count in ``decode_attention_int8.launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .. import _build
 from .._checks import check_index, check_operands
-from .ref import (decode_attention_ref, live_splits,
-                  paged_decode_attention_ref, visible_keys)
+from .ref import (decode_attention_int8_ref, decode_attention_ref,
+                  live_splits, paged_decode_attention_ref, visible_keys)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _DENSE_ARGTYPES = (_P,) * 6 + (_I,) * 7 + (_P,)
+_INT8_ARGTYPES = (_P,) * 8 + (_I,) * 7 + (_P,)
 _PAGED_ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
 SOURCE = "decode_attention"
 HEAD_DIMS = tuple(range(8, 129, 8))
@@ -112,15 +121,22 @@ def _check(name, q, k, v, Hkv):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     positions: torch.Tensor, *,
-                     window: int = 0) -> torch.Tensor:
+                     positions: torch.Tensor, *, window: int = 0,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, Hq, hd); k/v: (B, S, Hkv, hd); positions: (B,) int32, the
-    last key each sequence sees -> (B, Hq, hd)."""
+    last key each sequence sees -> (B, Hq, hd).  With ``k_scale`` /
+    ``v_scale`` ((B, S, Hkv) bf16) k/v are the int8 cache and the call is
+    :func:`decode_attention_int8`'s."""
     B, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv or k.shape != (B, S, Hkv, hd) or v.shape != k.shape:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if k_scale is not None or v_scale is not None \
+            or k.dtype == torch.int8:
+        return decode_attention_int8(q, k, v, k_scale, v_scale, positions,
+                                     window=window)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, positions, window=window)
     _check("decode_attention", q, k, v, Hkv)
@@ -135,6 +151,61 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(SOURCE, "decode_attention", err)
     decode_attention.launches += 1
+    return out
+
+
+def decode_attention_int8(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, positions: torch.Tensor, *,
+                          window: int = 0) -> torch.Tensor:
+    """Kernel 1 over the int8 cache.  q: (B, Hq, hd) f32 or bf16;
+    k/v: (B, S, Hkv, hd) int8; k_scale/v_scale: (B, S, Hkv) bf16;
+    positions: (B,) int32 -> (B, Hq, hd) in q's type.  The payloads are
+    read as ``q.dtype(float(k) * float(scale))``."""
+    B, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k_scale is None or v_scale is None:
+        raise ValueError("decode_attention_int8: the int8 cache needs "
+                         "k_scale and v_scale")
+    if Hq % Hkv or k.shape != (B, S, Hkv, hd) or v.shape != k.shape \
+            or k_scale.shape != (B, S, Hkv) or v_scale.shape != k_scale.shape:
+        raise ValueError(f"decode_attention_int8: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} k_scale "
+                         f"{tuple(k_scale.shape)} v_scale "
+                         f"{tuple(v_scale.shape)}")
+    for name, t, dt in (("k", k, torch.int8), ("v", v, torch.int8),
+                        ("k_scale", k_scale, torch.bfloat16),
+                        ("v_scale", v_scale, torch.bfloat16)):
+        if t.dtype != dt or t.device != q.device:
+            raise ValueError(f"decode_attention_int8: {name} must be {dt} "
+                             f"on {q.device}, got {t.dtype} on {t.device}")
+    if q.device.type == "cpu":
+        return decode_attention_int8_ref(q, k, v, k_scale, v_scale,
+                                         positions, window=window)
+    check_operands("decode_attention_int8", (q,), HEAD_DIMS)
+    if hd % 16 or not q.is_contiguous():
+        raise ValueError("decode_attention_int8: hd must be a multiple of "
+                         "16 and q contiguous")
+    if (Hq // Hkv) * hd > MAX_GROUP_WIDTH:
+        raise ValueError(f"decode_attention_int8: (Hq/Hkv)*hd > "
+                         f"{MAX_GROUP_WIDTH}")
+    for t in (k, v, k_scale, v_scale):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("decode_attention_int8: k, v and the scales "
+                             "must be contiguous and 16-byte aligned")
+    check_index("decode_attention_int8 positions", positions, (B,),
+                q.device)
+    out = torch.empty_like(q)
+    ws = _workspace(q, Hkv, S, int(window))
+    fn = _build.c_function(SOURCE, "decode_attention_int8_launch",
+                           _INT8_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+             v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(),
+             ws.data_ptr(), B, Hq, Hkv, S, hd, int(window),
+             int(q.dtype == torch.bfloat16),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(SOURCE, "decode_attention_int8", err)
+    decode_attention_int8.launches += 1
     return out
 
 
@@ -178,9 +249,11 @@ def paged_decode_attention(q: torch.Tensor, k_phys: torch.Tensor,
 
 
 decode_attention.launches = 0
+decode_attention_int8.launches = 0
 paged_decode_attention.launches = 0
 
-__all__ = ["decode_attention", "paged_decode_attention",
+__all__ = ["decode_attention", "decode_attention_int8",
+           "paged_decode_attention", "decode_attention_int8_ref",
            "decode_attention_ref", "paged_decode_attention_ref",
            "SPLIT_KEYS", "SplitPlan", "live_splits", "split_plan",
            "visible_keys", "workspace_floats"]

@@ -32,6 +32,24 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, Hq, hd).to(q.dtype)
 
 
+def dequant_kv(t: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """An int8 cache (..., hd) with its bf16 scales (...) as ``dtype``:
+    ``dtype(float(t) * float(scale))``, the reference's ``attn_core``."""
+    return (t.float() * scale.float()[..., None]).to(dtype)
+
+
+def decode_attention_int8_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, positions: torch.Tensor,
+                              *, window: int = 0) -> torch.Tensor:
+    """The int8 form: k/v (B, S, Hkv, hd) int8 and their (B, S, Hkv)
+    bf16 scales dequantized to q's type, then :func:`decode_attention_ref`."""
+    return decode_attention_ref(q, dequant_kv(k, k_scale, q.dtype),
+                                dequant_kv(v, v_scale, q.dtype), positions,
+                                window=window)
+
+
 def paged_decode_attention_ref(q: torch.Tensor, k_phys: torch.Tensor,
                                v_phys: torch.Tensor, block_tbl: torch.Tensor,
                                positions: torch.Tensor, *,
@@ -122,5 +140,6 @@ def paged_decode_attention_split_ref(q: torch.Tensor, k_phys: torch.Tensor,
 
 
 __all__ = ["decode_attention_ref", "paged_decode_attention_ref",
+           "decode_attention_int8_ref", "dequant_kv",
            "decode_attention_split_ref", "paged_decode_attention_split_ref",
            "live_splits", "visible_keys"]

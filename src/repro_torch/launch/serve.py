@@ -167,6 +167,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trace: tokens a chunk (--s-max a multiple of it)")
     p.add_argument("--prefix-cache", choices=("off", "on"), default="off",
                    help="trace: splice resident prompt prefixes (paged)")
+    p.add_argument("--kv-quant", action="store_true",
+                   help="trace: int8 KV cache with per-(pos, head) bf16 "
+                        "scales (dense layout, full admission, no "
+                        "speculation)")
     p.add_argument("--prefix-capacity", type=int, default=None,
                    help="trace: blocks the prefix cache may hold")
     p.add_argument("--shared-frac", type=float, default=None,
@@ -261,6 +265,8 @@ def _layout(args: argparse.Namespace, cfg, mesh, ctx) -> str:
         else "recurrent" if cfg.attn_free else "dense"
     if cfg.family == "hybrid":
         layout += "+conv/ssm state"
+    if args.kv_quant:
+        layout += "+kv8"
     if mesh is not None:
         layout += (f" tp={args.tp} ({mesh.pods}x{mesh.fast}) "
                    f"ar={args.ar_strategy}")

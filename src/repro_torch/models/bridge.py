@@ -34,9 +34,16 @@ def _tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
 _F32_LEAVES = ("router", "w0", "u", "A_log", "D_skip", "dt_bias", "beta")
 
 
-def _leaf(name: str, a: Any, dtype, device, layer=None) -> torch.Tensor:
+def _leaf(name: str, a: Any, dtype, device, layer=None):
     """One leaf (its ``layer``-th slice when given) in ``dtype``, or f32
-    when ``name`` is one of ``_F32_LEAVES``."""
+    when ``name`` is one of ``_F32_LEAVES``.  A quantized leaf of the
+    reference's ``quantize_params`` ({"q": int8, "s": bf16}) keeps its
+    types."""
+    if isinstance(a, Mapping) and set(a) == {"q", "s"}:
+        q = np.asarray(a["q"] if layer is None else np.asarray(a["q"])[layer])
+        return {"q": torch.tensor(q.astype(np.int8), device=device),
+                "s": _leaf(name, a["s"], torch.bfloat16, device, layer)
+                .to(torch.bfloat16)}
     return _tensor(a if layer is None else np.asarray(a)[layer],
                    torch.float32 if name in _F32_LEAVES else dtype, device)
 
@@ -56,7 +63,8 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     layout of the plan at tp = the mesh's size (1 without a mesh).  Leaves
     are cast to ``cfg.dtype`` on ``device`` (``_F32_LEAVES`` kept f32),
     layouts kept, and cut over the mesh's ranks: every leaf becomes
-    (R, *local)."""
+    (R, *local).  The blocks of the reference's ``quantize_params`` tree
+    come across as {"q", "s"} nodes (int8 and bf16)."""
     if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with ROADMAP item 10")

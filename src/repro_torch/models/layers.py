@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from ..core import hierarchical as hier
 from ..core.pcontext import ParallelCtx
 from ..kernels import (decode_attention, flash_attention,
-                       flash_attention_chunk, paged_decode_attention)
+                       flash_attention_chunk, paged_decode_attention,
+                       w8_matmul)
 from .common import ModelConfig
 
 Params = Mapping[str, torch.Tensor]
@@ -78,19 +79,35 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return out.to(x.dtype)
 
 
-def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def flat_weight(w, K: int):
+    """A weight (R, *c, N) or quantized leaf {q, s} seen as (R, K, N),
+    K = prod(c): a view, the {q, s} scale as (R, P)."""
+    if isinstance(w, Mapping):
+        R = w["q"].shape[0]
+        return {"q": w["q"].reshape(R, K, -1), "s": w["s"].reshape(R, -1)}
+    return w.reshape(w.shape[0], K, -1)
+
+
+def rank_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """x (R, ..., K) @ w (R, K, N) -> (R, ..., N): each rank's activations
-    times its own weight shard, one batched product."""
+    times its own weight shard, one batched product.  A quantized leaf
+    {"q" (R, K, N) int8, "s" (R, P) bf16} (``parallel/quant.py`` under
+    ``weight_quant``) goes to ``w8_matmul``, which dequantizes in
+    registers."""
     R, K = x.shape[0], x.shape[-1]
-    out = torch.bmm(x.reshape(R, -1, K), w)
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+    if isinstance(w, Mapping):
+        fw = flat_weight(w, K)
+        out = w8_matmul(x.reshape(R, -1, K).contiguous(), fw["q"], fw["s"])
+    else:
+        out = torch.bmm(x.reshape(R, -1, K), w)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 def _qkv(p: Params, h: torch.Tensor):
     """h (R, B, S, D) -> q (R, B, S, Q, hd), k/v (R, B, S, U, hd)."""
     def proj(w):
-        R, D, n, hd = w.shape
-        return rank_matmul(h, w.reshape(R, D, n * hd)) \
+        n, hd = (w["q"] if isinstance(w, Mapping) else w).shape[-2:]
+        return rank_matmul(h, flat_weight(w, h.shape[-1])) \
             .reshape(*h.shape[:-1], n, hd)
     return proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
 
@@ -154,12 +171,28 @@ def attention_prefill(p: Params, h: torch.Tensor, cfg: ModelConfig, *,
     return _masked_heads(o.reshape(q.shape), q_mask), (k, v)
 
 
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K or V (..., hd) -> (int8 payload (..., hd), bf16 scale (...)):
+    the reference's per-(position, head) ``q8``, scale = max|t| / 127 (at
+    least 1e-30), the payload rounded half to even from the f32 scale and
+    clipped to +-127.  The quotients are IEEE divisions by device tensors
+    (a CUDA division by a Python scalar multiplies by the reciprocal), so
+    the card writes the CPU's bits; device-only, so a captured step can
+    replay it."""
+    tf = t.float()
+    sc = torch.clamp(tf.abs().amax(-1) / torch.full((), 127.0,
+                                                    device=t.device),
+                     min=1e-30)
+    qq = torch.clamp(torch.round(tf / sc[..., None]), -127, 127)
+    return qq.to(torch.int8), sc.to(torch.bfloat16)
+
+
 def attention_decode(p: Params, h: torch.Tensor,
                      cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                      positions: torch.Tensor, kv_positions: torch.Tensor,
                      q_mask: Optional[torch.Tensor] = None,
-                     block_tbl: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     block_tbl: Optional[torch.Tensor] = None,
+                     ring: bool = False) -> torch.Tensor:
     """One-token decode step against this layer's KV cache: the port of
     ``attention_decode`` and ``_attention_decode_paged``.
 
@@ -172,6 +205,14 @@ def attention_decode(p: Params, h: torch.Tensor,
     bs]`` at offset ``pos % bs``, and rows of inactive slots point at
     their rank's trash block.
 
+    The int8 cache (``cache['k_scale']``/``['v_scale']`` (R*B, S_max, U)
+    bf16 beside int8 K/V, dense only): the new K/V are written as
+    :func:`quantize_kv` makes them and kernel 1's int8 form reads them.
+    The ring (``ring=True``, S_max = the sliding window W): the write goes
+    to slot ``pos % W`` and the kernel sees slots 0 .. min(pos, W - 1)
+    with no window, the reference's mask "slot <= pos": every slot written
+    holds one of the last W positions.
+
     Unlike the JAX layer, which returns a rebuilt cache, the new K/V are
     written into ``cache`` in place and only the masked heads
     (R, B, 1, Q, hd) are returned, for the caller to project (the
@@ -183,16 +224,26 @@ def attention_decode(p: Params, h: torch.Tensor,
     bidx = torch.arange(rb, device=h.device)
     pos = kv_positions.long()
     if block_tbl is None:
-        rows = (bidx, pos)
+        rows = (bidx, pos % k.shape[1] if ring else pos)
     else:
         bs = k.shape[1]
         rows = (block_tbl[bidx, pos // bs].long(), pos % bs)
-    k[rows] = _fold(k_new)[:, 0].to(k.dtype)
-    v[rows] = _fold(v_new)[:, 0].to(v.dtype)
+    kf, vf = _fold(k_new)[:, 0], _fold(v_new)[:, 0]
+    scales = {}
+    if "k_scale" in cache:
+        scales = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+        (k[rows], scales["k_scale"][rows]) = quantize_kv(kf)
+        (v[rows], scales["v_scale"][rows]) = quantize_kv(vf)
+    else:
+        k[rows] = kf.to(k.dtype)
+        v[rows] = vf.to(v.dtype)
     qf = _fold(q)[:, 0]
     if block_tbl is None:
-        o = decode_attention(qf, k, v, kv_positions,
-                             window=cfg.sliding_window)
+        if ring:
+            seen, window = kv_positions.clamp(max=k.shape[1] - 1), 0
+        else:
+            seen, window = kv_positions, cfg.sliding_window
+        o = decode_attention(qf, k, v, seen, window=window, **scales)
     else:
         o = paged_decode_attention(qf, k, v, block_tbl, kv_positions,
                                    window=cfg.sliding_window)
@@ -379,7 +430,8 @@ def sample_token(logits: torch.Tensor, keys: Optional[torch.Tensor] = None,
 
 
 __all__ = ["rms_norm", "apply_norm", "rope_tables", "apply_rope",
-           "rank_matmul", "attention_prefill", "attention_decode",
+           "rank_matmul", "flat_weight", "attention_prefill",
+           "attention_decode", "quantize_kv",
            "attention_chunk_step",
            "mlp_hidden", "mlp_down_w", "embed_lookup", "lm_logits",
            "greedy_sample", "sample_token", "sampling_key", "NEG_INF"]

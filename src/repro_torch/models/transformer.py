@@ -33,13 +33,17 @@ batch, updated in place (JAX rebuilt them with ``.at[].set``).  Under a
 quantized wire (``ctx.ar_quant`` other than "none") the decode cache also
 carries the error-feedback leaf ``ef`` (:func:`ef_sites_for`), which the
 two row-parallel reductions of every decode block consume and refresh;
-prefill takes the one-shot rounding.
+prefill takes the one-shot rounding.  Item 9's decode variants are
+chosen by the cache and the step: the int8 cache (``kv_quant``: int8
+K/V beside bf16 ``k_scale``/``v_scale``), the ring-buffer window cache
+(``window_cache``, ``decode_step(kv_ring=True)``) and int8 block weights
+(``weight_quant``: ``{q, s}`` leaves, ``decode_step(layer_map=...)``).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +64,9 @@ Cache = Dict[str, torch.Tensor]
 # The recurrent per-layer cache leaves, batch-indexed under paging too: the
 # ssm family's (no K/V) and the hybrid family's mamba state (beside K/V).
 RECURRENT_LEAVES = ("shift_tm", "shift_cm", "wkv", "conv", "ssm")
+# The attention cache's leaves a row operation moves together: K/V and,
+# in the int8 cache, their per-(position, head) scales.
+KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +165,10 @@ def _q_mask(ap: ArchPlan, device: torch.device) -> Optional[torch.Tensor]:
 
 
 def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+    """Frozen parameters; a quantized leaf (``parallel/quant.py``) stays
+    the plain {"q", "s"} dict of tensors."""
+    return nn.ParameterDict({k: t if isinstance(t, Mapping)
+                             else nn.Parameter(t, requires_grad=False)
                              for k, t in tensors.items()})
 
 
@@ -451,7 +461,8 @@ def fold_table(tbl: torch.Tensor, R: int, n_blocks: int) -> torch.Tensor:
 def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
                n_blocks: Optional[int] = None,
                device: torch.device | str, mesh=None,
-               ef_sites: int = 0) -> Cache:
+               ef_sites: int = 0, kv_quant: bool = False,
+               window_cache: bool = False) -> Cache:
     """Decode cache, leading layer axis, per-rank (local) head counts as
     ``sharding.cache_spec`` cuts them (each rank holds ``ap.gqa.u`` kv
     slots), the R ranks folded into the batch, rank-major.
@@ -472,6 +483,13 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
     batch, d_model) f32, the reference's global layout with the ranks on
     its tp axis.
 
+    ``kv_quant``: int8 K/V with bf16 ``k_scale``/``v_scale`` (L, R*batch,
+    s_max, U), one scale a (position, head).  ``window_cache``: the ring
+    buffer of a sliding-window arch, ``s_max = min(s_max,
+    sliding_window)``.  Both take the dense layout only (a paged cache
+    with either raises, as the reference asserts); the ssm family ignores
+    ``kv_quant`` (it has no K/V).
+
     The ssm family holds no K/V: its cache is the recurrent state,
     ``shift_tm``/``shift_cm`` (L, R*batch, d_model) in ``cfg.dtype`` and
     ``wkv`` (L, R*batch, H_local, hd, hd) f32.  It has nothing to page,
@@ -484,6 +502,14 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
     """
     cfg = ap.cfg
     R = mesh.size if mesh is not None else 1
+    if window_cache:
+        if cfg.sliding_window <= 0:
+            raise ValueError(f"{cfg.name}: the window cache needs a "
+                             "sliding-window arch")
+        s_max = min(s_max, cfg.sliding_window)
+    if block_size > 0 and (kv_quant or window_cache):
+        raise ValueError("paged cache is incompatible with "
+                         "kv_quant/window_cache")
     if cfg.attn_free:
         if block_size > 0:
             raise ValueError(
@@ -514,8 +540,13 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
                  "block_tbl": fold_table(tbl, R, n_blocks)}
     else:
         shape = (Ld, R * batch, s_max, u, hd)
-        cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+        kv_dt = torch.int8 if kv_quant else cfg.dtype
+        cache = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
+                 "v": torch.zeros(shape, dtype=kv_dt, device=device)}
+        if kv_quant:
+            for n in ("k_scale", "v_scale"):
+                cache[n] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device)
     if cfg.family == "hybrid":
         st = SSM.init_ssm_state(cfg, R * batch, ap.d_inner_local,
                                 device=device, dtype=cfg.dtype)
@@ -563,7 +594,16 @@ def seed_cache(cache: Cache, states: Cache, slot: Optional[int] = None
     family's, the hybrid family's ``conv``/``ssm``) are copied into the
     slot's rows.  An ``ef`` leaf is zeroed (the slot's, or all of it): a
     fresh request starts with no rounding residue of the slot's last
-    occupant."""
+    occupant.  An int8 cache (``k_scale`` present) takes the prompt's K/V
+    quantized per (position, head) as the decode write quantizes them
+    (``layers.quantize_kv``, the reference's splice).  A prompt longer
+    than the cache (a ring of W slots) raises ``ValueError``, as the
+    reference's ``dynamic_update_slice`` cannot take it either."""
+    if "k" in states and "k" in cache and "block_tbl" not in cache \
+            and states["k"].shape[2] > cache["k"].shape[2]:
+        raise ValueError(f"a prompt of {states['k'].shape[2]} tokens does "
+                         f"not fit a cache of {cache['k'].shape[2]} "
+                         "positions")
     some = next(t for n, t in states.items() if n in cache)
     if slot is None:
         rows = slice(None)
@@ -584,8 +624,12 @@ def seed_cache(cache: Cache, states: Cache, slot: Optional[int] = None
         _paged_splice(cache["v"], states["v"], tbl)
     else:
         S = states["k"].shape[2]
-        cache["k"][:, rows, :S] = states["k"].to(cache["k"].dtype)
-        cache["v"][:, rows, :S] = states["v"].to(cache["v"].dtype)
+        for n in ("k", "v"):
+            if "k_scale" in cache:
+                cache[n][:, rows, :S], cache[n + "_scale"][:, rows, :S] = \
+                    L.quantize_kv(states[n])
+            else:
+                cache[n][:, rows, :S] = states[n].to(cache[n].dtype)
     return cache
 
 
@@ -598,9 +642,11 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
                  ctx: ParallelCtx = LOCAL, mesh=None, *,
                  positions: torch.Tensor, kv_positions: torch.Tensor,
                  q_mask: Optional[torch.Tensor] = None,
-                 block_tbl: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 block_tbl: Optional[torch.Tensor] = None,
+                 kv_ring: bool = False) -> torch.Tensor:
     """One block, one token.  x: (R, B, 1, D) replicated; cache_l: this
-    layer's {"k", "v"[, "ef"]} (written in place).  Both row-parallel
+    layer's {"k", "v"[, "k_scale", "v_scale"][, "ef"]} (written in place;
+    ``kv_ring``: a ring-buffer window cache).  Both row-parallel
     projections go through ``_residual_proj``: their reduction is the
     collective the paper targets.  A MoE block runs its dense path (every
     local expert on every token) and completes the TP-partial combine with
@@ -635,7 +681,7 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
     h = L.apply_norm(x, bp.ln1, cfg)
     heads = L.attention_decode(bp.attn, h, cache_l, cfg, positions=positions,
                                kv_positions=kv_positions, q_mask=q_mask,
-                               block_tbl=block_tbl)
+                               block_tbl=block_tbl, ring=kv_ring)
     if cfg.family == "hybrid":
         conv = cache_l["conv"]
         so, st = SSM.ssm_step(bp.ssm, h, {
@@ -666,13 +712,16 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
 
 def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
                 positions: torch.Tensor, ap: ArchPlan,
-                ctx: ParallelCtx = LOCAL, mesh=None
-                ) -> Tuple[torch.Tensor, Cache]:
+                ctx: ParallelCtx = LOCAL, mesh=None, *, layer_map=None,
+                kv_ring: bool = False) -> Tuple[torch.Tensor, Cache]:
     """One decode step for the whole batch.
 
     tokens: (B,) int; positions: (B,) int32 write index.  Returns
     (logits, cache), the cache updated in place; logits vocab-sharded
-    (R, B, V_local) on a mesh, (B, V_pad) without one.
+    (R, B, V_local) on a mesh, (B, V_pad) without one.  ``layer_map``
+    (a :class:`~repro_torch.parallel.quant.LayerMap` under
+    ``weight_quant``) maps each block before it runs, as the reference's
+    hook; ``kv_ring``: the cache is the ring-buffer window cache.
     """
     R = check_layout(ap, ctx, mesh)
     block_tbl = cache.get("block_tbl")
@@ -680,13 +729,37 @@ def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
     q_mask = _q_mask(ap, tokens.device)
     x = L.embed_lookup(model.embed, tokens[:, None], ctx, mesh, ap.vocab_pad)
     for i, bp in enumerate(model.blocks):
-        cache_l = {n: cache[n][i] for n in ("k", "v", "ef")
+        cache_l = {n: cache[n][i] for n in KV_LEAVES + ("ef",)
                    + RECURRENT_LEAVES if n in cache}
-        x = block_decode(bp, x, cache_l, ap, ctx, mesh, positions=positions,
+        x = block_decode(bp if layer_map is None else layer_map(bp), x,
+                         cache_l, ap, ctx, mesh, positions=positions,
                          kv_positions=kv_positions, q_mask=q_mask,
-                         block_tbl=block_tbl)
+                         block_tbl=block_tbl, kv_ring=kv_ring)
     x = L.apply_norm(x, model.final_norm, ap.cfg)
     return _unranked(L.lm_logits(model.embed, x)[:, :, 0], mesh), cache
+
+
+# {q, s} leaves (``weight_quant``) the decode step reads through
+# ``w8_matmul`` (``layers.rank_matmul``, ``overlap.project``); the rest
+# (kernel 7's experts, the conv taps, the channel-mix ``wr`` whose shape
+# the layer reads, and under overlap the ``wo``/``wd`` that kernel 5 or
+# the collective matmul take) are dequantized a layer at a time.
+_W8_READS = {"attn": {"wq", "wk", "wv", "wo"}, "mlp": {"wg", "wu", "wd"},
+             "ssm": {"w_x", "w_z", "w_bc", "w_dt", "w_out"},
+             "tm": {"w_r", "w_k", "w_v", "w_g", "w_a", "w_b", "w_o"},
+             "cm": {"wk", "wv"}}
+
+
+def w8_keep(ctx: ParallelCtx) -> Callable[[str, str], bool]:
+    """The ``keep`` test of the decode step's LayerMap under ``ctx``."""
+    overlap = _use_overlap(ctx)
+
+    def keep(group: str, name: str) -> bool:
+        if overlap and (group, name) in (("attn", "wo"), ("mlp", "wd")):
+            return False
+        return name in _W8_READS.get(group, ())
+
+    return keep
 
 
 # ---------------------------------------------------------------------------
@@ -725,7 +798,7 @@ def prefill_chunk(model: DenseLM, cache: Cache, tokens: torch.Tensor,
         raise ValueError("chunked prefill supports attention-only dense "
                          f"families, not {cfg.family!r}")
     if "k_scale" in cache:
-        raise ValueError("chunked prefill with kv_quant (ROADMAP item 9)")
+        raise NotImplementedError("chunked prefill with kv_quant")
     R = check_layout(ap, ctx, mesh)
     N = tokens.shape[0]
     batch = _cache_rows(cache) // R
@@ -767,4 +840,4 @@ __all__ = ["ArchPlan", "make_plan", "check_layout", "Block", "DenseLM",
            "from_global", "init_params", "block_forward", "forward_lm",
            "ef_sites_for", "fold_table", "init_cache", "seed_cache",
            "block_decode", "decode_step", "prefill_chunk",
-           "RECURRENT_LEAVES"]
+           "RECURRENT_LEAVES", "KV_LEAVES", "w8_keep"]

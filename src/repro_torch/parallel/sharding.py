@@ -21,7 +21,10 @@ family's mamba leaves are cut on d_inner (``A_log`` and ``w_out`` on their
 rows); ``w_bc`` and the block's mix ``beta`` are replicated.  No hybrid
 leaf name meets a rule written for another family (``w``/``b`` are the
 norms').  FSDP is not part of serving here (``fsdp_serve`` is not
-ported).
+ported).  A quantized leaf ``{"q", "s"}`` (``parallel/quant.py``) is cut
+by the rule of its own name, the node one level up from ``q``/``s``:
+``q`` like the bf16 leaf, ``s`` on the same dim when that is its last
+(a column-parallel ``wg``), else whole (a size-1 dim does not divide).
 
 The decode cache follows ``cache_spec``: its head (slot) dimension is
 sharded, so each rank holds ``ap.gqa.u`` kv slots
@@ -88,6 +91,11 @@ def shard_leaf(t: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
 
 
 def _shard(tree: Any, n: int, path: Tuple[str, ...]) -> Any:
+    if isinstance(tree, Mapping) and set(tree) == {"q", "s"}:
+        # a quantized leaf (parallel/quant.py) takes its own name's rule;
+        # the scale's size-1 dims do not divide and stay whole
+        return {k: shard_leaf(t, tp_dim(path, t.dim()), n)
+                for k, t in tree.items()}
     if isinstance(tree, Mapping):
         return {k: _shard(v, n, path + (str(k),)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

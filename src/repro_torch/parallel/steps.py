@@ -3,8 +3,12 @@ the port of ``repro/parallel/steps.py::build_prefill``,
 ``build_decode_step``, ``build_cache_init``, ``build_serve_step``,
 ``build_admit_step``, ``build_admit_chunk_step``,
 ``build_spec_verify_step``, and the disaggregated pools'
-``build_prefill_only_step`` and ``build_kv_splice_step`` (``fsdp_serve``,
-``weight_quant``, ``kv_quant`` and ``window_cache`` are not ported).
+``build_prefill_only_step`` and ``build_kv_splice_step`` (``fsdp_serve``
+is not ported).  ``build_decode_step`` takes the reference's
+``weight_quant`` (int8 block weights read through ``w8_matmul``, the
+others dequantized a layer at a time, :class:`~repro_torch.parallel.quant.
+LayerMap`), ``kv_quant`` (the int8 cache, which ``build_cache_init`` makes)
+and ``window_cache`` (the ring-buffer window cache).
 
 JAX wrapped these in ``shard_map`` and compiled them once with ``jit``;
 here they are closures over (ap, ctx, mesh), and the compiled step's
@@ -31,6 +35,7 @@ draws its acceptance uniforms and its corrections from the same chains.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -40,7 +45,9 @@ from ..core.pcontext import ParallelCtx
 from ..models import layers as L
 from ..models.transformer import (ArchPlan, Cache, DenseLM, check_layout,
                                   decode_step, ef_sites_for, forward_lm,
-                                  init_cache, prefill_chunk, seed_cache)
+                                  init_cache, prefill_chunk, seed_cache,
+                                  w8_keep)
+from .quant import LayerMap
 
 
 ARTable = Optional[Union[str, autotune.AutoTuner]]
@@ -86,8 +93,17 @@ class CapturedStep:
             self.recaptures += 1
         if self._graph is None:
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                self.body()
+            # no garbage collection while capturing: a collected cycle
+            # holding another CUDA graph would reset it mid-capture, which
+            # invalidates the capture
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(g):
+                    self.body()
+            finally:
+                if gc_on:
+                    gc.enable()
             self._graph, self._generation = g, gen
             self.captures += 1
         self._graph.replay()
@@ -133,18 +149,19 @@ def _finite_slots(logits: torch.Tensor, mesh) -> torch.Tensor:
 
 def build_cache_init(ap: ArchPlan, ctx: ParallelCtx, mesh, *, slots: int,
                      s_max: int, block_size: int = 0,
-                     n_blocks: Optional[int] = None,
+                     n_blocks: Optional[int] = None, kv_quant: bool = False,
                      device: torch.device | str) -> Callable[[], Cache]:
     """() -> the zeroed decode cache of ``slots`` rows (paged when
-    ``block_size > 0``, a pool of ``n_blocks`` a rank), with the EF leaf
-    when the ctx may quantize the wire."""
+    ``block_size > 0``, a pool of ``n_blocks`` a rank; int8 with its
+    scales under ``kv_quant``), with the EF leaf when the ctx may quantize
+    the wire."""
     check_layout(ap, ctx, mesh)
     ef_sites = ef_sites_for(ctx, ap.cfg)
 
     def init() -> Cache:
         return init_cache(ap, slots, s_max, block_size=block_size,
                           n_blocks=n_blocks, device=device, mesh=mesh,
-                          ef_sites=ef_sites)
+                          ef_sites=ef_sites, kv_quant=kv_quant)
 
     return init
 
@@ -185,22 +202,38 @@ def build_prefill(ap: ArchPlan, ctx: ParallelCtx, mesh, *, s_max: int,
 
 def build_decode_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
                       temperature: float = 0.0, top_k: int = 0,
-                      ar_table: ARTable = None
+                      ar_table: ARTable = None, kv_quant: bool = False,
+                      weight_quant: bool = False,
+                      window_cache: bool = False
                       ) -> Callable[..., Tuple[torch.Tensor, Cache]]:
     """One-token decode across the batch: (model, cache, tokens,
     positions, keys=None, idx=None) -> (next tokens (B,) int32, cache
     updated in place); a sampled step draws token ``idx[b]`` of row b's
     chain ``keys[b]``.  Capture-safe: no host sync, no host-to-device
-    copy, no allocation outside the caching allocator."""
+    copy, no allocation outside the caching allocator.
+
+    ``weight_quant``: ``model`` is a ``quant.quantize_model`` model; the
+    step's LayerMap (made here, its buffers at the first call) dequantizes
+    the leaves no ``w8_matmul`` reads.  ``kv_quant``: the cache is
+    ``build_cache_init(kv_quant=True)``'s (the layout selects the path;
+    the flag is the reference's).  ``window_cache``: the cache is
+    ``init_cache(window_cache=True)``'s ring."""
     check_layout(ap, ctx, mesh)
     tuner = autotune.tuner_for(ar_table)
+    layer_map = LayerMap(w8_keep(ctx), ap.cfg.dtype) if weight_quant \
+        else None
 
     def step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
              positions: torch.Tensor, keys: Optional[torch.Tensor] = None,
              idx: Optional[torch.Tensor] = None):
+        if kv_quant != ("k_scale" in cache) and "k" in cache:
+            raise ValueError(f"kv_quant={kv_quant} over a cache "
+                             f"{'with' if 'k_scale' in cache else 'without'}"
+                             " int8 scales")
         with autotune.using(tuner):
             logits, cache = decode_step(model, cache, tokens, positions, ap,
-                                        ctx, mesh)
+                                        ctx, mesh, layer_map=layer_map,
+                                        kv_ring=window_cache)
         return _sample_next(logits, ctx, mesh, ap.cfg, keys, idx,
                             temperature, top_k), cache
 

@@ -228,16 +228,34 @@ def test_spec_json_refuses_unknown_keys_and_reads_the_reference():
 
 def test_build_refuses_what_waits_for_later_items(lm):
     """What the reference accepts and builds but the port has not ported:
-    ``kv_quant`` and ``seq_parallel`` (ROADMAP item 9), ``fsdp_serve``
-    (item 11).  The spec's own checks run first."""
+    ``seq_parallel`` (ROADMAP item 9), ``fsdp_serve`` (item 11).  The
+    spec's own checks run first.  ``kv_quant`` now builds (a batcher over
+    the int8 cache) and keeps the reference's own build-time refusals,
+    each with its message: paged, chunked, spec, prefix, disagg, batch
+    mode."""
     kw = dict(ap=lm["ap"], model=lm["model"], device="cpu")
     with pytest.raises(SpecError, match="admit_chunk"):
         build_replica(RS.replace(admit_mode="chunked", admit_chunk=28), **kw)
-    for bad, item in ((dict(kv_quant=True), "item 9"),
-                      (dict(seq_parallel="on"), "item 9"),
+    for bad, item in ((dict(seq_parallel="on"), "item 9"),
                       (dict(fsdp_serve=True), "item 11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             build_replica(RS.replace(**bad), **kw)
+    built = build_replica(RS.replace(kv_quant=True), **kw)
+    assert built.cache["k"].dtype == torch.int8 and "k_scale" in built.cache
+    for bad, msg in (
+            (dict(block_size=8), "kv_quant is incompatible with block_size"),
+            (dict(admit_mode="chunked"),
+             "kv_quant is incompatible with admit_mode='chunked'"),
+            (dict(spec_mode="ngram"), "kv_quant is incompatible with spec"),
+            (dict(prefix_cache="on", block_size=8),
+             "prefix_cache is incompatible with kv_quant"),
+            (dict(disagg=True), "kv_quant is incompatible with disagg")):
+        with pytest.raises(SpecError, match=msg):
+            build_replica(RS.replace(kv_quant=True, **bad), **kw)
+        with pytest.raises(JSP.SpecError, match=msg):
+            JSP.ReplicaSpec(arch=RS.arch, kv_quant=True, **bad).validate()
+    with pytest.raises(SpecError, match="kv_quant is trace-mode only"):
+        ServeSpec(replica=RS.replace(kv_quant=True), mode="batch").validate()
 
 
 def test_make_injector_decorrelates_replicas():

@@ -348,15 +348,22 @@ def test_serve_cli_trace_on_cpu(capsys, tmp_path, extra):
     (dict(prefix_cache="on"), None, ValueError, "paged KV layout"),
     (dict(spec_mode="ngram", spec_k=0), None, ValueError,
      "spec_k must be >= 1"),
-    (dict(kv_quant=True), None, NotImplementedError, "ROADMAP item 9"),
+    (dict(kv_quant=True, block_size=8), None, ValueError,
+     "kv_quant is incompatible with the paged KV layout"),
+    (dict(kv_quant=True, admit_mode="chunked"), None, ValueError,
+     "kv_quant needs full-prefill admission"),
+    (dict(kv_quant=True, spec_mode="ngram"), None, ValueError,
+     "kv_quant is incompatible with speculative decoding"),
+    (dict(kv_quant=True, prefix_cache="on", block_size=8), None, ValueError,
+     "prefix_cache is incompatible with kv_quant"),
 ], ids=["chunked", "chunked_family", "spec", "prefix", "spec_k",
-        "kv_quant"])
+        "kv_quant", "kv_quant_chunked", "kv_quant_spec", "kv_quant_prefix"])
 def test_batcher_knobs_left_for_later_raise(llama, knob, arch, exc, match):
-    """The int8 KV cache still waits for its ROADMAP item; chunked
-    admission, speculative decoding and the prefix cache now run and keep
-    the reference's own refusals (s_max not a multiple of the chunk, a
-    family other than dense, the prefix cache without paging, a draft
-    length below 1)."""
+    """Chunked admission, speculative decoding, the prefix cache and the
+    int8 KV cache now run and keep the reference's own refusals (s_max not
+    a multiple of the chunk, a family other than dense, the prefix cache
+    without paging, a draft length below 1; the int8 cache with paging,
+    chunked admission, speculation or the prefix cache)."""
     ap, model = llama["tap"], llama["model"]
     if arch is not None:
         cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32)
