@@ -297,9 +297,33 @@ phase's seconds are printed after it):
      ring-buffer window cache, a 64-token prompt decoded 1100 steps past
      its 1024 window, against the full cache by provable_gate over
      teacher-forced logits, then in f32 at 2 layers where the gate must
-     check three quarters of the steps.  Then both forms' decode tok/s of
-     every path, side by side.
-The last two lines are the kernels' JSON record and the result line.
+     check three quarters of the steps.
+ 31. sequence-parallel prefill: llama3.2-1b at full width and depth,
+     tp=8 (4x2), batch 8, prompt 512: the prefill forward under hier_rd
+     with seq_parallel off / on / auto, hier_rd + int8 off / on and auto
+     + overlap off / on (the collective matmul reduce-scatter), each's
+     launches (kernels 4 and 6 a prefill) and median time, its logits
+     against the same configuration with SP off within (TF_MAX, TF_MEAN)
+     (QUANT_TF[8] on the int8 wire), bitwise equality printed; the
+     engine's generate (run_path) and a batcher trace (phase 27's first 8
+     requests, full admission, paged) under SP on against SP off (tokens
+     bitwise where the prefill's logits are); qwen3-moe-30b-a3b at 4
+     layers, f32, SP on against off within (TF_MAX, TF_MEAN) (the pod
+     cut of the MoE dispatch);
+ 32. the other dense archs: kernels 1 / 2 (g 16 and g 12 at hd 128, the
+     tp=8 fold and tp=1), 3 (the tp=8 fold's prefill), 4 (the 405B's
+     decode message, 128 KB a rank = LL_MAX_BYTES) and 5 (the 405B's and
+     qwen1.5-32b's MLP down at decode) against their plain versions,
+     timed beside their library yardsticks and bounds; then Llama 3.1
+     405B and 70B, mistral-large-123b and qwen1.5-32b at 2 layers and
+     codeqwen1.5-7b whole, full width, bf16, seeded weights with nonzero
+     QKV biases planted, batch 8, prompt 128, 16 new: run_path at tp=1
+     and at tp=8 (4x2 hier_rd; exact launches, graph == eager), tp=8's
+     tokens margin-gated against tp=1's and its teacher-forced logits
+     within (TF_MAX, TF_MEAN); codeqwen1.5-7b card against CPU at 2
+     layers in f32 with the biases planted.
+Then both forms' decode tok/s of every path, side by side.  The last two
+lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -325,6 +349,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.llama3_paper import (  # noqa: E402
+    LLAMA31_405B, LLAMA31_70B)
 from repro_torch.core import autotune, hierarchical, overlap  # noqa: E402
 from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
@@ -375,6 +401,7 @@ from repro_torch.kernels.w8_matmul import (  # noqa: E402
 from repro_torch.parallel.quant import (  # noqa: E402
     LayerMap, dequant_layer, quantize_model)
 from repro_torch.parallel.sharding import shard_params  # noqa: E402
+from repro_torch.models.common import place_heads  # noqa: E402
 from repro_torch.parallel.steps import (  # noqa: E402
     CapturedStep, build_decode_step, build_prefill)
 
@@ -613,14 +640,16 @@ def scatter_blocks(gen, k: torch.Tensor, v: torch.Tensor, bs: int) -> tuple:
     return tbl, pools[0], pools[1]
 
 
-def decode_case(gen, dtype, name: str) -> tuple:
+def decode_case(gen, dtype, name: str, shapes: Optional[dict] = None
+                ) -> tuple:
     """Kernels 1 and 2 at one of DECODE_SHAPES: each within TOL of its
     plain version, the paged kernel on the dense cache scattered over a
     shuffled block pool bitwise equal to the dense one, a second call of
     each bitwise equal to the first; kernel, plain version and SDPA (with
     the row's mask, the window included) timed beside the bound.  Returns
-    the dense and the paged kernel's records."""
-    b, hq, hkv, hd, s, win, (lo, hi) = DECODE_SHAPES[name]
+    the dense and the paged kernel's records.  ``shapes``: where ``name``
+    is looked up (default DECODE_SHAPES)."""
+    b, hq, hkv, hd, s, win, (lo, hi) = (shapes or DECODE_SHAPES)[name]
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -1091,8 +1120,9 @@ def card_vs_cpu(tp: int, pods: int, strategy: str,
                 tol: float = 1e-3, arch: str = "llama3.2-1b") -> None:
     """The same seeded weights of ``arch`` (2 layers, full width, f32) on
     the card (kernels) and on the CPU (plain versions), at ``tp`` over a
-    virtual mesh of ``pods`` x tp/pods ranks when tp > 1; logits within
-    ``tol``, greedy tokens checked by ``provable_gate``.  f32 sums over
+    virtual mesh of ``pods`` x tp/pods ranks when tp > 1 (a QKV-bias
+    arch with nonzero biases planted); logits within ``tol``, greedy
+    tokens checked by ``provable_gate``.  f32 sums over
     2048- and 8192-long reductions are taken in another order on the card
     than on the CPU: ~1e-5 on O(1) logits, hence the default ``tol``."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1105,6 +1135,8 @@ def card_vs_cpu(tp: int, pods: int, strategy: str,
     mesh_c, _ = mesh_and_ctx(tp, pods, ar_strategy=strategy, device="cpu")
     ctx = ctx.replace(overlap_matmul=overlap_matmul, ar_quant=ar_quant)
     gpu = init_params(ap, seed=SEED, device="cuda", mesh=mesh_g)
+    if cfg.qkv_bias:
+        plant_qkv_bias(gpu, ap, mesh_g, SEED + 7)
     cpu = copy.deepcopy(gpu).to("cpu")
     b, s, new = 2, 64, 8
     prompts = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
@@ -3355,7 +3387,7 @@ def planted_hybrid_fault(kind: str):
             return real(x, dt, b, c, a[:1].contiguous(), h0, h_out=h_out)
         patch = mock.patch.object(ssm, "ssm_scan", group0)
     else:
-        def unreduced(x, beta, attn, ssm_out, ctx, mesh):
+        def unreduced(x, beta, attn, ssm_out, ctx, mesh, sp=False):
             b = beta.to(attn.dtype)
             return x + hierarchical.tp_all_reduce(
                 b[:, :1, None, None] * attn, ctx, mesh, scatter_dim=-1) \
@@ -5109,6 +5141,371 @@ def phase_ring() -> None:
     free_device()
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: sequence-parallel prefill
+# ---------------------------------------------------------------------------
+
+# New tokens of the SP phase's generate and of its batcher's requests, and
+# the timed prefills of each configuration (after one counted call).
+SP_NEW, SP_REPS, SP_REQS = 16, 3, 8
+# (label, ctx overrides, the label of the SP-off reference, its bars)
+SP_RUNS = (
+    ("hier_rd, SP off", {}, None, None),
+    ("hier_rd, SP on", dict(seq_parallel="on"), "hier_rd, SP off",
+     (TF_MAX, TF_MEAN)),
+    ("hier_rd, SP auto", dict(seq_parallel="auto"), "hier_rd, SP off",
+     (TF_MAX, TF_MEAN)),
+    ("hier_rd + int8, SP off", dict(ar_quant="int8"), None, None),
+    ("hier_rd + int8, SP on", dict(ar_quant="int8", seq_parallel="on"),
+     "hier_rd + int8, SP off", None),        # QUANT_TF[8], set below
+    ("auto + overlap, SP off", dict(ar_strategy="auto", overlap_matmul=True),
+     None, None),
+    ("auto + overlap, SP on", dict(ar_strategy="auto", overlap_matmul=True,
+                                   seq_parallel="on"),
+     "auto + overlap, SP off", (TF_MAX, TF_MEAN)),
+)
+SP_KERNELS = ("flash_attention", "rd_all_reduce", "collective_matmul_rd",
+              "quantize_pack", "unpack_dequant", "quant_rd_all_reduce")
+
+
+def sp_prefill(model, ap, ctx, mesh, toks: torch.Tensor) -> tuple:
+    """One prefill forward (``forward_lm`` with the K/V seeds) under
+    ``ctx``: (vocab-gathered logits (B, S, V), the forward's launches, the
+    median ms of SP_REPS more, host clock around a synchronized call)."""
+    with torch.inference_mode():
+        reset_counts()
+        lg, _ = forward_lm(model, toks, ap, ctx, mesh, collect_state=True)
+        lg = gather_vocab(lg)
+        torch.cuda.synchronize()
+        c = counts()
+        ts = []
+        for _ in range(SP_REPS):
+            t0 = time.perf_counter()
+            forward_lm(model, toks, ap, ctx, mesh, collect_state=True)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return lg, c, float(np.median(ts))
+
+
+def phase_sp() -> dict:
+    """llama3.2-1b at full width and depth, tp=8 (4 x 2), batch 8, prompt
+    512: the prefill forward under each of SP_RUNS (launches, the median
+    prefill time), its logits against the same configuration with SP off
+    within the fp-wire bars (the int8 bars on the int8 wire), and whether
+    they are bitwise equal; the engine's generate and a batcher trace
+    (full admission, paged) under SP on against SP off; qwen3-moe-30b-a3b
+    at 4 layers, f32, SP on against off (the MoE pod cut)."""
+    cfg = get_config("llama3.2-1b")
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT))
+    toks = torch.as_tensor(prompts, device="cuda")
+    msg = B * PROMPT * D_MODEL * 2
+    log(f"  tuner (analytic, {autotune.active().net.name}) at the "
+        f"prefill's residual ({msg} B a rank, fast {FAST}, slow {PODS}): "
+        f"SP {autotune.analytic_sp_choice(msg, FAST, PODS, autotune.active().net)}"
+        f", fused all-reduce "
+        f"{autotune.analytic_choice(msg, FAST, PODS, autotune.active().net).strategy}")
+    refs, launches = {}, {}
+    for label, kw, ref, bars in SP_RUNS:
+        sctx = ctx.replace(**kw)
+        lg, c, ms = sp_prefill(model, ap, sctx, mesh, toks)
+        launches[f"sp_prefill {label}"] = c
+        log(f"  {label}: prefill forward {ms:.2f} ms (median of "
+            f"{SP_REPS}); launches {({k: c[k] for k in SP_KERNELS})}")
+        if ref is None:
+            refs[label] = lg
+            continue
+        limits = bars or QUANT_TF[8]
+        mx, mean = gate(f"{label} vs {ref}", lg, refs[ref], limits)
+        log(f"      bitwise equal: {torch.equal(lg, refs[ref])}")
+        if mx > limits[0] or mean > limits[1]:
+            raise AssertionError(f"SP prefill logits ({label}) differ from "
+                                 f"{ref}'s")
+        del lg
+    del refs
+    free_device()
+    # the engine's generate: SP on against SP off, tokens and launches
+    L = cfg.n_layers
+    expect = {"flash_attention": L, "decode_attention": L * (SP_NEW - 1),
+              "rd_all_reduce": (2 * L + 1) * SP_NEW}
+    res = {}
+    for sp in ("off", "on"):
+        eng = InferenceEngine(ap, model, ctx=ctx.replace(seq_parallel=sp),
+                              mesh=mesh, s_max=S_MAX, device="cuda")
+        res[sp], launches[f"sp_{sp}_tp8_hier_rd"] = run_path(
+            eng, prompts, f"tp=8 hier_rd generate, SP {sp}", expect,
+            new=SP_NEW)
+        del eng
+    same = np.array_equal(res["on"].tokens, res["off"].tokens)
+    log(f"  generate SP on: prefill {res['on'].prefill_s * 1e3:.2f} ms "
+        f"against SP off {res['off'].prefill_s * 1e3:.2f} ms (one run "
+        f"each); tokens bitwise SP off's: {same}")
+    if not same:
+        tf = teacher_forced(model, res["off"].tokens, ap, ctx, mesh)
+        n = margin_gate(res["on"].tokens, res["off"].tokens, top2_gap(tf),
+                        PROMPT, BF16_GAP)
+        log(f"    tokens == SP off's on {n}/{B * SP_NEW} steps gated at gap "
+            f"{BF16_GAP:g}")
+        del tf
+    # the batcher's full admission, paged, on phase 27's first requests
+    reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
+                      mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
+                      vocab=cfg.vocab_size, seed=SEED)[:SP_REQS]
+    outs = {}
+    for sp in ("off", "on"):
+        b = ContinuousBatcher(ap, model, slots=SERVE_SLOTS, s_max=S_MAX,
+                              ctx=ctx.replace(seq_parallel=sp), mesh=mesh,
+                              block_size=BLOCK, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        outs[sp], m = serve_run(b, reqs)
+        log(f"  batcher tp=8 paged, SP {sp}: {m.completed}/{m.requests} "
+            f"requests, {m.total_new_tokens} tokens, throughput "
+            f"{m.throughput_tok_s:.1f} tok/s, TTFT p50 "
+            f"{m.ttft_s_p50 * 1e3:.2f} ms ({time.perf_counter() - t0:.1f} "
+            f"s, one run); rd_all_reduce launches {counts()['rd_all_reduce']}")
+    differ = sum(not np.array_equal(outs["on"][k], outs["off"][k])
+                 for k in outs["off"])
+    log(f"  batcher SP on: {len(outs['off']) - differ}/{len(outs['off'])} "
+        "requests bitwise SP off's")
+    if same and differ:
+        raise AssertionError("SP batcher tokens differ where the SP "
+                             "generate's were bitwise")
+    del model
+    free_device()
+    launches.update(phase_sp_moe())
+    return launches
+
+
+def phase_sp_moe() -> dict:
+    """qwen3-moe-30b-a3b at full width, 4 layers, f32, its default
+    capacity factor (pairs may overflow), tp=8 (4 x 2, hier_rd): the
+    prefill forward with SP on against SP off within the f32 MoE bars
+    (TF_MAX, TF_MEAN), bitwise reported.  Under SP rank (p, f) dispatches
+    chunk p of its sequence piece f, the chunk SP off gives some rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=4,
+                              dtype=torch.float32)
+    ap = make_plan(cfg, PODS * FAST)
+    mesh, ctx = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                             device="cuda")
+    model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, MOE_PROMPT)), device="cuda")
+    lg, launches = {}, {}
+    for sp in ("off", "on"):
+        lg[sp], launches[f"sp_moe_{sp}"], ms = sp_prefill(
+            model, ap, ctx.replace(seq_parallel=sp), mesh, toks)
+        c = launches[f"sp_moe_{sp}"]
+        log(f"  {MOE_ARCH} 4 layers f32 tp=8 SP {sp}: prefill forward "
+            f"{ms:.2f} ms; launches rd_all_reduce {c['rd_all_reduce']}, "
+            f"moe_expert_ffn {c['moe_expert_ffn']}")
+    mx, mean = gate("MoE SP on vs off", lg["on"], lg["off"])
+    log(f"      bitwise equal: {torch.equal(lg['on'], lg['off'])}")
+    if mx > TF_MAX or mean > TF_MEAN:
+        raise AssertionError("MoE SP prefill logits differ from SP off's")
+    del model, lg
+    free_device()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 32: the other dense archs and the paper's Llama 3.1 shapes
+# ---------------------------------------------------------------------------
+
+DENSE_PROMPT, DENSE_NEW = 128, 16
+DENSE_S_MAX = DENSE_PROMPT + DENSE_NEW       # 144: 9 blocks of BLOCK
+# (name, config, depth: 0 keeps the config's)
+DENSE_ARCHS = (("llama3.1-405b", LLAMA31_405B, 2),
+               ("llama3.1-70b", LLAMA31_70B, 2),
+               ("mistral-large-123b", get_config("mistral-large-123b"), 2),
+               ("qwen1.5-32b", get_config("qwen1.5-32b"), 2),
+               ("codeqwen1.5-7b", get_config("codeqwen1.5-7b"), 0))
+# Kernels 1 / 2 at these paths' decode shapes, bf16 (B, Hq, Hkv, hd, S,
+# window, positions): the 405B's g 16 and mistral's g 12 at tp=8 (the
+# fold: 8 ranks x 8 sequences, one kv head a rank) and at tp=1.
+DENSE_DECODE_SHAPES = {
+    "405b_tp8_fold": (B * PODS * FAST, 16, 1, 128, DENSE_S_MAX, 0,
+                      (DENSE_PROMPT, DENSE_S_MAX - 1)),
+    "mistral_tp8_fold": (B * PODS * FAST, 12, 1, 128, DENSE_S_MAX, 0,
+                         (DENSE_PROMPT, DENSE_S_MAX - 1)),
+    "405b_tp1": (B, 128, 8, 128, DENSE_S_MAX, 0,
+                 (DENSE_PROMPT, DENSE_S_MAX - 1)),
+    "mistral_tp1": (B, 96, 8, 128, DENSE_S_MAX, 0,
+                    (DENSE_PROMPT, DENSE_S_MAX - 1))}
+# Kernel 3 at the prefill's (B, Hq, Hkv, S, hd, window), tp=8 fold.
+DENSE_FLASH_SHAPES = {"405b_tp8_fold": (B * PODS * FAST, 16, 1,
+                                        DENSE_PROMPT, 128, 0),
+                      "mistral_tp8_fold": (B * PODS * FAST, 12, 1,
+                                           DENSE_PROMPT, 128, 0)}
+# Kernel 5 at (M, K a rank, N): the 405B's MLP down in decode (d_ff
+# 53248 / 8, d_model 16384) and qwen1.5-32b's (27392 / 8, 5120).
+DENSE_FUSED_SHAPES = {"405b_wd": (B, 53248 // (PODS * FAST), 16384),
+                      "qwen1_5_32b_wd": (B, 27392 // (PODS * FAST), 5120)}
+
+
+def plant_qkv_bias(model, ap, mesh, seed: int) -> None:
+    """Seeded nonzero QKV biases in place of the init's zeros (the
+    reference draws zeros, under which a missing or misplaced add computes
+    the same numbers): drawn per original head, placed into the plan's
+    slots (dead slots zero) and cut over the ranks as the sharding cuts
+    them, so one seed is one function at every tp."""
+    cfg = ap.cfg
+    gen = torch.Generator(device=model.embed["tok"].device)
+    gen.manual_seed(seed)
+    for bp in model.blocks:
+        for name, n, m in (("bq", cfg.n_heads, ap.gqa.q_map),
+                           ("bk", cfg.n_kv_heads, ap.gqa.kv_map),
+                           ("bv", cfg.n_kv_heads, ap.gqa.kv_map)):
+            b = 0.5 * torch.randn((n, cfg.head_dim), generator=gen,
+                                  device=gen.device)
+            b = place_heads(b, m).to(cfg.dtype)
+            bp.attn[name].copy_(shard_params({"attn": {name: b}},
+                                             mesh)["attn"][name])
+
+
+def dense_arch(name: str, cfg, launches: dict) -> None:
+    """One arch at tp=1 and at tp=8 (4 x 2, hier_rd), batch 8, prompt
+    128, 16 new, bf16, seeded weights (nonzero QKV biases planted): each
+    through ``run_path`` (exact launches, graph == eager, tok/s), then
+    tp=8's tokens margin-gated against tp=1's and its teacher-forced
+    logits within (TF_MAX, TF_MEAN) of tp=1's.  Each model is freed
+    before the next is built."""
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, DENSE_PROMPT))
+    L = cfg.n_layers
+    ref = ref_logits = None
+    for tp, pods in ((1, 1), (PODS * FAST, PODS)):
+        ap = make_plan(cfg, tp)
+        mesh, ctx = mesh_and_ctx(tp, pods, ar_strategy="hier_rd",
+                                 device="cuda")
+        t0 = time.perf_counter()
+        model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+        if cfg.qkv_bias:
+            plant_qkv_bias(model, ap, mesh, SEED + 7)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  {name} tp={tp}: {L} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads (GQA g={ap.gqa.g} "
+            f"u={ap.gqa.u}), {n_params / 1e9:.3f} B parameters "
+            f"(param_count {cfg.param_count() / 1e9:.3f} B), built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        expect = {"flash_attention": L,
+                  "decode_attention": L * (DENSE_NEW - 1),
+                  "rd_all_reduce": (2 * L + 1) * DENSE_NEW if tp > 1 else 0}
+        key = f"dense_{name}_tp{tp}"
+        eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh,
+                              s_max=DENSE_S_MAX, device="cuda")
+        res, launches[key] = run_path(eng, prompts, f"{name} tp={tp}",
+                                      expect, new=DENSE_NEW)
+        del eng
+        if tp == 1:
+            ref = res.tokens
+            ref_logits = teacher_forced(model, ref, ap).cpu()
+        else:
+            want = ref_logits.to("cuda")
+            n = margin_gate(res.tokens, ref, top2_gap(want), DENSE_PROMPT,
+                            BF16_GAP)
+            mx, mean = logits_gap(model, ref, ap, ctx, mesh, want)
+            log(f"    tp=8 hier_rd tokens == tp=1 tokens on {n}/"
+                f"{B * DENSE_NEW} steps gated at gap {BF16_GAP:g} (fully "
+                f"equal: {np.array_equal(res.tokens, ref)}); teacher-forced "
+                f"logits max|diff| {mx:.4f}, mean {mean:.3e} (limits "
+                f"{TF_MAX:g}, {TF_MEAN:g})")
+            if mx > TF_MAX or mean > TF_MEAN:
+                raise AssertionError(f"{name} tp=8 logits differ from tp=1's")
+            del want
+        del model
+        free_device()
+
+
+def phase_dense_kernels(rec: dict) -> None:
+    """Kernels 1 / 2, 3, 4 and 5 against their plain versions at the
+    dense archs' shapes no earlier path runs, timed beside their library
+    yardsticks and bounds; the records go into ``rec``'s shape tables."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 32)
+    for name in DENSE_DECODE_SHAPES:
+        d, p = decode_case(gen, torch.bfloat16, name, DENSE_DECODE_SHAPES)
+        rec["decode_attention"]["shapes"][name] = d
+        rec["paged_decode_attention"]["shapes"][name] = p
+    for name, shape in DENSE_FLASH_SHAPES.items():
+        err, t, bnd = flash_case(gen, torch.bfloat16, shape)
+        log(f"  flash_attention {name} {shape} [bfloat16]: kernel_ms="
+            f"{t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        rec["flash_attention"][name] = {
+            "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+            "library_ms": t[2], "bound_ms": bnd[0], "bound_by": bnd[1]}
+    free_device()
+    # kernel 4 at the 405B decode all-reduce's slow phase: B x d_model / 2
+    # bf16 a rank after the fast reduce-scatter, 128 KB = LL_MAX_BYTES
+    ws = RDWorkspace()
+    R, m = PODS * FAST, B * 16384 // FAST
+    x = torch.randn((R, m), generator=gen, device="cuda").to(torch.bfloat16)
+    out = rd_all_reduce(x, PODS, workspace=ws)
+    if not torch.equal(out, rd_all_reduce_ref(x, PODS)):
+        raise AssertionError("rd_all_reduce at the 405B decode message "
+                             "differs from its plain version")
+    t = (time_ms(lambda: rd_all_reduce(x, PODS, workspace=ws)),
+         time_ms(lambda: rd_all_reduce_ref(x, PODS)),
+         time_ms(lambda: x.view(PODS, FAST, m).sum(0)))
+    bnd = rd_bound(R, PODS, m, 2)
+    proto = "ll" if m * 2 <= rd_ops.LL_MAX_BYTES else "simple"
+    log(f"  rd_all_reduce 405b decode [bfloat16] {PODS}x{FAST} ranks, "
+        f"{m * 2 // 1024} KB a rank ({proto}; LL_MAX_BYTES "
+        f"{rd_ops.LL_MAX_BYTES}): bitwise the plain version; kernel_ms="
+        f"{t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+        f"bound_ms={bnd[0]:.6f} ({bnd[1]})")
+    rec["rd_all_reduce"]["405b_decode_128KB"] = {
+        "max_abs_err": 0.0, "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "protocol": proto}
+    for name, (M, K, N) in DENSE_FUSED_SHAPES.items():
+        x = torch.randn((R, M, K), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        w = (torch.randn((R, K, N), generator=gen, device="cuda")
+             / K ** 0.5).to(torch.bfloat16)
+        out = collective_matmul_rd(x, w, PODS, n_chunks=4, workspace=ws)
+        torch.cuda.synchronize()
+        err = check_close(f"collective_matmul_rd {name} M={M} K={K} N={N}",
+                          out, collective_matmul_rd_ref(x, w, PODS),
+                          torch.bfloat16)
+        xl, wl = fold_pods(x, w, PODS, FAST)
+        t = (time_ms(lambda: collective_matmul_rd(x, w, PODS, n_chunks=4,
+                                                  workspace=ws)),
+             time_ms(lambda: collective_matmul_rd_ref(x, w, PODS)),
+             time_ms(lambda: torch.bmm(xl, wl)))
+        bnd = fused_bound(R, M, K, N, torch.bfloat16)
+        log(f"  collective_matmul_rd {name} [bfloat16] {PODS}x{FAST} ranks, "
+            f"M={M} K={K} N={N}: kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} "
+            f"library_ms={t[2]:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        rec["collective_matmul_rd"]["shapes"][name] = {
+            "M": M, "K": K, "N": N, "max_abs_err": err, "ms": t[0],
+            "plain_ms": t[1], "library_ms": t[2], "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+        del x, w, xl, wl, out
+    del ws
+    free_device()
+
+
+def phase_dense(rec: dict) -> dict:
+    """Phase 32: the kernels at the new shapes, each dense arch at tp=1
+    and tp=8, and codeqwen1.5-7b card against CPU at 2 layers in f32 with
+    planted biases."""
+    phase_dense_kernels(rec)
+    launches = {}
+    for name, cfg, depth in DENSE_ARCHS:
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        dense_arch(name, cfg, launches)
+    card_vs_cpu(1, 1, "flat", arch="codeqwen1.5-7b")
+    return launches
+
+
 def ptxas_report() -> None:
     """ptxas's -v report of this build's libraries, a line a kernel: its
     registers, static shared memory and spills (the bf16 tensor-core
@@ -5274,6 +5671,13 @@ def main() -> int:
     launches.update(phase_w8_decode())
     phase_ring()
     log(f"    phase 30 {time.perf_counter() - t30:.1f} s")
+    phase(f"[31] sequence-parallel prefill: llama3.2-1b tp=8 ({PODS}x{FAST})"
+          " full width and depth, bf16; qwen3-moe-30b-a3b 4 layers, f32")
+    launches.update(phase_sp())
+    phase("[32] the other dense archs at full width (Llama 3.1 405B / 70B, "
+          "mistral-large-123b, qwen1.5-32b at 2 layers; codeqwen1.5-7b "
+          f"whole), tp=1 and tp=8 ({PODS}x{FAST}) hier_rd")
+    launches.update(phase_dense(rec))
     phase("")
     log("    decode tok/s, eager (one run) / graph (median of 3), this "
         "run:")

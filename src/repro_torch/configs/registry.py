@@ -1,10 +1,13 @@
 """``--arch <id>`` resolution for the port's entry points.
 
-Only the architectures whose family the port runs (dense, moe, ssm,
-hybrid) are registered; the others (whisper, pixtral, the other dense
-archs) arrive with ROADMAP item 10 (other families).
-``dbrx-132b`` is there for its CPU smoke config: the full model does not
-fit one card."""
+Every architecture of the reference's registry whose family the port runs
+(dense, moe, ssm, hybrid) is registered; ``whisper-medium`` and
+``pixtral-12b`` (the encoder-decoder and VLM families) arrive with ROADMAP
+item 10.  ``dbrx-132b`` and the larger dense archs (``mistral-large-123b``,
+``qwen1.5-32b``) do not fit one card at full depth: their CPU smoke
+configs run whole, their full configs at a cut depth.  The paper's own
+Llama 3.1 70B / 405B are in ``llama3_paper.py`` and, as in the reference,
+are not ``--arch`` ids."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +20,9 @@ _MODULES = {
     "dbrx-132b": "dbrx_132b",
     "rwkv6-7b": "rwkv6_7b",
     "hymba-1.5b": "hymba_1_5b",
+    "mistral-large-123b": "mistral_large_123b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "qwen1.5-32b": "qwen1_5_32b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -26,8 +32,8 @@ def _mod(arch: str):
     if arch not in _MODULES:
         raise KeyError(
             f"arch {arch!r} is not ported yet (known: {list(_MODULES)}); "
-            "the other dense, MoE, ssm and hybrid archs and the other "
-            "families arrive with ROADMAP item 10")
+            "whisper-medium and pixtral-12b (the encoder-decoder and VLM "
+            "families) arrive with ROADMAP item 10")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 
 

@@ -22,8 +22,10 @@ Two departures from the reference.  The default network is
 shape of the port's ``pods x fast`` mesh) where the reference defaults to
 ``TPU_V5E``.  And the reference resolves ``auto`` once per call site at
 trace time, while eager PyTorch has no trace: the port resolves at every
-call, on the host (a lock, a key and a dict lookup).  The sequence-
-parallel table is persisted but not consulted (ROADMAP item 9).
+call, on the host (a lock, a key and a dict lookup).  The same holds for
+``seq_parallel="auto"``: :func:`resolve_sp` asks the sequence-parallel
+table (:meth:`AutoTuner.choose_sp`, seeded by :func:`analytic_sp_choice`,
+persisted entries overriding) at every prefill call.
 
 Quantized dispatch (the ctx's ``ar_quant`` policy other than ``"none"``)
 keys its own namespace (dtype suffix ``:q<policy>``) and seeds from
@@ -119,6 +121,32 @@ def _rd_chunks_for(msg_bytes: float, fast_size: int) -> int:
     shard = msg_bytes / max(1, fast_size)
     return int(min(_MAX_RD_CHUNKS,
                    max(1, shard // _CHUNK_THRESHOLD_BYTES)))
+
+
+def predict_sp_times(msg_bytes: float, fast_size: int, slow_size: int,
+                     net: cm.NetworkSpec) -> Dict[str, float]:
+    """Fused all-reduce against the sequence-parallel RS + AG pair,
+    predicted seconds: ``fused`` is the best dispatchable strategy at this
+    size (what ``ar_strategy="auto"`` would run for the residual),
+    ``rs_ag`` the decomposition of :func:`repro_torch.core.comm_model.
+    t_sp_rs_ag`."""
+    fused = min(predict_times(msg_bytes, fast_size, slow_size, net)
+                .values())
+    return {"fused": fused,
+            "rs_ag": cm.t_sp_rs_ag(msg_bytes, max(1, slow_size),
+                                   max(1, fast_size), net)}
+
+
+def analytic_sp_choice(msg_bytes: float, fast_size: int, slow_size: int,
+                       net: cm.NetworkSpec) -> bool:
+    """True where the RS + AG decomposition beats the best fused
+    all-reduce under the alpha-beta model (large, bandwidth-bound prefill
+    messages); False in the latency-bound one-token regime and without a
+    fast axis."""
+    if fast_size <= 1:
+        return False
+    t = predict_sp_times(msg_bytes, fast_size, slow_size, net)
+    return t["rs_ag"] < t["fused"]
 
 
 def analytic_choice(msg_bytes: float, fast_size: int, slow_size: int,
@@ -226,7 +254,8 @@ class AutoTuner:
         self.table: Dict[str, ARChoice] = {}
         self.measurements: Dict[str, List[_Measurement]] = {}
         self.lookups: Dict[str, int] = {}       # key -> times dispatched
-        self.sp_table: Dict[str, bool] = {}     # persisted, not consulted
+        self.sp_table: Dict[str, bool] = {}
+        self.sp_lookups: Dict[str, int] = {}    # key -> SP dispatches
         self._lock = threading.Lock()
 
     def choose(self, msg_bytes: int, fast_size: int, slow_size: int,
@@ -251,6 +280,22 @@ class AutoTuner:
                 self.table[key] = hit
             return hit
 
+    def choose_sp(self, msg_bytes: int, fast_size: int, slow_size: int,
+                  dtype: str = "bfloat16") -> bool:
+        """Sequence-parallel dispatch of one prefill call site: True routes
+        the residual through the RS + AG decomposition, False keeps the
+        fused all-reduce.  Seeded by :func:`analytic_sp_choice`; persisted
+        entries override."""
+        key = _key(msg_bytes, fast_size, slow_size, dtype)
+        with self._lock:
+            self.sp_lookups[key] = self.sp_lookups.get(key, 0) + 1
+            hit = self.sp_table.get(key)
+            if hit is None:
+                hit = analytic_sp_choice(msg_bytes, fast_size, slow_size,
+                                         self.net)
+                self.sp_table[key] = hit
+            return hit
+
     # -- measurement refinement -------------------------------------------
 
     def record(self, msg_bytes: int, fast_size: int, slow_size: int,
@@ -271,6 +316,12 @@ class AutoTuner:
         on (one a distinct key :meth:`choose` has seen)."""
         with self._lock:
             return sorted({int(k.split("/")[0][1:]) for k in self.lookups})
+
+    def sp_lookup_buckets(self) -> List[int]:
+        """Sorted bucket exponents :meth:`choose_sp` was consulted on."""
+        with self._lock:
+            return sorted({int(k.split("/")[0][1:])
+                           for k in self.sp_lookups})
 
     def refine(self) -> int:
         """Overwrite table entries with measured winners; returns the number
@@ -438,8 +489,17 @@ def resolve(ctx, msg_bytes: int, fast_size: int, slow_size: int,
     return _applied(choice, ctx)
 
 
+def resolve_sp(msg_bytes: int, fast_size: int, slow_size: int,
+               dtype: str) -> bool:
+    """Concretize ``seq_parallel="auto"`` for one prefill call against
+    the active tuner."""
+    return _ACTIVE.choose_sp(int(msg_bytes), fast_size, slow_size,
+                             str(dtype))
+
+
 __all__ = [
     "ARChoice", "AutoTuner", "predict_times", "analytic_choice",
+    "predict_sp_times", "analytic_sp_choice", "resolve_sp",
     "predict_quant_times", "analytic_quant_choice", "QUANT_LEVELS",
     "DEFAULT_NET", "active", "install", "tuner_for", "using", "resolve",
     "bucket_of", "DISPATCHABLE", "TABLE_VERSION",

@@ -11,11 +11,12 @@ by either package names a network the other knows.
 
 All times are in seconds; message sizes in bytes; bandwidths in
 bytes/second.  The quantized-wire terms (``quant_wire_factor``,
-``t_quant_hier_allreduce``) score the ``ar_quant`` levels; the tree model
-and ``nccl_model_best`` price the router's prefill all-reduces
-(``inference.router.prefill_cost_model``).  Not copied (nothing in the
-port calls them yet): Eq. 4's halving-free form, the NVRAR totals and
-speedup tables, and the sequence-parallel terms.
+``t_quant_hier_allreduce``) score the ``ar_quant`` levels, and
+``t_sp_rs_ag`` the sequence-parallel decomposition (``seq_parallel=
+"auto"``); the tree model and ``nccl_model_best`` price the router's
+prefill all-reduces (``inference.router.prefill_cost_model``).  Not copied
+(nothing in the port calls them yet): Eq. 4's halving-free form and the
+NVRAR totals and speedup tables.
 """
 from __future__ import annotations
 
@@ -150,6 +151,33 @@ def t_rd_halving_inter(msg_bytes: float, n_nodes: int, gpus_per_node: int,
         * (eta * msg_bytes / (gpus_per_node * net.beta_inter))
 
 
+def t_sp_rs_ag(msg_bytes: float, n_nodes: int, gpus_per_node: int,
+               net: NetworkSpec, overlap: float = 0.5) -> float:
+    """The sequence-parallel RS + AG pair that replaces one fused TP
+    all-reduce: the row-parallel projection ends in a reduce-scatter on
+    the sequence dim and the all-gather is deferred to the next
+    column-parallel input.  RS_intra + the cheapest inter phase on the
+    scattered shard + AG_intra, a fraction ``overlap`` of the AG's
+    bandwidth term hidden behind the adjacent GEMM, plus one more
+    ``alpha_intra`` for the extra collective (which keeps one-token decode
+    messages on the fused path)."""
+    g, n = max(1, gpus_per_node), max(1, n_nodes)
+    if g <= 1 and n <= 1:
+        return 0.0
+    rs = t_reduce_scatter_intra(msg_bytes, g, net)
+    ag = t_allgather_intra(msg_bytes, g, net)
+    inter = 0.0
+    if n > 1:
+        shard = msg_bytes / g
+        ring = 2.0 * (n - 1) * net.alpha_inter \
+            + 2.0 * (n - 1) / n * (shard / net.beta_inter)
+        inter = min(t_rd_inter_full_exchange(msg_bytes, n, g, net),
+                    t_rd_halving_inter(msg_bytes, n, g, net), ring)
+    ag_alpha = (g - 1) * net.alpha_intra
+    ag_bw = max(ag - ag_alpha, 0.0)
+    return rs + inter + ag_alpha + (1.0 - overlap) * ag_bw + net.alpha_intra
+
+
 # ---------------------------------------------------------------------------
 # Quantized (low-bit wire) collective terms
 # ---------------------------------------------------------------------------
@@ -197,6 +225,7 @@ __all__ = [
     "NetworkSpec", "PERLMUTTER", "VISTA", "TPU_V5E", "NETWORKS",
     "t_ring_allreduce", "t_tree_allreduce", "nccl_model_best",
     "t_reduce_scatter_intra", "t_allgather_intra",
-    "t_rd_inter_full_exchange", "t_rd_halving_inter", "QUANT_GROUPS",
+    "t_rd_inter_full_exchange", "t_rd_halving_inter", "t_sp_rs_ag",
+    "QUANT_GROUPS",
     "QUANT_PACK_OVERHEAD", "quant_wire_factor", "t_quant_hier_allreduce",
 ]

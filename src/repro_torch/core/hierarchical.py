@@ -42,8 +42,9 @@ the first reduce-scatter stage is where a rank's own contribution is
 rounded, so the call returns ``err = v - deq(Q(v))`` (written by the
 pack) for the caller to add to its next message.  The legacy int8 knobs
 (``compress_slow``, ``quant_ag``) use the standalone pack and unpack at
-bits 8, group 128.  Only the sequence-parallel layout is not ported: a
-ctx asking for it raises.
+bits 8, group 128.  ``tp_reduce_scatter`` and ``tp_all_gather`` are the
+two halves of the sequence-parallel residual (``seq_parallel``, which the
+collectives themselves ignore).
 
 The MoE layer's exchanges live here too: ``ep_all_to_all`` (the dispatch's
 ``lax.all_to_all`` over the EP axes, which are the TP axes: a transpose of
@@ -76,13 +77,6 @@ QUANT_BITS = {"int8": 8, "int4": 4}
 
 # The axes of the (pods, fast, *s) view of a rank-stacked tensor.
 SLOW, FAST = 0, 1
-
-
-def _unported(ctx: ParallelCtx) -> None:
-    """Raise on the knob whose collectives arrive in a later slice."""
-    if ctx.seq_parallel != "off":
-        raise NotImplementedError("seq_parallel (sequence-parallel "
-                                  "residuals) arrives with ROADMAP item 9")
 
 
 def axes_size(axes: Sequence[str], mesh: Mesh) -> int:
@@ -159,6 +153,22 @@ def all_gather_tiled(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
     y = x.movedim(0, d)
     y = y.reshape(*y.shape[:d], R * y.shape[d + 1], *y.shape[d + 2:])
     return y.unsqueeze(0).expand(R, *y.shape)
+
+
+def pod_all_gather_tiled(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
+                         dim: int) -> torch.Tensor:
+    """``lax.all_gather(x, ctx.tp_slow, axis=dim, tiled=True)``: the pods'
+    pieces along ``dim`` concatenated in pod order on every rank of a fast
+    column.  x (R, *s) -> (R, *s'), s'[dim] = pods s[dim]."""
+    pods, fast = _sizes(ctx, mesh)
+    if pods == 1:
+        return x
+    d = dim % (x.dim() - 1)
+    y = x.reshape(pods, fast, *x.shape[1:]).movedim(0, 1 + d)
+    y = y.reshape(fast, *x.shape[1:1 + d], pods * x.shape[1 + d],
+                  *x.shape[2 + d:])
+    return y.unsqueeze(0).expand(pods, *y.shape).reshape(x.shape[0],
+                                                         *y.shape[1:])
 
 
 def _resolve_auto(x: torch.Tensor, ctx: ParallelCtx,
@@ -586,7 +596,6 @@ def tp_all_reduce(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
     if not ctx.has_tp:
         return (x, ef) if ef is not None else x
     ctx = _resolve_auto(x, ctx, mesh)
-    _unported(ctx)
     if ctx.ar_quant in QUANT_BITS:
         y, ef2 = _quant_tp_all_reduce(x, ctx, mesh, scatter_dim, ef)
         return (y, ef2) if ef is not None else y
@@ -603,7 +612,6 @@ def tp_reduce_scatter(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
     if not ctx.has_tp:
         return x
     ctx = _resolve_auto(x, ctx, mesh)
-    _unported(ctx)
     pods, fast = _sizes(ctx, mesh)
     dim = dim % (x.dim() - 1)
     slow_ax, fast_ax = _axes(ctx)
@@ -629,7 +637,6 @@ def tp_all_gather(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
     packed wire under a forced ar_quant level, at int8 under quant_ag)."""
     if not ctx.tp_fast:
         return x
-    _unported(ctx)
     pods, fast = _sizes(ctx, mesh)
     dim = dim % (x.dim() - 1)
     if ctx.ar_quant in QUANT_BITS:
@@ -646,4 +653,5 @@ __all__ = ["tp_all_reduce", "tp_reduce_scatter", "tp_all_gather",
            "compressed_rd_all_reduce", "quant_rd_all_reduce",
            "quantized_all_gather", "axes_size", "tp_rank", "dtype_name",
            "ep_size", "ep_rank", "ep_all_to_all", "all_gather_tiled",
+           "pod_all_gather_tiled",
            "QUANT_BITS"]

@@ -156,7 +156,6 @@ def collective_matmul(x: torch.Tensor, w: torch.Tensor, ctx: ParallelCtx,
     d_out = w.shape[-1]
     pods, fast = hier._sizes(ctx, mesh)
     ctx = _resolve_auto_for_matmul(x, w, ctx, mesh)
-    hier._unported(ctx)
     bits = hier.QUANT_BITS.get(ctx.ar_quant)
     if bits is None and ef is not None:
         # an unquantized wire leaves EF untouched: reduce without it
@@ -208,8 +207,8 @@ def collective_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor,
     ``tp_reduce_scatter`` along ``dim`` (of one rank's output), the chunks
     along the feature dim, so the two never interact (the quantized
     wire's groups live on the feature dim: only their cap alignment
-    matters).  Nothing calls it until sequence-parallel residuals arrive
-    (ROADMAP item 9)."""
+    matters).  The row-parallel projections of a sequence-parallel
+    prefill under ``overlap_matmul`` (``transformer._residual_proj``)."""
     if chunks is None:
         chunks = ctx.overlap_chunks if ctx.overlap_matmul else 1
     if not ctx.has_tp:

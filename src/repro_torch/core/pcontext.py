@@ -6,12 +6,12 @@ takes a ctx (and, for tp > 1, a :class:`repro_torch.core.mesh.VirtualMesh`)
 and calls the collectives in :mod:`repro_torch.core.hierarchical`; with an
 empty ctx (no axes) every collective is the identity, so the same model
 code runs at tp=1 and over the virtual mesh.  The dataclass accepts every
-knob of the reference; the port's collectives raise
-``NotImplementedError`` on the one not ported yet (``seq_parallel``),
-naming the ROADMAP item that brings it, and ``transformer.check_layout``
-raises on a
+knob of the reference.  ``seq_parallel`` is a knob of the model's prefill
+(``transformer.forward_lm`` resolves it per call); the collectives ignore
+it, as in the reference.  ``transformer.check_layout`` raises on a
 non-empty ``dp``, ``fsdp`` or ``sp`` (the virtual mesh holds the TP axes
-only).  ``ar_strategy="auto"`` resolves per call against
+only; the reference sets ``sp`` only in its training constructors, which
+arrive with ROADMAP item 11).  ``ar_strategy="auto"`` resolves per call against
 :mod:`repro_torch.core.autotune`, and ``overlap_matmul`` routes the
 row-parallel projections through :mod:`repro_torch.core.overlap` in
 ``overlap_chunks`` column blocks; ``ar_quant`` (and the legacy

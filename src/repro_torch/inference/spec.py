@@ -21,11 +21,14 @@ and the one construction path from it: the port of
 
 ``kv_quant`` (the int8 KV cache) builds where the reference builds it:
 trace mode, full admission, the dense layout, no speculation, no prefix
-cache, no disagg (``validate``, the reference's messages).  What the
-reference accepts and builds but the port has not ported is refused at
-build time: ``seq_parallel`` waits for ROADMAP item 9
-(``NotImplementedError``), ``fsdp_serve`` for item 11; ``scan_layers`` is
-a compile knob of the reference with nothing to choose here.
+cache, no disagg (``validate``, the reference's messages).
+``seq_parallel`` shapes the prefill of the colocated batcher, of the
+engine and of a disaggregated deployment's prefill pool; the decode pool
+is built with it "off" (its prefill-shaped steps never run: it admits by
+handoff), as in the reference.  What the reference accepts and builds but
+the port has not ported is refused at build time: ``fsdp_serve`` waits for
+ROADMAP item 11 (``NotImplementedError``); ``scan_layers`` is a compile
+knob of the reference with nothing to choose here.
 """
 from __future__ import annotations
 
@@ -276,6 +279,7 @@ class ServeSpec:
             arch=ns.arch, smoke=not ns.full, layers=ns.layers, tp=ns.tp,
             pods=ns.pods, ar_strategy=ns.ar_strategy, ar_table=ns.ar_table,
             overlap=ns.overlap, overlap_chunks=ns.overlap_chunks,
+            seq_parallel=ns.seq_parallel,
             ar_quant=ar_quant, slots=ns.slots, s_max=ns.s_max,
             block_size=ns.block_size, n_blocks=ns.n_blocks,
             admit_mode=ns.admit_mode, admit_chunk=ns.admit_chunk,

@@ -729,9 +729,15 @@ cudaError_t launch_split(const T* q, KV kv, const int* pos,
                    scale, st);
 }
 
-bool shape_ok(int g, int hd, int vec) {
+// The CUDA-core form holds a lane's share of the group's g * hd outputs
+// in registers (kMaxAcc chunks); the tensor-core form holds a row of the
+// m16 tile a head and keeps the group's partials in shared memory, so it
+// takes g up to 16 at any of its head dims (the 405B's g 16 x hd 128).
+bool shape_ok(int g, int hd, int vec, bool bf16_operands) {
+  const bool tc = bf16_operands && g <= kTcMaxGroup &&
+                  (hd == 16 || hd == 32 || hd == 64 || hd == 128);
   return hd > 0 && hd <= kMaxHd && hd % vec == 0 && hd % kAccVec == 0 &&
-         g > 0 && g * hd <= kMaxGroupWidth;
+         g > 0 && (g * hd <= kMaxGroupWidth || tc);
 }
 
 template <typename T, typename KV, typename Rows>
@@ -739,7 +745,8 @@ int launch(const void* q, KV kv, const void* pos,
            void* out, void* ws, Rows rows, int n_keys, int B, int Hq,
            int Hkv, int hd, int window, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || B <= 0 || n_keys <= 0 ||
-      !shape_ok(Hq / Hkv, hd, attn::Vec16<T>::n))
+      !shape_ok(Hq / Hkv, hd, attn::Vec16<T>::n,
+                std::is_same<T, bf16>::value))
     return static_cast<int>(cudaErrorInvalidValue);
   const int g = Hq / Hkv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -45,6 +45,9 @@ _PAGED_ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
 SOURCE = "decode_attention"
 HEAD_DIMS = tuple(range(8, 129, 8))
 MAX_GROUP_WIDTH = 1024   # g * hd: query heads of one kv head, times hd
+# The tensor-core form (bf16) takes any g up to 16 at these head dims,
+# past MAX_GROUP_WIDTH (csrc/decode_attention.cu kTcMaxGroup, shape_ok).
+TC_MAX_GROUP, TC_HEAD_DIMS = 16, (16, 32, 64, 128)
 # Keys of a split, both types (csrc/decode_attention.cu kSplit).
 SPLIT_KEYS = 128
 
@@ -112,12 +115,21 @@ def _workspace(q: torch.Tensor, Hkv: int, n_keys: int,
     return torch.empty(_checked[key], dtype=torch.float32, device=q.device)
 
 
+def group_ok(dtype: torch.dtype, g: int, hd: int) -> bool:
+    """Whether the kernel takes a group of g query heads of hd: g * hd up
+    to MAX_GROUP_WIDTH, or bf16 on the tensor cores (g <= TC_MAX_GROUP at
+    a head dim of TC_HEAD_DIMS)."""
+    return g * hd <= MAX_GROUP_WIDTH or (
+        dtype == torch.bfloat16 and g <= TC_MAX_GROUP and hd in TC_HEAD_DIMS)
+
+
 def _check(name, q, k, v, Hkv):
     check_operands(name, (q, k, v), HEAD_DIMS)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k and v must be contiguous")
-    if (q.shape[1] // Hkv) * q.shape[2] > MAX_GROUP_WIDTH:
-        raise ValueError(f"{name}: (Hq/Hkv)*hd > {MAX_GROUP_WIDTH}")
+    if not group_ok(q.dtype, q.shape[1] // Hkv, q.shape[2]):
+        raise ValueError(f"{name}: (Hq/Hkv)*hd > {MAX_GROUP_WIDTH} outside "
+                         f"the bf16 tensor-core form (g <= {TC_MAX_GROUP})")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -186,9 +198,10 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor,
     if hd % 16 or not q.is_contiguous():
         raise ValueError("decode_attention_int8: hd must be a multiple of "
                          "16 and q contiguous")
-    if (Hq // Hkv) * hd > MAX_GROUP_WIDTH:
+    if not group_ok(q.dtype, Hq // Hkv, hd):
         raise ValueError(f"decode_attention_int8: (Hq/Hkv)*hd > "
-                         f"{MAX_GROUP_WIDTH}")
+                         f"{MAX_GROUP_WIDTH} outside the bf16 tensor-core "
+                         f"form (g <= {TC_MAX_GROUP})")
     for t in (k, v, k_scale, v_scale):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("decode_attention_int8: k, v and the scales "

@@ -42,6 +42,10 @@ counterparts of ``repro.launch.serve --mode batch`` and ``--mode trace``).
         --decode-pods 2 --ar-strategy hier_rd   # disaggregated pools
     python -m repro_torch.launch.serve --mode trace --device cpu \
         --replicas 2 --router-policy least_queue     # a routed fleet
+    python -m repro_torch.launch.serve --arch llama3.2-1b --mode batch \
+        --full --tp 8 --pods 4 --ar-strategy hier_rd --seq-parallel on
+    python -m repro_torch.launch.serve --arch codeqwen1.5-7b --mode batch \
+        --full --batch 8 --prompt-len 128      # a QKV-bias arch on one card
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -65,7 +69,13 @@ mixer side by side in every block, every selective-scan recurrence,
 prefill and decode, through the selective-scan kernel; its cache is the
 K/V (paged under ``--block-size``) beside the mamba state.  ``--layers
 N`` cuts the config's depth to N layers (widths kept), and the
-``[serve]`` line then shows the depth.
+``[serve]`` line then shows the depth.  ``--seq-parallel on|auto`` keeps
+the prefill's residual stream cut on the sequence over the fast TP axis
+(reduce-scatter + all-gather in place of each fused all-reduce; ``auto``
+asks the autotune table per call); decode never decomposes.  The dense
+archs ``mistral-large-123b``, ``codeqwen1.5-7b`` and ``qwen1.5-32b`` (the
+last two with QKV biases) run as ``llama3.2-1b`` does; the two larger
+ones fit one card only with ``--layers``.
 
 ``--mode trace`` replays a BurstGPT-style trace (``make_trace``:
 ``--n-requests`` requests, lognormal prompt and output lengths around
@@ -108,7 +118,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from ..configs import get_config, get_smoke
-from ..core.pcontext import AR_STRATEGIES
+from ..core.pcontext import AR_STRATEGIES, SEQ_PARALLEL_MODES
 from ..inference.engine import GenerationResult
 from ..inference.router import Router, RouterMetrics
 from ..inference.scheduler import ServeMetrics, make_prefix_trace, \
@@ -204,6 +214,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="overlapped collective-matmul projections")
     p.add_argument("--overlap-chunks", type=int, default=4,
                    help="column blocks of the overlapped projections")
+    p.add_argument("--seq-parallel", choices=list(SEQ_PARALLEL_MODES),
+                   default="off",
+                   help="sequence-parallel prefill: the residual stays cut "
+                        "on the sequence over the fast TP axis, reduce-"
+                        "scatter + all-gather replacing the fused all-"
+                        "reduce (auto: per call from the autotune table's "
+                        "SP entries); decode never decomposes")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ways (virtual mesh when > 1)")
     p.add_argument("--pods", type=int, default=1,
@@ -274,6 +291,8 @@ def _layout(args: argparse.Namespace, cfg, mesh, ctx) -> str:
             layout += f"/q={ctx.ar_quant}"
         if args.overlap:
             layout += f" overlap({args.overlap_chunks})"
+        if ctx.seq_parallel != "off":
+            layout += f" sp={ctx.seq_parallel}"
     if args.temperature > 0:
         layout += f" T={args.temperature:g}"
         if args.top_k:

@@ -55,7 +55,8 @@ def _group(tree: Mapping[str, Any], dtype, device, layer=None):
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device, mesh=None) -> DenseLM:
-    """tree: {"embed": {"tok", "head"}, "blocks": {"ln1", "attn", "ln2",
+    """tree: {"embed": {"tok", "head"}, "blocks": {"ln1", "attn" (with
+    "bq"/"bk"/"bv" under ``qkv_bias``), "ln2",
     and "mlp" or (MoE) "moe": {"router", "wg", "wu", "wd"}}, for the
     hybrid family {"ln1", "attn", "ssm", "beta" (a bare leaf), "ln2",
     "mlp"}, or for the ssm family {"ln1", "tm", "ln2", "cm"}, with every

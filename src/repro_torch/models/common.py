@@ -38,6 +38,7 @@ class ModelConfig:
     # RWKV6
     rwkv_head_dim: int = 64
     decay_lora: int = 64
+    qkv_bias: bool = False           # q/k/v projection biases (qwen1.5)
     sliding_window: int = 0          # 0 = full attention
     rope_theta: float = 1.0e4
     norm: str = "rmsnorm"
@@ -68,7 +69,10 @@ class ModelConfig:
         the mamba branch's full (D, d_inner) ``w_dt`` and its (D, 2 s)
         ``w_bc``, where the reference's count assumes a low-rank
         ``dt_rank`` projection that its ``init_ssm`` does not build, plus
-        ``beta`` and the norms (ROADMAP §3)."""
+        ``beta`` and the norms (ROADMAP §3).  The dense count is every
+        leaf too: the QKV biases of a ``qkv_bias`` arch and the norms,
+        both of which the reference's count leaves out (ROADMAP §3); the
+        MoE count is the reference's."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         if self.attn_free:
             # time-mix: r/k/v/g/o (D, D), decay LoRA, 5 shift mixes, w0, u
@@ -81,6 +85,8 @@ class ModelConfig:
         hq = self.n_heads * self.head_dim
         hkv = self.n_kv_heads * self.head_dim
         per_layer = d * (hq + 2 * hkv) + hq * d
+        if self.qkv_bias:
+            per_layer += hq + 2 * hkv
         if self.family == "hybrid":
             di, s, k = self.d_inner, self.ssm_state, self.d_conv
             # w_x, w_z, w_dt, w_out; w_bc; conv_w; dt_bias, conv_b, D_skip;
@@ -93,7 +99,10 @@ class ModelConfig:
             per_layer += d * self.n_experts  # router
             per_layer += self.n_experts * 3 * d * self.d_ff_expert
         else:
-            per_layer += (3 if self.act == "swiglu" else 2) * d * f
+            # the MLP, the two block norms; the final norm
+            per_layer += (3 if self.act == "swiglu" else 2) * d * f + 2 * d
+            return v * d * (1 if self.tie_embeddings else 2) \
+                + L * per_layer + d
         return v * d * (1 if self.tie_embeddings else 2) + L * per_layer
 
     def active_param_count(self) -> int:

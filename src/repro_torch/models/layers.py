@@ -104,12 +104,19 @@ def rank_matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def _qkv(p: Params, h: torch.Tensor):
-    """h (R, B, S, D) -> q (R, B, S, Q, hd), k/v (R, B, S, U, hd)."""
-    def proj(w):
+    """h (R, B, S, D) -> q (R, B, S, Q, hd), k/v (R, B, S, U, hd).  A
+    QKV-bias arch's ``bq``/``bk``/``bv`` ((R, slots, hd), each rank's own
+    slots) are added after the projections, as the reference adds them;
+    prefill, decode, chunked prefill and verify all project here."""
+    def proj(w, b):
         n, hd = (w["q"] if isinstance(w, Mapping) else w).shape[-2:]
-        return rank_matmul(h, flat_weight(w, h.shape[-1])) \
+        y = rank_matmul(h, flat_weight(w, h.shape[-1])) \
             .reshape(*h.shape[:-1], n, hd)
-    return proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+        if b is None:
+            return y
+        return y + b.reshape(b.shape[0], *([1] * (y.dim() - 3)), n, hd)
+    return tuple(proj(p[w], p[b] if b in p else None)
+                 for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
@@ -319,10 +326,12 @@ def mlp_down_w(p: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def embed_lookup(p: Params, ids: torch.Tensor, ctx: ParallelCtx, mesh,
-                 vocab_pad: int) -> torch.Tensor:
+                 vocab_pad: int, *, sp: bool = False) -> torch.Tensor:
     """Vocab-parallel lookup: local gather (zero rows for ids outside the
     rank's vocab range) + TP reduce (the paper's AR site #0).
-    ids (B, S) -> (R, B, S, D)."""
+    ids (B, S) -> (R, B, S, D); with ``sp`` the partials end in
+    ``tp_reduce_scatter`` on the sequence instead, (R, B, S / fast, D),
+    the sequence-parallel residual's layout."""
     table = p["tok"]
     R, v_loc = table.shape[0], table.shape[1]
     if v_loc == vocab_pad and not ctx.has_tp:
@@ -333,6 +342,8 @@ def embed_lookup(p: Params, ids: torch.Tensor, ctx: ParallelCtx, mesh,
     x = table[ranks.view(R, *([1] * ids.dim())), local.clamp(0, v_loc - 1)]
     x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))
+    if sp:
+        return hier.tp_reduce_scatter(x, ctx, mesh, dim=1)
     return hier.tp_all_reduce(x, ctx, mesh, scatter_dim=-1)
 
 

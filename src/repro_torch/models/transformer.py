@@ -33,11 +33,22 @@ batch, updated in place (JAX rebuilt them with ``.at[].set``).  Under a
 quantized wire (``ctx.ar_quant`` other than "none") the decode cache also
 carries the error-feedback leaf ``ef`` (:func:`ef_sites_for`), which the
 two row-parallel reductions of every decode block consume and refresh;
-prefill takes the one-shot rounding.  Item 9's decode variants are
-chosen by the cache and the step: the int8 cache (``kv_quant``: int8
-K/V beside bf16 ``k_scale``/``v_scale``), the ring-buffer window cache
+prefill takes the one-shot rounding.  The decode variants are chosen by
+the cache and the step: the int8 cache (``kv_quant``: int8 K/V beside
+bf16 ``k_scale``/``v_scale``), the ring-buffer window cache
 (``window_cache``, ``decode_step(kv_ring=True)``) and int8 block weights
 (``weight_quant``: ``{q, s}`` leaves, ``decode_step(layer_map=...)``).
+
+Sequence-parallel prefill (``forward_lm(sp=...)``, ``ctx.seq_parallel``):
+the residual stream stays cut on the sequence over the fast TP axis
+between sublayers, (R, B, S / fast, D), rank (p, f) holding the f-th
+piece.  The row-parallel projections and the embedding end in
+``tp_reduce_scatter`` on the sequence, norms run on the piece, and
+``tp_all_gather`` restores the full sequence only where attention, the
+MLP's up-projection or the mixers need it; the final norm's output is
+gathered back before the vocab head.  Decode and chunked prefill never
+decompose.  A QKV-bias arch (``cfg.qkv_bias``) carries ``bq``/``bk``/
+``bv`` in the attention group, in slot layout.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import autotune
 from ..core import hierarchical as hier
 from ..core import overlap as ov
 from ..core.pcontext import LOCAL, ParallelCtx
@@ -133,13 +145,15 @@ def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
 
 
 def check_layout(ap: ArchPlan, ctx: ParallelCtx, mesh) -> int:
-    """Raise unless (ap, ctx, mesh) describe one layout; returns R."""
+    """Raise unless (ap, ctx, mesh) describe one layout; returns R.  The
+    ctx's ``dp``, ``fsdp`` and ``sp`` axes are the reference's training
+    layout (``sp`` is set only by its training constructors, and never
+    read: sequence-parallel prefill is ``seq_parallel``)."""
     if ctx.dp or ctx.fsdp or ctx.sp:
         raise NotImplementedError(
             f"ctx dp={ctx.dp} fsdp={ctx.fsdp} sp={ctx.sp}: the virtual mesh "
-            "holds the TP axes only; batch- and weight-sharded serving "
-            "arrive with ROADMAP item 11, sequence-parallel residuals with "
-            "item 9")
+            "holds the TP axes only; batch-, weight- and sequence-sharded "
+            "training layouts arrive with ROADMAP item 11")
     if mesh is None:
         if ctx.has_tp or ap.tp != 1:
             raise ValueError(f"tp={ap.tp} with TP axes {ctx.tp_axes} needs "
@@ -174,7 +188,7 @@ def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One decoder layer's parameter groups, each (R, *local): ``ln1``,
-    ``attn`` (wq, wk, wv, wo), ``ln2``, and either ``mlp`` (wg, wu, wd) or
+    ``attn`` (wq, wk, wv, wo; bq, bk, bv under ``qkv_bias``), ``ln2``, and either ``mlp`` (wg, wu, wd) or
     ``moe`` (router f32; wg, wu, wd cut on the expert axis); a hybrid
     block adds ``ssm`` (the mamba mixer) and ``beta``, a bare (R, 2) f32
     tensor; or, for the ssm family, ``ln1``, ``tm`` (the RWKV6 time-mix),
@@ -219,7 +233,8 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                 mesh=None) -> DenseLM:
     """The port's own seeded init: the shapes and scales of the JAX
     ``init_params`` at ``ap.tp`` (weights Normal(0, 1/fan_in) in the
-    plan's slot layout, norms 1, a MoE router in f32; the RWKV6 groups
+    plan's slot layout, norms 1, QKV biases zero in slot layout as the
+    reference draws them, a MoE router in f32; the RWKV6 groups
     of ``rwkv.init_rwkv_*``; the mamba group of ``ssm.init_ssm`` and
     ``beta`` ones in f32), drawn from a ``torch.Generator`` on ``device``
     (not the JAX package's numbers), then cut over ``mesh`` (R = ap.tp
@@ -255,6 +270,12 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                 "wk": place_heads(wk, plan.kv_map).transpose(0, 1).contiguous(),
                 "wv": place_heads(wv, plan.kv_map).transpose(0, 1).contiguous(),
                 "wo": place_heads(wo, plan.q_map)}
+        if cfg.qkv_bias:
+            for name, n, m in (("bq", cfg.n_heads, plan.q_map),
+                               ("bk", cfg.n_kv_heads, plan.kv_map),
+                               ("bv", cfg.n_kv_heads, plan.kv_map)):
+                attn[name] = place_heads(torch.zeros(
+                    (n, hd), dtype=dt, device=device), m)
         blk = {"ln1": ones(d), "attn": attn, "ln2": ones(d)}
         if cfg.family == "hybrid":
             blk["ssm"] = SSM.init_ssm(gen, cfg)
@@ -283,6 +304,51 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
 # ---------------------------------------------------------------------------
 
 
+def _seq_parallel_active(ctx: ParallelCtx, mesh, cfg: ModelConfig,
+                         n_tokens: int, seq_len: int,
+                         explicit: Optional[bool]) -> bool:
+    """The sequence-parallel layout of one prefill call.  It engages only
+    with a fast TP axis of size > 1 that divides the sequence (else the
+    fused path, the same numbers).  ``explicit`` (a caller's ``sp=``)
+    overrides the ``ctx.seq_parallel`` knob; from the knob it never
+    engages for the recurrent families (ssm, hybrid), and ``"auto"`` asks
+    the active tuner (:func:`~repro_torch.core.autotune.resolve_sp`) with
+    this call's residual message, ``n_tokens * d_model * itemsize``: the
+    step builders call under their own tuner (``autotune.using``)."""
+    if not ctx.tp_fast:
+        return False
+    fast = hier.axes_size(ctx.tp_fast, mesh)
+    if fast <= 1 or seq_len % fast:
+        return False
+    if explicit is not None:
+        return bool(explicit)
+    mode = ctx.seq_parallel
+    if mode == "off" or cfg.family in ("ssm", "hybrid"):
+        return False
+    if mode == "on":
+        return True
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    slow = hier.axes_size(ctx.tp_slow, mesh) if ctx.tp_slow else 1
+    return autotune.resolve_sp(n_tokens * cfg.d_model * itemsize, fast,
+                               slow, hier.dtype_name(cfg.dtype))
+
+
+def _residual(x: torch.Tensor, partial: torch.Tensor, ctx: ParallelCtx,
+              mesh, sp: bool, dim: int = 1) -> torch.Tensor:
+    """x plus a TP partial completed: reduce-scattered on the sequence
+    (``dim`` of one rank's tensor) under SP, else all-reduced."""
+    if sp:
+        return x + hier.tp_reduce_scatter(partial, ctx, mesh, dim=dim)
+    return x + hier.tp_all_reduce(partial, ctx, mesh, scatter_dim=-1)
+
+
+def _gathered(x: torch.Tensor, ctx: ParallelCtx, mesh,
+              sp: bool) -> torch.Tensor:
+    """The full sequence of a sequence-parallel activation (R, B, S/fast,
+    D): ``tp_all_gather`` under SP, x itself otherwise."""
+    return hier.tp_all_gather(x, ctx, mesh, dim=1) if sp else x
+
+
 def _use_overlap(ctx: ParallelCtx) -> bool:
     """Route the row-parallel output projections through the overlapped
     collective matmul."""
@@ -290,13 +356,21 @@ def _use_overlap(ctx: ParallelCtx) -> bool:
 
 
 def _residual_proj(x: torch.Tensor, lhs: torch.Tensor, w: torch.Tensor,
-                   ctx: ParallelCtx, mesh, ef: Optional[torch.Tensor] = None
+                   ctx: ParallelCtx, mesh, ef: Optional[torch.Tensor] = None,
+                   sp: bool = False
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x plus the TP-reduced projection of ``lhs`` (the pre-projection
     activation, (R, B, S, *c)) by the row-sharded ``w`` ((R, *c, D)), the
     new error-feedback residue): overlapped when the ctx asks for it, else
     the projection then ``tp_all_reduce``.  ``ef`` (R, B, S, D) is this
-    site's residue (None: no EF, and None comes back)."""
+    site's residue (None: no EF, and None comes back).  ``sp``: the
+    reduction is ``tp_reduce_scatter`` on the sequence (under overlap
+    ``collective_matmul_reduce_scatter``); prefill only, so no EF."""
+    if sp:
+        if _use_overlap(ctx):
+            return x + ov.collective_matmul_reduce_scatter(
+                lhs, w, ctx, mesh, dim=1), None
+        return _residual(x, ov.project(lhs, w), ctx, mesh, True), None
     if _use_overlap(ctx):
         y = ov.collective_matmul(lhs, w, ctx, mesh, ef=ef)
     else:
@@ -306,69 +380,87 @@ def _residual_proj(x: torch.Tensor, lhs: torch.Tensor, w: torch.Tensor,
     return x + y, ef
 
 
-def _moe_tokens(h: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
-    """MoE consumes per-rank-unique tokens: rank r takes the r-th
-    contiguous chunk of the sequence of h (R, B, S, D) (no exchange)."""
+def _moe_tokens(h: torch.Tensor, ctx: ParallelCtx, mesh,
+                sp: bool = False) -> torch.Tensor:
+    """MoE consumes per-rank-unique tokens (no exchange): rank r takes the
+    r-th contiguous chunk of the sequence of h (R, B, S, D).  Under SP h
+    is already cut over the fast axis, and rank (p, f) takes chunk p of
+    its piece f: the port's EP group spans the pods too (``ep`` = the TP
+    axes), so the pods must not dispatch the same tokens."""
     if not ctx.has_tp:
         return h
     R, B, S, D = h.shape
-    if S % R:
+    n = hier._sizes(ctx, mesh)[0] if sp else R
+    if S % n:
         raise ValueError(f"sequence {S} is not divisible by tp={R}: the MoE "
                          "dispatch gives every rank S/tp of its tokens")
     r = torch.arange(R, device=h.device)
-    return h.reshape(R, B, R, S // R, D)[r, :, r]
+    c = r // (R // n) if sp else r
+    return h.reshape(R, B, n, S // n, D)[r, :, c]
 
 
-def _moe_restore(out: torch.Tensor, ctx: ParallelCtx, mesh) -> torch.Tensor:
-    """The ranks' sequence chunks gathered back to the full sequence."""
+def _moe_restore(out: torch.Tensor, ctx: ParallelCtx, mesh,
+                 sp: bool = False) -> torch.Tensor:
+    """The ranks' sequence chunks gathered back: to the full sequence, or
+    under SP to each rank's fast piece (a gather over the pods)."""
+    if sp:
+        return hier.pod_all_gather_tiled(out, ctx, mesh, dim=1)
     return hier.all_gather_tiled(out, ctx, mesh, dim=1)
 
 
 def _cm_residual(x: torch.Tensor, stacked: torch.Tensor, ctx: ParallelCtx,
-                 mesh) -> torch.Tensor:
+                 mesh, sp: bool = False) -> torch.Tensor:
     """x plus the gated channel-mix: the stacked (value, receptance logit)
-    partial (R, 2, B, S, D) completed by one ``tp_all_reduce``, then
-    ``sigmoid(r) * v``."""
-    red = hier.tp_all_reduce(stacked, ctx, mesh, scatter_dim=-1)
+    partial (R, 2, B, S, D) completed by one ``tp_all_reduce`` (under SP
+    ``tp_reduce_scatter`` on the sequence), then ``sigmoid(r) * v``."""
+    red = hier.tp_reduce_scatter(stacked, ctx, mesh, dim=2) if sp \
+        else hier.tp_all_reduce(stacked, ctx, mesh, scatter_dim=-1)
     return x + torch.sigmoid(red[:, 1].float()).to(x.dtype) * red[:, 0]
 
 
 def _mixed_residual(x: torch.Tensor, beta: torch.Tensor, attn: torch.Tensor,
-                    ssm: torch.Tensor, ctx: ParallelCtx, mesh) -> torch.Tensor:
+                    ssm: torch.Tensor, ctx: ParallelCtx, mesh,
+                    sp: bool = False) -> torch.Tensor:
     """x plus the hybrid block's mix: ``beta`` (R, 2) f32 cast to the
     activation dtype, as the reference casts it, ``beta0 * attn + beta1 *
     ssm`` over the two TP-partial outputs (R, B, S, D), completed by one
-    ``tp_all_reduce``."""
+    ``tp_all_reduce`` (under SP ``tp_reduce_scatter``)."""
     b = beta.to(attn.dtype)
     mix = L.per_rank(b[:, :1], attn) * attn + L.per_rank(b[:, 1:], ssm) * ssm
-    return x + hier.tp_all_reduce(mix, ctx, mesh, scatter_dim=-1)
+    return _residual(x, mix, ctx, mesh, sp)
 
 
 def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ctx: ParallelCtx = LOCAL, mesh=None, *,
                   positions: torch.Tensor,
-                  q_mask: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Cache]:
-    """One causal block over the full sequence, x (R, B, S, D) replicated.
-    Returns (x, the layer's prefill cache seed): the rotated K/V {"k",
-    "v"} (R, B, S, U, hd), for a hybrid block with the mamba state
-    {"conv"} (R, B, K-1, Ci) and {"ssm"} (R, B, Ci, s) beside them, or for
-    an ssm block the recurrent state {"shift_tm", "shift_cm"} (R, B, D)
-    and {"wkv"} (R, B, H, hd, hd).  The row-parallel projections go
-    through ``_residual_proj`` (no SP), except a hybrid block's attention
-    ``wo``, whose partial is mixed with the mamba mixer's before its one
-    reduction (``_mixed_residual``); a MoE block runs the dispatch path on
-    each rank's chunk of the sequence and gathers the outputs back (its
-    load-balancing loss, which only training reads, is dropped)."""
+                  q_mask: Optional[torch.Tensor] = None,
+                  sp: bool = False) -> Tuple[torch.Tensor, Cache]:
+    """One causal block over the full sequence, x (R, B, S, D) replicated,
+    or under ``sp`` the residual's sequence piece (R, B, S / fast, D).
+    Returns (x, the layer's prefill cache seed, always of the full
+    sequence): the rotated K/V {"k", "v"} (R, B, S, U, hd), for a hybrid
+    block with the mamba state {"conv"} (R, B, K-1, Ci) and {"ssm"}
+    (R, B, Ci, s) beside them, or for an ssm block the recurrent state
+    {"shift_tm", "shift_cm"} (R, B, D) and {"wkv"} (R, B, H, hd, hd).  The
+    row-parallel projections go through ``_residual_proj``, except a
+    hybrid block's attention ``wo``, whose partial is mixed with the mamba
+    mixer's before its one reduction (``_mixed_residual``); a MoE block
+    runs the dispatch path on each rank's chunk of the sequence and
+    gathers the outputs back (its load-balancing loss, which only training
+    reads, is dropped).  Under ``sp`` the norms run on the piece, every
+    reduction is a ``tp_reduce_scatter`` on the sequence, and
+    ``tp_all_gather`` gives the full sequence to attention, the mixers and
+    the MLP's up-projection; a MoE block dispatches chunk p of its piece
+    on rank (p, f) and gathers the chunks back over the pods."""
     cfg = ap.cfg
-    h = L.apply_norm(x, bp.ln1, cfg)
+    h = _gathered(L.apply_norm(x, bp.ln1, cfg), ctx, mesh, sp)
     if cfg.attn_free:
         tm, st = RW.rwkv_time_mix(bp.tm, h, cfg, return_state=True)
-        x = x + hier.tp_all_reduce(tm, ctx, mesh, scatter_dim=-1)
-        h2 = L.apply_norm(x, bp.ln2, cfg)
+        x = _residual(x, tm, ctx, mesh, sp)
+        h2 = _gathered(L.apply_norm(x, bp.ln2, cfg), ctx, mesh, sp)
         stacked, st2 = RW.rwkv_channel_mix(bp.cm, h2, cfg, return_state=True)
         st["wkv"] = st["wkv"].reshape(*x.shape[:2], *st["wkv"].shape[1:])
-        return _cm_residual(x, stacked, ctx, mesh), {**st, **st2}
+        return _cm_residual(x, stacked, ctx, mesh, sp), {**st, **st2}
     heads, kv = L.attention_prefill(bp.attn, h, cfg, positions=positions,
                                     q_mask=q_mask)
     st = {"k": kv[0], "v": kv[1]}
@@ -377,16 +469,17 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
         st["conv"] = sst["conv"]
         st["ssm"] = sst["ssm"].reshape(*x.shape[:2], *sst["ssm"].shape[1:])
         x = _mixed_residual(x, bp.beta, ov.project(heads, bp.attn["wo"]), so,
-                            ctx, mesh)
+                            ctx, mesh, sp)
     else:
-        x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh)
+        x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh, sp=sp)
     h2 = L.apply_norm(x, bp.ln2, cfg)
     if cfg.is_moe:
-        out, _ = M.moe_ffn(bp.moe, _moe_tokens(h2, ctx), cfg, ctx, mesh,
-                           decode=False)
-        return x + _moe_restore(out, ctx, mesh), st
-    x, _ = _residual_proj(x, L.mlp_hidden(bp.mlp, h2, cfg),
-                          L.mlp_down_w(bp.mlp, cfg), ctx, mesh)
+        out, _ = M.moe_ffn(bp.moe, _moe_tokens(h2, ctx, mesh, sp), cfg, ctx,
+                           mesh, decode=False)
+        return x + _moe_restore(out, ctx, mesh, sp), st
+    x, _ = _residual_proj(x, L.mlp_hidden(bp.mlp, _gathered(h2, ctx, mesh,
+                                                            sp), cfg),
+                          L.mlp_down_w(bp.mlp, cfg), ctx, mesh, sp=sp)
     return x, st
 
 
@@ -398,9 +491,16 @@ def _unranked(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
                ctx: ParallelCtx = LOCAL, mesh=None, *,
-               collect_state: bool = False
+               sp: Optional[bool] = None, collect_state: bool = False
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """tokens (B, S) -> (logits, states).
+
+    ``sp=None`` resolves the sequence-parallel layout from
+    ``ctx.seq_parallel`` for this call (:func:`_seq_parallel_active`); a
+    bool forces it, subject to the fast axis dividing the sequence.  A
+    sequence-parallel residual is gathered back to the full sequence
+    after the final norm, before the vocab head; the states are the full
+    sequence's either way.
 
     ``logits`` are vocab-sharded, (R, B, S, V_local), on a mesh and
     (B, S, V_pad) without one.  ``states`` (when ``collect_state``) hold
@@ -414,16 +514,17 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
     """
     check_layout(ap, ctx, mesh)
     B, S = tokens.shape
+    sp = _seq_parallel_active(ctx, mesh, ap.cfg, B * S, S, sp)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     q_mask = _q_mask(ap, tokens.device)
-    x = L.embed_lookup(model.embed, tokens, ctx, mesh, ap.vocab_pad)
+    x = L.embed_lookup(model.embed, tokens, ctx, mesh, ap.vocab_pad, sp=sp)
     seeds: List[Cache] = []
     for bp in model.blocks:
         x, st = block_forward(bp, x, ap, ctx, mesh, positions=positions,
-                              q_mask=q_mask)
+                              q_mask=q_mask, sp=sp)
         if collect_state:
             seeds.append({n: L._fold(t) for n, t in st.items()})
-    x = L.apply_norm(x, model.final_norm, ap.cfg)
+    x = _gathered(L.apply_norm(x, model.final_norm, ap.cfg), ctx, mesh, sp)
     logits = _unranked(L.lm_logits(model.embed, x), mesh)
     states = {n: torch.stack([st[n] for st in seeds]) for n in seeds[0]} \
         if collect_state else None

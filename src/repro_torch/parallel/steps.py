@@ -21,7 +21,13 @@ replayed after.  ``ar_table`` (a path, an
 build time and every call of the step runs under that tuner, so each
 ``ar_strategy="auto"`` call site of THIS step resolves against THIS table:
 at every call of an eager step, once at the capture of a graph (as the
-reference resolves it at trace time).  Under a quantized wire the cache
+reference resolves it at trace time).  The prefill-shaped steps
+(``build_prefill``, ``build_admit_step``, ``build_prefill_only_step``)
+run ``forward_lm`` with ``sp=None``, so ``ctx.seq_parallel`` ("auto"
+included) is resolved per call under the same tuner; the decode, chunked
+admission and verify steps never decompose (``decode_step`` and
+``prefill_chunk`` have no sequence-parallel form, as the reference builds
+them with ``sp=False``).  Under a quantized wire the cache
 carries the error-feedback leaf (``ef_sites_for``), zeroed when a prompt
 is seeded, which every decode step consumes and refreshes.
 

@@ -31,16 +31,12 @@ def mesh_and_ctx(tp: int, pods: int = 1, *, ar_strategy: str = "flat",
                  ) -> Tuple[Optional[VirtualMesh], ParallelCtx, int]:
     """(mesh, ctx, tp_total) for the layout: no mesh and the local ctx at
     tp == 1, else a new (pods, tp/pods) virtual mesh on ``device`` with
-    the ctx that wires it, and the knobs set.  Sequence-parallel prefill
-    is not ported (ROADMAP item 9)."""
-    if seq_parallel != "off":
-        raise NotImplementedError(
-            f"seq_parallel={seq_parallel!r}: sequence-parallel prefill "
-            "arrives with ROADMAP item 9")
+    the ctx that wires it, and the knobs set (``seq_parallel`` shapes the
+    prefill: ``transformer.forward_lm`` resolves it per call)."""
     mesh, ctx = _mesh_and_ctx(tp, pods, ar_strategy=ar_strategy,
                               device=device)
     ctx = ctx.replace(overlap_matmul=overlap, overlap_chunks=overlap_chunks,
-                      ar_quant=ar_quant)
+                      seq_parallel=seq_parallel, ar_quant=ar_quant)
     return mesh, ctx, max(tp, 1)
 
 

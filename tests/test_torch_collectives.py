@@ -262,22 +262,26 @@ def test_workspace_generation_moves_when_a_captured_buffer_grows(
 @pytest.mark.parametrize("knob,item", [
     (dict(ar_quant="int8"), None),
     (dict(compress_slow=True), None),
-    (dict(seq_parallel="on"), "item 9"),
+    (dict(seq_parallel="on"), "exact"),
 ], ids=["ar_quant", "compress_slow", "seq_parallel"])
 def test_knobs_left_for_later_raise(knob, item):
-    """Only ``seq_parallel`` is left for a later slice and raises; the
-    quantized wire's knobs run: within their int8 rounding of the exact
-    sum, every rank holding the same sum under ``ar_quant`` (the legacy
-    ``compress_slow`` lets XOR peers differ by a rounding, as in the
-    reference)."""
+    """Every knob runs.  ``seq_parallel`` shapes the model's prefill and
+    the collectives ignore it, as in the reference: the all-reduce under
+    it is the exact sum.  The quantized wire's knobs land within their
+    int8 rounding of the exact sum, every rank holding the same sum under
+    ``ar_quant`` (the legacy ``compress_slow`` lets XOR peers differ by a
+    rounding, as in the reference)."""
     kw = dict(ar_strategy="hier_rd")
     kw.update(knob)
     ctx = TCtx(tp_fast=("model",), tp_slow=("pod",), **kw)
     mesh = VirtualMesh(2, 2, device="cpu")
     x = torch.tensor(_data((4, 2, 8), seed=4))
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            TH.tp_all_reduce(x, ctx, mesh)
+    if item == "exact":
+        got = TH.tp_all_reduce(x, ctx, mesh)
+        torch.testing.assert_close(got, x.sum(0, keepdim=True).expand_as(x),
+                                   atol=1e-6, rtol=0)
+        assert torch.equal(got, TH.tp_all_reduce(
+            x, ctx.replace(seq_parallel="off"), mesh))
         return
     got = TH.tp_all_reduce(x, ctx, mesh)
     exact = x.sum(0, keepdim=True).expand_as(x)

@@ -2,7 +2,7 @@
 analytic prefill cost against the JAX package's, every refusal of the
 reference's ``BAD_COMBOS`` with the same message fragment from both
 packages, the JSON round trip and its unknown keys, the refusals the port
-adds (what waits for ROADMAP items 9 and 11), the one-card replica
+adds (what waits for ROADMAP item 11), the one-card replica
 carving, and the bars on the f32 llama smoke model: a ``round_robin``
 fleet is N single replicas request for request (also under a fault plan,
 each replica its own schedule), every policy completes a bursty trace,
@@ -228,18 +228,19 @@ def test_spec_json_refuses_unknown_keys_and_reads_the_reference():
 
 def test_build_refuses_what_waits_for_later_items(lm):
     """What the reference accepts and builds but the port has not ported:
-    ``seq_parallel`` (ROADMAP item 9), ``fsdp_serve`` (item 11).  The
-    spec's own checks run first.  ``kv_quant`` now builds (a batcher over
+    ``fsdp_serve`` (ROADMAP item 11); ``seq_parallel`` builds now, its
+    ctx carrying the knob.  The spec's own checks run first.  ``kv_quant`` now builds (a batcher over
     the int8 cache) and keeps the reference's own build-time refusals,
     each with its message: paged, chunked, spec, prefix, disagg, batch
     mode."""
     kw = dict(ap=lm["ap"], model=lm["model"], device="cpu")
     with pytest.raises(SpecError, match="admit_chunk"):
         build_replica(RS.replace(admit_mode="chunked", admit_chunk=28), **kw)
-    for bad, item in ((dict(seq_parallel="on"), "item 9"),
-                      (dict(fsdp_serve=True), "item 11")):
+    for bad, item in ((dict(fsdp_serve=True), "item 11"),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             build_replica(RS.replace(**bad), **kw)
+    assert build_replica(RS.replace(seq_parallel="on"), **kw) \
+        .ctx.seq_parallel == "on"
     built = build_replica(RS.replace(kv_quant=True), **kw)
     assert built.cache["k"].dtype == torch.int8 and "k_scale" in built.cache
     for bad, msg in (

@@ -281,10 +281,11 @@ def test_mesh_engine_runs_paged_cache_and_sampling():
 
 @pytest.mark.parametrize("axis,item", [("dp", "item 11"),
                                        ("fsdp", "item 11"),
-                                       ("sp", "item 9")])
+                                       ("sp", "item 11")])
 def test_layout_refuses_non_tp_axes(axis, item):
-    """A ctx with batch, weight or sequence axes is refused, not run as if
-    they were absent."""
+    """A ctx with batch, weight or sequence axes (the reference's training
+    layout; sequence-parallel prefill is the ``seq_parallel`` knob) is
+    refused, not run as if they were absent."""
     tcfg = _cfgs()[1]
     mesh, ctx = mesh_and_ctx(4, 2, ar_strategy="hier_rd", device="cpu")
     TT.check_layout(TT.make_plan(tcfg, 4), ctx, mesh)
