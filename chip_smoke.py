@@ -136,7 +136,7 @@ phase's seconds are printed after it):
      each checked; kernel, plain version and a three-bmm chain
      (informative: no single PyTorch call computes the function) timed
      against the bound;
- 16. qwen3-moe-30b-a3b at full width and 12 of its 48 layers
+ 16. qwen3-moe-30b-a3b at full width and 6 of its 48 layers
      (PATH_LAYERS, seeded bf16 weights): batch 8, prompt 128, 16 new tokens, dense and paged
      (block 16), exact launch counts (kernel 7 once a layer in prefill
      and once a layer a step), paged tokens == dense tokens, one profiled
@@ -185,7 +185,7 @@ phase's seconds are printed after it):
      update bitwise equal to a separate one; kernel, plain version (fewer
      calls: a T-step loop) and bound (the special-function units'
      exponentials or the bytes) timed;
- 24. hymba-1.5b at full width and 16 of its 32 layers (PATH_LAYERS;
+ 24. hymba-1.5b at full width and 8 of its 32 layers (PATH_LAYERS;
      1.80 B parameters at full depth, seeded bf16): batch 8, prompt 1280
      (past the 1024 window), 64 new tokens, dense and paged (block 16),
      exact launch counts (kernel 9 once a layer in prefill and once a
@@ -321,7 +321,29 @@ phase's seconds are printed after it):
      and at tp=8 (4x2 hier_rd; exact launches, graph == eager), tp=8's
      tokens margin-gated against tp=1's and its teacher-forced logits
      within (TF_MAX, TF_MEAN); codeqwen1.5-7b card against CPU at 2
-     layers in f32 with the biases planted.
+     layers in f32 with the biases planted;
+ 33. the encoder-decoder and VLM families: kernel 3 non-causal at
+     whisper-medium's encoder (1500 frames over themselves) and its
+     cross-attention prefill (64 queries over 1500 keys) and their tp=8
+     folds, causal at pixtral-12b's prefill (32 / 8 heads of 128, 1088
+     tokens); kernel 1 at whisper's cross-attention decode (g 1, 1500
+     keys, every row at 1499) and its fold, kernels 1 / 2 at pixtral's
+     decode; each against its plain version in bf16 and f32, a second
+     call bitwise, timed beside SDPA and the bound; whisper-medium (24 +
+     24 layers, batch 8, 1500 frames, prompt 64, 16 new) and pixtral-12b
+     (40 layers, 1024 patches + 64 tokens) at full width, bf16, seeded:
+     run_path at tp=1 dense and paged and at tp=8 (4x2 hier_rd), exact
+     launches (kernel 3 E + 2L a prefill for whisper, L for pixtral;
+     kernel 1 2L a step for whisper, the cross-attention's L when paged;
+     kernel 4 once an all-reduce), graph == eager, paged == dense, a
+     second batch of frames through the captured step with no capture
+     anew; tp=8's tokens margin-gated against tp=1's and its
+     teacher-forced logits within (TF_MAX, TF_MEAN), whisper at full
+     depth, pixtral at 16 layers (MM_GATE_LAYERS; its 40-layer bf16 gap
+     printed) and at 40 layers in f32 (tp=8 prefill logits within
+     MM_F32_TOL of tp=1's); card against CPU at 2 layers in f32
+     (whisper's encoder at 2 layers over all 1500 frames; pixtral with 32
+     patches in a 64-token prompt).
 Then both forms' decode tok/s of every path, side by side.  The last two
 lines are the kernels' JSON record and the result line.
 Imports nothing of JAX or of the JAX package.
@@ -454,9 +476,10 @@ RD_PARENT_MS = (0.0124, 0.0134, 0.0204, 0.0596, 0.2478)
 BF16_GAP = 0.1
 # The depth of the tp=1 paths of the families this script's later phases
 # do not extend (phases 16, 20, 24), cut from full depth (48, 32, 32
-# layers) so the whole script stays inside its time limit; widths are
-# full, and each phase's gates and planted faults are unchanged.
-PATH_LAYERS = {"qwen3-moe-30b-a3b": 12, "rwkv6-7b": 8, "hymba-1.5b": 16}
+# layers) so the whole script stays inside its time limit (to 12 / 8 / 16,
+# then, for phase 33's time, qwen3-moe and hymba by half again); widths
+# are full, and each phase's gates and planted faults are unchanged.
+PATH_LAYERS = {"qwen3-moe-30b-a3b": 6, "rwkv6-7b": 8, "hymba-1.5b": 8}
 # Teacher-forced bf16 logits of tp=8 hier_rd against flat and tp=1 over
 # the same sequence: bf16 roundings of O(1) logits in another reduction
 # order (max |diff|, mean |diff|).
@@ -640,15 +663,17 @@ def scatter_blocks(gen, k: torch.Tensor, v: torch.Tensor, bs: int) -> tuple:
     return tbl, pools[0], pools[1]
 
 
-def decode_case(gen, dtype, name: str, shapes: Optional[dict] = None
-                ) -> tuple:
+def decode_case(gen, dtype, name: str, shapes: Optional[dict] = None,
+                paged: bool = True) -> tuple:
     """Kernels 1 and 2 at one of DECODE_SHAPES: each within TOL of its
     plain version, the paged kernel on the dense cache scattered over a
     shuffled block pool bitwise equal to the dense one, a second call of
     each bitwise equal to the first; kernel, plain version and SDPA (with
     the row's mask, the window included) timed beside the bound.  Returns
     the dense and the paged kernel's records.  ``shapes``: where ``name``
-    is looked up (default DECODE_SHAPES)."""
+    is looked up (default DECODE_SHAPES).  ``paged=False``: kernel 1 alone
+    (a cache that is never paged, whose length need not be whole blocks);
+    the paged record is None."""
     b, hq, hkv, hd, s, win, (lo, hi) = (shapes or DECODE_SHAPES)[name]
 
     def rnd(*shape):
@@ -658,25 +683,32 @@ def decode_case(gen, dtype, name: str, shapes: Optional[dict] = None
     k, v = rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
     pos = torch.randint(lo, hi + 1, (b,), generator=gen, device="cuda",
                         dtype=torch.int32)
-    tbl, kp, vp = scatter_blocks(gen, k, v, BLOCK)
 
     def dense():
         return decode_attention(q, k, v, pos, window=win)
 
-    def paged():
-        return paged_decode_attention(q, kp, vp, tbl, pos, window=win)
-
-    out, outp = dense(), paged()
-    torch.cuda.synchronize()
     tag = f"{name} {tuple(q.shape)} S={s} window={win}"
+    out = dense()
+    torch.cuda.synchronize()
     err_d = check_close(f"decode_attention {tag}", out,
                         decode_attention_ref(q, k, v, pos, window=win), dtype)
-    err_p = check_close(f"paged_decode_attention {tag}", outp,
-                        paged_decode_attention_ref(q, kp, vp, tbl, pos,
-                                                   window=win), dtype)
-    if not torch.equal(outp, out):
-        raise AssertionError(f"{tag}: paged kernel != dense kernel")
-    if not (torch.equal(dense(), out) and torch.equal(paged(), outp)):
+    if paged:
+        tbl, kp, vp = scatter_blocks(gen, k, v, BLOCK)
+
+        def paged_call():
+            return paged_decode_attention(q, kp, vp, tbl, pos, window=win)
+
+        outp = paged_call()
+        torch.cuda.synchronize()
+        err_p = check_close(f"paged_decode_attention {tag}", outp,
+                            paged_decode_attention_ref(q, kp, vp, tbl, pos,
+                                                       window=win), dtype)
+        if not torch.equal(outp, out):
+            raise AssertionError(f"{tag}: paged kernel != dense kernel")
+        if not torch.equal(paged_call(), outp):
+            raise AssertionError(f"{tag}: a second call differs from the "
+                                 "first")
+    if not torch.equal(dense(), out):
         raise AssertionError(f"{tag}: a second call differs from the first")
     kpos, last = torch.arange(s, device="cuda")[None, :], pos.long()[:, None]
     mask = (kpos <= last) & (kpos > last - win) if win else kpos <= last
@@ -686,30 +718,33 @@ def decode_case(gen, dtype, name: str, shapes: Optional[dict] = None
         qs, kt, vt, attn_mask=amask, enable_gqa=True))
     t_d = (time_ms(dense),
            time_ms(lambda: decode_attention_ref(q, k, v, pos, window=win)))
-    t_p = (time_ms(paged),
-           time_ms(lambda: paged_decode_attention_ref(q, kp, vp, tbl, pos,
-                                                      window=win)))
     n_keys = int(mask.sum())          # keys the rows see, all rows
-    blocks = sum(last // BLOCK - first // BLOCK + 1
-                 for first, last in (visible_keys(p, s, win)
-                                     for p in pos.tolist()))
     isz = q.element_size()
     io = isz * (2 * b * hq * hd + 2 * n_keys * hkv * hd) + 4 * b
     ops = 4.0 * hq * hd * n_keys
-    bd, bp = bound_ms(io, ops, dtype), bound_ms(io + 4 * blocks, ops, dtype)
+    bd = bound_ms(io, ops, dtype)
     dt = str(dtype)[6:]
     log(f"  decode_attention {name} [{dt}]: kernel_ms={t_d[0]:.4f} "
         f"plain_ms={t_d[1]:.4f} library_ms={t_sdpa:.4f} (SDPA; kernel / "
         f"SDPA {t_d[0] / t_sdpa:.2f}) bound_ms={bd[0]:.4f} ({bd[1]})")
+    rec_d = {"max_abs_err": err_d, "ms": t_d[0], "plain_ms": t_d[1],
+             "library_ms": t_sdpa, "bound_ms": bd[0], "bound_by": bd[1]}
+    if not paged:
+        return rec_d, None
+    t_p = (time_ms(paged_call),
+           time_ms(lambda: paged_decode_attention_ref(q, kp, vp, tbl, pos,
+                                                      window=win)))
+    blocks = sum(last // BLOCK - first // BLOCK + 1
+                 for first, last in (visible_keys(p, s, win)
+                                     for p in pos.tolist()))
+    bp = bound_ms(io + 4 * blocks, ops, dtype)
     log(f"  paged_decode_attention {name} [{dt}]: kernel_ms={t_p[0]:.4f} "
         f"plain_ms={t_p[1]:.4f} library_ms=null sdpa_ms={t_sdpa:.4f} "
         f"(dense SDPA; kernel / SDPA {t_p[0] / t_sdpa:.2f}) "
         f"bound_ms={bp[0]:.4f} ({bp[1]})")
-    return ({"max_abs_err": err_d, "ms": t_d[0], "plain_ms": t_d[1],
-             "library_ms": t_sdpa, "bound_ms": bd[0], "bound_by": bd[1]},
-            {"max_abs_err": err_p, "ms": t_p[0], "plain_ms": t_p[1],
-             "library_ms": None, "sdpa_ms": t_sdpa, "bound_ms": bp[0],
-             "bound_by": bp[1]})
+    return rec_d, {"max_abs_err": err_p, "ms": t_p[0], "plain_ms": t_p[1],
+                   "library_ms": None, "sdpa_ms": t_sdpa, "bound_ms": bp[0],
+                   "bound_by": bp[1]}
 
 
 def phase_kernels() -> dict:
@@ -974,13 +1009,15 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
                                          R * logits.shape[-1])
 
 
-def teacher_forced(model, tokens: np.ndarray, ap, *ctx_mesh
-                   ) -> torch.Tensor:
+def teacher_forced(model, tokens: np.ndarray, ap, *ctx_mesh,
+                   extra: Optional[dict] = None) -> torch.Tensor:
     """Logits (B, S-1, V) of ``model`` over a generated sequence, the
-    vocab shards gathered when ``ctx_mesh`` = (ctx, mesh) is given."""
+    vocab shards gathered when ``ctx_mesh`` = (ctx, mesh) is given;
+    ``extra``: the frames or patches (``forward_lm``'s keywords)."""
     with torch.inference_mode():
         lg, _ = forward_lm(model, torch.as_tensor(
-            tokens[:, :-1], device="cuda").long(), ap, *ctx_mesh)
+            tokens[:, :-1], device="cuda").long(), ap, *ctx_mesh,
+            **(extra or {}))
     return gather_vocab(lg) if ctx_mesh else lg
 
 
@@ -1008,7 +1045,7 @@ GRAPH_TPS: dict = {}
 
 
 def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
-             expect: dict, new: int = NEW):
+             expect: dict, new: int = NEW, extra: Optional[dict] = None):
     """The eager form (``eng.cuda_graph`` False): warm up, then one
     counted generate of ``new`` tokens; raise unless the launches are
     exactly ``expect``.  Then the graph form on a fresh decode loop (one
@@ -1018,15 +1055,19 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
     which counts the same) plus the prefill's (a ``generate`` of one
     token) equal to the eager count.  Decode tok/s of the eager form's
     counted run and the graph form's median of 3 (one eager run keeps the
-    script inside the call's limit).  Returns (eager result, eager launches); the engine is
-    left eager."""
+    script inside the call's limit).  ``extra``: every generate's frames or
+    patches (``generate(extra=)``).  Returns (eager result, eager
+    launches); the engine is left eager."""
+    def generate(n):
+        return eng.generate(prompts, n, extra=extra)
+
     eng.cuda_graph = False
-    eng.generate(prompts, 2)          # warm-up (cuBLAS, allocator)
+    generate(2)                       # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     expect = {**dict.fromkeys(counts(), 0), **expect}
     reset_counts()
-    res = eng.generate(prompts, new)
+    res = generate(new)
     got = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  {label}: prefill {res.prefill_s * 1e3:.2f} ms, decode "
@@ -1038,10 +1079,10 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
     eager_tps = [res.decode_tokens_per_s]
     eng.cuda_graph = True
     reset_counts()
-    g = eng.generate(prompts, new)
+    g = generate(new)
     captured = counts()
     reset_counts()
-    eng.generate(prompts, 1)
+    generate(1)
     pre = counts()
     if not np.array_equal(g.tokens, res.tokens):
         raise AssertionError(f"{label}: graph tokens differ from eager")
@@ -1054,8 +1095,7 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
             raise AssertionError(
                 f"{label}: {k} counted {captured[k]} with the capture, "
                 f"{pre[k]} in prefill, eager {got[k]}")
-    graph_tps = [eng.generate(prompts, new).decode_tokens_per_s
-                 for _ in range(3)]
+    graph_tps = [generate(new).decode_tokens_per_s for _ in range(3)]
     eng.cuda_graph = False
     GRAPH_TPS[label] = (float(np.median(eager_tps)),
                         float(np.median(graph_tps)))
@@ -1117,18 +1157,22 @@ def phase_path() -> tuple:
 
 def card_vs_cpu(tp: int, pods: int, strategy: str,
                 overlap_matmul: bool = False, ar_quant: str = "none",
-                tol: float = 1e-3, arch: str = "llama3.2-1b") -> None:
+                tol: float = 1e-3, arch: str = "llama3.2-1b",
+                cut: Optional[dict] = None) -> None:
     """The same seeded weights of ``arch`` (2 layers, full width, f32) on
     the card (kernels) and on the CPU (plain versions), at ``tp`` over a
     virtual mesh of ``pods`` x tp/pods ranks when tp > 1 (a QKV-bias
     arch with nonzero biases planted); logits within ``tol``, greedy
     tokens checked by ``provable_gate``.  f32 sums over
     2048- and 8192-long reductions are taken in another order on the card
-    than on the CPU: ~1e-5 on O(1) logits, hence the default ``tol``."""
+    than on the CPU: ~1e-5 on O(1) logits, hence the default ``tol``.
+    ``cut``: further config fields (an encoder's depth, the patch count);
+    an encoder-decoder or a VLM gets seeded frames or patches, the same
+    on both devices."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch), n_layers=2,
-                              dtype=torch.float32)
+                              dtype=torch.float32, **(cut or {}))
     ap = make_plan(cfg, tp)
     mesh_g, ctx = mesh_and_ctx(tp, pods, ar_strategy=strategy,
                                device="cuda")
@@ -1141,14 +1185,17 @@ def card_vs_cpu(tp: int, pods: int, strategy: str,
     b, s, new = 2, 64, 8
     prompts = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
                                                        (b, s))
+    ex_c = multimodal_extra(cfg, b, SEED + 2, "cpu")
+    ex_g = {k: t.to("cuda") for k, t in ex_c.items()}
 
     def full(logits):
         return logits if mesh_g is None else gather_vocab(logits)
 
     with torch.inference_mode():
         lg, _ = forward_lm(gpu, torch.as_tensor(prompts, device="cuda"), ap,
-                           ctx, mesh_g)
-        lc, _ = forward_lm(cpu, torch.as_tensor(prompts), ap, ctx, mesh_c)
+                           ctx, mesh_g, **ex_g)
+        lc, _ = forward_lm(cpu, torch.as_tensor(prompts), ap, ctx, mesh_c,
+                           **ex_c)
     lg, lc = full(lg).cpu(), full(lc)
     err = max_err(lg, lc)
     log(f"  prefill logits card vs CPU: max abs err {err:.3e} "
@@ -1156,15 +1203,17 @@ def card_vs_cpu(tp: int, pods: int, strategy: str,
     if not torch.allclose(lg, lc, atol=tol, rtol=tol):
         raise AssertionError("prefill logits differ between card and CPU")
     res_g = InferenceEngine(ap, gpu, ctx=ctx, mesh=mesh_g, s_max=s + new,
-                            device="cuda").generate(prompts, new)
+                            device="cuda").generate(prompts, new,
+                                                    extra=ex_g)
     res_c = InferenceEngine(ap, cpu, ctx=ctx, mesh=mesh_c, s_max=s + new,
-                            device="cpu").generate(prompts, new)
+                            device="cpu").generate(prompts, new, extra=ex_c)
     # both devices' decode paths teacher-forced on the CPU's sequence, over
     # the real vocab (a padded vocab's zero columns would enter the gaps)
     tf = {dev: teacher_forced_decode(m, res_c.tokens, ap, ctx, mesh,
-                                     prompt=s, s_max=s + new,
-                                     device=dev)[..., :cfg.vocab_size]
-          for dev, m, mesh in (("cuda", gpu, mesh_g), ("cpu", cpu, mesh_c))}
+                                     prompt=s, s_max=s + new, device=dev,
+                                     extra=ex)[..., :cfg.vocab_size]
+          for dev, m, mesh, ex in (("cuda", gpu, mesh_g, ex_g),
+                                   ("cpu", cpu, mesh_c, ex_c))}
     n = provable_gate(res_g.tokens, res_c.tokens, tf["cuda"], tf["cpu"], s)
     log(f"  greedy tokens card == CPU on {n}/{b * new} steps whose CPU "
         f"top-1/top-2 gap is above twice the card-CPU logit difference "
@@ -1614,7 +1663,8 @@ def teacher_forced_decode(model, tokens: np.ndarray, ap, ctx=None,
                           mesh=None, ef: bool = True, *, prompt: int = PROMPT,
                           s_max: int = S_MAX, device: str = "cuda",
                           kv: Optional[dict] = None, layer_map=None,
-                          prefill_model=None) -> torch.Tensor:
+                          prefill_model=None,
+                          extra: Optional[dict] = None) -> torch.Tensor:
     """Logits (b, new, V) of the decode path over a generated sequence
     (b, prompt + new): the prompt prefilled, then the sequence's own tokens
     fed one decode step at a time (vocab shards gathered on a mesh), the
@@ -1627,7 +1677,8 @@ def teacher_forced_decode(model, tokens: np.ndarray, ap, ctx=None,
     ``layer_map``: ``init_cache`` and ``decode_step`` options (the int8 or
     ring cache, int8 weights); ``prefill_model`` prefills the prompt when
     ``model`` is the int8-weight one (the reference's weight_quant is
-    decode-only)."""
+    decode-only); ``extra``: the prompt's frames or patches (an
+    encoder-decoder's cross K/V are seeded with the prompt's states)."""
     kw = {} if ctx is None else {"ctx": ctx, "mesh": mesh}
     ef_sites = ef_sites_for(ctx, ap.cfg) if ctx is not None and ef else 0
     b, new = tokens.shape[0], tokens.shape[1] - prompt
@@ -1640,7 +1691,7 @@ def teacher_forced_decode(model, tokens: np.ndarray, ap, ctx=None,
         toks = torch.as_tensor(tokens, device=device).long()
         lg, states = forward_lm(model if prefill_model is None
                                 else prefill_model, toks[:, :prompt], ap,
-                                collect_state=True, **kw)
+                                collect_state=True, **kw, **(extra or {}))
         cache = seed_cache(init_cache(ap, b, s_max, device=device, mesh=mesh,
                                       ef_sites=ef_sites, **kv), states)
         out = [full(lg)[:, -1]]
@@ -5506,6 +5557,329 @@ def phase_dense(rec: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the encoder-decoder (whisper-medium) and the VLM (pixtral-12b)
+# ---------------------------------------------------------------------------
+
+WHISPER, PIXTRAL = "whisper-medium", "pixtral-12b"
+MM_PROMPT, MM_NEW = 64, 16      # whisper's prompt; pixtral's text after
+                                # its 1024 patches
+# Kernel 3 at (B, Hq, Hkv, Sq, Skv, hd, causal): whisper-medium's encoder
+# self-attention (1500 frames over themselves) and its decoder's
+# cross-attention in prefill (the 64-token prompt over the 1500 encoder
+# keys), both non-causal, at tp=1 and their tp=8 folds (8 ranks x 8
+# sequences, 2 heads a rank); pixtral-12b's causal prefill (1024 patches
+# + 64 tokens, 32 / 8 heads of 128).
+MM_FLASH_SHAPES = {
+    "whisper_enc": (B, 16, 16, 1500, 1500, 64, False),
+    "whisper_xattn": (B, 16, 16, MM_PROMPT, 1500, 64, False),
+    "whisper_enc_tp8_fold": (B * PODS * FAST, 2, 2, 1500, 1500, 64, False),
+    "whisper_xattn_tp8_fold": (B * PODS * FAST, 2, 2, MM_PROMPT, 1500, 64,
+                               False),
+    "pixtral_prefill": (B, 32, 8, 1024 + MM_PROMPT, 1024 + MM_PROMPT, 128,
+                        True)}
+# Kernel 1 at (B, Hq, Hkv, hd, S, window, positions): whisper's decoder
+# cross-attention in decode, one query over the 1500 encoder keys with
+# every row at position 1499 (g 1: 11 splits of 128 and one of 92), at
+# tp=1 and its tp=8 fold; pixtral's decode self-attention (g 4 at hd 128,
+# prompt 1088 + 16; kernel 2 beside it).
+MM_DECODE_SHAPES = {
+    "whisper_xattn": (B, 16, 16, 64, 1500, 0, (1499, 1499)),
+    "whisper_xattn_tp8_fold": (B * PODS * FAST, 2, 2, 64, 1500, 0,
+                               (1499, 1499)),
+    "pixtral": (B, 32, 8, 128, 1024 + MM_PROMPT + MM_NEW, 0,
+                (1024 + MM_PROMPT, 1024 + MM_PROMPT + MM_NEW - 1))}
+
+
+def multimodal_extra(cfg, b: int, seed: int, device: str) -> dict:
+    """An encoder-decoder's frames (b, enc_seq, D) or a VLM's patches (b,
+    n_patches, D), seeded normal in the model's dtype on ``device``; {}
+    for a text-only family."""
+    if cfg.family not in ("encdec", "vlm"):
+        return {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frame_embeds": torch.randn(
+            (b, cfg.enc_seq, cfg.d_model), generator=gen, device=device
+        ).to(cfg.dtype)}
+    return {"patch_embeds": torch.randn(
+        (b, cfg.n_patches, cfg.d_model), generator=gen, device=device
+    ).to(cfg.dtype)}
+
+
+def xflash_case(gen, dtype, shape) -> tuple:
+    """Kernel 3 at (b, hq, hkv, sq, skv, hd, causal), q / k / v as the
+    model holds them ((B, S, H, hd) passed as (B, H, S, hd) views): within
+    TOL of its plain version, a second call bitwise the first; kernel,
+    plain version and SDPA timed beside the bound (non-causal: every
+    query over every key)."""
+    b, hq, hkv, sq, skv, hd, causal = shape
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q = rnd(b, sq, hq, hd).transpose(1, 2)
+    k = rnd(b, skv, hkv, hd).transpose(1, 2)
+    v = rnd(b, skv, hkv, hd).transpose(1, 2)
+
+    def kernel():
+        return flash_attention(q, k, v, causal=causal)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    err = check_close(f"flash_attention {shape}", out,
+                      flash_attention_ref(q, k, v, causal=causal), dtype)
+    if not torch.equal(kernel(), out):
+        raise AssertionError(f"flash_attention {shape}: a second call "
+                             "differs from the first")
+    del out
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    t = (time_ms(kernel),
+         time_ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
+         time_ms(lambda: F.scaled_dot_product_attention(
+             qc, kc, vc, is_causal=causal, enable_gqa=True)))
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    bnd = bound_ms(q.element_size() * b * hd * (2 * sq * hq + 2 * skv * hkv),
+                   4.0 * b * hq * hd * pairs, dtype)
+    return err, t, bnd
+
+
+def phase_mm_kernels(rec: dict) -> None:
+    """Kernels 3 (non-causal and pixtral's causal prefill) and 1 (and 2 at
+    pixtral's decode) at phase 33's shapes, bf16 and f32, against their
+    plain versions; the bf16 records go into ``rec``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 33)
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for name, shape in MM_FLASH_SHAPES.items():
+            err, t, bnd = xflash_case(gen, dtype, shape)
+            log(f"  flash_attention {name} [{dt}]: kernel_ms={t[0]:.4f} "
+                f"plain_ms={t[1]:.4f} library_ms={t[2]:.4f} (SDPA) "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+            if dtype == torch.bfloat16:
+                rec["flash_attention"][name] = {
+                    "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                    "library_ms": t[2], "bound_ms": bnd[0],
+                    "bound_by": bnd[1]}
+            free_device()
+        for name in MM_DECODE_SHAPES:
+            d, p = decode_case(gen, dtype, name, MM_DECODE_SHAPES,
+                               paged=name == "pixtral")
+            if dtype == torch.bfloat16:
+                rec["decode_attention"]["shapes"][name] = d
+                if p is not None:
+                    rec["paged_decode_attention"]["shapes"][name] = p
+        free_device()
+
+
+def mm_launches(cfg, tp: int, paged: bool, new: int) -> dict:
+    """One generate's launches (eager): kernel 3 once a prefill for each
+    encoder layer's self-attention and each decoder layer's self- and
+    cross-attention; a decode step's self-attention through kernel 1 (2
+    when paged) and cross-attention through kernel 1 (its cache is never
+    paged); on the mesh one RD launch for each all-reduce: the embedding,
+    two a block (attention, MLP) and the cross-attention's in the
+    decoder, two an encoder block."""
+    L, E = cfg.n_layers, cfg.enc_layers
+    x = 1 if E else 0                   # cross-attention a decoder block
+    steps = new - 1
+    out = {"flash_attention": E + (1 + x) * L,
+           "decode_attention": (x + (0 if paged else 1)) * L * steps,
+           "paged_decode_attention": L * steps if paged else 0}
+    if tp > 1:
+        out["rd_all_reduce"] = (1 + 2 * E + (2 + x) * L) \
+            + (1 + (2 + x) * L) * steps
+    return out
+
+
+# The depth of pixtral-12b's bf16 tp=8-against-tp=1 logits gate: that of
+# the deepest fp-wire gate before it (llama3.2-1b, 16 layers, phase 6).
+# At 40 layers the bf16 sums of another reduction order drift past
+# TF_MEAN (a mean of 0.0213 in this phase's first card run, PERF.md) and
+# are printed, not gated; 40 layers are held in f32 instead
+# (``mm_f32_tp``), where a wrong rank or a dropped partial would show.
+MM_GATE_LAYERS = {PIXTRAL: 16}
+# f32 tp=8 against tp=1 at full depth on one card: f32 sums in another
+# order (the card-vs-CPU bar of phase 5)
+MM_F32_TOL = 1e-3
+
+
+def mm_gate(name: str, tokens, ref, ref_logits, model, ap, ctx, mesh,
+            extra, prompt_len: int, asserted: bool = True) -> None:
+    """tp=8's tokens margin-gated against tp=1's and its teacher-forced
+    logits (real vocab) within (TF_MAX, TF_MEAN) of tp=1's; only printed
+    when not ``asserted``."""
+    V = ap.cfg.vocab_size
+    want = ref_logits.to("cuda")
+    got = teacher_forced(model, ref, ap, ctx, mesh, extra=extra)[..., :V]
+    mx, mean = gate(f"{name} {ap.cfg.n_layers}L tp=8 hier_rd vs tp=1"
+                    + ("" if asserted else " (printed, not gated)"),
+                    got, want)
+    n = margin_gate(tokens, ref, top2_gap(want), prompt_len, BF16_GAP) \
+        if asserted else 0
+    log(f"    tp=8 hier_rd tokens == tp=1 tokens on {n}/{B * MM_NEW} steps "
+        f"gated at gap {BF16_GAP:g} (fully equal: "
+        f"{np.array_equal(tokens, ref)})")
+    if asserted and (mx > TF_MAX or mean > TF_MEAN):
+        raise AssertionError(f"{name} tp=8 logits differ from tp=1's")
+
+
+def mm_arch(name: str, cfg, prompt_len: int, launches: dict) -> None:
+    """One arch at full width and depth, bf16, seeded weights and frames /
+    patches: batch 8, ``prompt_len`` tokens, MM_NEW new; tp=1 dense and
+    paged and tp=8 (4 x 2, hier_rd) each through ``run_path`` (exact
+    launches of ``mm_launches``, graph == eager); paged tokens == dense;
+    an encoder-decoder's graph then serves a second batch of frames with
+    no capture anew (the prefill re-seeds the cross K/V in place), its
+    tokens the eager form's; tp=8 against tp=1 by ``mm_gate``, at full
+    depth or, for an arch in MM_GATE_LAYERS, at that depth (one graph
+    generate each), the full depth's gap printed and held in f32
+    (``mm_f32_tp``).  Each model is freed before the next is built."""
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, prompt_len))
+    extra = multimodal_extra(cfg, B, SEED + 3, "cuda")
+    s_max = prompt_len + MM_NEW
+    V = cfg.vocab_size
+    cut = MM_GATE_LAYERS.get(name, 0)
+    ref = ref_logits = None
+    for tp, pods, layouts in ((1, 1, (0, BLOCK)), (PODS * FAST, PODS, (0,))):
+        ap = make_plan(cfg, tp)
+        mesh, ctx = mesh_and_ctx(tp, pods, ar_strategy="hier_rd",
+                                 device="cuda")
+        t0 = time.perf_counter()
+        model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  {name} tp={tp}: {cfg.n_layers} layers"
+            + (f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers
+               else "")
+            + f", d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads (g={ap.gqa.g} u={ap.gqa.u}), {n_params / 1e9:.3f} B "
+            f"parameters (param_count {cfg.param_count() / 1e9:.3f} B), "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        tokens = {}
+        for bs in layouts:
+            layout = "paged" if bs else "dense"
+            label = f"{name} tp={tp} {layout}"
+            eng = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
+                                  block_size=bs, device="cuda")
+            res, launches[f"mm_{name}_tp{tp}_{layout}"] = run_path(
+                eng, prompts, label, mm_launches(cfg, tp, bs > 0, MM_NEW),
+                new=MM_NEW, extra=extra)
+            tokens[layout] = res.tokens
+            if cfg.enc_layers and tp == 1 and not bs:
+                other = multimodal_extra(cfg, B, SEED + 4, "cuda")
+                eng.cuda_graph = True
+                g = eng.generate(prompts, MM_NEW, extra=other)
+                eng.cuda_graph = False
+                e = eng.generate(prompts, MM_NEW, extra=other)
+                if not (np.array_equal(g.tokens, e.tokens)
+                        and g.graph_recaptures == 0
+                        and g.graph_replays == MM_NEW - 1):
+                    raise AssertionError(
+                        f"{label}: a second batch of frames through the "
+                        f"captured step: {g.graph_replays} replays, "
+                        f"{g.graph_recaptures} captured anew, tokens == "
+                        f"eager: {np.array_equal(g.tokens, e.tokens)}")
+                log(f"    a second batch of frames: graph tokens == eager "
+                    f"bitwise, {g.graph_replays} replays, none captured "
+                    f"anew; new tokens differ from the first batch's on "
+                    f"{int((e.new_tokens != res.new_tokens).sum())}/"
+                    f"{e.new_tokens.size}")
+            del eng
+        if "paged" in tokens:
+            if not np.array_equal(tokens["paged"], tokens["dense"]):
+                raise AssertionError(f"{name}: paged tokens differ from "
+                                     "dense")
+            log("    paged tokens == dense tokens")
+        if tp == 1:
+            ref = tokens["dense"]
+            ref_logits = teacher_forced(model, ref, ap,
+                                        extra=extra)[..., :V].cpu()
+        else:
+            mm_gate(name, tokens["dense"], ref, ref_logits, model, ap, ctx,
+                    mesh, extra, prompt_len, asserted=not cut)
+        del model
+        free_device()
+    if not cut:
+        return
+    c = dataclasses.replace(cfg, n_layers=cut)
+    for tp, pods in ((1, 1), (PODS * FAST, PODS)):
+        ap = make_plan(c, tp)
+        mesh, ctx = mesh_and_ctx(tp, pods, ar_strategy="hier_rd",
+                                 device="cuda")
+        model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+        toks = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
+                               device="cuda").generate(
+            prompts, MM_NEW, extra=extra).tokens
+        if tp == 1:
+            ref = toks
+            ref_logits = teacher_forced(model, ref, ap,
+                                        extra=extra)[..., :V].cpu()
+        else:
+            mm_gate(name, toks, ref, ref_logits, model, ap, ctx, mesh, extra,
+                    prompt_len)
+        del model
+        free_device()
+    del ref_logits
+    mm_f32_tp(name, cfg, prompts[:2], extra)
+
+
+def mm_f32_tp(name: str, cfg, prompts: np.ndarray, extra: dict) -> None:
+    """The arch at full depth in f32 (two of the prompts): tp=8 (4 x 2,
+    hier_rd) prefill logits against tp=1's within MM_F32_TOL, one model on
+    the card at a time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = dataclasses.replace(cfg, dtype=torch.float32)
+    ex = {k: t[:prompts.shape[0]].float() for k, t in extra.items()}
+    out = {}
+    for tp, pods in ((1, 1), (PODS * FAST, PODS)):
+        ap = make_plan(c, tp)
+        mesh, ctx = mesh_and_ctx(tp, pods, ar_strategy="hier_rd",
+                                 device="cuda")
+        model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
+        with torch.inference_mode():
+            lg, _ = forward_lm(model, torch.as_tensor(prompts, device="cuda")
+                               .long(), ap, ctx, mesh, **ex)
+        out[tp] = (lg if mesh is None else gather_vocab(lg))[
+            ..., :c.vocab_size].cpu()
+        del model, lg
+        free_device()
+    err = max_err(out[PODS * FAST], out[1])
+    log(f"    {name} {c.n_layers}L float32 tp=8 hier_rd vs tp=1 prefill "
+        f"logits ({prompts.shape[0]} x {prompts.shape[1]}): max abs err "
+        f"{err:.3e} (tol {MM_F32_TOL:g})")
+    if not torch.allclose(out[PODS * FAST], out[1], atol=MM_F32_TOL,
+                          rtol=MM_F32_TOL):
+        raise AssertionError(f"{name}: f32 tp=8 logits differ from tp=1's")
+
+
+def phase_multimodal(rec: dict) -> dict:
+    """Phase 33: the kernels at the new shapes; whisper-medium (24 + 24
+    layers) and pixtral-12b (40 layers) at full width, tp=1 and tp=8;
+    card against CPU at 2 layers in f32 (whisper's encoder at 2 layers
+    over all 1500 frames; pixtral with 32 patches in a 64-token
+    prompt)."""
+    t0 = time.perf_counter()
+    phase_mm_kernels(rec)
+    log(f"    kernels {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    t0 = time.perf_counter()
+    mm_arch(WHISPER, get_config(WHISPER), MM_PROMPT, launches)
+    log(f"    {WHISPER} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mm_arch(PIXTRAL, get_config(PIXTRAL), 1024 + MM_PROMPT, launches)
+    log(f"    {PIXTRAL} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    card_vs_cpu(1, 1, "flat", arch=WHISPER, cut={"enc_layers": 2})
+    card_vs_cpu(1, 1, "flat", arch=PIXTRAL, cut={"n_patches": 32})
+    log(f"    card vs CPU {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def ptxas_report() -> None:
     """ptxas's -v report of this build's libraries, a line a kernel: its
     registers, static shared memory and spills (the bf16 tensor-core
@@ -5678,6 +6052,11 @@ def main() -> int:
           "mistral-large-123b, qwen1.5-32b at 2 layers; codeqwen1.5-7b "
           f"whole), tp=1 and tp=8 ({PODS}x{FAST}) hier_rd")
     launches.update(phase_dense(rec))
+    phase(f"[33] the encoder-decoder {WHISPER} (24 + 24 layers) and the VLM "
+          f"{PIXTRAL} (40 layers, 1024 patches) at full width, bf16: tp=1 "
+          f"dense and paged, tp=8 ({PODS}x{FAST}) hier_rd; card vs CPU at 2 "
+          "layers, f32 (pixtral with 32 patches in a 64-token prompt)")
+    launches.update(phase_multimodal(rec))
     phase("")
     log("    decode tok/s, eager (one run) / graph (median of 3), this "
         "run:")

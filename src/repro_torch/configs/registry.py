@@ -1,11 +1,11 @@
 """``--arch <id>`` resolution for the port's entry points.
 
-Every architecture of the reference's registry whose family the port runs
-(dense, moe, ssm, hybrid) is registered; ``whisper-medium`` and
-``pixtral-12b`` (the encoder-decoder and VLM families) arrive with ROADMAP
-item 10.  ``dbrx-132b`` and the larger dense archs (``mistral-large-123b``,
-``qwen1.5-32b``) do not fit one card at full depth: their CPU smoke
-configs run whole, their full configs at a cut depth.  The paper's own
+Every architecture of the reference's registry is registered: the dense,
+MoE, ssm and hybrid families', the encoder-decoder ``whisper-medium`` and
+the VLM ``pixtral-12b``.  ``dbrx-132b`` and the larger dense archs
+(``mistral-large-123b``, ``qwen1.5-32b``) do not fit one card at full
+depth: their CPU smoke configs run whole, their full configs at a cut
+depth.  The paper's own
 Llama 3.1 70B / 405B are in ``llama3_paper.py`` and, as in the reference,
 are not ``--arch`` ids."""
 from __future__ import annotations
@@ -23,6 +23,8 @@ _MODULES = {
     "mistral-large-123b": "mistral_large_123b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "qwen1.5-32b": "qwen1_5_32b",
+    "whisper-medium": "whisper_medium",
+    "pixtral-12b": "pixtral_12b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -30,10 +32,7 @@ ARCH_IDS = tuple(_MODULES)
 
 def _mod(arch: str):
     if arch not in _MODULES:
-        raise KeyError(
-            f"arch {arch!r} is not ported yet (known: {list(_MODULES)}); "
-            "whisper-medium and pixtral-12b (the encoder-decoder and VLM "
-            "families) arrive with ROADMAP item 10")
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 
 

@@ -21,6 +21,10 @@ loop is eager.  With ``spec_mode`` each step instead verifies ``spec_k``
 drafted tokens of every row in one pass (``build_spec_verify_step``, kept
 and captured beside the decode loop), each row advancing by its own
 accepted length; greedy output equals plain greedy ``generate``.
+``generate(..., extra=)`` carries an encoder-decoder's frame embeddings
+and a VLM's patch embeddings into the prefill, as in the reference; the
+prefill seeds the cross K/V into the loop's cache in place, so the
+captured decode step serves every batch.
 """
 from __future__ import annotations
 
@@ -190,22 +194,52 @@ class InferenceEngine:
         self._loop = lp
         return lp
 
-    def generate(self, prompts: np.ndarray,
-                 max_new_tokens: int) -> GenerationResult:
+    def _extra(self, extra: Optional[dict], B: int) -> dict:
+        """``extra``'s frames / patches as tensors on the engine's device,
+        their shapes checked: ``frame_embeds`` (B, enc_seq, D), required by
+        an encoder-decoder; ``patch_embeds`` (B, n_patches, D), a VLM's
+        (without them it generates from text alone, as the reference's
+        local engine does)."""
+        cfg, extra = self.cfg, dict(extra or {})
+        want = {"frame_embeds": (B, cfg.enc_seq, cfg.d_model),
+                "patch_embeds": (B, cfg.n_patches, cfg.d_model)}
+        family = {"frame_embeds": "encdec", "patch_embeds": "vlm"}
+        out = {}
+        for name, a in extra.items():
+            if name not in want or cfg.family != family[name]:
+                raise ValueError(f"{cfg.name} ({cfg.family}) takes no "
+                                 f"{name!r}")
+            t = torch.as_tensor(np.asarray(a, np.float32)
+                                if isinstance(a, np.ndarray) else a)
+            if tuple(t.shape) != want[name]:
+                raise ValueError(f"{name} of shape {tuple(t.shape)}, "
+                                 f"expected {want[name]}")
+            out[name] = t.to(self.device, cfg.dtype)
+        if cfg.family == "encdec" and "frame_embeds" not in out:
+            raise ValueError(f"{cfg.name}: generate needs "
+                             "extra['frame_embeds']")
+        return out
+
+    def generate(self, prompts: np.ndarray, max_new_tokens: int,
+                 extra: Optional[dict] = None) -> GenerationResult:
         """prompts: (B, S) int (uniform length).  Greedy unless the engine
-        was built with ``temperature > 0``."""
+        was built with ``temperature > 0``.  ``extra``: {"frame_embeds"
+        (B, enc_seq, D)} for an encoder-decoder, {"patch_embeds" (B,
+        n_patches, D)} for a VLM, numpy arrays or tensors (moved to the
+        engine's device in the model's dtype)."""
         prompts = np.asarray(prompts, np.int64)
         B, S = prompts.shape
         if S + max_new_tokens > self.s_max:
             raise ValueError(f"prompt {S} + {max_new_tokens} new tokens "
                              f"exceed s_max={self.s_max}")
+        extra = self._extra(extra, B)
         tokens = torch.as_tensor(prompts, device=self.device)
         lp = self._decode_loop(B)
         if self.spec_mode:
             return self._generate_spec(lp, prompts, tokens, max_new_tokens)
         self._sync()
         t0 = time.perf_counter()
-        self._prefill_into(lp, tokens)
+        self._prefill_into(lp, tokens, extra)
         self._sync()
         t1 = time.perf_counter()
         replays, recaptures = lp.step.replays, lp.step.recaptures
@@ -220,12 +254,13 @@ class InferenceEngine:
             graph_recaptures=lp.step.recaptures - recaptures)
 
 
-    def _prefill_into(self, lp: _DecodeLoop, tokens: torch.Tensor) -> None:
+    def _prefill_into(self, lp: _DecodeLoop, tokens: torch.Tensor,
+                      extra: Optional[dict] = None) -> None:
         """The batch's prefill into the loop's cache; its first tokens in
         ``lp.cur`` and ``lp.out[:, 0]``, positions and indices set."""
         with torch.inference_mode():
             nxt, _ = self._prefill(self.model, tokens, lp.keys,
-                                   cache=lp.cache)
+                                   cache=lp.cache, **(extra or {}))
             lp.cur.copy_(nxt)
             lp.out[:, 0] = nxt
         lp.positions.fill_(tokens.shape[1])

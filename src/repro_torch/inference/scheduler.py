@@ -20,7 +20,9 @@ ragged batches, the mechanism of the paper's trace evaluation
   tokens, done flags, finite flags.
 * Admission is a full prefill of the prompt spliced into the slot's row
   (``build_admit_step``), eager, as the reference compiles one executable
-  a prompt length; it serves every family.  ``admit_mode="chunked"``
+  a prompt length; it serves every text-only family (the encoder-decoder
+  and the VLM are refused at construction: a request carries no frames
+  or patches).  ``admit_mode="chunked"``
   (dense family) feeds the prompt through fixed chunks of ``admit_chunk``
   tokens instead (``build_admit_chunk_step``, kernel 3's chunk form over
   the slot's cache): one captured step for every prompt length.
@@ -354,6 +356,13 @@ class ContinuousBatcher:
         ``deadline_s`` tightens it); a request still waiting for its first
         admission past it is shed and reported."""
         family = ap.cfg.family
+        if family in ("encdec", "vlm"):
+            raise ValueError(
+                "the continuous batcher serves text-only archs, not "
+                f"{family!r}: a request carries no frame or patch "
+                "embeddings (the reference's batcher takes none either, "
+                "and would decode an encoder-decoder slot over zeroed "
+                "cross K/V); use InferenceEngine.generate(extra=)")
         if admit_mode not in ("full", "chunked"):
             raise ValueError(f"unknown admit_mode {admit_mode!r}")
         if admit_mode == "chunked" and family != "dense":

@@ -46,6 +46,10 @@ counterparts of ``repro.launch.serve --mode batch`` and ``--mode trace``).
         --full --tp 8 --pods 4 --ar-strategy hier_rd --seq-parallel on
     python -m repro_torch.launch.serve --arch codeqwen1.5-7b --mode batch \
         --full --batch 8 --prompt-len 128      # a QKV-bias arch on one card
+    python -m repro_torch.launch.serve --arch whisper-medium --mode batch \
+        --device cpu [--tp 4 --pods 2 --ar-strategy hier_rd]  # encoder-decoder
+    python -m repro_torch.launch.serve --arch pixtral-12b --mode batch \
+        --device cpu [--block-size 8]          # VLM, smoke config
 
 Weights come from the port's seeded initialiser (``--seed``); nothing is
 downloaded.  The run is on the card unless ``--device`` says otherwise.
@@ -75,7 +79,12 @@ the prefill's residual stream cut on the sequence over the fast TP axis
 asks the autotune table per call); decode never decomposes.  The dense
 archs ``mistral-large-123b``, ``codeqwen1.5-7b`` and ``qwen1.5-32b`` (the
 last two with QKV biases) run as ``llama3.2-1b`` does; the two larger
-ones fit one card only with ``--layers``.
+ones fit one card only with ``--layers``.  The encoder-decoder
+``whisper-medium`` and the VLM ``pixtral-12b`` run in batch mode only
+(``--mode trace`` refuses them, as the reference does): their frames or
+patches are drawn from the seeded generator after the prompts, as the
+reference draws them, and the prompt must be at least ``n_patches``
+tokens long for the VLM (1024 at full size, 4 for the smoke config).
 
 ``--mode trace`` replays a BurstGPT-style trace (``make_trace``:
 ``--n-requests`` requests, lognormal prompt and output lengths around
@@ -282,6 +291,10 @@ def _layout(args: argparse.Namespace, cfg, mesh, ctx) -> str:
         else "recurrent" if cfg.attn_free else "dense"
     if cfg.family == "hybrid":
         layout += "+conv/ssm state"
+    if cfg.family == "encdec":
+        layout += f"+cross K/V ({cfg.enc_seq} frames)"
+    if cfg.family == "vlm":
+        layout += f" ({cfg.n_patches} patches)"
     if args.kv_quant:
         layout += "+kv8"
     if mesh is not None:
@@ -317,7 +330,14 @@ def run_batch(args: argparse.Namespace, spec: ServeSpec
     eng = build_engine(r.replace(s_max=s_max), device=args.device)
     rng = np.random.default_rng(r.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
-    res = eng.generate(prompts, args.max_new)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frame_embeds"] = rng.standard_normal(
+            (args.batch, cfg.enc_seq, cfg.d_model))
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = rng.standard_normal(
+            (args.batch, cfg.n_patches, cfg.d_model))
+    res = eng.generate(prompts, args.max_new, extra=extra)
     layout = _layout(args, cfg, eng.mesh, eng.ctx)
     print(f"[serve] {cfg.name}{_depth(spec)} on {eng.device}: batch "
           f"{args.batch} prompt {args.prompt_len} new {args.max_new} "
@@ -524,6 +544,8 @@ def main(argv: Optional[Sequence[str]] = None):
                            "trip")
     if spec.mode == "batch":
         return run_batch(args, spec)
+    if spec_config(spec.replica).family in ("encdec", "vlm"):
+        raise SystemExit("trace mode supports text-only archs")
     if spec.replicas > 1:
         return run_router(args, spec)
     if spec.replica.disagg:

@@ -57,35 +57,44 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device, mesh=None) -> DenseLM:
     """tree: {"embed": {"tok", "head"}, "blocks": {"ln1", "attn" (with
     "bq"/"bk"/"bv" under ``qkv_bias``), "ln2",
-    and "mlp" or (MoE) "moe": {"router", "wg", "wu", "wd"}}, for the
-    hybrid family {"ln1", "attn", "ssm", "beta" (a bare leaf), "ln2",
-    "mlp"}, or for the ssm family {"ln1", "tm", "ln2", "cm"}, with every
-    leaf stacked on a leading layer axis, "final_norm"}, in the global
+    and "mlp" (or the gelu MLP's "w1", "b1", "w2") or (MoE) "moe":
+    {"router", "wg", "wu", "wd"}}, for the hybrid family {"ln1", "attn",
+    "ssm", "beta" (a bare leaf), "ln2", "mlp"}, for the encoder-decoder
+    {"ln1", "attn", "ln_x", "xattn", "ln2", "mlp"} with "enc_blocks"
+    ({"ln1", "attn", "ln2", "mlp"}) and "enc_norm" beside them, or for
+    the ssm family {"ln1", "tm", "ln2", "cm"}, with every leaf of a
+    blocks group stacked on a leading layer axis (a layernorm's "b"
+    beside its "w"), "final_norm"}, in the global
     layout of the plan at tp = the mesh's size (1 without a mesh).  Leaves
     are cast to ``cfg.dtype`` on ``device`` (``_F32_LEAVES`` kept f32),
     layouts kept, and cut over the mesh's ranks: every leaf becomes
     (R, *local).  The blocks of the reference's ``quantize_params`` tree
     come across as {"q", "s"} nodes (int8 and bf16)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} arrives with ROADMAP item 10")
     dt = cfg.dtype
-    blocks = tree["blocks"]
     if cfg.attn_free:
         groups = ("ln1", "tm", "ln2", "cm")
     elif cfg.family == "hybrid":
         groups = ("ln1", "attn", "ssm", "beta", "ln2", "mlp")
     else:
         groups = ("ln1", "attn", "ln2", "moe" if cfg.is_moe else "mlp")
-    per_layer = [{name: _group(blocks[name], dt, device, layer=i)
-                  if isinstance(blocks[name], Mapping)
-                  else _leaf(name, blocks[name], dt, device, layer=i)
-                  for name in groups}
-                 for i in range(cfg.n_layers)]
-    return from_global({"embed": _group(tree["embed"], dt, device),
-                        "blocks": per_layer,
-                        "final_norm": _group(tree["final_norm"], dt, device)},
-                       mesh)
+    if cfg.enc_layers:
+        groups += ("ln_x", "xattn")
+
+    def layers(blocks, names, n):
+        return [{name: _group(blocks[name], dt, device, layer=i)
+                 if isinstance(blocks[name], Mapping)
+                 else _leaf(name, blocks[name], dt, device, layer=i)
+                 for name in names} for i in range(n)]
+
+    out = {"embed": _group(tree["embed"], dt, device),
+           "blocks": layers(tree["blocks"], groups, cfg.n_layers),
+           "final_norm": _group(tree["final_norm"], dt, device)}
+    if cfg.enc_layers:
+        out["enc_blocks"] = layers(tree["enc_blocks"],
+                                   ("ln1", "attn", "ln2", "mlp"),
+                                   cfg.enc_layers)
+        out["enc_norm"] = _group(tree["enc_norm"], dt, device)
+    return from_global(out, mesh)
 
 
 __all__ = ["params_from_numpy"]

@@ -41,8 +41,14 @@ class ModelConfig:
     qkv_bias: bool = False           # q/k/v projection biases (qwen1.5)
     sliding_window: int = 0          # 0 = full attention
     rope_theta: float = 1.0e4
-    norm: str = "rmsnorm"
-    act: str = "swiglu"
+    # encoder-decoder (whisper): the encoder's depth and the length of the
+    # precomputed frame embeddings it reads
+    enc_layers: int = 0
+    enc_seq: int = 0
+    # VLM (pixtral): patch embeddings overwrite the first n_patches positions
+    n_patches: int = 0
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    act: str = "swiglu"              # swiglu | gelu
     tie_embeddings: bool = False
     norm_eps: float = 1.0e-5
     dtype: torch.dtype = torch.bfloat16
@@ -62,48 +68,49 @@ class ModelConfig:
         return self.n_experts > 0
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense, MoE, ssm (RWKV6) and
-        hybrid families.  The ssm count is every leaf of the model, the
-        time-mix output projection ``w_o`` included, which the reference's
-        count leaves out (ROADMAP §3).  The hybrid count is every leaf too:
-        the mamba branch's full (D, d_inner) ``w_dt`` and its (D, 2 s)
-        ``w_bc``, where the reference's count assumes a low-rank
-        ``dt_rank`` projection that its ``init_ssm`` does not build, plus
-        ``beta`` and the norms (ROADMAP §3).  The dense count is every
-        leaf too: the QKV biases of a ``qkv_bias`` arch and the norms,
-        both of which the reference's count leaves out (ROADMAP §3); the
-        MoE count is the reference's."""
+        """Analytic parameter count: every leaf of the model, for every
+        family.  The reference's count leaves out leaves of several
+        families (ROADMAP §3): the ssm (RWKV6) time-mix output projection
+        ``w_o``; the hybrid family's full (D, d_inner) ``w_dt`` and (D, 2 s)
+        ``w_bc`` (its count assumes a low-rank ``dt_rank`` projection that
+        its ``init_ssm`` does not build) and ``beta``; the QKV biases of a
+        ``qkv_bias`` arch; the gelu MLP's ``b1``; and every norm (a
+        layernorm's ``b``, the encoder-decoder's ``ln_x`` and ``enc_norm``
+        included).  The MoE count is the reference's."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        embed = v * d * (1 if self.tie_embeddings else 2)
+        norm = d * (2 if self.norm == "layernorm" else 1)
         if self.attn_free:
             # time-mix: r/k/v/g/o (D, D), decay LoRA, 5 shift mixes, w0, u
             # and the group norm; channel-mix: wk, wv, wr, 2 shift mixes;
             # the two block norms; the final norm
             per_layer = 5 * d * d + 2 * d * self.decay_lora + 9 * d \
                 + 2 * d * f + d * d + 2 * d + 2 * d
-            return v * d * (1 if self.tie_embeddings else 2) \
-                + L * per_layer + d
+            return embed + L * per_layer + d
         hq = self.n_heads * self.head_dim
         hkv = self.n_kv_heads * self.head_dim
-        per_layer = d * (hq + 2 * hkv) + hq * d
-        if self.qkv_bias:
-            per_layer += hq + 2 * hkv
+        attn = d * (hq + 2 * hkv) + hq * d \
+            + (hq + 2 * hkv if self.qkv_bias else 0)
+        mlp = 3 * d * f if self.act == "swiglu" else 2 * d * f + f
+        if self.is_moe:
+            per_layer = attn + d * self.n_experts \
+                + self.n_experts * 3 * d * self.d_ff_expert
+            return embed + L * per_layer
+        # attention, the MLP and the two block norms; the final norm
+        per_layer = attn + mlp + 2 * norm
         if self.family == "hybrid":
             di, s, k = self.d_inner, self.ssm_state, self.d_conv
             # w_x, w_z, w_dt, w_out; w_bc; conv_w; dt_bias, conv_b, D_skip;
-            # A_log; the MLP; beta and the two block norms; the final norm
-            per_layer += 4 * d * di + 2 * d * s + k * di + 3 * di + di * s \
-                + 3 * d * f + 2 + 2 * d
-            return v * d * (1 if self.tie_embeddings else 2) \
-                + L * per_layer + d
-        if self.is_moe:
-            per_layer += d * self.n_experts  # router
-            per_layer += self.n_experts * 3 * d * self.d_ff_expert
-        else:
-            # the MLP, the two block norms; the final norm
-            per_layer += (3 if self.act == "swiglu" else 2) * d * f + 2 * d
-            return v * d * (1 if self.tie_embeddings else 2) \
-                + L * per_layer + d
-        return v * d * (1 if self.tie_embeddings else 2) + L * per_layer
+            # A_log; beta
+            per_layer += 4 * d * di + 2 * d * s + k * di + 3 * di \
+                + di * s + 2
+        enc = 0
+        if self.enc_layers:
+            # the decoder's cross-attention and its norm ln_x; the encoder's
+            # blocks (attention, MLP, two norms) and its final norm
+            per_layer += attn + norm
+            enc = self.enc_layers * (attn + mlp + 2 * norm) + norm
+        return embed + L * per_layer + norm + enc
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE: only the top-k experts)."""

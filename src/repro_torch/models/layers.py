@@ -1,6 +1,8 @@
-"""Transformer layers of the dense family over the virtual mesh: the port
-of ``repro/models/layers.py`` (the rank-batched picture of its
-``shard_map`` code).
+"""Transformer layers over the virtual mesh: the port of
+``repro/models/layers.py`` (the rank-batched picture of its ``shard_map``
+code): the norms (RMSNorm, LayerNorm), RoPE, self-attention, the
+encoder-decoder's cross-attention, the SwiGLU and gelu MLPs, the
+vocab-parallel embedding and sampling.
 
 Layers are plain functions on tensors.  A parameter group ``p`` is any
 mapping of names to tensors (the model's ``nn.ParameterDict``s), each
@@ -49,11 +51,23 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
         * per_rank(w, x).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """x (R, ..., D); w, b (R, D).  The reference's roundings: mean and
+    variance in f32, the normalized x cast to x's dtype, then ``* w + b``
+    in that dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * per_rank(w, x).to(x.dtype) + per_rank(b, x).to(x.dtype)
+
+
 def apply_norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} arrives with ROADMAP item 10 (other "
-            "families)")
+        raise ValueError(f"unknown norm {cfg.norm!r}")
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
@@ -103,19 +117,24 @@ def rank_matmul(x: torch.Tensor, w) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
+def _proj(p: Params, h: torch.Tensor, w: str, b: str) -> torch.Tensor:
+    """h (R, B, S, D) projected by ``p[w]`` (R, D, slots, hd) into heads
+    (R, B, S, slots, hd), plus the bias ``p[b]`` ((R, slots, hd), each
+    rank's own slots) where the group has one, as the reference adds it."""
+    wt = p[w]
+    n, hd = (wt["q"] if isinstance(wt, Mapping) else wt).shape[-2:]
+    y = rank_matmul(h, flat_weight(wt, h.shape[-1])) \
+        .reshape(*h.shape[:-1], n, hd)
+    if b not in p:
+        return y
+    return y + p[b].reshape(p[b].shape[0], *([1] * (y.dim() - 3)), n, hd)
+
+
 def _qkv(p: Params, h: torch.Tensor):
-    """h (R, B, S, D) -> q (R, B, S, Q, hd), k/v (R, B, S, U, hd).  A
-    QKV-bias arch's ``bq``/``bk``/``bv`` ((R, slots, hd), each rank's own
-    slots) are added after the projections, as the reference adds them;
-    prefill, decode, chunked prefill and verify all project here."""
-    def proj(w, b):
-        n, hd = (w["q"] if isinstance(w, Mapping) else w).shape[-2:]
-        y = rank_matmul(h, flat_weight(w, h.shape[-1])) \
-            .reshape(*h.shape[:-1], n, hd)
-        if b is None:
-            return y
-        return y + b.reshape(b.shape[0], *([1] * (y.dim() - 3)), n, hd)
-    return tuple(proj(p[w], p[b] if b in p else None)
+    """h (R, B, S, D) -> q (R, B, S, Q, hd), k/v (R, B, S, U, hd), with a
+    QKV-bias arch's ``bq``/``bk``/``bv``; prefill, decode, chunked prefill
+    and verify all project here."""
+    return tuple(_proj(p, h, w, b)
                  for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
 
 
@@ -162,10 +181,13 @@ def _fold(t: torch.Tensor) -> torch.Tensor:
 
 def attention_prefill(p: Params, h: torch.Tensor, cfg: ModelConfig, *,
                       positions: torch.Tensor,
-                      q_mask: Optional[torch.Tensor] = None):
-    """Causal full-sequence attention through the flash kernel (the port of
-    ``transformer._attention_with_kv``).  h (R, B, S, D); ``positions``
-    (S,) are the token positions ``0..S-1`` (the kernel masks by index).
+                      q_mask: Optional[torch.Tensor] = None,
+                      causal: bool = True):
+    """Full-sequence attention through the flash kernel (the port of
+    ``transformer._attention_with_kv``), causal, or with ``causal=False``
+    every query over every key (the encoder's self-attention).  h (R, B,
+    S, D); ``positions`` (S,) are the token positions ``0..S-1`` (the
+    kernel masks by index).
     Returns the masked heads (R, B, S, Q, hd), which the caller projects
     by ``wo`` and reduces (``transformer._residual_proj``; the reference's
     ``project=False``), and the rotated (k, v), (R, B, S, U, hd).  Query
@@ -173,9 +195,43 @@ def attention_prefill(p: Params, h: torch.Tensor, cfg: ModelConfig, *,
     kernels' ``h // g``; one launch serves every rank."""
     q, k, v = _rotated_qkv(p, h, cfg, positions)
     o = flash_attention(_fold(q).transpose(1, 2), _fold(k).transpose(1, 2),
-                        _fold(v).transpose(1, 2), causal=True,
+                        _fold(v).transpose(1, 2), causal=causal,
                         window=cfg.sliding_window).transpose(1, 2)
     return _masked_heads(o.reshape(q.shape), q_mask), (k, v)
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder's cross-attention K/V of one layer from the encoder's
+    output (R, B, T, D): each (R, B, T, U, hd), no RoPE (folded, they are
+    the decode cache's ``enc_k`` / ``enc_v``)."""
+    return tuple(_proj(p, enc_out, w, b)
+                 for w, b in (("wk", "bk"), ("wv", "bv")))
+
+
+def cross_attention(p: Params, h: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor, *,
+                    q_mask: Optional[torch.Tensor] = None,
+                    decode: bool = False) -> torch.Tensor:
+    """The decoder's cross-attention over the encoder's K/V (the port of
+    ``layers.cross_attention``): no RoPE and no mask, every query over all
+    T encoder keys.  h (R, B, S, D); ``enc_k``/``enc_v`` (R*B, T, U, hd)
+    as :func:`cross_kv` and the cache hold them.  In prefill the queries
+    go through kernel 3 non-causal (Sq = S over Skv = T); in decode
+    (``decode``, S = 1) through kernel 1, every row at position T - 1.
+    Returns the masked heads (R, B, S, Q, hd) for the caller to project by
+    ``wo`` and reduce."""
+    q = _proj(p, h, "wq", "bq")
+    qf = _fold(q)
+    if decode:
+        seen = torch.full((qf.shape[0],), enc_k.shape[1] - 1,
+                          dtype=torch.int32, device=h.device)
+        o = decode_attention(qf[:, 0], enc_k, enc_v, seen)
+    else:
+        o = flash_attention(qf.transpose(1, 2), enc_k.transpose(1, 2),
+                            enc_v.transpose(1, 2),
+                            causal=False).transpose(1, 2)
+    return _masked_heads(o.reshape(q.shape), q_mask)
 
 
 def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -313,16 +369,22 @@ def attention_chunk_step(p: Params, h: torch.Tensor,
 
 def mlp_hidden(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Up-projection + activation: the (R, B, S, F_local) input of the
-    row-parallel down-projection."""
-    if cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"act {cfg.act!r} arrives with ROADMAP item 10 (other families)")
-    return F.silu(rank_matmul(h, p["wg"])) * rank_matmul(h, p["wu"])
+    row-parallel down-projection.  SwiGLU, or the gelu MLP: ``(h @ w1) +
+    b1`` summed in the activation's dtype, then the tanh form of gelu,
+    which is ``jax.nn.gelu``'s default (``F.gelu``'s default is the erf
+    form, another function)."""
+    if cfg.act == "swiglu":
+        return F.silu(rank_matmul(h, p["wg"])) * rank_matmul(h, p["wu"])
+    if cfg.act != "gelu":
+        raise ValueError(f"unknown act {cfg.act!r}")
+    y = rank_matmul(h, p["w1"])
+    return F.gelu(y + per_rank(p["b1"], y).to(y.dtype), approximate="tanh")
 
 
 def mlp_down_w(p: Params, cfg: ModelConfig) -> torch.Tensor:
-    """The row-sharded down-projection weight ((R, F_local, D))."""
-    return p["wd"]
+    """The row-sharded down-projection weight ((R, F_local, D)): ``wd``,
+    or the gelu MLP's ``w2``."""
+    return p["wd"] if cfg.act == "swiglu" else p["w2"]
 
 
 def embed_lookup(p: Params, ids: torch.Tensor, ctx: ParallelCtx, mesh,
@@ -440,8 +502,9 @@ def sample_token(logits: torch.Tensor, keys: Optional[torch.Tensor] = None,
         .to(torch.int32)
 
 
-__all__ = ["rms_norm", "apply_norm", "rope_tables", "apply_rope",
-           "rank_matmul", "flat_weight", "attention_prefill",
+__all__ = ["rms_norm", "layer_norm", "apply_norm", "rope_tables",
+           "apply_rope", "rank_matmul", "flat_weight", "attention_prefill",
+           "cross_kv", "cross_attention",
            "attention_decode", "quantize_kv",
            "attention_chunk_step",
            "mlp_hidden", "mlp_down_w", "embed_lookup", "lm_logits",

@@ -1,6 +1,7 @@
-"""Model assembly for the dense, MoE, ssm (RWKV6) and hybrid (Hymba)
-families: parameters, LM forward, caches and the decode step, at tp=1 and
-over the virtual mesh (the port of ``repro/models/transformer.py``).
+"""Model assembly for every family of the reference (dense, MoE, ssm
+(RWKV6), hybrid (Hymba), the encoder-decoder (whisper) and the VLM
+(pixtral)): parameters, LM forward, caches and the decode step, at tp=1
+and over the virtual mesh (the port of ``repro/models/transformer.py``).
 
 The model is an ``nn.Module`` (:class:`DenseLM`) holding frozen
 parameters in the JAX package's layouts, each stacked per rank
@@ -38,6 +39,17 @@ the cache and the step: the int8 cache (``kv_quant``: int8 K/V beside
 bf16 ``k_scale``/``v_scale``), the ring-buffer window cache
 (``window_cache``, ``decode_step(kv_ring=True)``) and int8 block weights
 (``weight_quant``: ``{q, s}`` leaves, ``decode_step(layer_map=...)``).
+
+An encoder-decoder model (``cfg.enc_layers``) adds the encoder
+(``enc_blocks``, ``enc_norm``: :func:`encoder_forward`, non-causal
+self-attention and the gelu MLP over the precomputed frame embeddings)
+and, in each decoder block after self-attention, ``ln_x`` and the
+cross-attention ``xattn`` over the encoder's K/V, completed by a plain
+TP reduction (never overlapped, as in the reference).  Its cache adds the
+per-layer cross K/V ``enc_k``/``enc_v``, dense whatever the self-attention
+layout, seeded once by the prefill and read by every decode step.  A VLM
+(``cfg.n_patches``) is the dense decoder whose first positions take the
+precomputed patch embeddings in place of the token embeddings.
 
 Sequence-parallel prefill (``forward_lm(sp=...)``, ``ctx.seq_parallel``):
 the residual stream stays cut on the sequence over the fast TP axis
@@ -79,6 +91,9 @@ RECURRENT_LEAVES = ("shift_tm", "shift_cm", "wkv", "conv", "ssm")
 # The attention cache's leaves a row operation moves together: K/V and,
 # in the int8 cache, their per-(position, head) scales.
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+# The encoder-decoder's per-layer cross-attention K/V, batch-indexed (never
+# paged) and written only when a prompt is seeded.
+ENC_LEAVES = ("enc_k", "enc_v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,12 +133,13 @@ def make_plan(cfg: ModelConfig, tp: int) -> ArchPlan:
     not divide its heads (d_model / rwkv_head_dim), which the reference
     would replicate while its state is cut by heads.  A hybrid plan is the
     dense GQA plan; it is refused when tp does not divide d_inner, which
-    the reference does not check (ROADMAP §3)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} arrives with ROADMAP item 10 (other "
-            "families); the port runs the dense, MoE, ssm and hybrid "
-            "families")
+    the reference does not check (ROADMAP §3).  The encoder-decoder and
+    VLM plans are the dense GQA plan (the encoder and the cross-attention
+    take the decoder's slot layout)."""
+    if cfg.family == "encdec" and (cfg.enc_layers <= 0 or cfg.enc_seq <= 0):
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs enc_layers "
+                         f"and enc_seq > 0, got {cfg.enc_layers}, "
+                         f"{cfg.enc_seq}")
     for dim, name in ((cfg.d_model, "d_model"), (cfg.d_ff, "d_ff")):
         if cfg.family != "moe" and dim % tp:
             raise ValueError(f"{cfg.name}: {name}={dim} not divisible by "
@@ -187,12 +203,15 @@ def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One decoder layer's parameter groups, each (R, *local): ``ln1``,
-    ``attn`` (wq, wk, wv, wo; bq, bk, bv under ``qkv_bias``), ``ln2``, and either ``mlp`` (wg, wu, wd) or
-    ``moe`` (router f32; wg, wu, wd cut on the expert axis); a hybrid
-    block adds ``ssm`` (the mamba mixer) and ``beta``, a bare (R, 2) f32
-    tensor; or, for the ssm family, ``ln1``, ``tm`` (the RWKV6 time-mix),
-    ``ln2``, ``cm`` (the channel-mix)."""
+    """One layer's parameter groups, each (R, *local): ``ln1``, ``attn``
+    (wq, wk, wv, wo; bq, bk, bv under ``qkv_bias``), ``ln2``, and either
+    ``mlp`` (wg, wu, wd; the gelu MLP's w1, b1, w2) or ``moe`` (router
+    f32; wg, wu, wd cut on the expert axis); a hybrid block adds ``ssm``
+    (the mamba mixer) and ``beta``, a bare (R, 2) f32 tensor; an
+    encoder-decoder's decoder block adds ``ln_x`` and ``xattn`` (the
+    cross-attention, laid out as ``attn``); or, for the ssm family,
+    ``ln1``, ``tm`` (the RWKV6 time-mix), ``ln2``, ``cm`` (the
+    channel-mix).  A layernorm group holds ``w`` and ``b``."""
 
     def __init__(self, tensors: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__()
@@ -202,20 +221,24 @@ class Block(nn.Module):
 
 
 class DenseLM(nn.Module):
-    """A decoder of any ported family (dense MLP, MoE, RWKV6, hybrid):
-    ``embed`` (tok, head), ``blocks``, ``final_norm``, every leaf stacked
-    per rank.
-    Built by :func:`init_params` or, from the JAX package's parameters, by
-    :func:`repro_torch.models.bridge.params_from_numpy`.
+    """A model of any ported family: ``embed`` (tok, head), ``blocks``,
+    ``final_norm``, and for the encoder-decoder ``enc_blocks`` (ln1, attn,
+    ln2, mlp) and ``enc_norm`` (empty otherwise), every leaf stacked per
+    rank.  Built by :func:`init_params` or, from the JAX package's
+    parameters, by :func:`repro_torch.models.bridge.params_from_numpy`.
     """
 
     def __init__(self, embed: Mapping[str, torch.Tensor],
                  blocks: List[Mapping[str, Mapping[str, torch.Tensor]]],
-                 final_norm: Mapping[str, torch.Tensor]):
+                 final_norm: Mapping[str, torch.Tensor],
+                 enc_blocks: List[Mapping[str, Mapping[str, torch.Tensor]]]
+                 = (), enc_norm: Optional[Mapping[str, torch.Tensor]] = None):
         super().__init__()
         self.embed = _frozen(embed)
         self.blocks = nn.ModuleList(Block(b) for b in blocks)
         self.final_norm = _frozen(final_norm)
+        self.enc_blocks = nn.ModuleList(Block(b) for b in enc_blocks)
+        self.enc_norm = _frozen(enc_norm or {})
 
     @property
     def n_ranks(self) -> int:
@@ -224,19 +247,24 @@ class DenseLM(nn.Module):
 
 def from_global(tree: Mapping, mesh=None) -> DenseLM:
     """A DenseLM from a global-layout tree {"embed", "blocks" (a list of
-    per-layer groups), "final_norm"}, cut over the mesh's ranks."""
+    per-layer groups), "final_norm"[, "enc_blocks", "enc_norm"]}, cut over
+    the mesh's ranks."""
     t = shard_params(tree, mesh)
-    return DenseLM(t["embed"], t["blocks"], t["final_norm"])
+    return DenseLM(t["embed"], t["blocks"], t["final_norm"],
+                   t.get("enc_blocks", ()), t.get("enc_norm"))
 
 
 def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                 mesh=None) -> DenseLM:
     """The port's own seeded init: the shapes and scales of the JAX
     ``init_params`` at ``ap.tp`` (weights Normal(0, 1/fan_in) in the
-    plan's slot layout, norms 1, QKV biases zero in slot layout as the
-    reference draws them, a MoE router in f32; the RWKV6 groups
-    of ``rwkv.init_rwkv_*``; the mamba group of ``ssm.init_ssm`` and
-    ``beta`` ones in f32), drawn from a ``torch.Generator`` on ``device``
+    plan's slot layout, norm weights 1 and a layernorm's ``b`` 0, QKV
+    biases and the gelu MLP's ``b1`` zero as the reference draws them, a
+    MoE router in f32; the RWKV6 groups of ``rwkv.init_rwkv_*``; the mamba
+    group of ``ssm.init_ssm`` and ``beta`` ones in f32; an
+    encoder-decoder's ``ln_x``/``xattn`` in every decoder block, then its
+    encoder blocks and ``enc_norm``), drawn from a ``torch.Generator`` on
+    ``device``
     (not the JAX package's numbers), then cut over ``mesh`` (R = ap.tp
     ranks) one layer at a time, so the global and the cut copy of the
     whole model are never both held.  Every draw has a shape that does not
@@ -255,13 +283,13 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
     def ones(n):
         return {"w": torch.ones(n, dtype=dt, device=device)}
 
-    def block():
-        if cfg.attn_free:
-            return shard_params({"ln1": ones(d),
-                                 "tm": RW.init_rwkv_time_mix(gen, cfg),
-                                 "ln2": ones(d),
-                                 "cm": RW.init_rwkv_channel_mix(gen, cfg)},
-                                mesh)
+    def norm():
+        g = ones(d)
+        if cfg.norm == "layernorm":
+            g["b"] = torch.zeros(d, dtype=dt, device=device)
+        return g
+
+    def attention():
         wq = dense_init(gen, (cfg.n_heads, d, hd), d, dt)
         wk = dense_init(gen, (cfg.n_kv_heads, d, hd), d, dt)
         wv = dense_init(gen, (cfg.n_kv_heads, d, hd), d, dt)
@@ -276,17 +304,39 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
                                ("bv", cfg.n_kv_heads, plan.kv_map)):
                 attn[name] = place_heads(torch.zeros(
                     (n, hd), dtype=dt, device=device), m)
-        blk = {"ln1": ones(d), "attn": attn, "ln2": ones(d)}
+        return attn
+
+    def mlp():
+        if cfg.act == "swiglu":
+            return {"wg": dense_init(gen, (d, f), d, dt),
+                    "wu": dense_init(gen, (d, f), d, dt),
+                    "wd": dense_init(gen, (f, d), f, dt)}
+        return {"w1": dense_init(gen, (d, f), d, dt),
+                "b1": torch.zeros(f, dtype=dt, device=device),
+                "w2": dense_init(gen, (f, d), f, dt)}
+
+    def block():
+        if cfg.attn_free:
+            return shard_params({"ln1": ones(d),
+                                 "tm": RW.init_rwkv_time_mix(gen, cfg),
+                                 "ln2": ones(d),
+                                 "cm": RW.init_rwkv_channel_mix(gen, cfg)},
+                                mesh)
+        blk = {"ln1": norm(), "attn": attention(), "ln2": norm()}
         if cfg.family == "hybrid":
             blk["ssm"] = SSM.init_ssm(gen, cfg)
             blk["beta"] = torch.ones(2, dtype=torch.float32, device=device)
         if cfg.is_moe:
             blk["moe"] = M.init_moe(gen, cfg)
         else:
-            blk["mlp"] = {"wg": dense_init(gen, (d, f), d, dt),
-                          "wu": dense_init(gen, (d, f), d, dt),
-                          "wd": dense_init(gen, (f, d), f, dt)}
+            blk["mlp"] = mlp()
+        if cfg.enc_layers:
+            blk["ln_x"], blk["xattn"] = norm(), attention()
         return shard_params(blk, mesh)
+
+    def enc_block():
+        return shard_params({"ln1": norm(), "attn": attention(),
+                             "ln2": norm(), "mlp": mlp()}, mesh)
 
     pad = ap.vocab_pad - cfg.vocab_size
     embed = {"tok": torch.nn.functional.pad(
@@ -296,7 +346,9 @@ def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
             dense_init(gen, (d, cfg.vocab_size), d, dt), (0, pad))
     embed = shard_params(embed, mesh)
     blocks = [block() for _ in range(cfg.n_layers)]
-    return DenseLM(embed, blocks, shard_params(ones(d), mesh))
+    enc = [enc_block() for _ in range(cfg.enc_layers)]
+    return DenseLM(embed, blocks, shard_params(norm(), mesh), enc,
+                   shard_params(norm(), mesh) if cfg.enc_layers else None)
 
 
 # ---------------------------------------------------------------------------
@@ -430,11 +482,58 @@ def _mixed_residual(x: torch.Tensor, beta: torch.Tensor, attn: torch.Tensor,
     return _residual(x, mix, ctx, mesh, sp)
 
 
+def _sp_piece(x: torch.Tensor, ctx: ParallelCtx, mesh) -> torch.Tensor:
+    """A replicated activation (R, B, S, D) cut to the sequence-parallel
+    layout, (R, B, S / fast, D), rank (p, f) holding piece f: where
+    ``tp_reduce_scatter`` leaves its result (the reference slices by the
+    rank over every TP axis, which is that layout at one pod only; ROADMAP
+    §3)."""
+    R, B, S = x.shape[:3]
+    fast = hier._sizes(ctx, mesh)[1]
+    r = torch.arange(R, device=x.device)
+    return x.reshape(R, B, fast, S // fast, *x.shape[3:])[r, :, r % fast]
+
+
+def encoder_forward(model: DenseLM, frames: torch.Tensor, ap: ArchPlan,
+                    ctx: ParallelCtx = LOCAL, mesh=None, *,
+                    sp: bool = False) -> torch.Tensor:
+    """The encoder (the port of ``encoder_forward``): frames (B, T, D), the
+    precomputed frame embeddings (the front end is a stub), cast to the
+    model's dtype and replicated on every rank -> the encoder's output
+    (R, B, T, D).  Each block: ``ln1``, non-causal self-attention through
+    kernel 3 with RoPE at positions 0..T-1, ``wo`` and a TP reduction;
+    ``ln2``, the MLP and a TP reduction (never overlapped, as in the
+    reference); then ``enc_norm``.  ``sp`` (the prefill's sequence-parallel
+    layout) cuts the residual stream on T over the fast axis when the fast
+    axis divides T: the reductions end in ``tp_reduce_scatter``, attention
+    and the MLP's up-projection read the gathered sequence, and the output
+    is gathered back."""
+    cfg = ap.cfg
+    R, T = model.n_ranks, frames.shape[1]
+    sp = sp and T % hier._sizes(ctx, mesh)[1] == 0
+    x = frames.to(cfg.dtype)[None].expand(R, *frames.shape)
+    if sp:
+        x = _sp_piece(x, ctx, mesh)
+    positions = torch.arange(T, dtype=torch.int32, device=frames.device)
+    q_mask = _q_mask(ap, frames.device)
+    for bp in model.enc_blocks:
+        h = _gathered(L.apply_norm(x, bp.ln1, cfg), ctx, mesh, sp)
+        heads, _ = L.attention_prefill(bp.attn, h, cfg, positions=positions,
+                                       q_mask=q_mask, causal=False)
+        x = _residual(x, ov.project(heads, bp.attn["wo"]), ctx, mesh, sp)
+        h2 = _gathered(L.apply_norm(x, bp.ln2, cfg), ctx, mesh, sp)
+        x = _residual(x, ov.project(L.mlp_hidden(bp.mlp, h2, cfg),
+                                    L.mlp_down_w(bp.mlp, cfg)), ctx, mesh, sp)
+    return _gathered(L.apply_norm(x, model.enc_norm, cfg), ctx, mesh, sp)
+
+
 def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                   ctx: ParallelCtx = LOCAL, mesh=None, *,
                   positions: torch.Tensor,
                   q_mask: Optional[torch.Tensor] = None,
-                  sp: bool = False) -> Tuple[torch.Tensor, Cache]:
+                  sp: bool = False,
+                  enc_out: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Cache]:
     """One causal block over the full sequence, x (R, B, S, D) replicated,
     or under ``sp`` the residual's sequence piece (R, B, S / fast, D).
     Returns (x, the layer's prefill cache seed, always of the full
@@ -451,7 +550,12 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
     reduction is a ``tp_reduce_scatter`` on the sequence, and
     ``tp_all_gather`` gives the full sequence to attention, the mixers and
     the MLP's up-projection; a MoE block dispatches chunk p of its piece
-    on rank (p, f) and gathers the chunks back over the pods."""
+    on rank (p, f) and gathers the chunks back over the pods.  With
+    ``enc_out`` (the encoder's output, (R, B, T, D)) an encoder-decoder
+    block runs, after self-attention, ``ln_x`` and the cross-attention
+    over this layer's K/V of ``enc_out`` (kernel 3 non-causal), projected
+    by ``xattn.wo`` and completed by ``_residual``; those K/V join the
+    seed as {"enc_k", "enc_v"} (R, B, T, U, hd)."""
     cfg = ap.cfg
     h = _gathered(L.apply_norm(x, bp.ln1, cfg), ctx, mesh, sp)
     if cfg.attn_free:
@@ -472,6 +576,12 @@ def block_forward(bp: Block, x: torch.Tensor, ap: ArchPlan,
                             ctx, mesh, sp)
     else:
         x, _ = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh, sp=sp)
+    if enc_out is not None:
+        st["enc_k"], st["enc_v"] = L.cross_kv(bp.xattn, enc_out)
+        heads = L.cross_attention(
+            bp.xattn, _gathered(L.apply_norm(x, bp.ln_x, cfg), ctx, mesh, sp),
+            L._fold(st["enc_k"]), L._fold(st["enc_v"]), q_mask=q_mask)
+        x = _residual(x, ov.project(heads, bp.xattn["wo"]), ctx, mesh, sp)
     h2 = L.apply_norm(x, bp.ln2, cfg)
     if cfg.is_moe:
         out, _ = M.moe_ffn(bp.moe, _moe_tokens(h2, ctx, mesh, sp), cfg, ctx,
@@ -491,9 +601,20 @@ def _unranked(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
                ctx: ParallelCtx = LOCAL, mesh=None, *,
-               sp: Optional[bool] = None, collect_state: bool = False
+               sp: Optional[bool] = None, collect_state: bool = False,
+               frame_embeds: Optional[torch.Tensor] = None,
+               patch_embeds: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """tokens (B, S) -> (logits, states).
+
+    ``frame_embeds`` (B, T, D): an encoder-decoder's frames, which the
+    encoder (:func:`encoder_forward`) reads first; every decoder block
+    cross-attends over its output.  ``patch_embeds`` (B, P, D): a VLM's
+    patches, which take positions [0, P) in place of the token embeddings
+    (the embedding runs unsharded, then the overwritten sequence is cut
+    to the sequence-parallel piece when SP is on); a prompt shorter than
+    P raises ``ValueError``.  Both are cast to the model's dtype and are
+    the same on every rank.
 
     ``sp=None`` resolves the sequence-parallel layout from
     ``ctx.seq_parallel`` for this call (:func:`_seq_parallel_active`); a
@@ -507,21 +628,41 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
     the per-layer cache seeds stacked on a leading layer axis, the ranks
     folded into the batch as in the cache: {"k", "v"} (L, R*B, S, U, hd),
     for the hybrid family with {"conv"} (L, R*B, K-1, Ci) and {"ssm"}
-    (L, R*B, Ci, s) beside them, or for the ssm family {"shift_tm",
-    "shift_cm"} (L, R*B, D) and {"wkv"} (L, R*B, H, hd, hd); else None.
-    (The JAX function also returns the MoE load-balancing loss, which only
-    training reads, and an encoder output, which no family here has.)
+    (L, R*B, Ci, s) beside them, for the encoder-decoder with {"enc_k",
+    "enc_v"} (L, R*B, T, U, hd), each layer's cross K/V computed once, or
+    for the ssm family {"shift_tm", "shift_cm"} (L, R*B, D) and {"wkv"}
+    (L, R*B, H, hd, hd); else None.  (The JAX function also returns the
+    MoE load-balancing loss, which only training reads, and the encoder's
+    output, whose only use, the cross K/V, is in the states here.)
     """
     check_layout(ap, ctx, mesh)
+    cfg = ap.cfg
     B, S = tokens.shape
-    sp = _seq_parallel_active(ctx, mesh, ap.cfg, B * S, S, sp)
+    if cfg.enc_layers and frame_embeds is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs "
+                         "frame_embeds (B, enc_seq, d_model)")
+    sp = _seq_parallel_active(ctx, mesh, cfg, B * S, S, sp)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     q_mask = _q_mask(ap, tokens.device)
-    x = L.embed_lookup(model.embed, tokens, ctx, mesh, ap.vocab_pad, sp=sp)
+    if patch_embeds is None:
+        x = L.embed_lookup(model.embed, tokens, ctx, mesh, ap.vocab_pad,
+                           sp=sp)
+    else:
+        P = patch_embeds.shape[1]
+        if P > S:
+            raise ValueError(f"a prompt of {S} tokens is shorter than its "
+                             f"{P} patch embeddings")
+        x = L.embed_lookup(model.embed, tokens, ctx, mesh, ap.vocab_pad)
+        x = torch.cat([patch_embeds.to(x.dtype)[None].expand(
+            x.shape[0], *patch_embeds.shape), x[:, :, P:]], dim=2)
+        if sp:
+            x = _sp_piece(x, ctx, mesh)
+    enc_out = None if not cfg.enc_layers else encoder_forward(
+        model, frame_embeds, ap, ctx, mesh, sp=sp)
     seeds: List[Cache] = []
     for bp in model.blocks:
         x, st = block_forward(bp, x, ap, ctx, mesh, positions=positions,
-                              q_mask=q_mask, sp=sp)
+                              q_mask=q_mask, sp=sp, enc_out=enc_out)
         if collect_state:
             seeds.append({n: L._fold(t) for n, t in st.items()})
     x = _gathered(L.apply_norm(x, model.final_norm, ap.cfg), ctx, mesh, sp)
@@ -600,6 +741,10 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
     state: ``conv`` (L, R*batch, d_conv-1, Ci_local) in ``cfg.dtype`` and
     ``ssm`` (L, R*batch, Ci_local, s) f32, batch-indexed under paging
     too, as in the reference.
+
+    The encoder-decoder adds the cross-attention K/V ``enc_k``/``enc_v``
+    (L, R*batch, enc_seq, U, hd) in ``cfg.dtype``, dense under paging and
+    under ``kv_quant`` too, as in the reference.
     """
     cfg = ap.cfg
     R = mesh.size if mesh is not None else 1
@@ -653,6 +798,9 @@ def init_cache(ap: ArchPlan, batch: int, s_max: int, *, block_size: int = 0,
                                 device=device, dtype=cfg.dtype)
         cache.update({n: t.expand(Ld, *t.shape).clone()
                       for n, t in st.items()})
+    for n in ENC_LEAVES if cfg.enc_layers else ():
+        cache[n] = torch.zeros((Ld, R * batch, cfg.enc_seq, u, hd),
+                               dtype=cfg.dtype, device=device)
     if ef_sites > 0:
         cache["ef"] = torch.zeros((Ld, ef_sites, R, batch, cfg.d_model),
                                   dtype=torch.float32, device=device)
@@ -693,7 +841,8 @@ def seed_cache(cache: Cache, states: Cache, slot: Optional[int] = None
     (``block_tbl`` present) routes K/V through the slot's rows of the
     folded block table; the recurrent leaves (``RECURRENT_LEAVES``: the ssm
     family's, the hybrid family's ``conv``/``ssm``) are copied into the
-    slot's rows.  An ``ef`` leaf is zeroed (the slot's, or all of it): a
+    slot's rows, and so are an encoder-decoder's cross K/V
+    (``ENC_LEAVES``).  An ``ef`` leaf is zeroed (the slot's, or all of it): a
     fresh request starts with no rounding residue of the slot's last
     occupant.  An int8 cache (``k_scale`` present) takes the prompt's K/V
     quantized per (position, head) as the decode write quantizes them
@@ -714,7 +863,7 @@ def seed_cache(cache: Cache, states: Cache, slot: Optional[int] = None
                                                       // R) + slot
     if "ef" in cache:      # (L, sites, R, batch, D)
         cache["ef"][:, :, :, slice(None) if slot is None else slot].zero_()
-    for n in RECURRENT_LEAVES:
+    for n in RECURRENT_LEAVES + ENC_LEAVES:
         if n in cache:
             cache[n][:, rows] = states[n].to(cache[n].dtype)
     if "k" not in cache:
@@ -760,7 +909,11 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
     block reads and updates its recurrent leaves ({"shift_tm",
     "shift_cm"} (R*B, D), {"wkv"} (R*B, H, hd, hd)) in place: kernel 8
     steps the state, and the time-mix output and the stacked channel-mix
-    partial each take one ``tp_all_reduce``.  Returns x."""
+    partial each take one ``tp_all_reduce``.  An encoder-decoder block
+    (``enc_k``/``enc_v`` (R*B, T, U, hd) in ``cache_l``) cross-attends
+    after self-attention: ``ln_x``, one query over the T encoder keys
+    through kernel 1, ``xattn.wo`` and a plain ``tp_all_reduce`` (no
+    overlap and no error feedback, as in the reference).  Returns x."""
     cfg = ap.cfg
     if cfg.attn_free:
         shape = (*x.shape[:2], x.shape[-1])
@@ -795,6 +948,12 @@ def block_decode(bp: Block, x: torch.Tensor, cache_l: Cache, ap: ArchPlan,
     else:
         x, ef_attn = _residual_proj(x, heads, bp.attn["wo"], ctx, mesh,
                                     ef=ef_in[0])
+    if "enc_k" in cache_l:
+        heads = L.cross_attention(bp.xattn, L.apply_norm(x, bp.ln_x, cfg),
+                                  cache_l["enc_k"], cache_l["enc_v"],
+                                  q_mask=q_mask, decode=True)
+        x = x + hier.tp_all_reduce(ov.project(heads, bp.xattn["wo"]), ctx,
+                                   mesh, scatter_dim=-1)
     h2 = L.apply_norm(x, bp.ln2, cfg)
     if cfg.is_moe:
         x = x + hier.tp_all_reduce(M.moe_ffn_dense(bp.moe, h2, cfg, ctx,
@@ -831,7 +990,7 @@ def decode_step(model: DenseLM, cache: Cache, tokens: torch.Tensor,
     x = L.embed_lookup(model.embed, tokens[:, None], ctx, mesh, ap.vocab_pad)
     for i, bp in enumerate(model.blocks):
         cache_l = {n: cache[n][i] for n in KV_LEAVES + ("ef",)
-                   + RECURRENT_LEAVES if n in cache}
+                   + RECURRENT_LEAVES + ENC_LEAVES if n in cache}
         x = block_decode(bp if layer_map is None else layer_map(bp), x,
                          cache_l, ap, ctx, mesh, positions=positions,
                          kv_positions=kv_positions, q_mask=q_mask,
@@ -941,4 +1100,5 @@ __all__ = ["ArchPlan", "make_plan", "check_layout", "Block", "DenseLM",
            "from_global", "init_params", "block_forward", "forward_lm",
            "ef_sites_for", "fold_table", "init_cache", "seed_cache",
            "block_decode", "decode_step", "prefill_chunk",
-           "RECURRENT_LEAVES", "KV_LEAVES", "w8_keep"]
+           "encoder_forward", "RECURRENT_LEAVES", "KV_LEAVES", "ENC_LEAVES",
+           "w8_keep"]

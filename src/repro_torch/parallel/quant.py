@@ -90,7 +90,8 @@ def quantize_params(params: Mapping[str, Any]) -> Dict[str, Any]:
 def quantize_model(model):
     """A new DenseLM whose block weights are ``{q, s}`` nodes, each (R,
     *local) as ``from_global`` would cut the quantized global tree; the
-    embedding and norms are shared with ``model``."""
+    embedding, the norms and an encoder (the reference quantizes the
+    decoder's blocks only) are shared with ``model``."""
     from ..models.transformer import Block, DenseLM
     from .sharding import tp_dim
 
@@ -110,6 +111,7 @@ def quantize_model(model):
         blocks.append(groups)
     out = DenseLM({}, [], {})
     out.embed, out.final_norm = model.embed, model.final_norm
+    out.enc_blocks, out.enc_norm = model.enc_blocks, model.enc_norm
     out.blocks = torch.nn.ModuleList(Block(b) for b in blocks)
     return out
 

@@ -1,6 +1,5 @@
 """Tensor-parallel parameter sharding over the virtual mesh: the port of
-the TP rules of ``repro/parallel/sharding.py`` for the dense, MoE, ssm
-(RWKV6) and hybrid families.
+the TP rules of ``repro/parallel/sharding.py`` for every family.
 
 A leaf's TP dimension is cut into R contiguous pieces, rank r taking piece
 r (slow-major, as ``PartitionSpec((slow, fast))`` cuts it), and the pieces
@@ -20,7 +19,11 @@ its rows; ``w_a`` and the shift mixes ``mu`` are replicated.  The hybrid
 family's mamba leaves are cut on d_inner (``A_log`` and ``w_out`` on their
 rows); ``w_bc`` and the block's mix ``beta`` are replicated.  No hybrid
 leaf name meets a rule written for another family (``w``/``b`` are the
-norms').  FSDP is not part of serving here (``fsdp_serve`` is not
+norms').  The encoder-decoder's leaves take the rules of their names:
+``enc_blocks`` is cut as ``blocks`` is, the cross-attention ``xattn`` as
+``attn``, the gelu MLP's ``w1``/``b1`` on their columns and ``w2`` on its
+rows, and every norm (``ln_x``, ``enc_norm``, a layernorm's ``b``) is
+replicated.  FSDP is not part of serving here (``fsdp_serve`` is not
 ported).  A quantized leaf ``{"q", "s"}`` (``parallel/quant.py``) is cut
 by the rule of its own name, the node one level up from ``q``/``s``:
 ``q`` like the bf16 leaf, ``s`` on the same dim when that is its last

@@ -176,22 +176,30 @@ def build_prefill(ap: ArchPlan, ctx: ParallelCtx, mesh, *, s_max: int,
                   block_size: int = 0, temperature: float = 0.0,
                   top_k: int = 0, ar_table: ARTable = None
                   ) -> Callable[..., Tuple[torch.Tensor, Cache]]:
-    """Prefill: (model, tokens (B, S), keys (B, 2) or None, cache=None) ->
-    (first tokens (B,) int32, the decode cache seeded with the prompt's
-    states).  Without a ``cache`` a new one is made (dense or paged with
-    the identity table, and, under a quantized wire, a zero error-feedback
-    leaf); a given one is seeded in place.  The first token is token 0 of
-    each row's chain."""
+    """Prefill: (model, tokens (B, S), keys (B, 2) or None, cache=None,
+    frame_embeds=None, patch_embeds=None) -> (first tokens (B,) int32, the
+    decode cache seeded with the prompt's states).  Without a ``cache`` a
+    new one is made (dense or paged with the identity table, and, under a
+    quantized wire, a zero error-feedback leaf); a given one is seeded in
+    place, an encoder-decoder's cross K/V included, so a decode step
+    captured over it reads the new batch's.  The first token is token 0 of
+    each row's chain.  ``frame_embeds`` (B, T, D) / ``patch_embeds`` (B,
+    P, D): an encoder-decoder's frames and a VLM's patches, on the
+    tokens' device, the same on every rank (``forward_lm``)."""
     check_layout(ap, ctx, mesh)
     tuner = autotune.tuner_for(ar_table)
     ef_sites = ef_sites_for(ctx, ap.cfg)
 
     def prefill(model: DenseLM, tokens: torch.Tensor,
                 keys: Optional[torch.Tensor] = None,
-                cache: Optional[Cache] = None):
+                cache: Optional[Cache] = None, *,
+                frame_embeds: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None):
         with autotune.using(tuner):
             logits, states = forward_lm(model, tokens, ap, ctx, mesh,
-                                        collect_state=True)
+                                        collect_state=True,
+                                        frame_embeds=frame_embeds,
+                                        patch_embeds=patch_embeds)
         if cache is None:
             cache = init_cache(ap, tokens.shape[0], s_max,
                                block_size=block_size, device=tokens.device,

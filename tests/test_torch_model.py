@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import get_smoke as jax_smoke  # noqa: E402
 from repro.core.pcontext import LOCAL  # noqa: E402
 from repro.models import common as JC  # noqa: E402
@@ -203,7 +204,14 @@ def test_plan_and_registry_refuse_what_the_slice_does_not_port():
     assert ap8.gqa.q_map == ap.gqa.q_map and ap8.vocab_pad == ap.vocab_pad
     with pytest.raises(ValueError, match="not divisible by tp=3"):
         TT.make_plan(cfg, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    # the encoder-decoder and VLM families are planned (item 10c): an
+    # encoder-decoder config with no encoder is refused, and the
+    # registered configs are the reference's field by field
+    with pytest.raises(ValueError, match="enc_layers"):
         TT.make_plan(dataclasses.replace(cfg, family="encdec"), 1)
-    with pytest.raises(KeyError, match="ROADMAP item 10"):
-        get_config("whisper-medium")
+    for arch in ("whisper-medium", "pixtral-12b"):
+        ours, ref = dataclasses.asdict(get_config(arch)), \
+            dataclasses.asdict(jax_config(arch))
+        assert {k: v for k, v in ours.items() if k != "dtype"} \
+            == {k: ref[k] for k in ours if k != "dtype"}
+        assert TT.make_plan(get_config(arch), 8).gqa.u >= 1
