@@ -293,7 +293,8 @@ phase's seconds are printed after it):
      a step), teacher-forced top-1 agreement with the bf16 weights' run at
      least TOP1_FLOOR, decode tok/s beside the bf16 weights' (bf16, int8,
      int8, bf16), and at tp=1 the first step's logits against the
-     dequant_layer model's; (d) hymba-1.5b full width and depth with the
+     dequant_layer model's; (d) hymba-1.5b at full width, 8 layers
+     (PATH_LAYERS), with the
      ring-buffer window cache, a 64-token prompt decoded 1100 steps past
      its 1024 window, against the full cache by provable_gate over
      teacher-forced logits, then in f32 at 2 layers where the gate must
@@ -331,21 +332,46 @@ phase's seconds are printed after it):
      decode; each against its plain version in bf16 and f32, a second
      call bitwise, timed beside SDPA and the bound; whisper-medium (24 +
      24 layers, batch 8, 1500 frames, prompt 64, 16 new) and pixtral-12b
-     (40 layers, 1024 patches + 64 tokens) at full width, bf16, seeded:
+     (1024 patches + 64 tokens; 16 of its 40 layers, MM_PATH_LAYERS) at
+     full width, bf16, seeded:
      run_path at tp=1 dense and paged and at tp=8 (4x2 hier_rd), exact
      launches (kernel 3 E + 2L a prefill for whisper, L for pixtral;
      kernel 1 2L a step for whisper, the cross-attention's L when paged;
      kernel 4 once an all-reduce), graph == eager, paged == dense, a
      second batch of frames through the captured step with no capture
      anew; tp=8's tokens margin-gated against tp=1's and its
-     teacher-forced logits within (TF_MAX, TF_MEAN), whisper at full
-     depth, pixtral at 16 layers (MM_GATE_LAYERS; its 40-layer bf16 gap
-     printed) and at 40 layers in f32 (tp=8 prefill logits within
-     MM_F32_TOL of tp=1's); card against CPU at 2 layers in f32
+     teacher-forced logits within (TF_MAX, TF_MEAN); pixtral at 40 layers
+     in f32 (tp=8 prefill logits within MM_F32_TOL of tp=1's); card
+     against CPU at 2 layers in f32
      (whisper's encoder at 2 layers over all 1500 frames; pixtral with 32
      patches in a 64-token prompt).
+ 34. the paper's HP scheme (``parallel/pp.py``, GPipe PP x TP): kernel
+     3 against its plain version at a block call's shape (8 ranks x 2
+     sequences, 16 / 4 heads, 512 tokens), timed beside SDPA and the
+     bound; llama3.2-1b at full width and depth, bf16, batch 8, prompt
+     512, 4 stages of 4 layers with TP 2 in each (the 4 x 2 virtual mesh,
+     the stage axis the slow one), M = 4 and M = 1 microbatches: exact
+     kernel-3 launches, (L/P) x (M+P-1); every stage's logits bitwise
+     equal; logits within (TF_MAX, TF_MEAN) of the tp=1 forward_lm's,
+     which two planted faults (the shift sent to stage s - 1, the last
+     stage collected one tick early) must break; the forward's time
+     beside tp=1's and tp=8 hier_rd's (median of 3, synchronised); in f32
+     at 4 layers (one a stage) within PP_F32_REL of tp=1, and the card
+     against the CPU at batch 2, prompt 64, M = 2 within 1e-3; then the
+     sustained bf16 rate of one (8, 4096, 4096)^2 bmm (the simulator's
+     H100.efficiency), and the simulator's llama3.2-1b tp=1 decode step
+     and prefill (batch 8, context 512) beside phase 4's graph-replayed
+     decode step (device busy, torch.profiler) and its prefill, with the
+     ratios (no gate: a model; every number finite and positive).
 Then both forms' decode tok/s of every path, side by side.  The last two
 lines are the kernels' JSON record and the result line.
+
+    python3 chip_smoke.py --phases 1-3,34
+
+runs the phases named and every phase whose results they read
+(``PHASE_DEPS``: phase 34 reads phase 4's, so ``--phases 34`` runs 1, 2's
+build, 4 and 34); the result line is the same, and the kernels' record
+lists the kernels whose path and checks ran.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -373,8 +399,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.llama3_paper import (  # noqa: E402
     LLAMA31_405B, LLAMA31_70B)
-from repro_torch.core import autotune, hierarchical, overlap  # noqa: E402
-from repro_torch.core.mesh import mesh_and_ctx  # noqa: E402
+from repro_torch.core import (autotune, comm_model,  # noqa: E402
+                              hierarchical, overlap)
+from repro_torch.core.mesh import VirtualMesh, mesh_and_ctx  # noqa: E402
+from repro_torch.core.pcontext import ParallelCtx  # noqa: E402
+from repro_torch.inference import simulator as sim  # noqa: E402
+from repro_torch.parallel import pp  # noqa: E402
 from repro_torch.inference.engine import InferenceEngine  # noqa: E402
 from repro_torch.inference.kv_cache import (  # noqa: E402
     bundle_states, states_bundle)
@@ -962,7 +992,10 @@ def profile_generate(eng: InferenceEngine, prompts: np.ndarray,
     ``share_of`` (a name or several), the share of device time of kernels
     whose names hold each.  ``graph``: the decode steps replayed from the
     engine's CUDA graph (captured by a generate before the profiled one);
-    the engine is left in the form it had."""
+    the engine is left in the form it had.  Returns the device-busy ms of
+    one decode step in the graph form (the profiled generate's busy time
+    less a profiled prefill-only generate's, over its decode steps), else
+    None."""
     from torch.profiler import ProfilerActivity, profile
     form = eng.cuda_graph
     if graph:
@@ -970,19 +1003,27 @@ def profile_generate(eng: InferenceEngine, prompts: np.ndarray,
         eng.generate(prompts, 3)
         log(f"    profile of the graph form ({new - 1} replayed steps):")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        res = eng.generate(prompts, new)
+
+    def profiled(n):
+        with profile(activities=acts) as prof:
+            res = eng.generate(prompts, n)
+        # kernel (and memcpy/memset) events only: device time counted once
+        rows = [(e.device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        return res, sorted((r for r in rows if r[0] > 0), reverse=True)
+
+    res, rows = profiled(new)
+    step_ms = None
+    if graph and rows:
+        prefill_busy = sum(r[0] for r in profiled(1)[1])
+        step_ms = (sum(r[0] for r in rows) - prefill_busy) / (new - 1)
     eng.cuda_graph = form
     wall_ms = (res.prefill_s + res.decode_s) * 1e3
-    # kernel (and memcpy/memset) events only: device time is counted once
-    rows = [(e.device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         log("    profile: no device time recorded (not measured)")
-        return
+        return None
     log(f"    profile: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
         f"({100 * busy / wall_ms:.1f}%; idle {100 - 100 * busy / wall_ms:.1f}"
         f"%) under the profiler")
@@ -994,6 +1035,11 @@ def profile_generate(eng: InferenceEngine, prompts: np.ndarray,
             "device time")
     for ms, n, key in rows[:8]:
         log(f"      {ms:9.3f} ms {n:6d}x  {key[:90]}")
+    if step_ms is not None:
+        log(f"    profile: one replayed decode step {step_ms:.4f} ms device "
+            f"busy (the generate's less a prefill-only one's, over "
+            f"{new - 1} steps)")
+    return step_ms
 
 
 def top2_gap(logits: torch.Tensor) -> np.ndarray:
@@ -1111,6 +1157,13 @@ def run_path(eng: InferenceEngine, prompts: np.ndarray, label: str,
     return res, got
 
 
+# What phase 34 reads of phase 4: the dense eager run's prefill ms and the
+# device-busy ms of one graph-replayed decode step; and of phase 6, when it
+# ran, the hier_rd eager run's prefill ms (printed beside phase 34's).
+P4: dict = {}
+P6: dict = {}
+
+
 def phase_path() -> tuple:
     """Returns (launches by path, tp=1 dense tokens, their teacher-forced
     logits)."""
@@ -1139,9 +1192,10 @@ def phase_path() -> tuple:
                                                   expect[layout])
         tokens[layout] = res.tokens
         if layout == "dense":
+            P4["prefill_ms"] = res.prefill_s * 1e3
             profile_generate(eng, prompts, share_of="decode_attention")
-            profile_generate(eng, prompts, share_of="decode_attention",
-                             graph=True)
+            P4["decode_step_busy_ms"] = profile_generate(
+                eng, prompts, share_of="decode_attention", graph=True)
     if not np.array_equal(tokens["dense"], tokens["paged"]):
         raise AssertionError("paged tokens differ from dense tokens")
     log("  paged tokens == dense tokens")
@@ -1451,6 +1505,7 @@ def phase_tp(tp1_tokens: np.ndarray, tp1_logits: torch.Tensor) -> tuple:
             eng, prompts, f"tp=8 {strategy}", expect)
         tokens[strategy] = res.tokens
         if strategy == "hier_rd":
+            P6["prefill_ms"] = res.prefill_s * 1e3
             profile_generate(eng, prompts, share_of="rd_allreduce")
             profile_generate(eng, prompts, share_of="rd_allreduce",
                              graph=True)
@@ -5170,18 +5225,21 @@ def ring_pair(model, ap, prompts: np.ndarray, new: int, label: str,
 
 
 def phase_ring() -> None:
-    """(d) hymba-1.5b with the ring-buffer window cache, full width and
-    depth, bf16, a RING_PROMPT-token prompt decoded RING_NEW steps past its
-    window, against the full cache by provable_gate; then f32 at 2 layers,
-    where the gate must check at least three quarters of the steps."""
+    """(d) hymba-1.5b with the ring-buffer window cache, full width, bf16
+    at its path's depth (PATH_LAYERS), a RING_PROMPT-token prompt decoded
+    RING_NEW steps past its window, against the full cache by
+    provable_gate; then f32 at 2 layers, where the gate must check at
+    least three quarters of the steps."""
     free_device()
-    cfg = get_config(HYB_ARCH)
+    cfg = dataclasses.replace(get_config(HYB_ARCH),
+                              n_layers=PATH_LAYERS[HYB_ARCH])
     prompts = np.random.default_rng(SEED + 31).integers(
         0, cfg.vocab_size, (B, RING_PROMPT))
     ap = make_plan(cfg, 1)
     model = init_params(ap, seed=SEED, device="cuda")
     ring_pair(model, ap, prompts, RING_NEW,
-              f"{HYB_ARCH} full depth, bf16, {RING_PROMPT} + {RING_NEW}")
+              f"{HYB_ARCH} {cfg.n_layers} layers, bf16, {RING_PROMPT} + "
+              f"{RING_NEW}")
     del model
     free_device()
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
@@ -5694,55 +5752,55 @@ def mm_launches(cfg, tp: int, paged: bool, new: int) -> dict:
     return out
 
 
-# The depth of pixtral-12b's bf16 tp=8-against-tp=1 logits gate: that of
-# the deepest fp-wire gate before it (llama3.2-1b, 16 layers, phase 6).
-# At 40 layers the bf16 sums of another reduction order drift past
-# TF_MEAN (a mean of 0.0213 in this phase's first card run, PERF.md) and
-# are printed, not gated; 40 layers are held in f32 instead
-# (``mm_f32_tp``), where a wrong rank or a dropped partial would show.
-MM_GATE_LAYERS = {PIXTRAL: 16}
+# The depth of pixtral-12b's bf16 paths (cut from 40 layers to keep the
+# script inside its time limit) and of its tp=8-against-tp=1 logits gate:
+# that of the deepest fp-wire gate before it (llama3.2-1b, 16 layers,
+# phase 6).  At 40 layers the bf16 sums of another reduction order drift
+# past TF_MEAN (a mean of 0.0213, PERF.md); 40 layers are held in f32
+# instead (``mm_f32_tp``), where a wrong rank or a dropped partial would
+# show.
+MM_PATH_LAYERS = {PIXTRAL: 16}
 # f32 tp=8 against tp=1 at full depth on one card: f32 sums in another
 # order (the card-vs-CPU bar of phase 5)
 MM_F32_TOL = 1e-3
 
 
 def mm_gate(name: str, tokens, ref, ref_logits, model, ap, ctx, mesh,
-            extra, prompt_len: int, asserted: bool = True) -> None:
+            extra, prompt_len: int) -> None:
     """tp=8's tokens margin-gated against tp=1's and its teacher-forced
-    logits (real vocab) within (TF_MAX, TF_MEAN) of tp=1's; only printed
-    when not ``asserted``."""
+    logits (real vocab) within (TF_MAX, TF_MEAN) of tp=1's."""
     V = ap.cfg.vocab_size
     want = ref_logits.to("cuda")
     got = teacher_forced(model, ref, ap, ctx, mesh, extra=extra)[..., :V]
-    mx, mean = gate(f"{name} {ap.cfg.n_layers}L tp=8 hier_rd vs tp=1"
-                    + ("" if asserted else " (printed, not gated)"),
-                    got, want)
-    n = margin_gate(tokens, ref, top2_gap(want), prompt_len, BF16_GAP) \
-        if asserted else 0
+    mx, mean = gate(f"{name} {ap.cfg.n_layers}L tp=8 hier_rd vs tp=1", got,
+                    want)
+    n = margin_gate(tokens, ref, top2_gap(want), prompt_len, BF16_GAP)
     log(f"    tp=8 hier_rd tokens == tp=1 tokens on {n}/{B * MM_NEW} steps "
         f"gated at gap {BF16_GAP:g} (fully equal: "
         f"{np.array_equal(tokens, ref)})")
-    if asserted and (mx > TF_MAX or mean > TF_MEAN):
+    if mx > TF_MAX or mean > TF_MEAN:
         raise AssertionError(f"{name} tp=8 logits differ from tp=1's")
 
 
 def mm_arch(name: str, cfg, prompt_len: int, launches: dict) -> None:
-    """One arch at full width and depth, bf16, seeded weights and frames /
-    patches: batch 8, ``prompt_len`` tokens, MM_NEW new; tp=1 dense and
-    paged and tp=8 (4 x 2, hier_rd) each through ``run_path`` (exact
-    launches of ``mm_launches``, graph == eager); paged tokens == dense;
-    an encoder-decoder's graph then serves a second batch of frames with
-    no capture anew (the prefill re-seeds the cross K/V in place), its
-    tokens the eager form's; tp=8 against tp=1 by ``mm_gate``, at full
-    depth or, for an arch in MM_GATE_LAYERS, at that depth (one graph
-    generate each), the full depth's gap printed and held in f32
-    (``mm_f32_tp``).  Each model is freed before the next is built."""
+    """One arch at full width, bf16, seeded weights and frames / patches,
+    at full depth or, for an arch in MM_PATH_LAYERS, at that depth: batch
+    8, ``prompt_len`` tokens, MM_NEW new; tp=1 dense and paged and tp=8 (4
+    x 2, hier_rd) each through ``run_path`` (exact launches of
+    ``mm_launches``, graph == eager); paged tokens == dense; an
+    encoder-decoder's graph then serves a second batch of frames with no
+    capture anew (the prefill re-seeds the cross K/V in place), its tokens
+    the eager form's; tp=8 against tp=1 by ``mm_gate``; a cut arch's full
+    depth held in f32 (``mm_f32_tp``).  Each model is freed before the
+    next is built."""
+    full_cfg = cfg
+    cfg = dataclasses.replace(cfg, n_layers=MM_PATH_LAYERS.get(
+        name, cfg.n_layers))
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, prompt_len))
     extra = multimodal_extra(cfg, B, SEED + 3, "cuda")
     s_max = prompt_len + MM_NEW
     V = cfg.vocab_size
-    cut = MM_GATE_LAYERS.get(name, 0)
     ref = ref_logits = None
     for tp, pods, layouts in ((1, 1, (0, BLOCK)), (PODS * FAST, PODS, (0,))):
         ap = make_plan(cfg, tp)
@@ -5800,31 +5858,12 @@ def mm_arch(name: str, cfg, prompt_len: int, launches: dict) -> None:
                                         extra=extra)[..., :V].cpu()
         else:
             mm_gate(name, tokens["dense"], ref, ref_logits, model, ap, ctx,
-                    mesh, extra, prompt_len, asserted=not cut)
-        del model
-        free_device()
-    if not cut:
-        return
-    c = dataclasses.replace(cfg, n_layers=cut)
-    for tp, pods in ((1, 1), (PODS * FAST, PODS)):
-        ap = make_plan(c, tp)
-        mesh, ctx = mesh_and_ctx(tp, pods, ar_strategy="hier_rd",
-                                 device="cuda")
-        model = init_params(ap, seed=SEED, device="cuda", mesh=mesh)
-        toks = InferenceEngine(ap, model, ctx=ctx, mesh=mesh, s_max=s_max,
-                               device="cuda").generate(
-            prompts, MM_NEW, extra=extra).tokens
-        if tp == 1:
-            ref = toks
-            ref_logits = teacher_forced(model, ref, ap,
-                                        extra=extra)[..., :V].cpu()
-        else:
-            mm_gate(name, toks, ref, ref_logits, model, ap, ctx, mesh, extra,
-                    prompt_len)
+                    mesh, extra, prompt_len)
         del model
         free_device()
     del ref_logits
-    mm_f32_tp(name, cfg, prompts[:2], extra)
+    if cfg.n_layers < full_cfg.n_layers:
+        mm_f32_tp(name, full_cfg, prompts[:2], extra)
 
 
 def mm_f32_tp(name: str, cfg, prompts: np.ndarray, extra: dict) -> None:
@@ -5859,7 +5898,8 @@ def mm_f32_tp(name: str, cfg, prompts: np.ndarray, extra: dict) -> None:
 
 def phase_multimodal(rec: dict) -> dict:
     """Phase 33: the kernels at the new shapes; whisper-medium (24 + 24
-    layers) and pixtral-12b (40 layers) at full width, tp=1 and tp=8;
+    layers) and pixtral-12b (16 of 40 layers; 40 in f32) at full width,
+    tp=1 and tp=8;
     card against CPU at 2 layers in f32 (whisper's encoder at 2 layers
     over all 1500 frames; pixtral with 32 patches in a 64-token
     prompt)."""
@@ -5910,6 +5950,244 @@ def ptxas_report() -> None:
                 f"{spill.group(0) if spill else '?'}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the paper's HP scheme (GPipe PP x TP) and the simulator's H100
+# ---------------------------------------------------------------------------
+
+# The HP forward's mesh: 4 stages of 4 layers, TP 2 inside each (8 ranks).
+PP_STAGES, PP_FAST = 4, 2
+PP_CTX = ParallelCtx(tp_fast=("model",), ep=("model",))
+# f32 at 4 layers (one a stage) against tp=1: the reference case's bar
+# (tests/dist_cases/case_pp_and_perf.py), relative to the largest logit.
+PP_F32_REL = 2e-3
+# The sustained bf16 rate: one (8, 4096, 4096) x (8, 4096, 4096) bmm.
+BMM_SHAPE = (8, 4096, 4096, 4096)
+
+
+def pp_faults():
+    """The two planted faults of the HP gate: the shift sent to stage s - 1
+    instead of s + 1, and the last stage's output collected one tick
+    early."""
+    def back(buf, stages):
+        return buf.reshape(stages, -1, *buf.shape[1:]).roll(-1, 0).reshape(
+            buf.shape)
+
+    def early(t, stages, microbatches):
+        i = t - (stages - 2)
+        return i if 0 <= i < microbatches else None
+    return {"shift_back": mock.patch.object(pp, "_shift", back),
+            "collect_early": mock.patch.object(pp, "_finished", early)}
+
+
+def stage0_logits(logits: torch.Tensor, fast: int) -> torch.Tensor:
+    """The first stage's vocab shards gathered: (B, S, V_pad) from the
+    PP forward's (R, B, S, V_local)."""
+    return gather_vocab(logits[:fast])
+
+
+def timed_ms(fn, reps: int = 3) -> float:
+    """Median of ``reps`` synchronised calls, host wall ms (a warm call
+    first)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def phase_pp(rec: dict) -> dict:
+    """Phase 34 (a): the HP forward at full width against tp=1, its
+    launches, the planted faults, f32 at 4 layers, card against CPU, its
+    time beside tp=1's and tp=8's; kernel 3 at the stage's shape."""
+    cfg = get_config("llama3.2-1b")
+    L, P, F_ = cfg.n_layers, PP_STAGES, PP_FAST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 34)
+    mb_shape = (P * F_ * B // 4, HQ // F_, HKV // F_, PROMPT, HD, 0)
+    err, t, bnd = flash_case(gen, torch.bfloat16, mb_shape)
+    log(f"  flash_attention pp_stage {mb_shape} [bfloat16] (a block call "
+        f"of the HP forward at M = 4: {P * F_} ranks x {B // 4} sequences): "
+        f"kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+        f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+    rec["flash_attention"]["pp_stage"] = {
+        "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+        "bound_ms": bnd[0], "bound_by": bnd[1]}
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                   (B, PROMPT))
+    tokens = torch.as_tensor(prompts, device="cuda").long()
+    ap1 = make_plan(cfg, 1)
+    m1 = init_params(ap1, seed=SEED, device="cuda")
+    with torch.inference_mode():
+        ref = forward_lm(m1, tokens, ap1)[0]
+        tp1_ms = timed_ms(lambda: forward_lm(m1, tokens, ap1))
+    del m1
+    free_device()
+    ap = make_plan(cfg, F_)
+    mesh = VirtualMesh(P, F_, device="cuda")
+    cut = init_params(ap, seed=SEED, device="cuda",
+                      mesh=VirtualMesh(1, F_, device="cuda"))
+    staged = pp.to_stages(cut, mesh)
+    del cut
+    log(f"  {cfg.name} HP: {P} stages x {L // P} layers, TP {F_} in each "
+        f"({mesh}), ctx tp_fast={PP_CTX.tp_fast}; stage layout "
+        f"{sum(x.numel() for x in staged.parameters()) / 1e9:.3f} B "
+        "elements (embedding on every stage)")
+    launches, pp_ms = {}, {}
+    for M in (4, 1):
+        fn = pp.build_pp_forward(ap, PP_CTX, mesh, stage_axis="pod",
+                                 microbatches=M)
+        with torch.inference_mode():
+            fn(staged, tokens)
+            torch.cuda.synchronize()
+            reset_counts()
+            lg = fn(staged, tokens)
+            got = counts()
+            expect = {**dict.fromkeys(got, 0),
+                      "flash_attention": (L // P) * (M + P - 1)}
+            if got != expect:
+                raise AssertionError(f"HP M={M}: launches {got}, expected "
+                                     f"{expect}")
+            if not all(torch.equal(lg[:F_], lg[s * F_:(s + 1) * F_])
+                       for s in range(1, P)):
+                raise AssertionError(f"HP M={M}: the stages' logits differ")
+            mx, mean = gate(f"HP M={M} vs tp=1 prefill logits",
+                            stage0_logits(lg, F_), ref)
+            if mx > TF_MAX or mean > TF_MEAN:
+                raise AssertionError(f"HP M={M} logits differ from tp=1's")
+            del lg
+            pp_ms[M] = timed_ms(lambda: fn(staged, tokens))
+            if M == 4:
+                for kind, patch in pp_faults().items():
+                    with patch:
+                        fmx, fmean = gate(f"planted fault {kind}",
+                                          stage0_logits(fn(staged, tokens),
+                                                        F_), ref)
+                    if fmx <= TF_MAX and fmean <= TF_MEAN:
+                        raise AssertionError(f"the HP gate passed the "
+                                             f"planted fault {kind}")
+        launches[f"pp_m{M}"] = got
+        log(f"  HP M={M}: launches {got} == (L/P) x (M+P-1); the stages' "
+            "logits bitwise equal")
+        free_device()
+    del staged, ref
+    free_device()
+    # tp=8 (4 pods x 2) hier_rd, the same forward_lm timing
+    ap8 = make_plan(cfg, PODS * FAST)
+    mesh8, ctx8 = mesh_and_ctx(PODS * FAST, PODS, ar_strategy="hier_rd",
+                               device="cuda")
+    m8 = init_params(ap8, seed=SEED, device="cuda", mesh=mesh8)
+    with torch.inference_mode():
+        tp8_ms = timed_ms(lambda: forward_lm(m8, tokens, ap8, ctx8, mesh8))
+    del m8
+    free_device()
+    log(f"  prefill forward, batch {B} x {PROMPT}, median of 3 synchronised "
+        f"calls: tp=1 {tp1_ms:.2f} ms; tp=8 ({PODS}x{FAST}) hier_rd "
+        f"{tp8_ms:.2f} ms; HP {P}x{F_} M=4 {pp_ms[4]:.2f} ms, M=1 "
+        f"{pp_ms[1]:.2f} ms (engine prefills of this run: phase 4 tp=1 "
+        f"{P4.get('prefill_ms', float('nan')):.2f} ms, phase 6 tp=8 hier_rd "
+        f"{P6.get('prefill_ms', float('nan')):.2f} ms)")
+    pp_f32(cfg)
+    return launches
+
+
+def pp_f32(cfg) -> None:
+    """The HP forward at full width, 4 layers (one a stage), f32: against
+    tp=1 within PP_F32_REL at batch 8 x 512, then the card against the CPU
+    at batch 2 x 64, M = 2, within 1e-3."""
+    cfg = dataclasses.replace(cfg, n_layers=PP_STAGES, dtype=torch.float32)
+    ap1, ap = make_plan(cfg, 1), make_plan(cfg, PP_FAST)
+    mesh = VirtualMesh(PP_STAGES, PP_FAST, device="cuda")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                   (B, PROMPT))
+    tokens = torch.as_tensor(prompts, device="cuda").long()
+    with torch.inference_mode():
+        m1 = init_params(ap1, seed=SEED, device="cuda")
+        ref = forward_lm(m1, tokens, ap1)[0]
+        del m1
+        staged = pp.to_stages(init_params(
+            ap, seed=SEED, device="cuda",
+            mesh=VirtualMesh(1, PP_FAST, device="cuda")), mesh)
+        fn = pp.build_pp_forward(ap, PP_CTX, mesh, stage_axis="pod",
+                                 microbatches=4)
+        got = stage0_logits(fn(staged, tokens), PP_FAST)
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        del got, ref
+        log(f"  HP f32, {cfg.n_layers} layers, M=4 vs tp=1: max|diff| / "
+            f"max|tp=1| = {rel:.3e} (limit {PP_F32_REL:g})")
+        if not rel < PP_F32_REL:
+            raise AssertionError("HP f32 logits differ from tp=1's")
+        free_device()
+        b, s = 2, 64
+        small = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+            0, cfg.vocab_size, (b, s)))
+        fn2 = pp.build_pp_forward(ap, PP_CTX, mesh, stage_axis="pod",
+                                  microbatches=2)
+        lg = stage0_logits(fn2(staged, small.to("cuda")), PP_FAST).cpu()
+        cpu = copy.deepcopy(staged).to("cpu")
+        del staged
+        free_device()
+        mesh_c = VirtualMesh(PP_STAGES, PP_FAST, device="cpu")
+        fn_c = pp.build_pp_forward(ap, PP_CTX, mesh_c, stage_axis="pod",
+                                   microbatches=2)
+        lc = stage0_logits(fn_c(cpu, small), PP_FAST)
+    err = max_err(lg, lc)
+    log(f"  HP f32 card vs CPU, batch {b} x {s}, M=2: max abs err "
+        f"{err:.3e} (atol=rtol=1e-3)")
+    if not torch.allclose(lg, lc, atol=1e-3, rtol=1e-3):
+        raise AssertionError("HP logits differ between card and CPU")
+
+
+def phase_sim() -> None:
+    """Phase 34 (b): the sustained bf16 rate of one large bmm, the H100
+    spec's efficiency from it, and the simulator's llama3.2-1b tp=1 decode
+    step and prefill beside phase 4's measured ones.  A model, so no gate:
+    every number finite and positive."""
+    bb, m, k, n = BMM_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 35)
+    a = torch.randn((bb, m, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn((bb, k, n), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ms = time_ms(lambda: torch.bmm(a, w))
+    del a, w
+    flops = 2.0 * bb * m * k * n
+    eff = flops / (ms * 1e-3) / PEAK_FLOPS[torch.bfloat16]
+    cap = torch.cuda.get_device_properties(0).total_memory
+    log(f"  bmm {BMM_SHAPE} bf16: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+        f"TFLOP/s = {eff:.4f} of the {PEAK_FLOPS[torch.bfloat16] / 1e12:g} "
+        f"TFLOP/s peak; total_memory {cap} bytes; simulator.H100: "
+        f"efficiency {sim.H100.efficiency:g}, hbm_cap {sim.H100.hbm_cap:.0f}")
+    cfg = get_config("llama3.2-1b")
+    measured = {"decode": P4.get("decode_step_busy_ms"),
+                "prefill": P4.get("prefill_ms")}
+    source = {"decode": "decode step; card: a graph-replayed step, device "
+                        "busy", "prefill": "prefill; card: phase 4's"}
+    nums = [ms, eff]
+    # one GPU: no all-reduce, so the network is never read
+    for label, chip in (("H100", sim.H100),
+                        ("H100 at this run's efficiency",
+                         dataclasses.replace(sim.H100, efficiency=eff))):
+        cs = sim.ClusterSim(cfg, chip, comm_model.VISTA, 1)
+        pred = {"decode": cs.decode_step_time(B, PROMPT).total * 1e3,
+                "prefill": cs.prefill_time(B, PROMPT).total * 1e3}
+        for what in ("decode", "prefill"):
+            got = measured[what] or float("nan")
+            nums += [pred[what], got / pred[what]]
+            log(f"  simulator ({label}) {cfg.name} tp=1 ({B}, {PROMPT}) "
+                f"{source[what]}: simulator {pred[what]:.4f} ms, card "
+                f"{got:.4f} ms, card / simulator {got / pred[what]:.3f}")
+    if not all(np.isfinite(x) and x > 0 for x in nums):
+        raise AssertionError(f"phase 34 (b): a number is not finite and "
+                             f"positive: {nums}")
+
+
 _PHASE = {"title": "", "t": 0.0}
 
 
@@ -5925,10 +6203,45 @@ def phase(title: str) -> None:
     _PHASE.update(title=title, t=now)
 
 
-def main() -> int:
+# Phases whose results a phase reads: with --phases they run first.
+PHASE_DEPS = {6: (4,), 9: (4, 6), 12: (9,), 13: (9,), 28: (27,),
+              29: (27,), 30: (27,), 34: (4,)}
+N_PHASES = 34
+
+
+def selected_phases(arg: Optional[str]) -> list:
+    """The phases of ``--phases`` (e.g. "1-3,34") and, transitively, every
+    phase whose results they read; all phases without the argument.  Phase
+    1 (the card) and the kernels' build always run."""
+    if arg is None:
+        return list(range(1, N_PHASES + 1))
+    want = {1}
+    for part in arg.split(","):
+        lo, _, hi = part.partition("-")
+        want.update(range(int(lo), int(hi or lo) + 1))
+    todo = list(want)
+    while todo:
+        for d in PHASE_DEPS.get(todo.pop(), ()):
+            if d not in want:
+                want.add(d)
+                todo.append(d)
+    if not want <= set(range(1, N_PHASES + 1)):
+        raise SystemExit(f"--phases {arg}: phases are 1-{N_PHASES}")
+    return sorted(want)
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="run these phases (e.g. 1-3,34) and the phases "
+                    "whose results they read; default: all")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    run = selected_phases(args.phases)
+    on = set(run)
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5937,126 +6250,174 @@ def main() -> int:
     log(smi)
     log(f"    torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    log(f"    phases: {'all' if args.phases is None else run}")
     t0 = time.perf_counter()
     _build.build()
     phase(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"({_build.BUILD_DIR})")
     ptxas_report()
-    rec = phase_kernels()
-    phase_sweep()
-    phase_decode_repeat()
-    phase("[3] recursive-doubling all-reduce kernel")
-    rec["rd_all_reduce"] = phase_rd()
-    phase("[4] llama3.2-1b full width and depth, bf16")
-    launches, tp1_tokens, tp1_logits = phase_path()
-    phase("[5] card vs CPU, full width, 2 layers, float32")
-    card_vs_cpu(1, 1, "flat")
-    phase(f"[6] llama3.2-1b tp=8 ({PODS} pods x {FAST}) full width and "
-        "depth, bf16")
-    tp_launches, flat_tokens, flat_logits = phase_tp(tp1_tokens, tp1_logits)
-    launches.update(tp_launches)
-    phase(f"[7] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd), full width, "
-        "2 layers, float32")
-    card_vs_cpu(PODS * FAST, PODS, "hier_rd")
-    phase("[8] fused GEMM + recursive-doubling kernel")
-    rec["collective_matmul_rd"] = phase_fused()
-    phase(f"[9] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + overlapped "
-        "projections, full width and depth, bf16")
-    ov_launches, decode_refs = phase_overlap(tp1_tokens, tp1_logits,
-                                             flat_tokens, flat_logits)
-    launches.update(ov_launches)
-    phase(f"[10] card vs CPU at tp=8 ({PODS}x{FAST}, auto + overlap), full "
-        "width, 2 layers, float32")
-    card_vs_cpu(PODS * FAST, PODS, "auto", overlap_matmul=True)
-    phase("[11] group-quantized pack and unpack kernels (kernel 6), and the "
-        "quantized recursive doubling in one launch")
-    rec.update(phase_quant_kernels())
-    rec["quant_rd_all_reduce"] = phase_quant_fused()
-    phase(f"[12] llama3.2-1b tp=8 ({PODS}x{FAST}) hier_rd on the int8 and "
-        "int4 wire, error feedback on, full width and depth, bf16")
-    launches.update(phase_quant(decode_refs))
-    phase(f"[13] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + auto quantization + "
-        "overlapped projections, full width and depth, bf16")
-    launches.update(phase_auto_quant(decode_refs))
-    phase(f"[14] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd + int8), full "
-        "width, 2 layers, float32")
-    card_vs_cpu(PODS * FAST, PODS, "hier_rd", ar_quant="int8",
-                tol=QUANT_CPU_TOL)
-    phase("[15] grouped expert FFN kernel (kernel 7)")
-    rec["moe_expert_ffn"] = phase_moe_kernel()
-    phase(f"[16] {MOE_ARCH} tp=1, full width, {PATH_LAYERS[MOE_ARCH]} "
-          "layers, bf16")
-    launches.update(phase_moe_path())
-    phase(f"[17] {MOE_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
-        "4 layers, float32")
-    launches.update(phase_moe_tp())
-    phase(f"[18] card vs CPU, {MOE_ARCH}, full width, 2 layers, float32: "
-        f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
-    free_device()
-    card_vs_cpu(1, 1, "flat", arch=MOE_ARCH)
-    card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=MOE_ARCH)
-    free_device()
-    phase("[19] RWKV6 time-mix scan kernel (kernel 8)")
-    rec["rwkv6_scan"] = phase_rwkv_kernel()
-    phase(f"[20] {RWKV_ARCH} tp=1, full width, {PATH_LAYERS[RWKV_ARCH]} "
-          "layers, bf16")
-    launches.update(phase_rwkv_path())
-    phase(f"[21] {RWKV_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
-        f"{RWKV_TP_LAYERS} layers, float32")
-    launches.update(phase_rwkv_tp())
-    phase(f"[22] card vs CPU, {RWKV_ARCH}, full width, 2 layers, float32: "
-        f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
-    free_device()
-    card_vs_cpu(1, 1, "flat", arch=RWKV_ARCH)
-    card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=RWKV_ARCH)
-    free_device()
-    phase("[23] Mamba selective-scan kernel (kernel 9)")
-    rec["ssm_scan"] = phase_ssm_kernel()
-    phase(f"[24] {HYB_ARCH} tp=1, full width, {PATH_LAYERS[HYB_ARCH]} "
-          "layers, bf16")
-    launches.update(phase_hybrid_path())
-    phase(f"[25] {HYB_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full width, "
-        f"{HYB_TP_LAYERS} layers, float32")
-    launches.update(phase_hybrid_tp())
-    phase(f"[26] card vs CPU, {HYB_ARCH}, full width, 2 layers, float32: "
-        f"tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
-    free_device()
-    card_vs_cpu(1, 1, "flat", arch=HYB_ARCH)
-    card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=HYB_ARCH)
-    free_device()
-    phase(f"[27] continuous batcher, llama3.2-1b full width and depth, bf16: "
-          f"tp=1 dense and paged, tp=8 ({PODS}x{FAST}, hier_rd) paged")
-    phase_serve()
-    phase("[28] kernel 3's chunk form; phase 27's trace admitted by chunks "
-          f"of {ADMIT_CHUNK}, the prefix cache, speculative decoding "
-          f"(k = {SPEC_K})")
-    rec["flash_attention_chunk"] = phase_chunk_kernel()
-    launches.update(phase_serve_chunked())
-    phase("[29] faults, quarantine and deadlines in the batcher; "
-          "disaggregated prefill / decode with the checksummed KV handoff; "
-          "the router: llama3.2-1b full width and depth, bf16")
-    nan_masking_check()
-    launches.update(phase_p29())
-    phase("[30] the int8 KV cache (kernel 1's int8 form), int8 block "
-          "weights (the W8 GEMM) and the ring-buffer window cache")
-    t30 = time.perf_counter()
-    rec.update(phase_q8_kernels())
-    launches.update(phase_kv8_serve())
-    launches.update(phase_w8_decode())
-    phase_ring()
-    log(f"    phase 30 {time.perf_counter() - t30:.1f} s")
-    phase(f"[31] sequence-parallel prefill: llama3.2-1b tp=8 ({PODS}x{FAST})"
-          " full width and depth, bf16; qwen3-moe-30b-a3b 4 layers, f32")
-    launches.update(phase_sp())
-    phase("[32] the other dense archs at full width (Llama 3.1 405B / 70B, "
-          "mistral-large-123b, qwen1.5-32b at 2 layers; codeqwen1.5-7b "
-          f"whole), tp=1 and tp=8 ({PODS}x{FAST}) hier_rd")
-    launches.update(phase_dense(rec))
-    phase(f"[33] the encoder-decoder {WHISPER} (24 + 24 layers) and the VLM "
-          f"{PIXTRAL} (40 layers, 1024 patches) at full width, bf16: tp=1 "
-          f"dense and paged, tp=8 ({PODS}x{FAST}) hier_rd; card vs CPU at 2 "
-          "layers, f32 (pixtral with 32 patches in a 64-token prompt)")
-    launches.update(phase_multimodal(rec))
+    # the records the later phases add shapes to, when phase 2 does not run
+    rec = {"flash_attention": {}, "decode_attention": {"shapes": {}},
+           "paged_decode_attention": {"shapes": {}}}
+    launches = {}
+    if 2 in on:
+        rec = phase_kernels()
+        phase_sweep()
+        phase_decode_repeat()
+    if 3 in on:
+        phase("[3] recursive-doubling all-reduce kernel")
+        rec["rd_all_reduce"] = phase_rd()
+    if 4 in on:
+        phase("[4] llama3.2-1b full width and depth, bf16")
+        launches, tp1_tokens, tp1_logits = phase_path()
+    if 5 in on:
+        phase("[5] card vs CPU, full width, 2 layers, float32")
+        card_vs_cpu(1, 1, "flat")
+    if 6 in on:
+        phase(f"[6] llama3.2-1b tp=8 ({PODS} pods x {FAST}) full width and "
+              "depth, bf16")
+        tp_launches, flat_tokens, flat_logits = phase_tp(tp1_tokens,
+                                                         tp1_logits)
+        launches.update(tp_launches)
+    if 7 in on:
+        phase(f"[7] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd), full "
+              "width, 2 layers, float32")
+        card_vs_cpu(PODS * FAST, PODS, "hier_rd")
+    if 8 in on:
+        phase("[8] fused GEMM + recursive-doubling kernel")
+        rec["collective_matmul_rd"] = phase_fused()
+    if 9 in on:
+        phase(f"[9] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + overlapped "
+              "projections, full width and depth, bf16")
+        ov_launches, decode_refs = phase_overlap(tp1_tokens, tp1_logits,
+                                                 flat_tokens, flat_logits)
+        launches.update(ov_launches)
+    if 10 in on:
+        phase(f"[10] card vs CPU at tp=8 ({PODS}x{FAST}, auto + overlap), "
+              "full width, 2 layers, float32")
+        card_vs_cpu(PODS * FAST, PODS, "auto", overlap_matmul=True)
+    if 11 in on:
+        phase("[11] group-quantized pack and unpack kernels (kernel 6), and "
+              "the quantized recursive doubling in one launch")
+        rec.update(phase_quant_kernels())
+        rec["quant_rd_all_reduce"] = phase_quant_fused()
+    if 12 in on:
+        phase(f"[12] llama3.2-1b tp=8 ({PODS}x{FAST}) hier_rd on the int8 "
+              "and int4 wire, error feedback on, full width and depth, bf16")
+        launches.update(phase_quant(decode_refs))
+    if 13 in on:
+        phase(f"[13] llama3.2-1b tp=8 ({PODS}x{FAST}) auto + auto "
+              "quantization + overlapped projections, full width and depth, "
+              "bf16")
+        launches.update(phase_auto_quant(decode_refs))
+    if 14 in on:
+        phase(f"[14] card vs CPU at tp=8 ({PODS}x{FAST}, hier_rd + int8), "
+              "full width, 2 layers, float32")
+        card_vs_cpu(PODS * FAST, PODS, "hier_rd", ar_quant="int8",
+                    tol=QUANT_CPU_TOL)
+    if 15 in on:
+        phase("[15] grouped expert FFN kernel (kernel 7)")
+        rec["moe_expert_ffn"] = phase_moe_kernel()
+    if 16 in on:
+        phase(f"[16] {MOE_ARCH} tp=1, full width, {PATH_LAYERS[MOE_ARCH]} "
+              "layers, bf16")
+        launches.update(phase_moe_path())
+    if 17 in on:
+        phase(f"[17] {MOE_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full "
+              "width, 4 layers, float32")
+        launches.update(phase_moe_tp())
+    if 18 in on:
+        phase(f"[18] card vs CPU, {MOE_ARCH}, full width, 2 layers, "
+              f"float32: tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
+        free_device()
+        card_vs_cpu(1, 1, "flat", arch=MOE_ARCH)
+        card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=MOE_ARCH)
+        free_device()
+    if 19 in on:
+        phase("[19] RWKV6 time-mix scan kernel (kernel 8)")
+        rec["rwkv6_scan"] = phase_rwkv_kernel()
+    if 20 in on:
+        phase(f"[20] {RWKV_ARCH} tp=1, full width, {PATH_LAYERS[RWKV_ARCH]} "
+              "layers, bf16")
+        launches.update(phase_rwkv_path())
+    if 21 in on:
+        phase(f"[21] {RWKV_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full "
+              f"width, {RWKV_TP_LAYERS} layers, float32")
+        launches.update(phase_rwkv_tp())
+    if 22 in on:
+        phase(f"[22] card vs CPU, {RWKV_ARCH}, full width, 2 layers, "
+              f"float32: tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
+        free_device()
+        card_vs_cpu(1, 1, "flat", arch=RWKV_ARCH)
+        card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=RWKV_ARCH)
+        free_device()
+    if 23 in on:
+        phase("[23] Mamba selective-scan kernel (kernel 9)")
+        rec["ssm_scan"] = phase_ssm_kernel()
+    if 24 in on:
+        phase(f"[24] {HYB_ARCH} tp=1, full width, {PATH_LAYERS[HYB_ARCH]} "
+              "layers, bf16")
+        launches.update(phase_hybrid_path())
+    if 25 in on:
+        phase(f"[25] {HYB_ARCH} tp=8 ({PODS}x{FAST}) against tp=1, full "
+              f"width, {HYB_TP_LAYERS} layers, float32")
+        launches.update(phase_hybrid_tp())
+    if 26 in on:
+        phase(f"[26] card vs CPU, {HYB_ARCH}, full width, 2 layers, "
+              f"float32: tp=1, then tp=8 ({PODS}x{FAST}, hier_rd)")
+        free_device()
+        card_vs_cpu(1, 1, "flat", arch=HYB_ARCH)
+        card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=HYB_ARCH)
+        free_device()
+    if 27 in on:
+        phase(f"[27] continuous batcher, llama3.2-1b full width and depth, "
+              f"bf16: tp=1 dense and paged, tp=8 ({PODS}x{FAST}, hier_rd) "
+              "paged")
+        phase_serve()
+    if 28 in on:
+        phase("[28] kernel 3's chunk form; phase 27's trace admitted by "
+              f"chunks of {ADMIT_CHUNK}, the prefix cache, speculative "
+              f"decoding (k = {SPEC_K})")
+        rec["flash_attention_chunk"] = phase_chunk_kernel()
+        launches.update(phase_serve_chunked())
+    if 29 in on:
+        phase("[29] faults, quarantine and deadlines in the batcher; "
+              "disaggregated prefill / decode with the checksummed KV "
+              "handoff; the router: llama3.2-1b full width and depth, bf16")
+        nan_masking_check()
+        launches.update(phase_p29())
+    if 30 in on:
+        phase("[30] the int8 KV cache (kernel 1's int8 form), int8 block "
+              "weights (the W8 GEMM) and the ring-buffer window cache")
+        rec.update(phase_q8_kernels())
+        launches.update(phase_kv8_serve())
+        launches.update(phase_w8_decode())
+        phase_ring()
+    if 31 in on:
+        phase(f"[31] sequence-parallel prefill: llama3.2-1b tp=8 "
+              f"({PODS}x{FAST}) full width and depth, bf16; "
+              "qwen3-moe-30b-a3b 4 layers, f32")
+        launches.update(phase_sp())
+    if 32 in on:
+        phase("[32] the other dense archs at full width (Llama 3.1 405B / "
+              "70B, mistral-large-123b, qwen1.5-32b at 2 layers; "
+              f"codeqwen1.5-7b whole), tp=1 and tp=8 ({PODS}x{FAST}) "
+              "hier_rd")
+        launches.update(phase_dense(rec))
+    if 33 in on:
+        phase(f"[33] the encoder-decoder {WHISPER} (24 + 24 layers) and the "
+              f"VLM {PIXTRAL} ({MM_PATH_LAYERS[PIXTRAL]} of 40 layers, 1024 "
+              f"patches; 40 in f32) at full width, bf16: tp=1 dense and "
+              f"paged, tp=8 ({PODS}x{FAST}) hier_rd; card vs CPU at 2 "
+              "layers, f32 (pixtral with 32 patches in a 64-token prompt)")
+        launches.update(phase_multimodal(rec))
+    if 34 in on:
+        phase(f"[34] the paper's HP scheme: llama3.2-1b full width and "
+              f"depth, bf16, {PP_STAGES} stages x TP {PP_FAST} (GPipe PP x "
+              "TP) against tp=1; f32 at 4 layers; card vs CPU; the "
+              "simulator's H100 against the card")
+        launches.update(phase_pp(rec))
+        phase_sim()
     phase("")
     log("    decode tok/s, eager (one run) / graph (median of 3), this "
         "run:")
@@ -6067,12 +6428,16 @@ def main() -> int:
     # kernel's tp=8 auto + overlap path, kernel 6's tp=8 hier_rd int8
     # path, kernel 7's qwen3-moe tp=1 dense path, kernel 8's rwkv6-7b
     # tp=1 path, kernel 9's hymba-1.5b tp=1 dense path), and every counted
-    # run's beside it
+    # run's beside it; a --phases run lists the kernels whose path and
+    # kernel checks ran
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n],
                 "launches": launches[MAIN_PATH[n]][n], "path": MAIN_PATH[n],
                 "launches_by_path": {p: c[n] for p, c in launches.items()},
-                **rec[n]} for n in MAIN_PATH]
+                **rec[n]} for n in MAIN_PATH
+               if args.phases is None
+               or (MAIN_PATH[n] in launches and "ms" in rec.get(n, {}))]
+    log(f"    phases run: {run}")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,15 +14,20 @@ bytes/second.  The quantized-wire terms (``quant_wire_factor``,
 ``t_quant_hier_allreduce``) score the ``ar_quant`` levels, and
 ``t_sp_rs_ag`` the sequence-parallel decomposition (``seq_parallel=
 "auto"``); the tree model and ``nccl_model_best`` price the router's
-prefill all-reduces (``inference.router.prefill_cost_model``).  Not copied
-(nothing in the port calls them yet): Eq. 4's halving-free form and the
-NVRAR totals and speedup tables.
+prefill all-reduces (``inference.router.prefill_cost_model``).  Eq. 4's
+recursive-doubling phase (``t_rd_inter``), the NVRAR total of Eq. 6
+(``t_nvrar``, ``t_nvrar_variant``), its speedup over the NCCL model
+(``nvrar_speedup``, ``speedup_table``) and the decode message size
+(``decode_allreduce_bytes``) price the collectives of the cluster
+simulator (:mod:`repro_torch.inference.simulator`).  Every function is
+the reference's float arithmetic in the reference's order, so the same
+inputs give the same floats.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +132,29 @@ def t_allgather_intra(msg_bytes: float, gpus_per_node: int,
     return t_reduce_scatter_intra(msg_bytes, gpus_per_node, net)
 
 
+def t_rd_inter(msg_bytes: float, n_nodes: int, gpus_per_node: int,
+               net: NetworkSpec, eta: float = 1.0) -> float:
+    """Eq. (4): the inter-node recursive-doubling phase on |M|/G bytes.
+
+    T = log2(N) a_inter + (N-1)/N * (eta |M| / (G b_inter))
+
+    ``eta`` in (1, 2] models the paper's fused data + flag payload
+    expansion (eta = 2 for its 4 B data + 4 B flag LL layout)."""
+    if n_nodes <= 1:
+        return 0.0
+    return math.log2(n_nodes) * net.alpha_inter + \
+        (n_nodes - 1) / n_nodes \
+        * (eta * msg_bytes / (gpus_per_node * net.beta_inter))
+
+
+def t_nvrar(msg_bytes: float, n_nodes: int, gpus_per_node: int,
+            net: NetworkSpec, eta: float = 1.0) -> float:
+    """Eq. (6): total NVRAR = RS_intra + RD_inter + AG_intra."""
+    return (t_reduce_scatter_intra(msg_bytes, gpus_per_node, net)
+            + t_rd_inter(msg_bytes, n_nodes, gpus_per_node, net, eta=eta)
+            + t_allgather_intra(msg_bytes, gpus_per_node, net))
+
+
 def t_rd_inter_full_exchange(msg_bytes: float, n_nodes: int,
                              gpus_per_node: int, net: NetworkSpec,
                              eta: float = 1.0) -> float:
@@ -221,11 +249,71 @@ def t_quant_hier_allreduce(msg_bytes: float, n_nodes: int,
     return t + phases * QUANT_PACK_OVERHEAD
 
 
+
+def t_nvrar_variant(msg_bytes: float, n_nodes: int, gpus_per_node: int,
+                    net: NetworkSpec, inter: str = "paper",
+                    eta: float = 1.0) -> float:
+    """NVRAR total with a selectable inter-node phase model: ``"paper"``
+    (Eq. 4), ``"full_exchange"`` (Algorithm 1's full payload a step) or
+    ``"halving"`` (recursive halving + doubling)."""
+    inter_fn = {
+        "paper": t_rd_inter,
+        "full_exchange": t_rd_inter_full_exchange,
+        "halving": t_rd_halving_inter,
+    }[inter]
+    return (t_reduce_scatter_intra(msg_bytes, gpus_per_node, net)
+            + inter_fn(msg_bytes, n_nodes, gpus_per_node, net, eta=eta)
+            + t_allgather_intra(msg_bytes, gpus_per_node, net))
+
+
+# ---------------------------------------------------------------------------
+# Derived analyses (the paper's Figs. 4 and 6)
+# ---------------------------------------------------------------------------
+
+
+def nvrar_speedup(msg_bytes: float, n_nodes: int, gpus_per_node: int,
+                  net: NetworkSpec, eta: float = 1.0) -> float:
+    """Speedup of NVRAR over the best NCCL model choice (paper Fig. 6)."""
+    _, nccl = nccl_model_best(msg_bytes, n_nodes, gpus_per_node, net)
+    nv = t_nvrar(msg_bytes, n_nodes, gpus_per_node, net, eta=eta)
+    if nv <= 0.0:
+        return 1.0
+    return nccl / nv
+
+
+def speedup_table(net: NetworkSpec,
+                  msg_sizes: List[int],
+                  gpu_counts: List[int]) -> List[Dict[str, object]]:
+    """Speedup grid across message sizes and GPU counts (Fig. 6 middle and
+    right)."""
+    rows: List[Dict[str, object]] = []
+    for m in msg_sizes:
+        for ngpu in gpu_counts:
+            n_nodes = max(1, ngpu // net.gpus_per_node)
+            g = min(ngpu, net.gpus_per_node)
+            algo, nccl_t = nccl_model_best(m, n_nodes, g, net)
+            nv_t = t_nvrar(m, n_nodes, g, net)
+            rows.append({
+                "network": net.name, "msg_bytes": m, "ngpu": ngpu,
+                "n_nodes": n_nodes, "gpus_per_node": g,
+                "nccl_algo": algo, "nccl_t": nccl_t, "nvrar_t": nv_t,
+                "speedup": (nccl_t / nv_t) if nv_t > 0 else 1.0,
+            })
+    return rows
+
+
+def decode_allreduce_bytes(batch: int, d_model: int,
+                           dtype_bytes: int = 2) -> int:
+    """Per-layer TP all-reduce message size in decode: B x H (paper Sec.
+    3.5)."""
+    return batch * d_model * dtype_bytes
+
 __all__ = [
     "NetworkSpec", "PERLMUTTER", "VISTA", "TPU_V5E", "NETWORKS",
-    "t_ring_allreduce", "t_tree_allreduce", "nccl_model_best",
-    "t_reduce_scatter_intra", "t_allgather_intra",
-    "t_rd_inter_full_exchange", "t_rd_halving_inter", "t_sp_rs_ag",
-    "QUANT_GROUPS",
-    "QUANT_PACK_OVERHEAD", "quant_wire_factor", "t_quant_hier_allreduce",
+    "t_ring_allreduce", "t_tree_allreduce", "t_reduce_scatter_intra",
+    "t_allgather_intra", "t_rd_inter", "t_nvrar", "t_rd_inter_full_exchange",
+    "t_rd_halving_inter", "t_sp_rs_ag", "t_nvrar_variant", "nccl_model_best",
+    "nvrar_speedup", "speedup_table", "decode_allreduce_bytes",
+    "QUANT_GROUPS", "QUANT_PACK_OVERHEAD", "quant_wire_factor",
+    "t_quant_hier_allreduce",
 ]

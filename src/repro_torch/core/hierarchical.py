@@ -51,6 +51,14 @@ The MoE layer's exchanges live here too: ``ep_all_to_all`` (the dispatch's
 the rank and piece axes), ``ep_rank``/``ep_size`` (each rank's expert
 offset) and ``all_gather_tiled`` (the prefill's gather of the ranks'
 sequence chunks).
+
+On a pipeline mesh (``parallel/pp.py``) the slow axis is the stage axis,
+not a TP axis: the rank axis then stacks ``_groups`` independent TP groups
+of ``fast`` ranks each, stage-major, and the fast-axis sum (every
+strategy's, with no slow TP axis), ``tp_rank``, ``ep_rank``,
+``ep_all_to_all`` and ``all_gather_tiled`` act within each group.  The
+sequence-parallel halves and the quantized wire are not taken there
+(``pp.check_pp_layout`` refuses them).
 """
 from __future__ import annotations
 
@@ -101,11 +109,39 @@ def _sizes(ctx: ParallelCtx, mesh: Mesh):
             axes_size(ctx.tp_fast, mesh) if ctx.tp_fast else 1)
 
 
+def _groups(ctx: ParallelCtx, mesh: Mesh) -> int:
+    """The independent TP groups on the rank axis: 1, except on a
+    pipeline mesh, whose stage axis is not a TP axis: there group g is
+    ranks g * fast .. (g + 1) * fast - 1, one a stage."""
+    if mesh is None:
+        return 1
+    pods, fast = _sizes(ctx, mesh)
+    return mesh.size // (pods * fast)
+
+
+def _group_sum(x: torch.Tensor, ctx: ParallelCtx,
+               mesh: Mesh) -> torch.Tensor:
+    """The sum over each TP group's ranks of x (R, ...), on every rank of
+    the group."""
+    G = _groups(ctx, mesh)
+    y = x.reshape(G, x.shape[0] // G, *x.shape[1:])
+    return y.sum(1, keepdim=True).expand_as(y).reshape(x.shape)
+
+
+def _per_group(n: int, ctx: ParallelCtx, mesh: Mesh,
+               device) -> torch.Tensor:
+    """0 .. n-1 on each TP group's ranks, (R,) int64; one group (every
+    mesh but a pipeline's) copies nothing."""
+    r = torch.arange(n, device=device)
+    G = _groups(ctx, mesh)
+    return r.repeat(G) if G > 1 else r
+
+
 def tp_rank(ctx: ParallelCtx, mesh: Mesh, device=None) -> torch.Tensor:
-    """Every rank's linear index in the TP group (slow axes outermost),
+    """Every rank's linear index in its TP group (slow axes outermost),
     (R,) int64: ``layers.tp_rank`` for all ranks at once."""
     pods, fast = _sizes(ctx, mesh) if ctx.has_tp else (1, 1)
-    return torch.arange(pods * fast, device=device)
+    return _per_group(pods * fast, ctx, mesh, device)
 
 
 def ep_size(ctx: ParallelCtx, mesh: Mesh) -> int:
@@ -125,34 +161,39 @@ def ep_rank(ctx: ParallelCtx, mesh: Mesh, device=None) -> torch.Tensor:
     """Every rank's index in the expert-parallel group (R,) int64, the
     reference's ``tp_rank`` over ``ctx.ep`` (slow axes outermost): rank r
     holds experts ``ep_rank[r] * E_loc`` onwards."""
-    return torch.arange(ep_size(ctx, mesh), device=device)
+    return _per_group(ep_size(ctx, mesh), ctx, mesh, device)
 
 
 def ep_all_to_all(t: torch.Tensor, ctx: ParallelCtx,
                   mesh: Mesh) -> torch.Tensor:
     """``lax.all_to_all(t, ctx.ep, split_axis=0, concat_axis=0,
     tiled=True)`` of every rank's (ep, *s) pieces, t (R, ep, *s): rank j's
-    piece i goes to rank i as its piece j.  The EP group is the whole
-    mesh, so the exchange is the transpose of the rank and piece axes."""
-    if t.shape[1] != ep_size(ctx, mesh) or t.shape[0] != t.shape[1]:
+    piece i goes to rank i as its piece j.  The EP group is the TP group,
+    so the exchange is the transpose of the rank and piece axes within
+    each group."""
+    G, ep = _groups(ctx, mesh), ep_size(ctx, mesh)
+    if t.shape[1] != ep or t.shape[0] != G * ep:
         raise ValueError(f"ep_all_to_all: pieces {tuple(t.shape[:2])} are "
-                         "not (R, ep) with ep = R")
-    return _all_to_all(t, 0, 1)
+                         f"not (R, ep) with R = {G} x ep")
+    return _all_to_all(t.reshape(G, ep, *t.shape[1:]), 1, 2).reshape(
+        t.shape)
 
 
 def all_gather_tiled(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
                      dim: int) -> torch.Tensor:
     """``lax.all_gather(x, ctx.tp_axes, axis=dim, tiled=True)``: every
     rank's piece along ``dim`` (of one rank's tensor) concatenated in rank
-    order (slow-major), the same on every rank.  x (R, *s) -> (R, *s')
-    with s'[dim] = R s[dim], an expanded view."""
+    order (slow-major), the same on every rank of the TP group.  x (R, *s)
+    -> (R, *s') with s'[dim] = T s[dim], T ranks a group (R at one group:
+    an expanded view)."""
     if not ctx.has_tp:
         return x
-    R = x.shape[0]
+    R, G = x.shape[0], _groups(ctx, mesh)
     d = dim % (x.dim() - 1)
-    y = x.movedim(0, d)
-    y = y.reshape(*y.shape[:d], R * y.shape[d + 1], *y.shape[d + 2:])
-    return y.unsqueeze(0).expand(R, *y.shape)
+    y = x.reshape(G, R // G, *x.shape[1:]).movedim(1, 1 + d)
+    y = y.reshape(G, *y.shape[1:1 + d], -1, *y.shape[3 + d:])
+    return y.unsqueeze(1).expand(G, R // G, *y.shape[1:]).reshape(
+        R, *y.shape[1:])
 
 
 def pod_all_gather_tiled(x: torch.Tensor, ctx: ParallelCtx, mesh: Mesh,
@@ -561,7 +602,7 @@ def _tp_all_reduce_fp(x: torch.Tensor, ctx: ParallelCtx, mesh: VirtualMesh,
     if (ctx.ar_strategy == "flat" or (not slow_axes and len(fast_axes) <= 1)) \
             and not ctx.quant_ag:
         # single-level group: one plain sum (the library all-reduce)
-        return x.sum(0, keepdim=True).expand_as(x)
+        return _group_sum(x, ctx, mesh)
     dim = scatter_dim % (x.dim() - 1)
     if not fast_axes:
         return _slow_phase(x, ctx, mesh)

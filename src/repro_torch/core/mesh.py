@@ -65,11 +65,21 @@ class VirtualMesh:
     def coords(self, rank: int) -> Tuple[int, int]:
         return divmod(rank, self.fast)
 
-    def check_ctx(self, ctx: ParallelCtx) -> None:
+    def check_ctx(self, ctx: ParallelCtx,
+                  stage_axis: Optional[str] = None) -> None:
         """Raise unless ``ctx`` wires this mesh: at most one slow and one
         fast TP axis, named as the mesh's, every axis of size > 1 among
         them (else the collectives would skip ranks), and an expert axis
-        set ``ep`` that is empty or the TP axes themselves."""
+        set ``ep`` that is empty or the TP axes themselves.  A pipeline
+        (``parallel/pp.py``) names its ``stage_axis``, which must be the
+        slow axis and no TP axis, and is the one axis of size > 1 let
+        through besides the TP axes."""
+        if stage_axis is not None and (stage_axis != self.slow_axis
+                                       or stage_axis in ctx.tp_axes):
+            raise ValueError(f"stage axis {stage_axis!r}: a pipeline's "
+                             f"stages run over the slow axis "
+                             f"{self.slow_axis!r}, which is then no TP "
+                             f"axis of ctx {ctx.tp_axes}")
         if len(ctx.tp_slow) > 1 or len(ctx.tp_fast) > 1:
             raise NotImplementedError(
                 f"ctx {ctx.tp_slow}/{ctx.tp_fast}: the virtual mesh has one "
@@ -79,7 +89,7 @@ class VirtualMesh:
             raise ValueError(f"ctx axes {ctx.tp_slow}/{ctx.tp_fast} are not "
                              f"the mesh's {self.axis_names}")
         for name, n in zip(self.axis_names, self.shape):
-            if n > 1 and name not in ctx.tp_axes:
+            if n > 1 and name not in ctx.tp_axes and name != stage_axis:
                 raise ValueError(f"mesh axis {name!r} (size {n}) is not a "
                                  f"TP axis of ctx {ctx.tp_axes}")
         if ctx.ep and ctx.ep != ctx.tp_axes:

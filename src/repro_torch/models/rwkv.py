@@ -151,11 +151,14 @@ def rwkv_time_mix_step(p: Params, x: torch.Tensor, state: State,
 
 
 def _own_cols(xr: torch.Tensor, dloc: int) -> torch.Tensor:
-    """Rank r's r-th slice of ``dloc`` channels of xr (R, ..., R * dloc):
-    the columns that meet rank r's rows of the row-sharded ``wr``."""
-    R = xr.shape[0]
+    """Rank r's own slice of ``dloc`` channels of xr (R, ..., tp * dloc),
+    its (r mod tp)-th: the columns that meet rank r's rows of the
+    row-sharded ``wr`` (tp = R but on a pipeline mesh, whose stages stack
+    R / tp TP groups)."""
+    R, tp = xr.shape[0], xr.shape[-1] // dloc
     r = torch.arange(R, device=xr.device)
-    return xr.reshape(R, -1, R, dloc)[r, :, r].reshape(*xr.shape[:-1], dloc)
+    return xr.reshape(R, -1, tp, dloc)[r, :, r % tp].reshape(
+        *xr.shape[:-1], dloc)
 
 
 def rwkv_channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -438,17 +438,20 @@ def _moe_tokens(h: torch.Tensor, ctx: ParallelCtx, mesh,
     r-th contiguous chunk of the sequence of h (R, B, S, D).  Under SP h
     is already cut over the fast axis, and rank (p, f) takes chunk p of
     its piece f: the port's EP group spans the pods too (``ep`` = the TP
-    axes), so the pods must not dispatch the same tokens."""
+    axes), so the pods must not dispatch the same tokens.  On a pipeline
+    mesh each stage's TP group dispatches its own buffer (rank r takes
+    chunk r mod tp)."""
     if not ctx.has_tp:
         return h
     R, B, S, D = h.shape
-    n = hier._sizes(ctx, mesh)[0] if sp else R
+    pods, fast = hier._sizes(ctx, mesh)
+    tp = pods * fast
+    n = pods if sp else tp
     if S % n:
-        raise ValueError(f"sequence {S} is not divisible by tp={R}: the MoE "
-                         "dispatch gives every rank S/tp of its tokens")
+        raise ValueError(f"sequence {S} is not divisible by tp={tp}: the "
+                         "MoE dispatch gives every rank S/tp of its tokens")
     r = torch.arange(R, device=h.device)
-    c = r // (R // n) if sp else r
-    return h.reshape(R, B, n, S // n, D)[r, :, c]
+    return h.reshape(R, B, n, S // n, D)[r, :, r % tp // (tp // n)]
 
 
 def _moe_restore(out: torch.Tensor, ctx: ParallelCtx, mesh,

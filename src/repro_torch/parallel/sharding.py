@@ -32,6 +32,14 @@ by the rule of its own name, the node one level up from ``q``/``s``:
 The decode cache follows ``cache_spec``: its head (slot) dimension is
 sharded, so each rank holds ``ap.gqa.u`` kv slots
 (``transformer.init_cache``).
+
+The pipeline's stage layout (``parallel/pp.py``, the reference's
+``build_pp_forward`` specs: the blocks' leading layer dim on the stage
+axis): on a (stages, fast) mesh whose slow axis is the stage axis, every
+leaf is cut over the fast axis by the rules above, and rank (s, f) holds
+global layer ``s * L / stages + j`` as its j-th block, cut f
+(:func:`stage_layout`); the embedding and the final norm are the same on
+every stage.
 """
 from __future__ import annotations
 
@@ -106,6 +114,45 @@ def _shard(tree: Any, n: int, path: Tuple[str, ...]) -> Any:
     return shard_leaf(tree, tp_dim(path, tree.dim()), n)
 
 
+def _map(fn, tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _zip(fn, trees: Sequence[Any]) -> Any:
+    if isinstance(trees[0], Mapping):
+        return {k: _zip(fn, [t[k] for t in trees]) for k in trees[0]}
+    return fn(*trees)
+
+
+def stage_layout(cut: Mapping[str, Any], stages: int) -> dict:
+    """The pipeline-stage layout of a tree already cut over the fast axis
+    ({"embed", "blocks" (a list of L per-layer groups), "final_norm"},
+    every leaf (F, *local)): block j of the result holds, for each stage
+    s, global layer ``s * L / stages + j`` -- its leaves the stages'
+    pieces concatenated, (stages * F, *local), stage-major as the ranks
+    (s, f) are -- and every other leaf is the same on every stage.
+    Raises ``ValueError`` unless ``stages`` divides L."""
+    blocks = cut["blocks"]
+    if len(blocks) % stages:
+        raise ValueError(f"{len(blocks)} layers are not divisible by "
+                         f"{stages} pipeline stages")
+    per = len(blocks) // stages
+
+    def tile(t: torch.Tensor) -> torch.Tensor:
+        return t.unsqueeze(0).expand(stages, *t.shape).reshape(
+            stages * t.shape[0], *t.shape[1:])
+
+    out = {k: _map(tile, v) for k, v in cut.items() if k != "blocks"}
+    out["blocks"] = [_zip(lambda *ts: torch.cat(ts),
+                          [blocks[s * per + j] for s in range(stages)])
+                     for j in range(per)]
+    return out
+
+
 def shard_params(tree: Any, mesh=None) -> Any:
     """Every leaf of a nested dict (or list of per-layer dicts) of
     global-layout tensors cut over the mesh's R ranks and stacked:
@@ -113,4 +160,5 @@ def shard_params(tree: Any, mesh=None) -> Any:
     return _shard(tree, mesh.size if mesh is not None else 1, ())
 
 
-__all__ = ["TP_RULES", "tp_dim", "shard_leaf", "shard_params"]
+__all__ = ["TP_RULES", "tp_dim", "shard_leaf", "shard_params",
+           "stage_layout"]
