@@ -207,7 +207,8 @@ phase's seconds are printed after it):
      hier_rd: card against CPU (phases 20 and 24 also profile one
      generate of the graph form);
  27. the continuous batcher (ContinuousBatcher, full-prefill admission)
-     serving llama3.2-1b at full width and depth, bf16, seeded: 8 slots of
+     serving llama3.2-1b at full width, 8 of its 16 layers (SERVE_LAYERS,
+     as in phases 28-30), bf16, seeded: 8 slots of
      1024 positions, a make_trace trace of 32 requests (prompts ~256,
      outputs ~64 tokens, 0.5 arrivals a step); tp=1 dense and paged (block
      16) and tp=8 (4 x 2, hier_rd) paged, each a warm-up replay and one
@@ -256,7 +257,8 @@ phase's seconds are printed after it):
  29. (a) kernels 1, 2 and 3's chunk form with NaN planted in every K and V
      row past the visible range, bitwise the same call with zeros there
      (bf16 and f32, dense and paged, at phase 27's serve shapes); then on
-     phase 27's trace, llama3.2-1b full width and depth, bf16, graphs on:
+     phase 27's trace, llama3.2-1b full width, SERVE_LAYERS, bf16, graphs
+     on:
      (b) the batcher under injected faults (NaN poked into live K, OOM
      bursts, stragglers) and a TTFT deadline at tp=1 paged, and NaN at
      tp=8 paged: every survivor bitwise phase 27's tokens, one quarantine
@@ -282,19 +284,19 @@ phase's seconds are printed after it):
      its plain version at llama3.2-1b's decode leaves (wq / wk / wv / wo,
      wg / wu / wd) at tp=1 and the tp=8 fold, M 8 and 64, timed beside
      one bmm on the bf16 weight and the bound; (b) phase 27's trace
-     through the batcher on the int8 cache, llama3.2-1b full width and
-     depth, bf16, at tp=1 and tp=8 (4x2 hier_rd): graph == eager bitwise
-     on its first 8 requests (eager launches counted), the int8 path's
-     teacher-forced logits on the bf16 cache's tokens with top-1
+     through the batcher on the int8 cache, llama3.2-1b full width,
+     SERVE_LAYERS, bf16, at tp=1 and tp=8 (4x2 hier_rd): graph == eager
+     bitwise on its first 8 requests (eager launches counted), the int8
+     path's teacher-forced logits on the bf16 cache's tokens with top-1
      agreement of at least TOP1_FLOOR (the reference's bar), the cache's
-     bytes against the bf16 cache's; (c) llama3.2-1b full width and depth
-     with int8 block weights through build_decode_step(weight_quant=True)
-     captured, tp=1 and tp=8: graph == eager tokens (w8_matmul 7 a layer
-     a step), teacher-forced top-1 agreement with the bf16 weights' run at
-     least TOP1_FLOOR, decode tok/s beside the bf16 weights' (bf16, int8,
-     int8, bf16), and at tp=1 the first step's logits against the
-     dequant_layer model's; (d) hymba-1.5b at full width, 8 layers
-     (PATH_LAYERS), with the
+     bytes against the bf16 cache's; (c) llama3.2-1b full width,
+     SERVE_LAYERS, with int8 block weights through
+     build_decode_step(weight_quant=True) captured, tp=1 and tp=8: graph
+     == eager tokens (w8_matmul 7 a layer a step), teacher-forced top-1
+     agreement with the bf16 weights' run at least TOP1_FLOOR, decode
+     tok/s beside the bf16 weights' (bf16, int8, int8, bf16), and at tp=1
+     the first step's logits against the dequant_layer model's; (d)
+     hymba-1.5b at full width, 8 layers (PATH_LAYERS), with the
      ring-buffer window cache, a 64-token prompt decoded 1100 steps past
      its 1024 window, against the full cache by provable_gate over
      teacher-forced logits, then in f32 at 2 layers where the gate must
@@ -363,6 +365,28 @@ phase's seconds are printed after it):
      and prefill (batch 8, context 512) beside phase 4's graph-replayed
      decode step (device busy, torch.profiler) and its prefill, with the
      ratios (no gate: a model; every number finite and positive).
+ 35. training (ROADMAP item 11, part one; ``parallel/steps.py::
+     build_train_step``): (a) llama3.2-1b at full width and depth, bf16,
+     tp=1 under the reference's training ctx, 8 steps of 8 x 1024 tokens
+     in 2 microbatches with remat, AdamW at 3e-4 after 2 warmup steps:
+     exact kernel-3 launches (2 L a microbatch: forward and recompute),
+     every loss finite, the last below the first, nothing skipped; step
+     ms, tokens/s, the model-FLOP share of the bf16 peak (6 N tokens/s),
+     peak memory, one profiled step's idle share; kernel 3 under autograd
+     at the microbatch's shape: dq / dk / dv through its Function against
+     autograd through the plain version in f32 (TRAIN_GRAD_TOL), the
+     forward kernel and the plain backward timed in bf16 beside SDPA's
+     backward and the bound; (b) card against CPU, f32, 2 layers, 3 steps:
+     loss, grad norm, lr within TRAIN_CPU_TOL; (c) 4 layers on
+     VirtualMesh(4, 1), data parallel: kernel 4 and the int8 pack / unpack
+     at one gradient piece (GRAD_PIECE f32 a rank) bitwise their plain
+     versions and timed beside their bounds; one batch's gradients reduced
+     under rd (one kernel-4 launch a piece) within f32 rounding of flat's
+     and under rd_int8 (a pack and an unpack a step a piece) within the
+     reference's int8 bound, the pods' drift printed; 2 steps under each
+     strategy with exact launches; (d) at 2 layers, 4 steps straight
+     against 2 + checkpoint + restore (into other weights) + 2, losses
+     within TRAIN_RESUME_TOL.
 Then both forms' decode tok/s of every path, side by side.  The last two
 lines are the kernels' JSON record and the result line.
 
@@ -455,7 +479,17 @@ from repro_torch.parallel.quant import (  # noqa: E402
 from repro_torch.parallel.sharding import shard_params  # noqa: E402
 from repro_torch.models.common import place_heads  # noqa: E402
 from repro_torch.parallel.steps import (  # noqa: E402
-    CapturedStep, build_decode_step, build_prefill)
+    CapturedStep, build_decode_step, build_prefill, build_train_step,
+    load_train_state, train_state)
+from repro_torch.core.pcontext import single_pod_ctx  # noqa: E402
+from repro_torch.kernels.flash_attention.autograd import (  # noqa: E402
+    FlashAttention, flash_attention_grad)
+from repro_torch.models.transformer import (  # noqa: E402
+    data_parallel, params_tree)
+from repro_torch.training import checkpoint as ckpt  # noqa: E402
+from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.training.data import SyntheticLMData  # noqa: E402
+from repro_torch.training.optimizer import adamw_init  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -3686,6 +3720,17 @@ def phase_hybrid_tp() -> dict:
 # request holds a slot about 64 steps, so 8 slots free one every ~8 steps
 # and a queue forms: the slots stay full).
 SERVE_SLOTS, SERVE_REQS, SERVE_RATE = 8, 32, 0.5
+# The depth of llama3.2-1b in phases 27-30 (the batcher's trace and every
+# path that reads its tokens: chunked admission, spec, the prefix cache,
+# faults, disagg, the router, the int8 KV cache and int8 weights), cut
+# from 16 layers to keep the whole script inside its time limit; full
+# width, every gate and reference at this same depth.
+SERVE_LAYERS = 12
+
+
+def serve_config():
+    return dataclasses.replace(get_config("llama3.2-1b"),
+                               n_layers=SERVE_LAYERS)
 SERVE_MEAN_IN, SERVE_MEAN_OUT = 256, 64
 SERVE_STATS: dict = {}
 SERVE_OUTS: dict = {}     # phase 27's tokens, the references of phase 28
@@ -3916,7 +3961,7 @@ def serve_gate(label: str, reqs, outs: dict, ref: dict, lg: list,
 
 
 def phase_serve() -> None:
-    cfg = get_config("llama3.2-1b")
+    cfg = serve_config()
     reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
                       mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
                       vocab=cfg.vocab_size, seed=SEED)
@@ -4263,7 +4308,7 @@ def phase_serve_chunked() -> dict:
     cache on (graph == eager bitwise) against plain by the gate; then the
     f32 runs of serve_chunked_f32.  Returns the launch counts of the eager
     chunked run."""
-    cfg = get_config("llama3.2-1b")
+    cfg = serve_config()
     L = cfg.n_layers
     tf = (TF_MAX, TF_MEAN)
     reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
@@ -4523,8 +4568,8 @@ HANDOFF_PLAN = "seed=29,handoff_drop=0.2,handoff_corrupt=0.2"
 # (d) the placement policies' bursty trace: phase 27's requests (the same
 # draws; only the gaps scale with the rate) arriving 8 times as fast
 BURST_RATE = 4.0
-P29 = dict(arch="llama3.2-1b", smoke=False, slots=SERVE_SLOTS, s_max=S_MAX,
-           block_size=BLOCK)
+P29 = dict(arch="llama3.2-1b", smoke=False, layers=SERVE_LAYERS,
+           slots=SERVE_SLOTS, s_max=S_MAX, block_size=BLOCK)
 
 
 def nan_masking_check() -> None:
@@ -4662,7 +4707,7 @@ def phase_p29() -> dict:
     on; the references are phase 27's fault-free tokens (tp=1 dense ==
     paged, tp=8 paged).  Returns the launch counts of each new path (the
     graph form: a captured step counts at its capture)."""
-    cfg = get_config("llama3.2-1b")
+    cfg = serve_config()
     reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
                       mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
                       vocab=cfg.vocab_size, seed=SEED)
@@ -5037,7 +5082,7 @@ def phase_kv8_serve() -> dict:
     top-1 agreement of the int8 cache's teacher-forced logits with the
     bf16 run's tokens at least TOP1_FLOOR, and the cache's bytes against
     the bf16 cache's."""
-    cfg = get_config("llama3.2-1b")
+    cfg = serve_config()
     reqs = make_trace(SERVE_REQS, mean_in=SERVE_MEAN_IN,
                       mean_out=SERVE_MEAN_OUT, rate=SERVE_RATE,
                       vocab=cfg.vocab_size, seed=SEED)
@@ -5123,7 +5168,7 @@ def dequantized_model(qmodel):
 
 
 def phase_w8_decode() -> dict:
-    """(c) llama3.2-1b full width and depth with int8 block weights
+    """(c) llama3.2-1b full width, SERVE_LAYERS deep, with int8 block weights
     (``build_decode_step(weight_quant=True)``; prefill on the bf16
     weights, as the reference's weight_quant is decode-only), the steps
     one captured graph, at tp=1 and tp=8 (hier_rd), NEW steps: graph ==
@@ -5131,7 +5176,7 @@ def phase_w8_decode() -> dict:
     agreement with the bf16 run's tokens at least TOP1_FLOOR, decode tok/s
     beside the bf16 weights' (bf16, int8, int8, bf16), and at tp=1 the
     first step's logits against the dequant_layer model's."""
-    cfg = get_config("llama3.2-1b")
+    cfg = serve_config()
     prompts = np.random.default_rng(SEED + 30).integers(
         0, cfg.vocab_size, (B, PROMPT))
     launches = {}
@@ -6188,6 +6233,509 @@ def phase_sim() -> None:
                              f"positive: {nums}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: training (ROADMAP item 11, part one)
+# ---------------------------------------------------------------------------
+
+# (a) llama3.2-1b full width and depth, bf16, tp=1: sequences of 1024,
+# global batch 8 in 2 microbatches, remat on, AdamW at 3e-4 after 2
+# warmup steps, 8 steps.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 1024, 8, 2, 8
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+# (b) card (kernels) against CPU (plain versions), f32, 2 layers, batch 2
+# x 128 in 2 microbatches, 3 steps: loss, grad norm and lr within 1e-4
+# relative (the two devices sum in other orders, ~1e-6 a step).
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 128
+TRAIN_CPU_TOL = 1e-4
+# Kernel 3's dq / dk / dv through its autograd Function against autograd
+# through its plain version, f32, relative to the largest |gradient|: the
+# same f32 math, the Function's tiles of queries summed in another order.
+TRAIN_GRAD_TOL = 1e-5
+# (c) data parallel over the pods of VirtualMesh(4, 1): 4 layers at full
+# width, bf16, global batch 4 (one sequence of 1024 a pod), 2 steps a
+# strategy.  rd sums each element in another order than flat: within
+# RD_F32_ULPS f32 roundings of the sum of the pods' |g| (two levels of
+# pairwise sums, both orders).  rd_int8 against the reference's int8 bound
+# (tests/dist_cases/case_collectives.py: max |int8 - exact| / max |exact|
+# < 0.05), leaf by leaf.
+TRAIN_DP_PODS, TRAIN_DP_LAYERS, TRAIN_DP_BATCH, TRAIN_DP_STEPS = 4, 4, 4, 2
+RD_F32_ULPS = 4
+INT8_REL = 0.05
+# (d) resume at 2 layers, bf16, phase (a)'s batch: 4 steps straight
+# against 2 + checkpoint + restore + 2.  The restore is held bitwise: the
+# restored parameters, moments and step equal the saved ones, and before
+# the restore the model (drawn from another seed, trained 2 steps from
+# zero moments) differed from them.  The losses within 1e-6 relative: the
+# embedding's backward (an index_put with accumulation) is among
+# PyTorch's nondeterministic CUDA operations, yet the card has repeated
+# the straight losses bitwise in every run so far; the model that was not
+# restored has to miss this bar.
+TRAIN_RESUME_TOL = 1e-6
+
+
+def fmt(xs, spec: str) -> str:
+    return " ".join(format(x, spec) for x in xs)
+
+
+def train_batches(cfg, seq: int, batch: int, n: int) -> list:
+    data = SyntheticLMData(cfg.vocab_size, seq, batch, seed=SEED)
+    return [data.batch(i) for i in range(n)]
+
+
+def train_run(step, model, opt, batches) -> list:
+    """One dict a step: the metrics as floats (their read waits for the
+    device) and the step's host wall ms."""
+    hist = []
+    for b in batches:
+        if model.embed["tok"].is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b)
+        vals = {k: float(v) for k, v in m.items()}
+        hist.append({**vals, "ms": (time.perf_counter() - t0) * 1e3})
+    return hist
+
+
+def train_step_for(ap, ctx, mesh, steps: int, mb: int):
+    return build_train_step(ap, ctx, mesh, microbatches=mb, remat=True,
+                            base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                            total_steps=steps)
+
+
+def profile_train_step(step, model, opt, batch, step_ms: float) -> None:
+    """Device busy and idle share of one train step (torch.profiler): of
+    the profiled step's wall time, and of ``step_ms`` (the unprofiled
+    steps' median, which the profiler's own host cost does not inflate);
+    the kernels that take the most device time, and kernel 3's share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and e.device_time_total > 0), reverse=True)
+    if not rows:
+        log("    profile: no device time recorded (not measured)")
+        return
+    busy = sum(r[0] for r in rows)
+    fl = [r for r in rows if "flash_attention" in r[2]]
+    log(f"    profile of one step: device busy {busy:.2f} ms of {wall:.2f} "
+        f"ms wall ({100 * busy / wall:.1f}%; idle "
+        f"{100 - 100 * busy / wall:.1f}%) under the profiler, of the "
+        f"unprofiled median step's {step_ms:.2f} ms "
+        f"{100 * busy / step_ms:.1f}% (idle "
+        f"{max(0.0, 100 - 100 * busy / step_ms):.1f}%); kernel 3 "
+        f"{sum(r[0] for r in fl):.3f} ms over {sum(r[1] for r in fl)} "
+        f"launches ({100 * sum(r[0] for r in fl) / busy:.2f}%)")
+    for ms, n, key in rows[:8]:
+        log(f"      {ms:9.3f} ms {n:6d}x  {key[:90]}")
+
+
+def train_full(rec: dict) -> dict:
+    """(a): llama3.2-1b at full width and depth trains: exact kernel-3
+    launches (2 L a microbatch: the forward and remat's recompute), every
+    loss finite, the last below the first, nothing skipped; step time,
+    tokens/s, the model-FLOP share of the bf16 peak, peak memory, and one
+    profiled step."""
+    cfg = get_config("llama3.2-1b")
+    ap = make_plan(cfg, 1)
+    model = init_params(ap, seed=SEED, device="cuda")
+    opt = adamw_init(params_tree(model))
+    step = train_step_for(ap, single_pod_ctx(), None, TRAIN_STEPS, TRAIN_MB)
+    batches = train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS + 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = train_run(step, model, opt, batches[:TRAIN_STEPS])
+    got = counts()
+    per_step = 2 * cfg.n_layers * TRAIN_MB
+    expect = {**dict.fromkeys(got, 0),
+              "flash_attention": per_step * TRAIN_STEPS}
+    if got != expect:
+        raise AssertionError(f"train tp=1: launches {got}, expected "
+                             f"{expect}")
+    losses = [h["loss"] for h in hist]
+    log(f"  train tp=1: {TRAIN_STEPS} steps, losses {fmt(losses, '.4f')}; "
+        f"grad norms {fmt([h['grad_norm'] for h in hist], '.3f')}; lr "
+        f"{fmt([h['lr'] for h in hist], '.2e')}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and not any(h["skipped"] for h in hist)):
+        raise AssertionError(f"train tp=1: losses {losses}, skipped "
+                             f"{[h['skipped'] for h in hist]}")
+    ms = float(np.median([h["ms"] for h in hist[1:]]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
+    n = cfg.param_count()
+    log(f"  train tp=1: step {ms:.2f} ms (median of steps 1-"
+        f"{TRAIN_STEPS - 1}; step 0 {hist[0]['ms']:.2f} ms), {tok_s:.1f} "
+        f"tokens/s, model FLOPs 6 N tokens/s = "
+        f"{6 * n * tok_s / 1e12:.1f} TFLOP/s = "
+        f"{6 * n * tok_s / PEAK_FLOPS[torch.bfloat16]:.4f} of the bf16 peak "
+        f"(N = {n}); kernel 3 {per_step} launches a step ({cfg.n_layers} "
+        f"layers x {TRAIN_MB} microbatches x forward + recompute); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_train_step(step, model, opt, batches[TRAIN_STEPS], ms)
+    P35["step_ms"], P35["tok_s"] = ms, tok_s
+    del model, opt
+    free_device()
+    return {"train_tp1": got}
+
+
+def train_flash_grad(rec: dict) -> None:
+    """Kernel 3 under autograd at the training microbatch's shape (4
+    sequences, 32 / 8 heads, 1024 tokens, hd 64): dq / dk / dv through
+    the Function (kernel forward, plain tiled backward) against autograd
+    through the plain version, f32; then, in bf16, the forward kernel and
+    the backward timed beside SDPA's forward and backward and their
+    bounds."""
+    shape = (TRAIN_BATCH // TRAIN_MB, HQ, HKV, TRAIN_SEQ, HD, 0)
+    b, hq, hkv, s, hd, _ = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 350)
+
+    def operands(dtype):
+        def rnd(*sh):
+            return torch.randn(sh, generator=gen, device="cuda").to(dtype)
+        q, k, v = (rnd(b, s, h, hd).requires_grad_() for h in (hq, hkv, hkv))
+        return q, k, v, rnd(b, s, hq, hd).transpose(1, 2)
+
+    q, k, v, do = operands(torch.float32)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = torch.autograd.grad(FlashAttention.apply(*views, True, 0),
+                              (q, k, v), do)
+    want = torch.autograd.grad(flash_attention_ref(*views, causal=True),
+                               (q, k, v), do)
+    errs = [max_err(a, w) / float(w.abs().max()) for a, w in zip(got, want)]
+    log(f"  kernel 3 under autograd {shape} [float32]: dq / dk / dv through "
+        f"the Function against autograd through the plain version, max "
+        f"|diff| / max |grad| = {errs[0]:.3e} / {errs[1]:.3e} / "
+        f"{errs[2]:.3e} (tolerance {TRAIN_GRAD_TOL:g})")
+    if max(errs) > TRAIN_GRAD_TOL:
+        raise AssertionError("kernel 3's gradient through the Function "
+                             "differs from the plain version's")
+    del q, k, v, do, views, got, want
+    ferr, ft, fbnd = flash_case(gen, torch.bfloat16, shape)
+    fwd = ft[0]
+    log(f"  flash_attention train {shape} [bfloat16] (a training "
+        f"microbatch's forward): kernel_ms={ft[0]:.4f} plain_ms={ft[1]:.4f} "
+        f"library_ms={ft[2]:.4f} bound_ms={fbnd[0]:.4f} ({fbnd[1]})")
+    q, k, v, do = operands(torch.bfloat16)
+    qv, kv, vv = (t.detach().transpose(1, 2) for t in (q, k, v))
+    pairs = s * (s + 1) // 2
+    bwd = time_ms(lambda: flash_attention_grad(qv, kv, vv, do, causal=True))
+    sq, sk, sv = (t.contiguous().requires_grad_() for t in (qv, kv, vv))
+    so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                        enable_gqa=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), do,
+                                                  retain_graph=True))
+    # backward: q, k, v, do read, dq, dk, dv written; five products a
+    # visible (query, key) pair (s, dp, dq, dk, dv)
+    bnd = bound_ms(2.0 * b * hd * s * (3 * hq + 3 * hkv + hkv),
+                   10.0 * b * hq * hd * pairs, torch.bfloat16)
+    log(f"  kernel 3 {shape} [bfloat16]: forward kernel {fwd:.4f} ms; "
+        f"backward (plain, f32 tiles) {bwd:.4f} ms, {bwd / fwd:.1f}x the "
+        f"forward; SDPA's backward {lib_bwd:.4f} ms; the backward's bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]})")
+    rec["flash_attention"]["train"] = {
+        "max_abs_err": ferr, "ms": ft[0], "plain_ms": ft[1],
+        "library_ms": ft[2], "bound_ms": fbnd[0], "bound_by": fbnd[1],
+        "bwd_ms": bwd, "library_bwd_ms": lib_bwd, "bwd_bound_ms": bnd[0],
+        "bwd_bound_by": bnd[1], "grad_rel_err": max(errs)}
+
+
+def train_card_vs_cpu() -> None:
+    """(b): the same weights (drawn on the card, copied to the CPU) and
+    batches, f32, 2 layers at full width, 3 steps on each device: loss,
+    grad norm and lr within TRAIN_CPU_TOL relative."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                              n_layers=TRAIN_CPU_LAYERS, dtype=torch.float32)
+    ap = make_plan(cfg, 1)
+    card = init_params(ap, seed=SEED, device="cuda")
+    cpu = copy.deepcopy(card).to("cpu")
+    batches = train_batches(cfg, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, 3)
+    hist = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        step = train_step_for(ap, single_pod_ctx(), None, 3, 2)
+        hist[name] = train_run(step, model, adamw_init(params_tree(model)),
+                               batches)
+    worst = 0.0
+    for i, (a, c) in enumerate(zip(hist["card"], hist["cpu"])):
+        rel = {k: abs(a[k] - c[k]) / max(abs(c[k]), 1e-30)
+               for k in ("loss", "grad_norm", "lr")}
+        worst = max(worst, *rel.values())
+        log(f"  card vs CPU step {i}: loss {a['loss']:.6f} / "
+            f"{c['loss']:.6f}, grad norm {a['grad_norm']:.6f} / "
+            f"{c['grad_norm']:.6f}, lr {a['lr']:.4e} / {c['lr']:.4e}; "
+            f"relative {rel['loss']:.2e} / {rel['grad_norm']:.2e} / "
+            f"{rel['lr']:.2e}")
+    if worst > TRAIN_CPU_TOL:
+        raise AssertionError(f"train card vs CPU: {worst:.3e} relative > "
+                             f"{TRAIN_CPU_TOL}")
+    del cpu, card
+    free_device()
+
+
+def clone_tree(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def train_dp_kernels(rec: dict, mesh) -> None:
+    """Kernel 4 and the pack / unpack at one gradient piece (GRAD_PIECE f32
+    elements a rank, 4 pods): against their plain versions (bitwise) and
+    timed beside the plain versions, the library sum and the bounds."""
+    m, R = hierarchical.GRAD_PIECE, TRAIN_DP_PODS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 351)
+    x = torch.randn((R, m), generator=gen, device="cuda")
+    out = rd_all_reduce(x, R, workspace=mesh.workspace)
+    if not torch.equal(out, rd_all_reduce_ref(x, R)):
+        raise AssertionError("kernel 4 at the gradient piece differs from "
+                             "its plain version")
+    t = (time_ms(lambda: rd_all_reduce(x, R, workspace=mesh.workspace)),
+         time_ms(lambda: rd_all_reduce_ref(x, R)),
+         time_ms(lambda: x.view(R, 1, m).sum(0)))
+    bnd = rd_bound(R, R, m, 4)
+    log(f"  rd_all_reduce train piece ({R} pods x {m} f32, "
+        f"{m * 4 / 2**20:.0f} MiB a rank, {rd_ops.rd_protocol(m * 4)}): "
+        f"kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+        f"bound_ms={bnd[0]:.4f} ({bnd[1]}; 2 R m esz bytes)")
+    rec.setdefault("rd_all_reduce", {})["train_piece"] = {
+        "ms": t[0], "plain_ms": t[1], "library_ms": t[2], "bound_ms": bnd[0],
+        "bound_by": bnd[1], "max_abs_err": 0.0}
+    xq = x.view(R, 1, m)
+    qp_check(xq, 8, 128, "train piece")
+    q, sc = quantize_pack(xq, 8, 128)
+    for name, fn, ref in (
+            ("quantize_pack", lambda: quantize_pack(xq, 8, 128),
+             lambda: quant_pack.quantize_pack_ref(xq, 8, 128)),
+            ("unpack_dequant", lambda: unpack_dequant(q, sc, 8, 128),
+             lambda: quant_pack.unpack_dequant_ref(q, sc, 8, 128))):
+        tk, tp = time_ms(fn), time_ms(ref)
+        bnd = qp_bound(name, R * m, 8, 128)
+        log(f"  {name} train piece ({R} x {m} f32, int8, groups of 128): "
+            f"kernel_ms={tk:.4f} plain_ms={tp:.4f} bound_ms={bnd[0]:.4f} "
+            f"({bnd[1]})")
+        rec.setdefault(name, {})["train_piece"] = {
+            "ms": tk, "plain_ms": tp, "library_ms": None,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "max_abs_err": 0.0}
+    del x, xq, q, sc, out
+    free_device()
+
+
+def train_dp(rec: dict) -> dict:
+    """(c): llama3.2-1b at full width, 4 layers, bf16, data-parallel over
+    the 4 pods of VirtualMesh(4, 1): one batch's per-pod gradients reduced
+    under flat, rd (kernel 4, exact launches: one a piece) and rd_int8
+    (kernels 6 / 7: a pack and an unpack a step a piece), rd within f32
+    rounding of flat, rd_int8 within the int8 bound with the pods' drift;
+    then 2 steps a strategy (exact launches, losses finite)."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                              n_layers=TRAIN_DP_LAYERS)
+    ap = make_plan(cfg, 1)
+    pods = TRAIN_DP_PODS
+    mesh = VirtualMesh(pods, 1, device="cuda")
+    train_dp_kernels(rec, mesh)
+    base = init_params(ap, seed=SEED, device="cuda")
+    batches = train_batches(cfg, TRAIN_SEQ, TRAIN_DP_BATCH, TRAIN_DP_STEPS)
+    ctxs = {s: ParallelCtx(dp=("pod",), grad_reduce_strategy=s)
+            for s in ("flat", "rd", "rd_int8")}
+    model = data_parallel(base, pods)
+    _, g = train_step_for(ap, ctxs["flat"], mesh, TRAIN_DP_STEPS,
+                          1).grads(model, batches[0])
+    leaves = tree_leaves(g)
+    pieces = sum(-(-t[0].numel() // hierarchical.GRAD_PIECE) for t in leaves)
+    steps = pods.bit_length() - 1
+    per_step = {"flat": {}, "rd": {"rd_all_reduce": pieces},
+                "rd_int8": {"quantize_pack": steps * pieces,
+                            "unpack_dequant": steps * pieces}}
+    ref = clone_tree(g)
+    hierarchical.grad_cross_pod_reduce(ref, ctxs["flat"], mesh)
+    eps = float(torch.finfo(torch.float32).eps)
+    for strat in ("rd", "rd_int8"):
+        x = clone_tree(g)
+        reset_counts()
+        hierarchical.grad_cross_pod_reduce(x, ctxs[strat], mesh)
+        torch.cuda.synchronize()
+        got = counts()
+        if got != {**dict.fromkeys(got, 0), **per_step[strat]}:
+            raise AssertionError(f"grad reduce {strat}: launches {got}, "
+                                 f"expected {per_step[strat]}")
+        worst, drift = 0.0, 0.0
+        for a, r, g0 in zip(tree_leaves(x),
+                            tree_leaves(ref), leaves):
+            if strat == "rd":
+                lim = RD_F32_ULPS * eps * g0.abs().sum(0)
+                worst = max(worst, float(((a - r).abs() / lim.clamp(
+                    min=1e-38)).max()))
+            else:
+                worst = max(worst, max_err(a, r) / float(r.abs().max()))
+                drift = max(drift, float((a - a[:1]).abs().max())
+                            / float(a.abs().max()))
+        if strat == "rd":
+            log(f"  grad reduce rd ({pieces} kernel-4 launches, pieces of "
+                f"{hierarchical.GRAD_PIECE} f32 a rank): max |rd - flat| = "
+                f"{worst:.3f} x the f32 rounding bound ({RD_F32_ULPS} eps "
+                "x the sum of the pods' |g|)")
+            if worst > 1.0:
+                raise AssertionError("rd's reduced gradients are not within "
+                                     "f32 rounding of flat's")
+        else:
+            log(f"  grad reduce rd_int8 ({steps * pieces} packs and "
+                f"unpacks): max |int8 - flat| / max |flat| = {worst:.4f} "
+                f"(bound {INT8_REL}); the pods' copies drift apart by up to "
+                f"{drift:.3e} of the largest |g|")
+            if worst >= INT8_REL or drift == 0.0:
+                raise AssertionError(f"rd_int8: {worst} >= {INT8_REL} or no "
+                                     "drift between the pods")
+        del x
+    del g, ref, leaves, model
+    free_device()
+    launches = {}
+    for strat in ("flat", "rd", "rd_int8"):
+        model = data_parallel(base, pods)
+        opt = adamw_init(params_tree(model))
+        step = train_step_for(ap, ctxs[strat], mesh, TRAIN_DP_STEPS, 1)
+        reset_counts()
+        hist = train_run(step, model, opt, batches)
+        got = counts()
+        want = {**dict.fromkeys(got, 0),
+                "flash_attention": 2 * cfg.n_layers * TRAIN_DP_STEPS,
+                **{k: v * TRAIN_DP_STEPS for k, v in per_step[strat].items()}}
+        if got != want:
+            raise AssertionError(f"train dp {strat}: launches {got}, "
+                                 f"expected {want}")
+        losses = [h["loss"] for h in hist]
+        if not (all(np.isfinite(losses)) and not any(h["skipped"]
+                                                      for h in hist)):
+            raise AssertionError(f"train dp {strat}: {hist}")
+        spread = max(float((t - t[:1]).abs().max()) for t in
+                     (p.detach() for p in model.parameters()))
+        log(f"  train dp {strat} ({pods} pods x {TRAIN_DP_BATCH // pods} x "
+            f"{TRAIN_SEQ}): losses {fmt(losses, '.4f')}, grad norms "
+            f"{fmt([h['grad_norm'] for h in hist], '.3f')}, step "
+            f"{np.median([h['ms'] for h in hist]):.2f} ms; launches a "
+            f"step {({k: v // TRAIN_DP_STEPS for k, v in got.items() if v})}"
+            f"; max |p_pod - p_0| after {TRAIN_DP_STEPS} steps {spread:.3e}")
+        if (spread == 0.0) != (strat != "rd_int8"):
+            raise AssertionError(f"train dp {strat}: pods' parameters "
+                                 f"spread {spread}")
+        launches[f"train_dp_{strat}"] = got
+        del model, opt, step
+        free_device()
+    del base
+    free_device()
+    return launches
+
+
+def state_diff(a, b) -> float:
+    """Max |a - b| over the leaves of two train states (inf where a
+    leaf's dtype or shape differs)."""
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return float("inf")
+        worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst
+
+
+def train_resume() -> None:
+    """(d): at 2 layers, bf16, phase (a)'s batch and schedule: 4 steps
+    straight against 2 steps, a checkpoint, a restore and 2 more.  The
+    restore goes into a model drawn from another seed and trained 2 steps
+    (its losses are the control a broken restore would give); the
+    restored state must equal the saved one bitwise, and the losses
+    the straight run's within TRAIN_RESUME_TOL, which the control's must
+    miss."""
+    import shutil
+    import tempfile
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    ap = make_plan(cfg, 1)
+    batches = train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, 4)
+
+    def fresh(seed):
+        model = init_params(ap, seed=seed, device="cuda")
+        return (model, adamw_init(params_tree(model)),
+                train_step_for(ap, single_pod_ctx(), None, 4, TRAIN_MB))
+
+    def losses(step, model, opt, bs):
+        return [h["loss"] for h in train_run(step, model, opt, bs)]
+
+    model, opt, step = fresh(SEED)
+    straight = losses(step, model, opt, batches)
+    del model, opt
+    model, opt, step = fresh(SEED)
+    part = losses(step, model, opt, batches[:2])
+    saved = clone_tree(train_state(model, opt))
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(d, 2, train_state(model, opt))
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(d, "step_00000002",
+                                            "arrays.npz"))
+        del model, opt
+        free_device()
+        model, opt, step = fresh(SEED + 1)
+        control = losses(step, model, opt, batches[2:])
+        before = state_diff(train_state(model, opt), saved)
+        t0 = time.perf_counter()
+        at, state = ckpt.restore(d, train_state(model, opt))
+        load_train_state(model, opt, state)
+        t_restore = time.perf_counter() - t0
+        del state
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    after = state_diff(train_state(model, opt), saved)
+    n_leaves = len(tree_leaves(saved))
+    del saved
+    part += losses(step, model, opt, batches[2:])
+    rel = [abs(a - b) / abs(a) for a, b in zip(straight, part)]
+    gap = [abs(a - b) / abs(a) for a, b in zip(straight[2:], control)]
+    log(f"  resume: straight {fmt(straight, '.7f')}; 2 + checkpoint (step "
+        f"{at}, {size / 2**30:.2f} GiB, saved in {t_save:.1f} s, restored "
+        f"in {t_restore:.1f} s) + 2 {fmt(part, '.7f')}; relative "
+        f"{fmt(rel, '.1e')} (tolerance {TRAIN_RESUME_TOL:g})")
+    log(f"  resume: restored state - saved state, max |diff| over "
+        f"{n_leaves} leaves (parameters, moments, step): {after:g} (before "
+        f"the restore {before:.3e}); a model of seed {SEED + 1} not "
+        f"restored: losses {fmt(control, '.7f')}, relative "
+        f"{fmt(gap, '.1e')}")
+    if at != 2 or after != 0.0 or not before > 0.0:
+        raise AssertionError(f"restore: step {at}, restored - saved "
+                             f"{after}, before {before}")
+    if max(rel) > TRAIN_RESUME_TOL or max(gap) <= TRAIN_RESUME_TOL:
+        raise AssertionError("resume on the card differs from the straight "
+                             "run, or the bar does not tell the model that "
+                             "was not restored from it")
+    del model, opt
+    free_device()
+
+
+P35: dict = {}
+
+
+def phase_train(rec: dict) -> dict:
+    """Phase 35: (a) full-depth training, kernel 3 under autograd, (b)
+    card vs CPU, (c) data parallelism over 4 pods, (d) resume."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec.setdefault("flash_attention", {})
+    launches = {}
+    for part, fn in (("(a)", lambda: launches.update(train_full(rec))),
+                     ("kernel 3's gradient", lambda: train_flash_grad(rec)),
+                     ("(b)", train_card_vs_cpu),
+                     ("(c)", lambda: launches.update(train_dp(rec))),
+                     ("(d)", train_resume)):
+        t0 = time.perf_counter()
+        fn()
+        free_device()
+        log(f"    {part} took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 _PHASE = {"title": "", "t": 0.0}
 
 
@@ -6206,7 +6754,7 @@ def phase(title: str) -> None:
 # Phases whose results a phase reads: with --phases they run first.
 PHASE_DEPS = {6: (4,), 9: (4, 6), 12: (9,), 13: (9,), 28: (27,),
               29: (27,), 30: (27,), 34: (4,)}
-N_PHASES = 34
+N_PHASES = 35
 
 
 def selected_phases(arg: Optional[str]) -> list:
@@ -6370,7 +6918,8 @@ def main(argv=None) -> int:
         card_vs_cpu(PODS * FAST, PODS, "hier_rd", arch=HYB_ARCH)
         free_device()
     if 27 in on:
-        phase(f"[27] continuous batcher, llama3.2-1b full width and depth, "
+        phase(f"[27] continuous batcher, llama3.2-1b full width, "
+              f"{SERVE_LAYERS} of 16 layers, "
               f"bf16: tp=1 dense and paged, tp=8 ({PODS}x{FAST}, hier_rd) "
               "paged")
         phase_serve()
@@ -6383,7 +6932,8 @@ def main(argv=None) -> int:
     if 29 in on:
         phase("[29] faults, quarantine and deadlines in the batcher; "
               "disaggregated prefill / decode with the checksummed KV "
-              "handoff; the router: llama3.2-1b full width and depth, bf16")
+              f"handoff; the router: llama3.2-1b full width, {SERVE_LAYERS} "
+              "of 16 layers, bf16")
         nan_masking_check()
         launches.update(phase_p29())
     if 30 in on:
@@ -6418,6 +6968,15 @@ def main(argv=None) -> int:
               "simulator's H100 against the card")
         launches.update(phase_pp(rec))
         phase_sim()
+    if 35 in on:
+        phase(f"[35] training (ROADMAP item 11, part one): llama3.2-1b full "
+              f"width and depth, bf16, tp=1, {TRAIN_STEPS} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} microbatches, "
+              f"remat; kernel 3 under autograd; card vs CPU at "
+              f"{TRAIN_CPU_LAYERS} layers, f32; data parallel over "
+              f"VirtualMesh({TRAIN_DP_PODS}, 1) at {TRAIN_DP_LAYERS} layers "
+              "under flat / rd / rd_int8; resume at 2 layers")
+        launches.update(phase_train(rec))
     phase("")
     log("    decode tok/s, eager (one run) / graph (median of 3), this "
         "run:")

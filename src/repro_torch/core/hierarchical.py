@@ -46,6 +46,14 @@ bits 8, group 128.  ``tp_reduce_scatter`` and ``tp_all_gather`` are the
 two halves of the sequence-parallel residual (``seq_parallel``, which the
 collectives themselves ignore).
 
+Training (``parallel/steps.py::build_train_step``) sums each gradient leaf
+over the pods of a data-parallel ``VirtualMesh(pods, 1)``
+(:func:`grad_cross_pod_reduce`, the paper's inter-node phase applied to
+gradients: ``grad_reduce_strategy`` flat | rd (kernel 4) | rd_int8 (the
+int8 recursive doubling, kernel 6's pack and unpack)), in pieces of at
+most ``GRAD_PIECE`` elements a rank, and averages the loss over the
+batch axes (:func:`dp_psum_mean`).
+
 The MoE layer's exchanges live here too: ``ep_all_to_all`` (the dispatch's
 ``lax.all_to_all`` over the EP axes, which are the TP axes: a transpose of
 the rank and piece axes), ``ep_rank``/``ep_size`` (each rank's expert
@@ -77,6 +85,7 @@ from ..kernels.rd_allreduce.ref import slow_sum
 from . import autotune
 from .mesh import VirtualMesh
 from .pcontext import ParallelCtx
+from .tree import tree_map
 
 Mesh = Optional[VirtualMesh]
 
@@ -304,18 +313,94 @@ def compressed_rd_all_reduce(x: torch.Tensor, pods: int,
     return acc[..., :m].reshape(x.shape).to(x.dtype)
 
 
+def _slow_reduce(x: torch.Tensor, algo: str, pods: int, mesh: VirtualMesh,
+                 chunks) -> torch.Tensor:
+    """The sum over the pods by one algorithm: ``flat`` the plain sum,
+    ``rd`` recursive doubling (kernel 4), ``rd_int8`` recursive doubling
+    with int8 exchanges, ``rd_halving`` halving-doubling."""
+    if algo == "flat":
+        return slow_sum(x, pods)
+    if algo == "rd":
+        return rd_all_reduce(x, mesh, chunks=chunks)
+    if algo == "rd_int8":
+        return compressed_rd_all_reduce(x, pods)
+    if algo == "rd_halving":
+        return rd_halving_all_reduce(x, pods)
+    raise ValueError(algo)
+
+
+# The slow phase's algorithm under each hierarchical ``ar_strategy``.
+_SLOW_ALGO = {"hier_ring": "flat", "hier_rd": "rd",
+              "hier_rd_halving": "rd_halving"}
+
+
 def _slow_phase(x: torch.Tensor, ctx: ParallelCtx,
                 mesh: VirtualMesh) -> torch.Tensor:
-    pods = _sizes(ctx, mesh)[0]
-    if ctx.ar_strategy == "hier_ring":
-        return slow_sum(x, pods)
-    if ctx.ar_strategy == "hier_rd":
-        if ctx.compress_slow:
-            return compressed_rd_all_reduce(x, pods)
-        return rd_all_reduce(x, mesh, chunks=ctx.rd_chunks)
-    if ctx.ar_strategy == "hier_rd_halving":
-        return rd_halving_all_reduce(x, pods)
-    raise ValueError(ctx.ar_strategy)  # pragma: no cover
+    algo = _SLOW_ALGO.get(ctx.ar_strategy)
+    if algo is None:
+        raise ValueError(ctx.ar_strategy)  # pragma: no cover
+    if algo == "rd" and ctx.compress_slow:
+        algo = "rd_int8"
+    return _slow_reduce(x, algo, _sizes(ctx, mesh)[0], mesh, ctx.rd_chunks)
+
+
+# ---------------------------------------------------------------------------
+# Gradient reduction across pods (training)
+# ---------------------------------------------------------------------------
+
+# Elements a rank of one gradient piece: 16 MiB of f32, so kernel 4's
+# receive buffer (steps x R x piece bytes) stays 128 MiB at 4 pods where a
+# whole llama3.2-1b embedding gradient would ask 8.4 GB; a multiple of the
+# int8 groups (128), so every piece but a leaf's last holds whole groups
+# and rd_int8 quantizes the leaf's own groups.
+GRAD_PIECE = 2**22
+
+
+def grad_cross_pod_reduce(grads, ctx: ParallelCtx, mesh: Mesh):
+    """Every leaf (R, ...) of the tree ``grads`` (:mod:`.tree`) summed
+    over the pods (the slow axis of ``mesh``, which must be the ctx's one
+    pod axis: a ``dp`` axis no ``fsdp`` axis covers) on every rank, by
+    ``ctx.grad_reduce_strategy`` (:func:`_slow_reduce`): ``flat`` the
+    plain sum, ``rd`` recursive doubling (kernel 4 on CUDA
+    tensors), ``rd_int8`` recursive doubling with int8 exchanges (kernel
+    6's pack and unpack on CUDA tensors; the pods' copies may drift apart
+    by a rounding, as in the reference).  A sum, not a mean.  Each leaf
+    goes in pieces of at most ``GRAD_PIECE`` elements a rank (the
+    per-element sums, and rd_int8's groups of 128, are the whole
+    leaf's); the result is written into the leaves in place and the tree
+    returned.  Identity without pod axes or at one pod."""
+    axes = tuple(a for a in ctx.dp if a not in ctx.fsdp)
+    if not axes or mesh is None or mesh.pods == 1:
+        return grads
+    if axes != (mesh.slow_axis,):
+        raise ValueError(f"pod axes {axes} are not the mesh's slow axis "
+                         f"{mesh.slow_axis!r}")
+
+    def leaf(g: torch.Tensor) -> torch.Tensor:
+        flat = g.view(g.shape[0], -1)
+        for a in range(0, flat.shape[1], GRAD_PIECE):
+            part = flat[:, a:a + GRAD_PIECE]
+            part.copy_(_slow_reduce(part.contiguous(),
+                                    ctx.grad_reduce_strategy, mesh.pods,
+                                    mesh, ctx.rd_chunks))
+        return g
+
+    return tree_map(leaf, grads)
+
+
+def dp_psum_mean(x: torch.Tensor, ctx: ParallelCtx,
+                 mesh: Mesh) -> torch.Tensor:
+    """The mean over the batch-parallel ranks of a per-rank value x (R,
+    ...) on every rank: ``lax.psum(x, ctx.dp) / size``, ``ctx.dp`` the
+    mesh's slow axis (the pods of each fast column).  Without a mesh
+    (every axis of size 1) x itself."""
+    if not ctx.dp or mesh is None or mesh.pods == 1:
+        return x
+    if tuple(ctx.dp) != (mesh.slow_axis,):
+        raise ValueError(f"dp axes {ctx.dp} are not the mesh's slow axis "
+                         f"{mesh.slow_axis!r}")
+    y = x.reshape(mesh.pods, x.shape[0] // mesh.pods, *x.shape[1:])
+    return y.mean(0, keepdim=True).expand_as(y).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -694,5 +779,5 @@ __all__ = ["tp_all_reduce", "tp_reduce_scatter", "tp_all_gather",
            "compressed_rd_all_reduce", "quant_rd_all_reduce",
            "quantized_all_gather", "axes_size", "tp_rank", "dtype_name",
            "ep_size", "ep_rank", "ep_all_to_all", "all_gather_tiled",
-           "pod_all_gather_tiled",
-           "QUANT_BITS"]
+           "pod_all_gather_tiled", "grad_cross_pod_reduce", "dp_psum_mean",
+           "GRAD_PIECE", "QUANT_BITS"]

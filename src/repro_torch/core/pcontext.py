@@ -9,17 +9,19 @@ code runs at tp=1 and over the virtual mesh.  The dataclass accepts every
 knob of the reference.  ``seq_parallel`` is a knob of the model's prefill
 (``transformer.forward_lm`` resolves it per call); the collectives ignore
 it, as in the reference.  ``transformer.check_layout`` raises on a
-non-empty ``dp``, ``fsdp`` or ``sp`` (the virtual mesh holds the TP axes
-only; the reference sets ``sp`` only in its training constructors, which
-arrive with ROADMAP item 11).  ``ar_strategy="auto"`` resolves per call against
-:mod:`repro_torch.core.autotune`, and ``overlap_matmul`` routes the
+non-empty ``dp``, ``fsdp`` or ``sp`` for serving (the virtual mesh holds
+the TP axes only); the train step
+(``parallel/steps.py::build_train_step``) has its own check, which takes
+``dp`` over the slow axis of a ``VirtualMesh(pods, 1)`` and the
+reference's training ctx of :func:`single_pod_ctx` at one rank, and reads
+``grad_reduce_strategy`` (the cross-pod gradient sum of
+``hierarchical.grad_cross_pod_reduce``).  ``ar_strategy="auto"``
+resolves per call against :mod:`repro_torch.core.autotune`, and
+``overlap_matmul`` routes the
 row-parallel projections through :mod:`repro_torch.core.overlap` in
 ``overlap_chunks`` column blocks; ``ar_quant`` (and the legacy
 ``compress_slow`` / ``quant_ag``) puts the collectives on the quantized
-wire.  The reference's constructors
-``single_pod_ctx``/``multi_pod_ctx`` and its training knob
-``grad_reduce_strategy`` are not copied: nothing in the port reads them
-yet.
+wire.
 
 Axis roles
 ----------
@@ -48,6 +50,8 @@ AR_STRATEGIES = ("flat", "hier_ring", "hier_rd", "hier_rd_halving", "auto")
 
 SEQ_PARALLEL_MODES = ("off", "on", "auto")
 
+GRAD_REDUCE_STRATEGIES = ("flat", "rd", "rd_int8")
+
 # Quantized-collective levels for the TP all-reduce / RS+AG family.
 # "none" keeps full-precision wire; "int8"/"int4" force that level at every
 # call site; "auto" lets the autotuner pick {none, int8, int4} per call site
@@ -73,6 +77,8 @@ class ParallelCtx:
     #                      dtype) via repro_torch.core.autotune, resolved
     #                      on the host at every call
     ar_strategy: str = "flat"
+    # Cross-pod gradient reduction (training): flat | rd | rd_int8.
+    grad_reduce_strategy: str = "rd"
     # Chunk count for pipelined slow-axis exchanges (paper Sec. 4.2.1 analogue).
     rd_chunks: int = 1
     # int8-compress the slow-axis TP exchange (beyond-paper; eta-packing).
@@ -113,6 +119,9 @@ class ParallelCtx:
     def __post_init__(self):
         if self.ar_strategy not in AR_STRATEGIES:
             raise ValueError(f"unknown ar_strategy {self.ar_strategy!r}")
+        if self.grad_reduce_strategy not in GRAD_REDUCE_STRATEGIES:
+            raise ValueError(f"unknown grad_reduce_strategy "
+                             f"{self.grad_reduce_strategy!r}")
         if self.seq_parallel not in SEQ_PARALLEL_MODES:
             raise ValueError(
                 f"unknown seq_parallel mode {self.seq_parallel!r}")
@@ -141,5 +150,30 @@ class ParallelCtx:
 LOCAL = ParallelCtx()
 
 
-__all__ = ["ParallelCtx", "LOCAL", "AR_STRATEGIES", "SEQ_PARALLEL_MODES",
+def single_pod_ctx(ar_strategy: str = "flat", **kw) -> ParallelCtx:
+    """The reference's wiring of a ("data", "model") mesh: FSDP and data
+    parallelism over "data", TP, EP and SP over "model".  The port's
+    train step takes it at one rank (every axis of size 1)."""
+    return ParallelCtx(tp_fast=("model",), dp=("data",), fsdp=("data",),
+                       ep=("model",), sp=("model",), ar_strategy=ar_strategy,
+                       **kw)
+
+
+def multi_pod_ctx(ar_strategy: str = "flat", cross_pod_tp: bool = False,
+                  **kw) -> ParallelCtx:
+    """The reference's wiring of a ("pod", "data", "model") mesh: with
+    ``cross_pod_tp`` the TP group spans the pods (the paper's headline
+    scenario), else the pods are a data-parallel axis whose gradients are
+    summed by ``grad_cross_pod_reduce``."""
+    if cross_pod_tp:
+        return ParallelCtx(tp_fast=("model",), tp_slow=("pod",),
+                           dp=("data",), fsdp=("data",), ep=("model",),
+                           sp=("model",), ar_strategy=ar_strategy, **kw)
+    return ParallelCtx(tp_fast=("model",), dp=("pod", "data"),
+                       fsdp=("data",), ep=("model",), sp=("model",),
+                       ar_strategy=ar_strategy, **kw)
+
+
+__all__ = ["ParallelCtx", "LOCAL", "single_pod_ctx", "multi_pod_ctx",
+           "AR_STRATEGIES", "SEQ_PARALLEL_MODES", "GRAD_REDUCE_STRATEGIES",
            "AR_QUANT_LEVELS", "AR_QUANT_MODES"]

@@ -1,12 +1,15 @@
-"""Parameter bridge from the JAX package to the port.
+"""Parameter bridge between the JAX package and the port.
 
 The JAX ``init_params`` pytree, with its leaves turned into numpy arrays
 by the caller (``jax.tree.map(np.asarray, params)``), becomes a
 :class:`~repro_torch.models.transformer.DenseLM`: at tp=1 from
 ``init_params(key, make_plan(cfg, 1))``, and over a virtual mesh from the
 tp=N tree ``init_params(key, make_plan(cfg, N))``, cut into the mesh's N
-rank shards as the reference's ``param_specs`` cut it.  Nothing here
-imports JAX: the tree is plain dicts of numpy arrays.
+rank shards as the reference's ``param_specs`` cut it; and back
+(:func:`params_to_numpy`).  :func:`stack_layers` / :func:`unstack_layers`
+move a global tree between the port's per-layer list and the reference's
+leading layer axis (the checkpoints' layout).  Nothing here imports JAX:
+the tree is plain dicts of numpy arrays.
 """
 from __future__ import annotations
 
@@ -15,8 +18,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..core.tree import tree_leaves, tree_map
 from .common import ModelConfig
-from .transformer import DenseLM, from_global
+from .transformer import DenseLM, from_global, to_global
 
 
 def _tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
@@ -97,4 +101,38 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     return from_global(out, mesh)
 
 
-__all__ = ["params_from_numpy"]
+_LAYER_LISTS = ("blocks", "enc_blocks")
+
+
+def stack_layers(tree: Mapping[str, Any]) -> dict:
+    """A global tree of the port's layout (``transformer.to_global``:
+    "blocks" a list of per-layer groups) in the reference's: every leaf of
+    a blocks group stacked on a leading layer axis."""
+    return {k: tree_map(lambda *ls: torch.stack(ls), *v)
+            if k in _LAYER_LISTS else v for k, v in tree.items()}
+
+
+def unstack_layers(tree: Mapping[str, Any], dim: int = 0) -> dict:
+    """The inverse of :func:`stack_layers`, the layer axis at ``dim`` of
+    every blocks leaf (1 behind a leading rank axis): views, one group a
+    layer."""
+    def layers(group):
+        n = tree_leaves(group)[0].shape[dim]
+        return [tree_map(lambda t: t.select(dim, i), group)
+                for i in range(n)]
+
+    return {k: layers(v) if k in _LAYER_LISTS else v
+            for k, v in tree.items()}
+
+
+def params_to_numpy(model: DenseLM, mesh=None) -> dict:
+    """The inverse of :func:`params_from_numpy`: the model as the
+    reference's tree of numpy arrays (the global layout of its plan,
+    blocks on a leading layer axis), f32 copies (bf16 values are exact in
+    f32)."""
+    return tree_map(lambda t: t.float().cpu().numpy(),
+                    stack_layers(to_global(model, mesh)))
+
+
+__all__ = ["params_from_numpy", "params_to_numpy", "stack_layers",
+           "unstack_layers"]

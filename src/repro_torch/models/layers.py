@@ -31,6 +31,7 @@ from ..core.pcontext import ParallelCtx
 from ..kernels import (decode_attention, flash_attention,
                        flash_attention_chunk, paged_decode_attention,
                        w8_matmul)
+from ..kernels.flash_attention.autograd import FlashAttention, needs_grad
 from .common import ModelConfig
 
 Params = Mapping[str, torch.Tensor]
@@ -192,12 +193,18 @@ def attention_prefill(p: Params, h: torch.Tensor, cfg: ModelConfig, *,
     by ``wo`` and reduces (``transformer._residual_proj``; the reference's
     ``project=False``), and the rotated (k, v), (R, B, S, U, hd).  Query
     slot ``s*g + j`` reads kv slot ``s`` (``GQAPlan``), which is the
-    kernels' ``h // g``; one launch serves every rank."""
+    kernels' ``h // g``; one launch serves every rank.  Where autograd
+    records (training), the call goes through
+    :class:`~repro_torch.kernels.flash_attention.autograd.FlashAttention`
+    (the kernel forward, a plain backward); elsewhere it is the kernel's
+    call alone."""
     q, k, v = _rotated_qkv(p, h, cfg, positions)
-    o = flash_attention(_fold(q).transpose(1, 2), _fold(k).transpose(1, 2),
-                        _fold(v).transpose(1, 2), causal=causal,
-                        window=cfg.sliding_window).transpose(1, 2)
-    return _masked_heads(o.reshape(q.shape), q_mask), (k, v)
+    qkv = [_fold(t).transpose(1, 2) for t in (q, k, v)]
+    if needs_grad(*qkv):
+        o = FlashAttention.apply(*qkv, causal, cfg.sliding_window)
+    else:
+        o = flash_attention(*qkv, causal=causal, window=cfg.sliding_window)
+    return _masked_heads(o.transpose(1, 2).reshape(q.shape), q_mask), (k, v)
 
 
 def cross_kv(p: Params, enc_out: torch.Tensor
@@ -393,9 +400,15 @@ def embed_lookup(p: Params, ids: torch.Tensor, ctx: ParallelCtx, mesh,
     rank's vocab range) + TP reduce (the paper's AR site #0).
     ids (B, S) -> (R, B, S, D); with ``sp`` the partials end in
     ``tp_reduce_scatter`` on the sequence instead, (R, B, S / fast, D),
-    the sequence-parallel residual's layout."""
+    the sequence-parallel residual's layout.  Without TP axes ids may also
+    be per rank, (R, B, S), each rank's own batch (data parallelism)."""
     table = p["tok"]
     R, v_loc = table.shape[0], table.shape[1]
+    if ids.dim() == 3:
+        if ctx.has_tp or v_loc != vocab_pad:
+            raise ValueError("per-rank ids (R, B, S) need an unsharded "
+                             "vocab (no TP axes)")
+        return table[torch.arange(R, device=ids.device)[:, None, None], ids]
     if v_loc == vocab_pad and not ctx.has_tp:
         return table[:, ids]
     ranks = hier.tp_rank(ctx, mesh, ids.device)
@@ -413,6 +426,45 @@ def lm_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Local (vocab-sharded) logits (R, ..., V_local)."""
     head = p["head"] if "head" in p else p["tok"].transpose(-1, -2)
     return rank_matmul(x, head)
+
+
+def sharded_xent(logits_loc: torch.Tensor, labels: torch.Tensor,
+                 ctx: ParallelCtx, mesh, vocab_real: int) -> torch.Tensor:
+    """Cross-entropy over vocab-sharded logits without gathering the
+    vocab (the port of ``layers.sharded_xent``): logits (R, ..., V_local),
+    labels global ids (R, ...) or (...) the same on every rank -> (R,) f32,
+    each rank's mean NLL over its positions.  Vocab padding (global ids
+    >= ``vocab_real``) is masked; the max shift is a constant under
+    autograd (the reference's ``_pmax_const``: detached, maxed over the TP
+    group), and the exp-sums and the picked logits are summed over the TP
+    group.  The reference's final ``dp_psum_mean`` over the batch axes is
+    the train step's (``hierarchical.dp_psum_mean``)."""
+    R, v_loc = logits_loc.shape[0], logits_loc.shape[-1]
+    view = (R,) + (1,) * (logits_loc.dim() - 2)
+    start = hier.tp_rank(ctx, mesh, logits_loc.device).expand(R) \
+        .view(view) * v_loc
+    lf = logits_loc.float()
+    tp = hier.axes_size(ctx.tp_axes, mesh) if ctx.has_tp else 1
+    if tp * v_loc > vocab_real:
+        gidx = start[..., None] + torch.arange(v_loc, device=lf.device)
+        lf = torch.where(gidx < vocab_real, lf,
+                         torch.full((), NEG_INF, device=lf.device))
+    m = lf.detach().amax(-1)
+    if ctx.has_tp:
+        G = hier._groups(ctx, mesh)
+        mg = m.reshape(G, R // G, *m.shape[1:])
+        m = mg.amax(1, keepdim=True).expand_as(mg).reshape(m.shape)
+    se = torch.sum(torch.exp(lf - m[..., None]), dim=-1)
+    local = labels.expand(m.shape) - start
+    ok = (local >= 0) & (local < v_loc)
+    picked = torch.gather(lf, -1, local.clamp(0, v_loc - 1).long()[..., None])
+    picked = torch.where(ok, picked[..., 0], torch.zeros(
+        (), device=lf.device))
+    if ctx.has_tp:
+        se = hier._group_sum(se, ctx, mesh)
+        picked = hier._group_sum(picked, ctx, mesh)
+    nll = torch.log(se) + m - picked
+    return nll.reshape(R, -1).mean(1)
 
 
 def greedy_sample(logits_loc: torch.Tensor, ctx: ParallelCtx, mesh,
@@ -508,4 +560,5 @@ __all__ = ["rms_norm", "layer_norm", "apply_norm", "rope_tables",
            "attention_decode", "quantize_kv",
            "attention_chunk_step",
            "mlp_hidden", "mlp_down_w", "embed_lookup", "lm_logits",
-           "greedy_sample", "sample_token", "sampling_key", "NEG_INF"]
+           "sharded_xent", "greedy_sample", "sample_token", "sampling_key",
+           "NEG_INF"]

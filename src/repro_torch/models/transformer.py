@@ -71,12 +71,14 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import autotune
 from ..core import hierarchical as hier
 from ..core import overlap as ov
 from ..core.pcontext import LOCAL, ParallelCtx
-from ..parallel.sharding import shard_params
+from ..core.tree import key_names, tree_map, tree_map_with_path
+from ..parallel.sharding import shard_params, tp_dim
 from . import layers as L
 from . import moe as M
 from . import rwkv as RW
@@ -249,9 +251,67 @@ def from_global(tree: Mapping, mesh=None) -> DenseLM:
     """A DenseLM from a global-layout tree {"embed", "blocks" (a list of
     per-layer groups), "final_norm"[, "enc_blocks", "enc_norm"]}, cut over
     the mesh's ranks."""
-    t = shard_params(tree, mesh)
-    return DenseLM(t["embed"], t["blocks"], t["final_norm"],
-                   t.get("enc_blocks", ()), t.get("enc_norm"))
+    return _model(shard_params(tree, mesh))
+
+
+def params_tree(model: DenseLM) -> dict:
+    """The model's leaves (the parameters themselves, (R, *local)) as a
+    tree of plain dicts and lists in :func:`from_global`'s layout:
+    {"embed", "blocks" (a list of per-layer groups; a bare leaf such as
+    the hybrid ``beta`` a tensor), "final_norm"[, "enc_blocks",
+    "enc_norm"]}."""
+    def block(bp: Block) -> dict:
+        out = {n: dict(g.items()) for n, g in bp.named_children()}
+        out.update(bp.named_parameters(recurse=False))
+        return out
+
+    tree = {"embed": dict(model.embed.items()),
+            "blocks": [block(bp) for bp in model.blocks],
+            "final_norm": dict(model.final_norm.items())}
+    if len(model.enc_blocks):
+        tree["enc_blocks"] = [block(bp) for bp in model.enc_blocks]
+        tree["enc_norm"] = dict(model.enc_norm.items())
+    return tree
+
+
+def _model(tree: Mapping) -> DenseLM:
+    return DenseLM(tree["embed"], tree["blocks"], tree["final_norm"],
+                   tree.get("enc_blocks", ()), tree.get("enc_norm"))
+
+
+def to_global(model: DenseLM, mesh=None) -> dict:
+    """The unranked tree that :func:`from_global` cuts (its inverse): on
+    a TP mesh each leaf with a TP dimension has its R pieces concatenated
+    on it (every leaf of a plan's model divides: ``make_plan`` pads) and
+    every other leaf is rank 0's copy; without a mesh (tp=1, and the
+    train step's data-parallel replicas) every leaf is rank 0's copy.
+    Tensors detached from autograd, the model's dtypes."""
+    def leaf(path, t):
+        t = t.detach()
+        d = tp_dim(key_names(path), t.dim() - 1) if mesh is not None \
+            and mesh.size > 1 else None
+        if d is None:
+            return t[0]
+        return torch.cat(list(t.unbind(0)), dim=d)
+
+    return tree_map_with_path(leaf, params_tree(model))
+
+
+def data_parallel(model: DenseLM, replicas: int) -> DenseLM:
+    """A model of ``replicas`` ranks, each a copy of rank 0 of ``model``
+    (a tp=1 model): the data-parallel train step's layout over the pods
+    of a ``VirtualMesh(replicas, 1)``, every leaf (replicas, *global)."""
+    return _model(tree_map(lambda t: t.detach()[:1].expand(
+        replicas, *t.shape[1:]).contiguous(), params_tree(model)))
+
+
+def trainable(model: DenseLM, on: bool = True) -> DenseLM:
+    """Let autograd track every leaf of ``model`` (``on``), or freeze them
+    again (serving's default: ``init_params`` and the bridge build frozen
+    leaves); returns the model."""
+    for p in model.parameters():
+        p.requires_grad_(on)
+    return model
 
 
 def init_params(ap: ArchPlan, *, seed: int, device: torch.device | str,
@@ -606,9 +666,18 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
                ctx: ParallelCtx = LOCAL, mesh=None, *,
                sp: Optional[bool] = None, collect_state: bool = False,
                frame_embeds: Optional[torch.Tensor] = None,
-               patch_embeds: Optional[torch.Tensor] = None
+               patch_embeds: Optional[torch.Tensor] = None,
+               remat: bool = False
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """tokens (B, S) -> (logits, states).
+
+    ``remat`` (training) checkpoints each block (``torch.utils.checkpoint``
+    without reentrancy): its activations are recomputed in the backward
+    pass, as the reference's ``jax.checkpoint`` of the layer body with
+    nothing saveable; it takes no ``collect_state``.  Without TP axes the
+    tokens may be per rank, (R, B, S) for a model of R ranks (the data-
+    parallel train step's replicas, each on its own batch); the logits
+    then keep the rank axis, (R, B, S, V_pad).
 
     ``frame_embeds`` (B, T, D): an encoder-decoder's frames, which the
     encoder (:func:`encoder_forward`) reads first; every decoder block
@@ -640,7 +709,10 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
     """
     check_layout(ap, ctx, mesh)
     cfg = ap.cfg
-    B, S = tokens.shape
+    B, S = tokens.shape[-2:]
+    if remat and collect_state:
+        raise ValueError("remat recomputes the blocks in the backward pass; "
+                         "collect_state has none")
     if cfg.enc_layers and frame_embeds is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder needs "
                          "frame_embeds (B, enc_seq, d_model)")
@@ -664,12 +736,19 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, ap: ArchPlan,
         model, frame_embeds, ap, ctx, mesh, sp=sp)
     seeds: List[Cache] = []
     for bp in model.blocks:
+        if remat:
+            x = checkpoint(lambda bp_, x_: block_forward(
+                bp_, x_, ap, ctx, mesh, positions=positions, q_mask=q_mask,
+                sp=sp, enc_out=enc_out)[0], bp, x, use_reentrant=False)
+            continue
         x, st = block_forward(bp, x, ap, ctx, mesh, positions=positions,
                               q_mask=q_mask, sp=sp, enc_out=enc_out)
         if collect_state:
             seeds.append({n: L._fold(t) for n, t in st.items()})
     x = _gathered(L.apply_norm(x, model.final_norm, ap.cfg), ctx, mesh, sp)
-    logits = _unranked(L.lm_logits(model.embed, x), mesh)
+    logits = L.lm_logits(model.embed, x)
+    if tokens.dim() == 2:
+        logits = _unranked(logits, mesh)
     states = {n: torch.stack([st[n] for st in seeds]) for n in seeds[0]} \
         if collect_state else None
     return logits, states

@@ -24,8 +24,10 @@ norms').  The encoder-decoder's leaves take the rules of their names:
 ``attn``, the gelu MLP's ``w1``/``b1`` on their columns and ``w2`` on its
 rows, and every norm (``ln_x``, ``enc_norm``, a layernorm's ``b``) is
 replicated.  FSDP is not part of serving here (``fsdp_serve`` is not
-ported).  A quantized leaf ``{"q", "s"}`` (``parallel/quant.py``) is cut
-by the rule of its own name, the node one level up from ``q``/``s``:
+ported).  :func:`repl_factors` counts the ranks holding each leaf's
+copy, which the train step's gradient norm divides out.  A quantized
+leaf ``{"q", "s"}`` (``parallel/quant.py``) is cut by the rule of its own
+name, the node one level up from ``q``/``s``:
 ``q`` like the bf16 leaf, ``s`` on the same dim when that is its last
 (a column-parallel ``wg``), else whole (a size-1 dim does not divide).
 
@@ -46,6 +48,8 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+from ..core.tree import tree_map
 
 # leaf name -> TP dimension counted from the end (so a leading stacked-layer
 # axis rides along); None = replicated.  Attention slot layouts: wq/wk/wv
@@ -114,20 +118,6 @@ def _shard(tree: Any, n: int, path: Tuple[str, ...]) -> Any:
     return shard_leaf(tree, tp_dim(path, tree.dim()), n)
 
 
-def _map(fn, tree: Any) -> Any:
-    if isinstance(tree, Mapping):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _zip(fn, trees: Sequence[Any]) -> Any:
-    if isinstance(trees[0], Mapping):
-        return {k: _zip(fn, [t[k] for t in trees]) for k in trees[0]}
-    return fn(*trees)
-
-
 def stage_layout(cut: Mapping[str, Any], stages: int) -> dict:
     """The pipeline-stage layout of a tree already cut over the fast axis
     ({"embed", "blocks" (a list of L per-layer groups), "final_norm"},
@@ -146,11 +136,19 @@ def stage_layout(cut: Mapping[str, Any], stages: int) -> dict:
         return t.unsqueeze(0).expand(stages, *t.shape).reshape(
             stages * t.shape[0], *t.shape[1:])
 
-    out = {k: _map(tile, v) for k, v in cut.items() if k != "blocks"}
-    out["blocks"] = [_zip(lambda *ts: torch.cat(ts),
-                          [blocks[s * per + j] for s in range(stages)])
+    out = {k: tree_map(tile, v) for k, v in cut.items() if k != "blocks"}
+    out["blocks"] = [tree_map(lambda *ts: torch.cat(ts),
+                              *[blocks[s * per + j] for s in range(stages)])
                      for j in range(per)]
     return out
+
+
+def repl_factors(tree: Any, n_ranks: int) -> Any:
+    """How many of the ``n_ranks`` ranks hold each leaf's copy, the
+    reference's ``steps.py::_repl_factors`` over a rank-stacked tree (for
+    the gradient norm).  The train step has no TP group (tp=1), so every
+    rank holds every leaf whole: each factor is ``n_ranks``."""
+    return tree_map(lambda _: n_ranks, tree)
 
 
 def shard_params(tree: Any, mesh=None) -> Any:
@@ -161,4 +159,4 @@ def shard_params(tree: Any, mesh=None) -> Any:
 
 
 __all__ = ["TP_RULES", "tp_dim", "shard_leaf", "shard_params",
-           "stage_layout"]
+           "stage_layout", "repl_factors"]

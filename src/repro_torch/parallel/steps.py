@@ -1,4 +1,11 @@
-"""Serve-step builders, at tp=1 (``mesh=None``) and over the virtual mesh:
+"""Step builders, at tp=1 (``mesh=None``) and over the virtual mesh.
+
+The train step (:func:`build_train_step`, the reference's, for the dense
+family at tp=1, alone or data-parallel over the pods of a
+``VirtualMesh(pods, 1)``: ROADMAP item 11's first part) is a
+:class:`TrainStep`; the rest of this module is the serve steps.
+
+Serve-step builders:
 the port of ``repro/parallel/steps.py::build_prefill``,
 ``build_decode_step``, ``build_cache_init``, ``build_serve_step``,
 ``build_admit_step``, ``build_admit_chunk_step``,
@@ -47,13 +54,18 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from ..core import autotune
-from ..core.pcontext import ParallelCtx
+from ..core import hierarchical as hier
+from ..core.pcontext import LOCAL, ParallelCtx
+from ..core.tree import tree_items, tree_leaves, tree_map
 from ..models import layers as L
+from ..models.bridge import stack_layers, unstack_layers
 from ..models.transformer import (ArchPlan, Cache, DenseLM, check_layout,
                                   decode_step, ef_sites_for, forward_lm,
-                                  init_cache, prefill_chunk, seed_cache,
-                                  w8_keep)
+                                  init_cache, params_tree, prefill_chunk,
+                                  seed_cache, to_global, trainable, w8_keep)
+from ..training.optimizer import adamw_update, cosine_lr, global_grad_norm
 from .quant import LayerMap
+from .sharding import repl_factors
 
 
 ARTable = Optional[Union[str, autotune.AutoTuner]]
@@ -542,7 +554,199 @@ def build_spec_verify_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
     return step, drafts, out
 
 
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def _item11(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: training covers the dense family at tp=1, alone or data-"
+        "parallel over the pods of a VirtualMesh(pods, 1); the rest arrives "
+        "with later parts of ROADMAP item 11")
+
+
+def check_train_layout(ap: ArchPlan, ctx: ParallelCtx, mesh) -> int:
+    """Raise unless (ap, ctx, mesh) is a layout the train step takes;
+    returns R.  Without a mesh (one rank) every axis has size 1, so the
+    reference's training ctx (``single_pod_ctx``: dp = fsdp = ("data",),
+    TP, EP and SP over a size-1 "model" axis) is the local step.  On a
+    ``VirtualMesh(pods, 1)`` the data-parallel axis is the slow one,
+    ``ctx.dp == (slow,)``, with no TP and no FSDP over it.  TP > 1, FSDP
+    over more than one rank and every family but ``dense`` raise
+    ``NotImplementedError`` (ROADMAP item 11)."""
+    cfg = ap.cfg
+    if cfg.family != "dense":
+        raise _item11(f"{cfg.name} ({cfg.family} family)")
+    if ap.tp != 1:
+        raise _item11(f"tp={ap.tp}")
+    if mesh is None:
+        return 1
+    if mesh.fast > 1 or (mesh.pods > 1 and mesh.slow_axis in ctx.tp_axes):
+        raise _item11(f"a TP group on {mesh}")
+    if mesh.pods > 1 and mesh.slow_axis in ctx.fsdp:
+        raise _item11(f"FSDP over {mesh.pods} ranks")
+    if mesh.pods > 1 and tuple(ctx.dp) != (mesh.slow_axis,):
+        raise ValueError(f"data parallelism over {mesh} needs ctx.dp = "
+                         f"({mesh.slow_axis!r},), got {ctx.dp}")
+    return mesh.size
+
+
+def _per_rank(t, R: int, device) -> torch.Tensor:
+    """A global batch array (B, ...) as R ranks' contiguous shares
+    (R, B / R, ...), as the reference's ``data_specs`` cut it over dp."""
+    t = torch.as_tensor(t, device=device).long()
+    if t.shape[0] % R:
+        raise ValueError(f"global batch {t.shape[0]} is not divisible by "
+                         f"{R} data-parallel ranks")
+    return t.reshape(R, t.shape[0] // R, *t.shape[1:])
+
+
+def train_state(model: DenseLM, opt: Dict) -> Dict:
+    """The checkpoint's tree: {"params", "opt": {"m", "v", "step"}}, each
+    the global, unranked arrays (rank 0's copy) with the blocks on a
+    leading layer axis, under the reference's keys."""
+    def rank0(tree):
+        return stack_layers(tree_map(lambda t: t.detach()[0], tree))
+
+    return {"params": stack_layers(to_global(model)),
+            "opt": {"m": rank0(opt["m"]), "v": rank0(opt["v"]),
+                    "step": opt["step"]}}
+
+
+@torch.no_grad()
+def load_train_state(model: DenseLM, opt: Dict, state: Dict) -> None:
+    """Write a :func:`train_state` tree (from any mesh) into ``model`` and
+    ``opt`` in place, every rank a copy."""
+    def put(dst, src):
+        dst.copy_(src.to(dst.dtype).expand_as(dst))
+
+    tree_map(put, params_tree(model), unstack_layers(state["params"]))
+    for k in ("m", "v"):
+        tree_map(put, opt[k], unstack_layers(state["opt"][k]))
+    opt["step"].copy_(state["opt"]["step"])
+
+
+class TrainStep:
+    """The train step of :func:`build_train_step`: ``step(model, opt,
+    batch) -> (model, opt, metrics)``, updating ``model`` and ``opt`` in
+    place; :meth:`grads` and :meth:`update` are its two halves."""
+
+    def __init__(self, ap: ArchPlan, ctx: ParallelCtx, mesh, *,
+                 microbatches: int, remat: bool, base_lr: float,
+                 warmup: int, total_steps: int, clip_norm: float):
+        self.R = check_train_layout(ap, ctx, mesh)
+        self.ap, self.ctx, self.mesh = ap, ctx, mesh
+        self.microbatches, self.remat = microbatches, remat
+        self.base_lr, self.warmup, self.total_steps = base_lr, warmup, \
+            total_steps
+        self.clip_norm = clip_norm
+
+    def grads(self, model: DenseLM, batch) -> Tuple[torch.Tensor, Dict]:
+        """(loss, grads): the loss (R,) averaged over microbatches and
+        over the batch ranks (``dp_psum_mean``), and every rank's f32
+        gradient of its own batch's mean loss, accumulated over the
+        microbatches and divided by their count (before the cross-pod
+        sum), in the reference's layout behind the rank axis: each blocks
+        leaf (R, L, ...) (``unstack_layers(grads, dim=1)`` gives the
+        per-layer views), so the cross-pod sum takes the reference's
+        leaves (rd_int8 its quantization groups)."""
+        R, mb = self.R, self.microbatches
+        if model.n_ranks != R:
+            raise ValueError(f"a model of {model.n_ranks} ranks on a layout "
+                             f"of {R}")
+        params = params_tree(trainable(model))
+        paths, leaves = zip(*tree_items(params))
+        dev = leaves[0].device
+        n_layers = len(params["blocks"])
+
+        def zeros(t, lead=()):
+            return torch.zeros(t.shape[:1] + lead + t.shape[1:],
+                               dtype=torch.float32, device=dev)
+
+        acc = {k: tree_map(lambda t: zeros(t, (n_layers,)), v[0])
+               if k == "blocks" else tree_map(zeros, v)
+               for k, v in params.items()}
+        views = dict(tree_items(unstack_layers(acc, dim=1)))
+        tok, lab = (_per_rank(batch[k], R, dev)
+                    for k in ("tokens", "labels"))
+        if tok.shape[1] % mb:
+            raise ValueError(f"local batch {tok.shape[1]} is not divisible "
+                             f"by microbatches={mb}")
+        tok = tok.reshape(R, mb, -1, tok.shape[-1])
+        lab = lab.reshape(R, mb, -1, lab.shape[-1])
+        losses = []
+        with torch.enable_grad():
+            for i in range(mb):
+                logits, _ = forward_lm(model, tok[:, i], self.ap, LOCAL,
+                                       None, sp=False, remat=self.remat)
+                loss = L.sharded_xent(logits, lab[:, i], LOCAL, None,
+                                      self.ap.cfg.vocab_size)
+                del logits
+                g = torch.autograd.grad(loss.sum(), leaves)
+                losses.append(hier.dp_psum_mean(loss.detach(), self.ctx,
+                                                self.mesh))
+                for path, t in zip(paths, g):
+                    views[path].add_(t)
+                del g
+        for a in tree_leaves(acc):
+            a.div_(mb)
+        return torch.stack(losses).mean(0), acc
+
+    def update(self, params: Dict, opt: Dict, grads: Dict
+               ) -> Dict[str, torch.Tensor]:
+        """The step's second half on a gradient tree from :meth:`grads`
+        (the reference's layout behind the rank axis), in place on
+        ``grads``, ``params`` and ``opt``: the cross-pod sum (a sum, not a
+        mean: the reference's), the norm over every logical element once,
+        the NaN / Inf guard, the clip and AdamW, all on the device.
+        Returns the metrics but the loss."""
+        hier.grad_cross_pod_reduce(grads, self.ctx, self.mesh)
+        gnorm = global_grad_norm(grads, repl_factors(grads, self.R))
+        grads = unstack_layers(grads, dim=1)
+        skip = ~torch.isfinite(gnorm)
+        clip = torch.full((), self.clip_norm, device=gnorm.device)
+        scale = torch.where(gnorm > clip, clip / (gnorm + 1e-9),
+                            torch.ones((), device=gnorm.device))
+        lr = cosine_lr(opt["step"], base_lr=self.base_lr,
+                       warmup=self.warmup, total=self.total_steps)
+        adamw_update(grads, opt, params, lr=lr, grad_scale=scale, skip=skip)
+        return {"grad_norm": gnorm, "skipped": skip.float(), "lr": lr}
+
+    def __call__(self, model: DenseLM, opt: Dict, batch
+                 ) -> Tuple[DenseLM, Dict, Dict[str, torch.Tensor]]:
+        loss, grads = self.grads(model, batch)
+        metrics = self.update(params_tree(model), opt, grads)
+        return model, opt, {"loss": loss[0], **metrics}
+
+
+def build_train_step(ap: ArchPlan, ctx: ParallelCtx, mesh, *,
+                     microbatches: int = 1, remat: bool = True,
+                     base_lr: float = 3e-4, warmup: int = 100,
+                     total_steps: int = 10000, clip_norm: float = 1.0
+                     ) -> TrainStep:
+    """The reference's ``build_train_step`` for the layouts
+    :func:`check_train_layout` takes: each rank's batch share (the global
+    batch cut over the ranks, then into ``microbatches`` along the batch
+    axis) through ``forward_lm`` (``remat``: each block recomputed in the
+    backward pass; kernel 3 under autograd in every attention layer) and
+    ``layers.sharded_xent``; the gradients accumulated in f32 and divided
+    by ``microbatches``; summed over the pods by
+    ``hierarchical.grad_cross_pod_reduce`` (``ctx.grad_reduce_strategy``);
+    the global norm, ``skip = ~isfinite(norm)``, the clip scale,
+    ``cosine_lr`` at ``opt["step"]`` and ``adamw_update`` in place.
+    ``metrics`` holds ``loss`` (rank 0's: the batch ranks' mean),
+    ``grad_norm``, ``skipped`` and ``lr`` as device scalars; nothing in
+    the step syncs with the host.  ``opt`` is ``adamw_init(params_tree(
+    model))``."""
+    return TrainStep(ap, ctx, mesh, microbatches=microbatches, remat=remat,
+                     base_lr=base_lr, warmup=warmup, total_steps=total_steps,
+                     clip_norm=clip_norm)
+
+
 __all__ = ["CapturedStep", "build_cache_init", "build_prefill",
            "build_decode_step", "build_serve_step", "build_admit_step",
            "build_admit_chunk_step", "build_spec_verify_step",
-           "build_prefill_only_step", "build_kv_splice_step"]
+           "build_prefill_only_step", "build_kv_splice_step",
+           "build_train_step", "check_train_layout", "TrainStep",
+           "train_state", "load_train_state"]
